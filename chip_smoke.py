@@ -15,11 +15,19 @@ Phases, each of which raises on failure (exit code != 0):
    bound (each input byte read once, each output byte written once);
 4. reference: a reduced deepseek-r1 decoder in float32 on the card (CUDA
    kernels) against the same weights on the CPU (plain versions): prefill
-   logits plus 8 teacher-forced decode steps;
+   logits plus 8 teacher-forced decode steps, over the dense cache and
+   again (chunked prefill into a paged cache) over the block pool; then a
+   reduced paged engine and a dense chunked-prefill engine on the card
+   under VirtualClock must give identical greedy tokens;
 5. serve: the port's ServingEngine at the full published width of
    deepseek-r1 (depth cut to 1 dense + 2 MoE blocks), 8 requests of 32
    greedy tokens, expert server 1 failing at step 10 and recovering at step
-   20; every kernel's launch count over this run must be > 0.
+   20; the dense path's kernels must each launch in this run;
+6. serve, paged: the same model with a 129-block KV pool, chunked prefill
+   (256) under the fair policy, 16 requests over two shared 256-token
+   system prompts; it must show prefix hits, a copy-on-write fork and
+   preemption, and the paged kernel must launch in this run;
+7. profile: torch.profiler over 8 full-batch decode steps of each engine.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -41,11 +49,15 @@ PEAK_BYTES = 3.35e12                                 # H100 SXM HBM3, B/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}    # dense, per second
 TOL = {"grouped_gemm": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
+       "paged_flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
        "combine_weighted": {"float32": 1e-5, "bfloat16": 2e-2}}
 SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
                             "src/repro/kernels/grouped_gemm.py:43"),
            "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                             "src/repro/kernels/decode_attention.py:74"),
+           "paged_flash_decode": (
+               "src/repro_torch/csrc/paged_flash_decode.cu",
+               "src/repro/kernels/decode_attention.py:124"),
            "combine_weighted": ("src/repro_torch/csrc/combine.cu",
                                 "src/repro/kernels/combine.py:23")}
 
@@ -157,21 +169,25 @@ def kernels_phase(torch, cfg) -> dict:
         raise AssertionError("grouped_gemm: empty groups must give zeros")
 
     # ---- flash decode: B=8 slots, 128 heads over 8 KV heads, hd=64 ------
+    def sdpa(q, k, v, lens):
+        import torch.nn.functional as F
+        S = k.shape[1]
+        valid = lens.clamp(max=S).long()
+        mask = (torch.arange(S, device=dev)[None, :] < valid[:, None])
+        o = F.scaled_dot_product_attention(
+            q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None, :], enable_gqa=True)
+        return o[:, :, 0, :]
+
     def fd_case(label, B, H, KV, hd, S, lengths, dtype):
         q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
         v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
         lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
         valid = lens.clamp(max=S).long()
-        mask = (torch.arange(S, device=dev)[None, :] < valid[:, None])
-        attn_mask = mask[:, None, None, :]                   # (B,1,1,S)
 
         def library():
-            import torch.nn.functional as F
-            o = F.scaled_dot_product_attention(
-                q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
-                attn_mask=attn_mask, enable_gqa=True)
-            return o[:, :, 0, :]
+            return sdpa(q, k, v, lens)
         es = q.element_size()
         n_valid = int(valid.sum())
         nbytes = (2 * B * H * hd + 2 * n_valid * KV * hd) * es + 4 * B
@@ -187,6 +203,49 @@ def kernels_phase(torch, cfg) -> dict:
             cfg.num_kv_heads, cfg.head_dim, 1024, rng_lens, bf)
     fd_case("float32 small, lengths past S", 3, 8, 2, 32, 64, [70, 1, 33],
             torch.float32)
+
+    # ---- paged flash decode: the same decode shape over a block pool ----
+    def pfd_case(label, B, H, KV, hd, bs, mb, lengths, dtype):
+        nb = B * mb + 1
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(nb, bs, KV, hd, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(nb, bs, KV, hd, generator=gen, device=dev).to(dtype)
+        perm = torch.randperm(nb - 1, generator=torch.Generator()
+                              .manual_seed(4)) + 1
+        tables = perm.reshape(B, mb).to(torch.int32).to(dev)
+        lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+
+        def gathered():
+            idx = tables.long()
+            return (kp[idx].reshape(B, mb * bs, KV, hd),
+                    vp[idx].reshape(B, mb * bs, KV, hd))
+
+        def library():                 # two calls: gather, then SDPA
+            return sdpa(q, *gathered(), lens)
+        got = ops.paged_flash_decode(q, kp, vp, tables, lens, impl="cuda")
+        dense = ops.flash_decode(q, *gathered(), lens, impl="cuda")
+        if not torch.equal(got, dense):
+            raise AssertionError(f"paged_flash_decode[{label}]: not bitwise "
+                                 "equal to flash_decode over the view")
+        es = q.element_size()
+        n_valid = int(lens.clamp(max=mb * bs).sum())
+        nbytes = ((2 * B * H * hd + 2 * n_valid * KV * hd) * es
+                  + 4 * B * mb + 4 * B)
+        case = run_case(
+            torch, "paged_flash_decode", label, str(dtype)[6:],
+            lambda: ops.paged_flash_decode(q, kp, vp, tables, lens,
+                                           impl="cuda"),
+            lambda: ops.paged_flash_decode(q, kp, vp, tables, lens,
+                                           impl="torch"), library,
+            nbytes, 4.0 * n_valid * H * hd)
+        case["library"] = "gather + scaled_dot_product_attention (2 calls)"
+        cases["paged_flash_decode"].append(case)
+
+    pfd_case("decode, 8 slots, bs 16, lengths 64-544 of 1024", 8,
+             cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, 64, rng_lens,
+             bf)
+    pfd_case("float32 small, bs 8, lengths up to the view", 3, 8, 2, 32, 8, 4,
+             [32, 1, 17], torch.float32)
 
     # ---- combine: T tokens x top-8 partials x d_model -------------------
     def cb_case(label, T, k, dd, dtype):
@@ -208,14 +267,21 @@ def kernels_phase(torch, cfg) -> dict:
 
 def reference_phase(torch, get_config) -> None:
     """Reduced deepseek-r1, float32: CUDA kernels on the card vs the plain
-    versions on the CPU, same weights."""
+    versions on the CPU, same weights — over the dense cache, then chunked
+    prefill (chunk 8) into a paged cache; then paged vs dense chunked
+    engines on the card."""
     from repro_torch.core.elastic import ServerPool
+    from repro_torch.models import kv_cache as kvc
     from repro_torch.models.transformer import build_model
 
     cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
     pool = ServerPool(cfg, 4, tokens_per_client=32, n_redundant=2)
-    outs = {}
+    outs = {"dense": {}, "paged": {}}
     params_cpu = None
+    # two sequences over a 17-block pool of 8 slots, tables a permutation
+    bs, mb = 8, 8
+    tables = (torch.randperm(2 * mb, generator=torch.Generator()
+                             .manual_seed(5)) + 1).reshape(2, mb)
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, 4, pool.redundant_table, dev)
         if params_cpu is None:
@@ -232,12 +298,72 @@ def reference_phase(torch, get_config) -> None:
             lg, cache, _ = model.decode_step(params, steps[t].to(dev),
                                              cache, rt)
             seq.append(lg)
-        outs[dev] = torch.stack(seq).cpu()
-    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
-    log(f"reference: reduced deepseek-r1 float32, prefill + 8 decode steps, "
-        f"card vs CPU max |logit err| {err:.3e} (tol 1e-4)")
-    if not err <= 1e-4:
-        raise AssertionError(f"reference phase: card and CPU disagree ({err})")
+        outs["dense"][dev] = torch.stack(seq).cpu()
+
+        pools = model.init_paged_cache(2 * mb + 1, bs, 2, mb * bs)
+        tab = tables.to(torch.int32).to(dev)
+
+        def view(rows, lengths):
+            n = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+            return {k: kvc.PagedKVCache(c.k, c.v, rows, n)
+                    for k, c in pools.items()}
+        seq = []
+        for b in range(2):
+            for start in range(0, 24, 8):
+                lg, _, _ = model.prefill_chunk(
+                    params, prompt[b:b + 1, start:start + 8].to(dev),
+                    view(tab[b:b + 1], [start]), start, rt)
+            seq.append(lg)
+        seq = [torch.cat(seq)]
+        for t in range(8):
+            lg, _, _ = model.decode_step(params, steps[t].to(dev),
+                                         view(tab, [24 + t] * 2), rt)
+            seq.append(lg)
+        outs["paged"][dev] = torch.stack(seq).cpu()
+    for kind, what in (("dense", "prefill"),
+                       ("paged", "chunked prefill (chunk 8)")):
+        err = (outs[kind]["cuda"] - outs[kind]["cpu"]).abs().max().item()
+        log(f"reference: reduced deepseek-r1 float32, {kind} cache, {what} "
+            f"+ 8 decode steps, card vs CPU max |logit err| {err:.3e} "
+            f"(tol 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"reference phase ({kind}): card and CPU "
+                                 f"disagree ({err})")
+    engines_phase(torch, cfg)
+
+
+def engines_phase(torch, cfg) -> None:
+    """A reduced paged engine and a dense chunked-prefill engine on the
+    card, same weights and chunk, under VirtualClock on a shared-prefix
+    trace: identical greedy tokens."""
+    from repro_torch.serving import (EngineConfig, Scenario, ServingEngine,
+                                     VirtualClock)
+
+    base = dict(mode="eaas", num_servers=4, max_batch=4, max_seq=128,
+                n_redundant=2, pool_tokens_per_client=128, prefill_chunk=8,
+                policy="fair")
+    runs, params = {}, None
+    for kind in ("dense", "paged"):
+        kw = dict(base, kv_mode=kind, kv_block_size=8)
+        eng = ServingEngine(cfg, EngineConfig(**kw), params=params, seed=0,
+                            clock=VirtualClock(), device="cuda")
+        params = eng.params
+        res = (Scenario(horizon=0.15, seed=7, max_new=5,
+                        vocab=cfg.vocab_size)
+               .shared_prefix(n_prefixes=2, prefix_len=16, suffix_len=6)
+               .poisson(rate=100)).run(eng)
+        runs[kind] = res
+    toks = {k: [tuple(r.output_tokens) for r in res.requests]
+            for k, res in runs.items()}
+    m = runs["paged"].metrics
+    log(f"reference: reduced engines on the card, {len(toks['paged'])} "
+        f"shared-prefix requests, chunk 8: paged == dense greedy tokens "
+        f"{toks['paged'] == toks['dense']}, prefix hit rate "
+        f"{m.prefix_hit_rate:.3f}")
+    if toks["paged"] != toks["dense"] or not m.prefix_hit_blocks or \
+            m.completed != m.total_requests:
+        raise AssertionError("reference phase: paged and dense engines "
+                             "disagree on the card")
 
 
 def _tree_to(tree, dev):
@@ -246,7 +372,13 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def serve_phase(torch, get_config) -> dict:
+DENSE_PATH = ("grouped_gemm", "flash_decode", "combine_weighted")
+PAGED_PATH = ("grouped_gemm", "paged_flash_decode", "combine_weighted")
+
+
+def serve_phase(torch, get_config):
+    """Dense-KV serve at full width through a server failure; returns
+    (launches over the run, engine, model config, rng)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -299,13 +431,7 @@ def serve_phase(torch, get_config) -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
 
-    if metrics.completed != len(reqs):
-        raise AssertionError(f"serve: {metrics.completed}/{len(reqs)} done")
-    for r in reqs:
-        if len(r.output_tokens) != 32 or not all(
-                0 <= t < cfg.vocab_size for t in r.output_tokens):
-            raise AssertionError(f"serve: request {r.request_id} produced "
-                                 f"{r.output_tokens}")
+    _check_completed("serve", metrics, reqs, cfg)
     # re-prefilling a prompt must reproduce its first greedy token, from
     # finite logits of the expected shape
     logits = eng.executor.prefill(0, reqs[0].prompt)
@@ -317,7 +443,7 @@ def serve_phase(torch, get_config) -> dict:
     fails = [e for e in metrics.events if e["event"].startswith("server_")]
     if len(fails) != 2:
         raise AssertionError(f"serve: failure events {fails}")
-    zero = [k for k, n in launches.items() if n <= 0]
+    zero = [k for k in DENSE_PATH if launches[k] <= 0]
     if zero:
         raise AssertionError(f"serve: kernels never launched: {zero}")
 
@@ -340,14 +466,99 @@ def serve_phase(torch, get_config) -> dict:
         f"at step 20")
     log(f"serve: launches {json.dumps(launches)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    profile_decode(torch, eng, cfg, rng)
+    profile_decode(torch, eng, cfg, rng, "dense")
+    return launches, eng, cfg, rng
+
+
+def _check_completed(label, metrics, reqs, cfg) -> None:
+    """Every request completed with 32 in-vocabulary tokens."""
+    if metrics.completed != len(reqs):
+        raise AssertionError(f"{label}: {metrics.completed}/{len(reqs)} "
+                             "done")
+    for r in reqs:
+        if len(r.output_tokens) != 32 or not all(
+                0 <= t < cfg.vocab_size for t in r.output_tokens):
+            raise AssertionError(f"{label}: request {r.request_id} "
+                                 f"produced {r.output_tokens}")
+
+
+def paged_serve_phase(torch, cfg, params, rng) -> dict:
+    """Paged-KV serve at full width: 16 requests of 32 greedy tokens at
+    t=0 over two shared 256-token system prompts (alternating) with unique
+    suffixes of 64-256 tokens; the last two are a bare shared prefix, so
+    their admission forks the cached tail block.  The 129-block pool holds
+    one maximal request plus slack, so admission gates and preempts."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (EngineConfig, Request, SamplingParams,
+                                     ServingEngine, WallClock)
+
+    ecfg = EngineConfig(max_batch=8, max_seq=1024, num_servers=4,
+                        n_redundant=2, pool_tokens_per_client=512,
+                        kv_mode="paged", kv_block_size=16, kv_num_blocks=129,
+                        prefill_chunk=256, policy="fair")
+    # warm-up on a throwaway engine: the pool's counters are absolute, so
+    # the measured engine starts fresh
+    warm = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
+    warm.submit(Request(-1, rng.integers(0, cfg.vocab_size, 300, np.int32),
+                        SamplingParams(max_new_tokens=2)))
+    warm.run()
+    del warm
+    eng = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
+    prefixes = [rng.integers(0, cfg.vocab_size, 256, np.int32)
+                for _ in range(2)]
+    suffixes = [0 if i >= 14 else int(rng.integers(64, 257))
+                for i in range(16)]
+    reqs = [Request(i, np.concatenate([
+                prefixes[i % 2],
+                rng.integers(0, cfg.vocab_size, n)]).astype(np.int32),
+                SamplingParams(max_new_tokens=32))
+            for i, n in enumerate(suffixes)]
+    for r in reqs:
+        eng.submit(r)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    metrics = eng.run()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    _check_completed("serve-paged", metrics, reqs, cfg)
+    if int(eng.executor.dropped) != 0:
+        raise AssertionError(f"serve-paged: {int(eng.executor.dropped)} "
+                             "tokens dropped")
+    if not (metrics.prefix_hit_blocks > 0 and metrics.kv_cow_forks >= 1
+            and metrics.preemptions > 0):
+        raise AssertionError(f"serve-paged: kv {metrics.summary()['kv']} "
+                             "lacks prefix hits, a COW fork or preemption")
+    zero = [k for k in PAGED_PATH if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"serve-paged: kernels never launched: {zero}")
+
+    s = metrics.summary()
+    log(f"serve-paged: completed {metrics.completed}/{len(reqs)} requests, "
+        f"prompt lengths {[len(r.prompt) for r in reqs]}, "
+        f"{metrics.total_output_tokens} output tokens in "
+        f"{metrics.wall_time:.3f}s ({s['decode_tok_per_s']} tok/s), "
+        f"{len(metrics.timeline)} decode steps")
+    log(f"serve-paged: TTFT p50 {s['ttft']['p50']} ms p99 "
+        f"{s['ttft']['p99']} ms; ITL p50 {s['itl']['p50']} ms p99 "
+        f"{s['itl']['p99']} ms")
+    log(f"serve-paged: kv {json.dumps(s['kv'])}; dropped "
+        f"{int(eng.executor.dropped)} miss {int(eng.executor.miss)}")
+    log(f"serve-paged: launches {json.dumps(launches)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_decode(torch, eng, cfg, rng, "paged")
     return launches
 
 
-def profile_decode(torch, eng, cfg, rng, steps: int = 8) -> None:
-    """Where a full-batch decode step's time goes: torch.profiler over
-    ``steps`` lockstep decode steps of 8 fresh requests (after the measured
-    run, so its overhead touches no reported latency)."""
+def profile_decode(torch, eng, cfg, rng, label: str,
+                   steps: int = 8) -> None:
+    """Where a full-batch decode step's time goes: ``steps`` lockstep decode
+    steps of 8 fresh requests timed on the host clock, then ``steps`` more
+    under torch.profiler (after the measured run, so its overhead touches
+    no reported latency)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -356,10 +567,20 @@ def profile_decode(torch, eng, cfg, rng, steps: int = 8) -> None:
     for i in range(8):
         eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size, 128)
                            .astype("int32"),
-                           SamplingParams(max_new_tokens=steps + 2)))
-    for _ in range(8):
-        eng.step()                                   # the 8 prefills
+                           SamplingParams(max_new_tokens=2 * steps + 10)))
+    # the 8 prefills (interleaved with decode steps under the fair policy)
+    for _ in range(32):
+        if len(eng.scheduler.decode_ready()) == 8:
+            break
+        eng.step()
+    if len(eng.scheduler.decode_ready()) != 8:
+        raise AssertionError(f"profile ({label}): the batch never filled")
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -374,15 +595,18 @@ def profile_decode(torch, eng, cfg, rng, steps: int = 8) -> None:
             and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     if busy_ms <= 0:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"profile ({label}): the profiler saw no device time "
+            "(not measured)")
         return
-    log(f"profile: decode step (8 slots, full batch) wall {wall_ms:.2f} ms "
+    log(f"profile ({label}): decode step (8 slots, full batch) wall "
+        f"{plain_ms:.2f} ms ({8e3 / plain_ms:.1f} tok/s), {wall_ms:.2f} ms "
         f"under the profiler, device busy {busy_ms:.2f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} under the profiler "
+        f"({max(0.0, 1 - busy_ms / plain_ms):.3f} of the plain wall)")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
-        log(f"profile: {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
-            f"{e.count / steps:6.1f} calls/step  {e.key[:90]}")
+        log(f"profile ({label}): {e.self_device_time_total / 1e3 / steps:8.3f}"
+            f" ms/step {e.count / steps:6.1f} calls/step  {e.key[:90]}")
 
 
 def _leaves(tree):
@@ -429,15 +653,20 @@ def main() -> int:
     cfg = get_config("deepseek-r1")
     cases = kernels_phase(torch, cfg)
     reference_phase(torch, get_config)
-    launches = serve_phase(torch, get_config)
+    launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
+    paged_launches = paged_serve_phase(torch, serve_cfg, eng.params, rng)
 
     summary = []
     for name, cs in cases.items():
         head = cs[0]                      # the decode shape: most launches
         src, replaces = SOURCES[name]
+        # each kernel's count from the run of the path that carries it
+        main = paged_launches if name not in DENSE_PATH else launches
         summary.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": main[name],
+            "launches_by_phase": {"serve": launches[name],
+                                  "serve-paged": paged_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -2,7 +2,8 @@
 
 * :mod:`~repro_torch.kernels.grouped_gemm` + :mod:`.group_shrink` — the
   expert server's grouped GEMM with group-shrink (paper §4.1);
-* :mod:`~repro_torch.kernels.decode_attention` — dense flash-decode;
+* :mod:`~repro_torch.kernels.decode_attention` — dense and paged
+  flash-decode;
 * :mod:`~repro_torch.kernels.combine` — the top-k combine epilogue;
 * :mod:`~repro_torch.kernels.ops` — dispatch by device;
 * :mod:`~repro_torch.kernels.build` — nvcc build + ctypes load, at first

@@ -30,7 +30,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "flash_decode": 0,
-                            "combine_weighted": 0}
+                            "paged_flash_decode": 0, "combine_weighted": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: pointers and the stream as void*, sizes as int; each
@@ -41,6 +41,10 @@ _SIGNATURES = {
     # q, k, v, lengths, out, B, S, KV, G, hd, dtype, stream
     "flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                             _int, _int, _vp],
+    # q, k_pool, v_pool, tables, lengths, out, B, max_blocks, bs, KV, G,
+    # hd, dtype, stream
+    "paged_flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
+                                  _int, _int, _int, _int, _int, _vp],
     # x, w, out, T, k, d, dtype, stream
     "combine_weighted_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
 }

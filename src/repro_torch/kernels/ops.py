@@ -17,8 +17,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.combine import (combine_weighted_cuda,
                                          combine_weighted_torch)
-from repro_torch.kernels.decode_attention import (flash_decode_cuda,
-                                                  flash_decode_torch)
+from repro_torch.kernels.decode_attention import (
+    flash_decode_cuda, flash_decode_torch, paged_flash_decode_cuda,
+    paged_flash_decode_torch)
 from repro_torch.kernels.grouped_gemm import (grouped_gemm_cuda,
                                               grouped_gemm_torch)
 
@@ -52,6 +53,18 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if _resolve(impl, q) == "cuda":
         return flash_decode_cuda(q, k_cache, v_cache, lengths)
     return flash_decode_torch(q, k_cache, v_cache, lengths)
+
+
+def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, block_tables: torch.Tensor,
+                       lengths: torch.Tensor, *,
+                       impl: str = "auto") -> torch.Tensor:
+    """One-token GQA attention over a block pool (num_blocks, bs, KV, hd)
+    addressed through block tables (B, max_blocks)."""
+    if _resolve(impl, q) == "cuda":
+        return paged_flash_decode_cuda(q, k_pool, v_pool, block_tables,
+                                       lengths)
+    return paged_flash_decode_torch(q, k_pool, v_pool, block_tables, lengths)
 
 
 def combine_weighted(x: torch.Tensor, w: torch.Tensor, *,

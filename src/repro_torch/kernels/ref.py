@@ -6,6 +6,7 @@ CUDA kernel against its oracle on the card."""
 from repro_torch.kernels.combine import (  # noqa: F401
     combine_weighted_torch as combine_weighted_ref)
 from repro_torch.kernels.decode_attention import (  # noqa: F401
-    flash_decode_torch as flash_decode_ref)
+    flash_decode_torch as flash_decode_ref,
+    paged_flash_decode_torch as paged_flash_decode_ref)
 from repro_torch.kernels.grouped_gemm import (  # noqa: F401
     grouped_gemm_torch as grouped_gemm_ref)

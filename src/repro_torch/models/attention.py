@@ -1,9 +1,11 @@
-"""GQA attention: full (prefill) and one-token decode against a dense cache.
+"""GQA attention: full (prefill), chunked prefill and one-token decode,
+against a dense or a paged cache.
 
 RoPE is applied to q/k before the keys are cached.  ``decode_attention``
-computes its core through ``ops.flash_decode`` (the CUDA kernel on the
-card, its plain version on the CPU) whenever there is no logit softcap and
-no sliding window — always the case for the ported configs.
+computes its core through ``ops.flash_decode`` (dense cache) or
+``ops.paged_flash_decode`` (block pool) — the CUDA kernels on the card,
+their plain versions on the CPU.  Softcap, sliding-window and M-RoPE
+attention are not ported (no ported config uses them).
 """
 
 from __future__ import annotations
@@ -106,9 +108,44 @@ def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     return (out, (k, v)) if return_kv else out
 
 
+def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    cache, start: int):
+    """Prefill one prompt chunk against the cache (chunked prefill).
+
+    x (b, chunk, d) holds global positions ``start + arange(chunk)`` (the
+    reference passes those positions; a host int avoids a device sync).
+    The chunk's rotated K/V are written at ``start`` and its queries
+    attend over every cached position ``<=`` their own, earlier chunks
+    included.  A :class:`~repro_torch
+    .models.kv_cache.PagedKVCache` is written through the block table and
+    attended over the gathered view, which holds prefix-cache blocks an
+    earlier request wrote.  Returns (output (b, chunk, d), cache).
+    """
+    _check_supported(cfg)
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _split_heads(x @ params["wq"], h, hd)
+    k = _split_heads(x @ params["wk"], kvh, hd)
+    v = _split_heads(x @ params["wv"], kvh, hd)
+    pos_b = (start + torch.arange(s, device=x.device))[None].expand(b, s)
+    cos, sin = rope_cos_sin(pos_b, hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if isinstance(cache, kvc.PagedKVCache):
+        cache = kvc.paged_write_chunk(cache, k, v, start)
+        ck, cv = kvc.gather_blocks(cache)
+    else:
+        cache = kvc.write_chunk(cache, k, v, start)
+        ck, cv = cache.k, cache.v
+    k_pos = torch.arange(ck.shape[1], device=x.device)[None].expand(b, -1)
+    out = _dense_core(cfg, q, ck, cv, pos_b, k_pos)
+    return out.reshape(b, s, h * hd).to(x.dtype) @ params["wo"], cache
+
+
 def decode_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: kvc.KVCache):
-    """One-token decode: x (b, 1, d) against the cache (updated in place).
+                     cache):
+    """One-token decode: x (b, 1, d) against a dense cache or a block pool
+    (K/V written in place).  The paged branch runs the paged kernel on the
+    pool itself, not on a gathered copy.
 
     Returns (output (b, 1, d), cache).
     """
@@ -120,7 +157,12 @@ def decode_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     v = _split_heads(x @ params["wv"], kvh, hd)
     cos, sin = rope_cos_sin(cache.length[:, None], hd, cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    cache = kvc.append_decode(cache, k, v)
-    # lengths may exceed the slots for idle rows: the kernel clamps
-    out = ops.flash_decode(q[:, 0], cache.k, cache.v, cache.length)
+    if isinstance(cache, kvc.PagedKVCache):
+        cache = kvc.paged_append_decode(cache, k, v)
+        out = ops.paged_flash_decode(q[:, 0], cache.k, cache.v,
+                                     cache.block_tables, cache.length)
+    else:
+        cache = kvc.append_decode(cache, k, v)
+        # lengths may exceed the slots for idle rows: the kernel clamps
+        out = ops.flash_decode(q[:, 0], cache.k, cache.v, cache.length)
     return out.reshape(b, 1, h * hd) @ params["wo"], cache

@@ -1,9 +1,24 @@
-"""Dense KV cache: per-layer ``(batch, slots, kv_heads, head_dim)`` buffers
-with a per-sequence length counter (the paged cache is not ported yet).
+"""KV caches for serving (counterpart of ``src/repro/models/kv_cache.py``).
 
-Unlike the reference's functional updates, the writes here are in place
-(the cache is the engine's largest activation buffer); each op still
-returns the cache so call sites read like the reference.
+:class:`KVCache` — per-layer ``(batch, slots, kv_heads, head_dim)`` buffers
+with a per-sequence length counter.
+
+:class:`PagedKVCache` — the block-pool alternative: one shared
+``(num_blocks, block_size, kv_heads, head_dim)`` pool per layer, with each
+sequence naming its blocks through a ``(batch, max_blocks)`` block table
+(position ``p`` of sequence ``b`` lives in pool block
+``block_tables[b, p // block_size]`` at offset ``p % block_size``).  Block
+0 is the scratch sink: unset table entries point at it.  Tables and
+lengths are host-authoritative (the scheduler's
+:class:`~repro_torch.serving.kv_pool.BlockPool` rewrites them between
+steps) and shared by every layer.
+
+Unlike the reference's functional updates, the K/V writes here are in
+place (the cache is the engine's largest activation buffer); each op still
+returns the cache so call sites read like the reference.  The paged ops
+return a new :class:`PagedKVCache` whose ``length`` is a new tensor, so the
+tables and lengths the executor uploaded stay as they were for the next
+layer.
 """
 
 from __future__ import annotations
@@ -64,8 +79,142 @@ def write_prefill(cache: KVCache, k: torch.Tensor,
     return cache
 
 
+def write_chunk(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                start: int) -> KVCache:
+    """Write a prompt chunk (batch, chunk, kv_heads, hd) at ``start``.
+
+    The write offset clamps so the chunk fits, as the reference's
+    ``dynamic_update_slice`` clamps it; the length is ``start + chunk``.
+    """
+    seq, slots = k.shape[1], cache.k.shape[1]
+    at = max(0, min(start, slots - seq))
+    cache.k[:, at:at + seq] = k
+    cache.v[:, at:at + seq] = v
+    cache.length.fill_(start + seq)
+    return cache
+
+
 def valid_mask(cache: KVCache) -> torch.Tensor:
     """(batch, slots) bool — which cache slots hold valid tokens."""
     slots = cache.k.shape[1]
     pos = torch.arange(slots, device=cache.k.device)[None, :]
     return pos < cache.length[:, None]
+
+
+# --------------------------------------------------------------- paged cache
+
+@dataclass
+class PagedKVCache:
+    """k/v: ([layers,] num_blocks, block_size, kv_heads, head_dim) shared
+    pool; block_tables: (batch, max_blocks) int32 (0 = unset, the scratch
+    block); length: (batch,) int32 tokens written per sequence."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    block_tables: torch.Tensor
+    length: torch.Tensor
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[-3]
+
+    def layer(self, i: int) -> "PagedKVCache":
+        """Layer ``i`` of a stacked pool (views; tables and lengths are
+        shared by every layer)."""
+        return PagedKVCache(self.k[i], self.v[i], self.block_tables,
+                            self.length)
+
+
+def init_paged_kv_cache(num_blocks: int, block_size: int, batch: int,
+                        max_blocks: int, kv_heads: int, head_dim: int,
+                        dtype, device, layers: int = 0) -> PagedKVCache:
+    lead = (layers,) if layers else ()
+    shape = (*lead, num_blocks, block_size, kv_heads, head_dim)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        block_tables=torch.zeros((batch, max_blocks), dtype=torch.int32,
+                                 device=device),
+        length=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def _lookup_blocks(cache: PagedKVCache,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Map per-row positions (batch, n) to pool block ids via the table.
+
+    Positions at or past capacity clamp to the last table entry — the same
+    "write the final slot" behaviour the dense cache shows at capacity."""
+    mb = cache.block_tables.shape[1]
+    bi = (positions // cache.block_size).clamp(0, mb - 1).long()
+    return torch.gather(cache.block_tables, 1, bi).long()
+
+
+def paged_append_decode(cache: PagedKVCache, k_new: torch.Tensor,
+                        v_new: torch.Tensor) -> PagedKVCache:
+    """Append ONE token per sequence; k_new/v_new (batch, 1, kv_heads, hd).
+
+    Live rows' tail blocks are private (the block-pool invariant); idle
+    rows (length 0, table all unset) all write scratch block 0 at offset 0.
+    Rows that share a slot all write the last such row's values, so the
+    scatter resolves duplicates in row order and is deterministic.
+    """
+    bs = cache.block_size
+    blocks = _lookup_blocks(cache, cache.length[:, None])[:, 0]
+    slot = blocks * bs + (cache.length % bs).long()           # (batch,)
+    rows = torch.arange(slot.shape[0], device=slot.device)
+    same = slot[:, None] == slot[None, :]
+    last = torch.where(same, rows[None, :], -1).amax(dim=1)
+    flat_k = cache.k.view(-1, *cache.k.shape[2:])
+    flat_v = cache.v.view(-1, *cache.v.shape[2:])
+    flat_k[slot] = k_new[last, 0]
+    flat_v[slot] = v_new[last, 0]
+    return PagedKVCache(cache.k, cache.v, cache.block_tables,
+                        cache.length + 1)
+
+
+def paged_write_chunk(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
+                      start: int) -> PagedKVCache:
+    """Write a prompt chunk (batch, chunk, kv_heads, hd) at position
+    ``start`` through the block table."""
+    B, C = k.shape[:2]
+    bs = cache.block_size
+    pos = start + torch.arange(C, device=k.device)
+    blocks = _lookup_blocks(cache, pos[None].expand(B, C))
+    off = (pos % bs)[None].expand(B, C)
+    cache.k[blocks, off] = k
+    cache.v[blocks, off] = v
+    return PagedKVCache(cache.k, cache.v, cache.block_tables,
+                        torch.full_like(cache.length, start + C))
+
+
+def gather_blocks(cache: PagedKVCache):
+    """Materialize the per-sequence view: 2x (batch, max_blocks*bs, KV, hd),
+    view lane ``j`` of row ``b`` holding position ``j`` — the layout of a
+    dense :class:`KVCache` of ``max_blocks * block_size`` slots."""
+    B, mb = cache.block_tables.shape
+    bs, kvh, hd = cache.k.shape[1:]
+    idx = cache.block_tables.long()
+    return (cache.k[idx].reshape(B, mb * bs, kvh, hd),
+            cache.v[idx].reshape(B, mb * bs, kvh, hd))
+
+
+def paged_valid_mask(cache: PagedKVCache) -> torch.Tensor:
+    """(batch, max_blocks*bs) bool over the gathered view."""
+    slots = cache.block_tables.shape[1] * cache.block_size
+    pos = torch.arange(slots, device=cache.k.device)[None, :]
+    return pos < cache.length[:, None]
+
+
+def copy_blocks(cache: PagedKVCache, src: torch.Tensor, dst: torch.Tensor,
+                *, stacked: bool = False) -> PagedKVCache:
+    """Copy pool blocks ``src[i] -> dst[i]`` (copy-on-write forks), in
+    place; ``stacked`` is the layer-leading layout (blocks at axis 1).  The
+    sources are read before any destination is written."""
+    src, dst = src.long(), dst.long()
+    if stacked:
+        cache.k[:, dst] = cache.k[:, src]
+        cache.v[:, dst] = cache.v[:, src]
+    else:
+        cache.k[dst] = cache.k[src]
+        cache.v[dst] = cache.v[src]
+    return cache

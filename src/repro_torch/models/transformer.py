@@ -31,6 +31,10 @@ class Model(NamedTuple):
     decode_step: Callable      # (params, token, cache, rt) -> (logits, cache, stats)
     init_cache: Callable       # (batch, max_slots) -> cache
     num_servers: int
+    # (params, tokens, cache, start, rt) -> (logits, cache, stats)
+    prefill_chunk: Callable
+    # (num_blocks, block_size, batch, max_slots) -> paged cache
+    init_paged_cache: Callable
 
 
 def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
@@ -75,6 +79,18 @@ def _block_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     h, (k, v) = attn.full_attention(p["attn"], cfg, h, positions,
                                     return_kv=True)
     kvc.write_prefill(cache, k, v)
+    x = x + h
+    h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+    return x + _ffn(p, cfg, h, rt, stats)
+
+
+def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                         start: int, cache, rt: MoERuntime,
+                         stats: list) -> torch.Tensor:
+    """One block over a prompt chunk: attention against the cache (which
+    holds every earlier chunk), the chunk's K/V written in."""
+    h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    h, _ = attn.chunk_attention(p["attn"], cfg, h, cache, start)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     return x + _ffn(p, cfg, h, rt, stats)
@@ -140,6 +156,19 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                                         cfg.head_dim, dt, device, layers=n)
                 for name, _, n in groups if n}
 
+    def init_paged_cache(num_blocks: int, block_size: int, batch: int,
+                         max_slots: int) -> Dict:
+        """Block-pool cache: every layer has its own pool; one logical
+        block id addresses the same slot of every layer's pool, so the
+        host keeps one block table per sequence."""
+        if max_slots % block_size:
+            raise ValueError(f"max_slots={max_slots} must be a multiple of "
+                             f"block_size={block_size}")
+        return {name: kvc.init_paged_kv_cache(
+                    num_blocks, block_size, batch, max_slots // block_size,
+                    cfg.num_kv_heads, cfg.head_dim, dt, device, layers=n)
+                for name, _, n in groups if n}
+
     def prefill(params, tokens: torch.Tensor, rt: MoERuntime,
                 max_slots: Optional[int] = None):
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache, stats)."""
@@ -152,6 +181,22 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
             for i in range(n):
                 x = _block_prefill(_layer(params[pname], i), cfg, x, pos,
                                    cache[name].layer(i), rt, stats)
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        return (_logits(params, cfg, x[:, -1]), cache,
+                _sum_stats(stats, cfg, tokens.device))
+
+    def prefill_chunk(params, tokens: torch.Tensor, cache: Dict, start: int,
+                      rt: MoERuntime):
+        """Continue a prefill: prompt positions [start, start + C) against a
+        cache (dense or paged) already holding [0, start); written in
+        place.  Returns (last-position logits (B, V) fp32, cache, stats)."""
+        x = params["embed"][tokens]
+        stats = []
+        for name, pname, n in groups:
+            for i in range(n):
+                x = _block_prefill_chunk(_layer(params[pname], i), cfg, x,
+                                         start, cache[name].layer(i), rt,
+                                         stats)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats(stats, cfg, tokens.device))
@@ -170,4 +215,4 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                 _sum_stats(stats, cfg, token.device))
 
     return Model(cfg, init_params, prefill, decode_step, init_cache,
-                 num_servers)
+                 num_servers, prefill_chunk, init_paged_cache)

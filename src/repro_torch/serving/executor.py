@@ -1,13 +1,26 @@
 """Step execution — the executor half of the engine split.
 
-The :class:`Executor` owns the params, the batched dense KV cache and the
-two step variants of this slice: whole-prompt ``prefill`` into a fresh
-batch-1 cache that is then written into the slot, and lockstep ``decode``
-of one token for the whole slot batch (idle slots included, as in the
-reference, so capacity use and routing match).  The reference's ``jax.jit``
-has no counterpart: PyTorch runs eagerly.  The expert->server mapping,
-liveness mask and local table are read from the pool at every step, so
-failover takes effect at the next step.
+The :class:`Executor` owns the params, the batched KV cache and the step
+variants:
+
+* ``prefill``       — whole-prompt prefill into a fresh batch-1 cache that
+  is then written into the slot;
+* ``prefill_chunk`` — chunked-prefill continuation against a batch-1
+  staging cache, committed into the slot on the last chunk (dense mode);
+* ``decode``        — one token for the whole slot batch (idle slots
+  included, as in the reference, so capacity use and routing match).
+
+``kv_mode="paged"`` swaps the dense per-slot cache for the block-pool
+cache: one shared pool per layer, addressed through block tables the
+host-side scheduler owns.  Tables and lengths are host-authoritative and
+uploaded at every step (the reference passes them as jit arguments); all
+paged prefill goes through the chunk path straight into the pool blocks
+(``prefill_chunk_paged``), and copy-on-write forks copy pool blocks on
+every layer (``copy_blocks``).
+
+The reference's ``jax.jit`` has no counterpart: PyTorch runs eagerly.  The
+expert->server mapping, liveness mask and local table are read from the
+pool at every step, so failover takes effect at the next step.
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.moe_layer import MoEStats
+from repro_torch.models import kv_cache as kvc
 from repro_torch.models.transformer import Model
 
 
@@ -25,14 +39,23 @@ class Executor:
     """Owns params + caches + step variants for one engine."""
 
     def __init__(self, model: Model, params: Dict, pool, *, max_batch: int,
-                 max_seq: int, device):
+                 max_seq: int, device, kv_mode: str = "dense",
+                 kv_block_size: int = 16, kv_num_blocks: int = 0):
+        if kv_mode not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_mode {kv_mode!r}")
         self.model = model
         self.params = params
         self.pool = pool
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq
-        self.cache = model.init_cache(max_batch, max_seq)
+        if kv_mode == "paged":
+            # raises unless max_seq is a multiple of the block size
+            self.cache = model.init_paged_cache(kv_num_blocks, kv_block_size,
+                                                max_batch, max_seq)
+        else:
+            self.cache = model.init_cache(max_batch, max_seq)
+        self._staging: Dict[int, Dict] = {}      # slot -> batch-1 cache
         # MoE drop / miss totals over every step, kept on the device
         self.dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         self.miss = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -44,29 +67,98 @@ class Executor:
         self.dropped += stats.dropped
         self.miss += stats.miss
 
-    @torch.inference_mode()
-    def prefill(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
-        """Whole-prompt prefill straight into ``slot`` of the batch cache;
-        returns the last position's logits (1, V) fp32."""
-        tokens = torch.as_tensor(np.asarray(prompt, np.int64),
-                                 device=self.device)[None]
-        logits, one, stats = self.model.prefill(
-            self.params, tokens, self._runtime(), max_slots=self.max_seq)
+    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens, np.int64),
+                               device=self.device)
+
+    def _commit(self, slot: int, one: Dict) -> None:
+        """Write a batch-1 dense cache into ``slot`` of the batch cache."""
         for name, big in self.cache.items():
             big.k[:, slot] = one[name].k[:, 0]
             big.v[:, slot] = one[name].v[:, 0]
             big.length[:, slot] = one[name].length[:, 0]
+
+    @torch.inference_mode()
+    def prefill(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
+        """Whole-prompt prefill straight into ``slot`` of the batch cache;
+        returns the last position's logits (1, V) fp32."""
+        logits, one, stats = self.model.prefill(
+            self.params, self._tokens(prompt)[None], self._runtime(),
+            max_slots=self.max_seq)
+        self._commit(slot, one)
         self._tally(stats)
         return logits
+
+    @torch.inference_mode()
+    def prefill_chunk(self, slot: int, chunk: np.ndarray, start: int, *,
+                      is_first: bool, is_last: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One chunked-prefill step for ``slot`` (dense mode) -> (logits,
+        per-expert token counts).  Chunks accumulate in a batch-1 staging
+        cache; the last chunk commits it into the slot."""
+        if is_first:
+            self._staging[slot] = self.model.init_cache(1, self.max_seq)
+        logits, staging, stats = self.model.prefill_chunk(
+            self.params, self._tokens(chunk)[None], self._staging[slot],
+            start, self._runtime())
+        if is_last:
+            self._commit(slot, self._staging.pop(slot))
+        self._tally(stats)
+        return logits, stats.expert_load
 
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
         """One decode step over the whole slot batch -> (logits (B, V),
         per-expert token counts (E,))."""
-        tok = torch.as_tensor(np.asarray(tokens, np.int64),
-                              device=self.device)
         logits, self.cache, stats = self.model.decode_step(
-            self.params, tok, self.cache, self._runtime())
+            self.params, self._tokens(tokens), self.cache, self._runtime())
         self._tally(stats)
         return logits, stats.expert_load
+
+    # -------------------------------------------------------------- paged
+    def _with_tables(self, tables: np.ndarray, lengths: np.ndarray) -> Dict:
+        """The pools with host tables / lengths uploaded (shared by every
+        layer of both stacks)."""
+        t = torch.as_tensor(np.asarray(tables, np.int32), device=self.device)
+        n = torch.as_tensor(np.asarray(lengths, np.int32),
+                            device=self.device)
+        return {name: kvc.PagedKVCache(c.k, c.v, t, n)
+                for name, c in self.cache.items()}
+
+    @torch.inference_mode()
+    def prefill_chunk_paged(self, chunk: np.ndarray, start: int,
+                            table_row: np.ndarray
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One prefill chunk through the slot's block-table row, straight
+        into the pool blocks -> (logits, per-expert token counts).  A
+        prefix-cache hit starts ``start`` past the cached prefix, and the
+        chunk attends over blocks an earlier request wrote."""
+        view = self._with_tables(np.asarray(table_row)[None], [start])
+        logits, _, stats = self.model.prefill_chunk(
+            self.params, self._tokens(chunk)[None], view, start,
+            self._runtime())
+        self._tally(stats)
+        return logits, stats.expert_load
+
+    @torch.inference_mode()
+    def decode_paged(self, tokens: np.ndarray, tables: np.ndarray,
+                     lengths: np.ndarray) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+        """One decode step with host-authoritative tables / lengths."""
+        logits, _, stats = self.model.decode_step(
+            self.params, self._tokens(tokens),
+            self._with_tables(tables, lengths), self._runtime())
+        self._tally(stats)
+        return logits, stats.expert_load
+
+    @torch.inference_mode()
+    def copy_blocks(self, pairs) -> None:
+        """Apply copy-on-write forks: pool blocks src -> dst, every layer
+        of both stacks."""
+        if not pairs:
+            return
+        src = torch.as_tensor([s for s, _ in pairs], device=self.device)
+        dst = torch.as_tensor([d for _, d in pairs], device=self.device)
+        for c in self.cache.values():
+            kvc.copy_blocks(c, src, dst, stacked=True)

@@ -1,7 +1,10 @@
-"""Throughput / latency meters: the fields the lockstep engine fills."""
+"""Throughput / latency meters: the fields the lockstep engine fills
+(counterpart of ``src/repro/serving/metrics.py``)."""
 
 from __future__ import annotations
 
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import Dict, List
 
@@ -20,11 +23,34 @@ class ServingMetrics:
     events: List[Dict] = field(default_factory=list)
     # per-step decode output (the fault-tolerance timeline)
     timeline: List[Dict] = field(default_factory=list)
+    # --- paged-KV counters (zero when the engine runs the dense cache) ---
+    preemptions: int = 0               # slots evicted to recompute queue
+    prefix_hit_blocks: int = 0         # cached blocks adopted at admission
+    prefix_lookup_blocks: int = 0      # block hashes probed at admission
+    kv_evictions: int = 0              # cached blocks reclaimed by the pool
+    kv_cow_forks: int = 0              # copy-on-write block forks
+    kv_peak_block_util: float = 0.0    # max live-block share over the run
 
     @property
     def decode_throughput(self) -> float:
         """Output tokens per second of engine time."""
         return self.total_output_tokens / max(self.wall_time, 1e-9)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Cached share of the prompt blocks probed at admission."""
+        return self.prefix_hit_blocks / max(self.prefix_lookup_blocks, 1)
+
+    def observe_kv(self, pool, preemptions: int) -> None:
+        """Snapshot the block pool after an engine step (idempotent —
+        counters are absolute, not deltas)."""
+        self.preemptions = preemptions
+        self.prefix_hit_blocks = pool.matched_blocks
+        self.prefix_lookup_blocks = pool.queried_blocks
+        self.kv_evictions = pool.evictions
+        self.kv_cow_forks = pool.cow_forks
+        self.kv_peak_block_util = max(self.kv_peak_block_util,
+                                      pool.utilization())
 
     def itl_stats(self) -> Dict[str, float]:
         return _latency_stats(self.itls)
@@ -32,8 +58,45 @@ class ServingMetrics:
     def ttft_stats(self) -> Dict[str, float]:
         return _latency_stats(self.ttfts)
 
+    def fingerprint(self, ndigits: int = 9) -> str:
+        """Content hash of the full run timeline (times rounded to
+        ``ndigits``), with the reference's payload: two runs of one seeded
+        scenario under a virtual clock give equal fingerprints, and so do
+        the port and the reference."""
+        def clean(obj):
+            if isinstance(obj, float):
+                return round(obj, ndigits)
+            if isinstance(obj, dict):
+                return {k: clean(v) for k, v in sorted(obj.items())}
+            if isinstance(obj, (list, tuple)):
+                return [clean(v) for v in obj]
+            if isinstance(obj, (np.integer,)):
+                return int(obj)
+            if isinstance(obj, (np.floating,)):
+                return round(float(obj), ndigits)
+            return obj
+        payload = clean({
+            "requests": self.total_requests,
+            "completed": self.completed,
+            "tokens": self.total_output_tokens,
+            "wall": self.wall_time,
+            "itls": list(self.itls),
+            "ttfts": list(self.ttfts),
+            "events": list(self.events),
+            "timeline": list(self.timeline),
+            "kv": [self.preemptions, self.prefix_hit_blocks,
+                   self.prefix_lookup_blocks, self.kv_evictions,
+                   self.kv_cow_forks, self.kv_peak_block_util],
+            # live rebalancing is not ported: the reference's defaults
+            # (rebalances, no-ops, migrated, migration time, imbalance,
+            # peak imbalance)
+            "balance": [0, 0, 0, 0.0, 1.0, 1.0],
+        })
+        blob = json.dumps(payload, sort_keys=True).encode()
+        return hashlib.sha256(blob).hexdigest()
+
     def summary(self) -> Dict:
-        return {
+        out = {
             "requests": self.total_requests,
             "completed": self.completed,
             "output_tokens": self.total_output_tokens,
@@ -43,6 +106,16 @@ class ServingMetrics:
             "ttft": {k: round(v * 1e3, 3)
                      for k, v in self.ttft_stats().items()},
         }
+        if self.prefix_lookup_blocks or self.kv_peak_block_util:
+            out["kv"] = {
+                "peak_block_util": round(self.kv_peak_block_util, 4),
+                "prefix_hit_rate": round(self.prefix_hit_rate, 4),
+                "prefix_hit_blocks": self.prefix_hit_blocks,
+                "preemptions": self.preemptions,
+                "evictions": self.kv_evictions,
+                "cow_forks": self.kv_cow_forks,
+            }
+        return out
 
 
 def _latency_stats(xs: List[float]) -> Dict[str, float]:

@@ -70,3 +70,47 @@ def test_combine_cuda_vs_plain(cuda, dtype, tol, rng):
     out = ops.combine_weighted(x, w, impl="cuda")
     exp = ops.combine_weighted(x, w, impl="torch")
     torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+def _paged_inputs(cuda, rng, b, h, kv, hd, bs, dtype):
+    """A pool of 8 blocks per sequence plus scratch, tables a permutation,
+    lengths from 1 to past the view width."""
+    mb = 8
+    nb = b * mb + 1
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    kp = torch.as_tensor(rng.normal(size=(nb, bs, kv, hd)),
+                         device=cuda).to(dtype)
+    vp = torch.as_tensor(rng.normal(size=(nb, bs, kv, hd)),
+                         device=cuda).to(dtype)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, nb))
+                             .reshape(b, mb), device=cuda)
+    lengths = torch.as_tensor(rng.integers(1, mb * bs + 9, size=b),
+                              device=cuda)
+    return q, kp, vp, tables, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,kv,hd,bs", [(2, 8, 2, 32, 8),
+                                          (8, 128, 8, 64, 16)])
+def test_paged_flash_decode_cuda_vs_plain(cuda, b, h, kv, hd, bs, dtype, tol,
+                                          rng):
+    args = _paged_inputs(cuda, rng, b, h, kv, hd, bs, dtype)
+    out = ops.paged_flash_decode(*args, impl="cuda")
+    exp = ops.paged_flash_decode(*args, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_cuda_equals_dense_cuda_on_gathered_view(cuda, bs, dtype, rng):
+    q, kp, vp, tables, lengths = _paged_inputs(cuda, rng, 4, 16, 2, 64, bs,
+                                               dtype)
+    b, mb = tables.shape
+    kd = kp[tables].reshape(b, mb * bs, *kp.shape[2:])
+    vd = vp[tables].reshape(b, mb * bs, *vp.shape[2:])
+    assert torch.equal(
+        ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="cuda"),
+        ops.flash_decode(q, kd, vd, lengths, impl="cuda"))

@@ -107,7 +107,7 @@ def test_temperature_streams_replay(runs):
 def test_unported_modes_raise():
     tcfg = get_config("deepseek-r1").reduced()
     for bad in (dict(mode="monolithic_ep"), dict(exec_mode="async"),
-                dict(kv_mode="paged"), dict(decode_mode="pipelined")):
+                dict(decode_mode="pipelined")):
         with pytest.raises(NotImplementedError):
             ServingEngine(tcfg, EngineConfig(**{**ENGINE, **bad}),
                           device="cpu")

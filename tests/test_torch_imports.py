@@ -64,9 +64,15 @@ def test_engine_without_device_needs_cuda():
     lambda: ops.flash_decode(torch.zeros(1, 2, 8), torch.zeros(1, 4, 1, 8),
                              torch.zeros(1, 4, 1, 8), torch.tensor([2]),
                              impl="cuda"),
+    lambda: ops.paged_flash_decode(torch.zeros(1, 2, 8),
+                                   torch.zeros(3, 4, 1, 8),
+                                   torch.zeros(3, 4, 1, 8),
+                                   torch.tensor([[1, 2]]), torch.tensor([5]),
+                                   impl="cuda"),
     lambda: ops.combine_weighted(torch.zeros(2, 2, 8), torch.zeros(2, 2),
                                  impl="cuda"),
-], ids=["grouped_gemm", "flash_decode", "combine_weighted"])
+], ids=["grouped_gemm", "flash_decode", "paged_flash_decode",
+        "combine_weighted"])
 def test_cuda_impl_on_cpu_tensors_raises(call):
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
         call()
