@@ -12,7 +12,13 @@ Phases, each of which raises on failure (exit code != 0):
    float32 case, with the tolerances of tests/test_kernels.py; timed with
    CUDA events (median of 20 samples of 5 back-to-back calls, after
    warm-up) beside the plain version, a library yardstick and the card's
-   bound (each input byte read once, each output byte written once);
+   bound (each input byte read once, each output byte written once); the
+   kernel and the library call also replayed from a CUDA graph of the 5
+   calls ("device_ms": device time without the host's launch gaps); the
+   redesigned kernels run twice and must agree bitwise; edge cases (split
+   boundaries, block size 12, kimi-k2's head width 112 and an odd 33,
+   empty and ragged groups, G > 66) are checked
+   against the plain versions;
 4. reference: a reduced deepseek-r1 decoder in float32 on the card (CUDA
    kernels) against the same weights on the CPU (plain versions): prefill
    logits plus 8 teacher-forced decode steps, over the dense cache and
@@ -27,7 +33,8 @@ Phases, each of which raises on failure (exit code != 0):
    (256) under the fair policy, 16 requests over two shared 256-token
    system prompts; it must show prefix hits, a copy-on-write fork and
    preemption, and the paged kernel must launch in this run;
-7. profile: torch.profiler over 8 full-batch decode steps of each engine.
+7. profile: torch.profiler over 8 full-batch decode steps of each engine,
+   with the device operations (kernels, copies) launched per step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -66,21 +73,29 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(torch, fn, reps: int = 20, inner: int = 5,
-            warmup: int = 3) -> float:
-    """Device time of one call: CUDA events around ``inner`` back-to-back
-    calls (so the host enqueues ahead and its launch gaps do not count),
-    divided by ``inner``; the median of ``reps`` such samples."""
+def time_ms(torch, fn, reps: int = 20, inner: int = 5, warmup: int = 3,
+            graph: bool = False) -> float:
+    """Time of one call: CUDA events around ``inner`` back-to-back calls,
+    divided by ``inner``; the median of ``reps`` such samples.  Eager, the
+    host enqueues ahead, but a call whose wrapper costs the host more than
+    the device reads the host's time.  With ``graph``, the ``inner`` calls
+    are captured once into a CUDA graph and replayed: device time alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run = lambda: [fn() for _ in range(inner)]      # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()
+        run = g.replay
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        run()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
@@ -93,26 +108,38 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
-             ops):
-    """Check kernel vs plain on one input; time kernel, plain, library."""
-    got, want = kernel(), plain()
+def check_case(torch, name, label, dtype, got, want) -> float:
+    """Kernel output vs plain output within the stated tolerance."""
     torch.cuda.synchronize()
     tol = TOL[name][dtype]
     err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}[{label}]: non-finite output")
-    if not ok:
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         raise AssertionError(f"{name}[{label}]: max |err| {err} exceeds "
                              f"rtol=atol={tol}")
+    return err
+
+
+def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
+             ops, twice: bool = False):
+    """Check kernel vs plain on one input (and, with ``twice``, run-to-run
+    bitwise); time kernel, plain, library."""
+    got = kernel()
+    err = check_case(torch, name, label, dtype, got, plain())
+    if twice and not torch.equal(got, kernel()):
+        raise AssertionError(f"{name}[{label}]: two runs differ")
     b_ms, b_by = bound_ms(nbytes, ops, dtype)
-    case = {"case": label, "dtype": dtype, "max_abs_err": err, "tol": tol,
+    case = {"case": label, "dtype": dtype, "max_abs_err": err,
+            "tol": TOL[name][dtype],
             "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
             "library_ms": time_ms(torch, library),
+            "device_ms": time_ms(torch, kernel, graph=True),
+            "library_device_ms": time_ms(torch, library, graph=True),
             "bound_ms": b_ms, "bound_by": b_by}
     log(f"kernels: {name}[{label}] {json.dumps(case)}")
     return case
+
 
 
 def kernels_phase(torch, cfg) -> dict:
@@ -155,18 +182,43 @@ def kernels_phase(torch, cfg) -> dict:
             torch, "grouped_gemm", label, str(dtype)[6:],
             lambda: ops.grouped_gemm(x, w, sizes_d, impl="cuda"),
             lambda: kgg.grouped_gemm_torch(x, w, sizes_d), library,
-            nbytes, 2.0 * live_rows * K * N))
+            nbytes, 2.0 * live_rows * K * N, twice=live_rows == 16))
 
     gg_case("decode gate/up, 16 live rows", 16, d, f, bf)
     gg_case("decode down, 16 live rows", 16, f, d, bf)
     gg_case("prefill gate/up, 1024 live rows", 1024, d, f, bf)
     gg_case("prefill down, 1024 live rows", 1024, f, d, bf)
     gg_case("float32 small, 64 live rows", 64, 64, 48, torch.float32)
-    empty = ops.grouped_gemm(
-        torch.randn(32, 16, device=dev), torch.randn(4, 16, 16, device=dev),
-        torch.zeros(4, dtype=torch.int64, device=dev), impl="cuda")
-    if empty.abs().max().item() != 0.0:
-        raise AssertionError("grouped_gemm: empty groups must give zeros")
+
+    # edges of the in-kernel scan: (M, K, N, sizes); rows past the live
+    # ones must come back zero from an uninitialised output
+    edges = {"all groups empty": (32, 16, 16, [0] * 4),
+             "sizes [0,0,3,5,5,5]": (32, 128, 96, [0, 0, 3, 5, 5, 5]),
+             "all rows in one group": (200, 64, 128, [0, 0, 200, 0]),
+             "sum < M, G = 130 > 66": (1280, 256, 72, "1000 over 130"),
+             "M = 100, K = 72": (100, 72, 136, "100 over 5")}
+    sz_gen = torch.Generator().manual_seed(6)
+    for dtype in (bf, torch.float32):
+        for label, (Me, Ke, Ne, sz) in edges.items():
+            if isinstance(sz, str):
+                live, G = (int(t) for t in sz.split(" over "))
+                sz = torch.bincount(torch.randint(0, G, (live,),
+                                                  generator=sz_gen),
+                                    minlength=G)
+            sz = torch.as_tensor(sz).to(dev)
+            x = torch.randn(Me, Ke, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(len(sz), Ke, Ne, generator=gen, device=dev)
+                 / Ke ** 0.5).to(dtype)
+            torch.empty(Me * Ne * 4, device=dev).fill_(float("nan"))
+            got = ops.grouped_gemm(x, w, sz, impl="cuda")
+            err = check_case(torch, "grouped_gemm", label, str(dtype)[6:],
+                             got, kgg.grouped_gemm_torch(x, w, sz))
+            live = int(sz.sum())
+            if not torch.equal(got[live:], torch.zeros_like(got[live:])):
+                raise AssertionError(f"grouped_gemm[{label}]: tail rows "
+                                     "not zero")
+            log(f"kernels: grouped_gemm edge [{label}, {str(dtype)[6:]}] "
+                f"max |err| {err:.3g}, zero tail")
 
     # ---- flash decode: B=8 slots, 128 heads over 8 KV heads, hd=64 ------
     def sdpa(q, k, v, lens):
@@ -195,14 +247,29 @@ def kernels_phase(torch, cfg) -> dict:
             torch, "flash_decode", label, str(dtype)[6:],
             lambda: ops.flash_decode(q, k, v, lens, impl="cuda"),
             lambda: ops.flash_decode(q, k, v, lens, impl="torch"), library,
-            nbytes, 4.0 * n_valid * H * hd))
+            nbytes, 4.0 * n_valid * H * hd, twice=True))
 
     rng_lens = torch.randint(64, 545, (8,), generator=torch.Generator()
                              .manual_seed(2)).tolist()
+    # lengths at split edges: 1, one chunk, one past it, past S, S
+    edge_lens = [1, 64, 65, 1030, 128, 129, 513, 1024]
     fd_case("decode, 8 slots, lengths 64-544 of 1024", 8, cfg.num_heads,
             cfg.num_kv_heads, cfg.head_dim, 1024, rng_lens, bf)
+    fd_case("decode, 8 slots, split-edge lengths 1-1030 of 1024", 8,
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 1024, edge_lens,
+            bf)
     fd_case("float32 small, lengths past S", 3, 8, 2, 32, 64, [70, 1, 33],
             torch.float32)
+    fd_case("float32, split-edge lengths", 8, 16, 2, 64, 320,
+            [1, 64, 65, 400, 128, 129, 257, 320], torch.float32)
+    # kimi-k2's heads: 64 over 8 KV heads, hd = 112 (7 x the mma's 16)
+    fd_case("kimi-k2 width, 8 slots, G 8, hd 112, lengths 64-544 of 1024",
+            8, 64, 8, 112, 1024, rng_lens, bf)
+    # hd off the 16-byte grid: rows staged element by element
+    fd_case("hd 33, split-edge lengths", 4, 12, 2, 33, 200,
+            [1, 65, 200, 129], bf)
+    fd_case("float32, hd 33, split-edge lengths", 4, 12, 2, 33, 200,
+            [1, 65, 200, 129], torch.float32)
 
     # ---- paged flash decode: the same decode shape over a block pool ----
     def pfd_case(label, B, H, KV, hd, bs, mb, lengths, dtype):
@@ -237,15 +304,21 @@ def kernels_phase(torch, cfg) -> dict:
                                            impl="cuda"),
             lambda: ops.paged_flash_decode(q, kp, vp, tables, lens,
                                            impl="torch"), library,
-            nbytes, 4.0 * n_valid * H * hd)
+            nbytes, 4.0 * n_valid * H * hd, twice=True)
         case["library"] = "gather + scaled_dot_product_attention (2 calls)"
         cases["paged_flash_decode"].append(case)
 
     pfd_case("decode, 8 slots, bs 16, lengths 64-544 of 1024", 8,
              cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, 64, rng_lens,
              bf)
+    pfd_case("decode, 8 slots, bs 12, split-edge lengths", 8, cfg.num_heads,
+             cfg.num_kv_heads, cfg.head_dim, 12, 86, edge_lens, bf)
     pfd_case("float32 small, bs 8, lengths up to the view", 3, 8, 2, 32, 8, 4,
              [32, 1, 17], torch.float32)
+    pfd_case("float32, bs 12, split-edge lengths", 8, 16, 2, 64, 12, 27,
+             [1, 64, 65, 400, 128, 129, 257, 324], torch.float32)
+    pfd_case("kimi-k2 width, 8 slots, bs 16, G 8, hd 112", 8, 64, 8, 112,
+             16, 64, rng_lens, bf)
 
     # ---- combine: T tokens x top-8 partials x d_model -------------------
     def cb_case(label, T, k, dd, dtype):
@@ -598,11 +671,15 @@ def profile_decode(torch, eng, cfg, rng, label: str,
         log(f"profile ({label}): the profiler saw no device time "
             "(not measured)")
         return
+    copies = sum(e.count for e in rows
+                 if e.key.startswith(("Memcpy", "Memset"))) / steps
+    launches = sum(e.count for e in rows) / steps - copies
     log(f"profile ({label}): decode step (8 slots, full batch) wall "
         f"{plain_ms:.2f} ms ({8e3 / plain_ms:.1f} tok/s), {wall_ms:.2f} ms "
         f"under the profiler, device busy {busy_ms:.2f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f} under the profiler "
-        f"({max(0.0, 1 - busy_ms / plain_ms):.3f} of the plain wall)")
+        f"({max(0.0, 1 - busy_ms / plain_ms):.3f} of the plain wall); "
+        f"{launches:.1f} kernel launches and {copies:.1f} copies per step")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
         log(f"profile ({label}): {e.self_device_time_total / 1e3 / steps:8.3f}"

@@ -4,59 +4,80 @@
 // q (B, H, hd) with H = KV * G; k/v (B, S, KV, hd); lengths (B,) int32;
 // out (B, H, hd).  Positions >= min(lengths[b], S) are masked.
 //
-// One block per (b, kv_head); the body (decode_attention.cuh) is shared
-// with the paged kernel.  The Pallas kernel walks the cache along a
-// sequential grid axis with the accumulator in VMEM scratch; here a loop
-// inside the block does that, with the accumulator in registers.  The loop
-// ends at the valid length, so bytes read are the valid prefix only (the
-// bound on an H100: 3.35 TB/s).  B * KV blocks under-fill the 132 SMs at
-// small batch; a split over the cache with a second reduction pass is
-// later work.
+// Split-KV flash-decoding (decode_attention.cuh, shared with the paged
+// kernel): grid (B, KV, ceil(S / kSplit)) blocks each attend over one
+// 64-position chunk, then decode_combine_kernel merges the chunks in split
+// order.  The Pallas kernel walks the cache along a sequential grid axis
+// with the accumulator in VMEM scratch; on the card that axis is cut into
+// independent chunks, so the small decode batch still fills the SMs.
+//
+// What bounds it on an H100: the K/V bytes of the valid prefix at 3.35
+// TB/s (~1 operation per byte), ~0.002 ms at the deepseek-r1 decode shape
+// — far below two launches' latency, which is what the split and the
+// 16-byte cp.async loads fight: 64 blocks that each walked up to 17 tiles
+// in turn become ~300 blocks of at most two tiles, loaded at once.
 #include "decode_attention.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int HD, int MT>
 __global__ void flash_decode_kernel(const T* __restrict__ q,
                                     const T* __restrict__ k,
                                     const T* __restrict__ v,
                                     const int* __restrict__ lengths,
-                                    T* __restrict__ out, int S, int KV, int G,
-                                    int hd, float scale) {
-  extern __shared__ float smem[];
+                                    T* __restrict__ out,
+                                    float* __restrict__ partial, int S,
+                                    int KV, int G, int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   int len = lengths[b];
   len = len < S ? len : S;               // idle engine slots grow past S
   len = len > 0 ? len : 0;
-  repro::decode_body<T>(q, k, v, out, len,
-                        repro::DenseRows{static_cast<long long>(b) * S}, KV,
-                        G, hd, scale, smem);
+  repro::decode_split<T, HD, MT>(q, k, v, out, partial, len,
+                                 repro::DenseRows{b * S}, KV, G, hd, scale,
+                                 smem);
+}
+
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const int*, T*, float*,
+                        int, int, int, int, float);
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           void* out, void* partial, int B, int S, int KV, int G, int hd,
+           cudaStream_t s) {
+  const int threads = repro::decode_threads<T>(G, hd);
+  Kernel<T> kernel;
+  REPRO_PICK_DECODE_KERNEL(flash_decode_kernel, T, hd, G, kernel)
+  if (threads == 0 || kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = repro::decode_smem_bytes<T>(G, hd);
+  const int nsplit = repro::split_count(S);
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  kernel<<<dim3(B, KV, nsplit), threads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(lengths),
+      static_cast<T*>(out), static_cast<float*>(partial), S, KV, G, hd,
+      scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && nsplit > 1)
+    err = repro::launch_combine<T>(partial, lengths, out, B, KV, G, hd,
+                                   nsplit, S, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
-                                   void* out, int B, int S, int KV, int G,
-                                   int hd, int dtype, void* stream) {
-  const int warps = repro::decode_warps(G, hd);
-  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * repro::decode_smem_floats(G, hd);
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  dim3 grid(B, KV);
+                                   void* out, void* partial, int B, int S,
+                                   int KV, int G, int hd, int dtype,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBFloat16) {
-    flash_decode_kernel<__nv_bfloat16><<<grid, 32 * warps, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), S,
-        KV, G, hd, scale);
-  } else {
-    flash_decode_kernel<float><<<grid, 32 * warps, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const int*>(lengths),
-        static_cast<float*>(out), S, KV, G, hd, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == repro::kBFloat16)
+    return launch<__nv_bfloat16>(q, k, v, lengths, out, partial, B, S, KV, G,
+                                 hd, s);
+  return launch<float>(q, k, v, lengths, out, partial, B, S, KV, G, hd, s);
 }

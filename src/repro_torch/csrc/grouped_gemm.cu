@@ -1,165 +1,394 @@
 // Grouped GEMM with group-shrink: out[i] = x[i] @ w[g(i)] (paper §4.1).
 //
 // Replaces src/repro/kernels/grouped_gemm.py::grouped_gemm_pallas and the
-// padded copy around it (group_shrink.pad_rows_to_tiles / unpad_rows).
-// x (M, K) rows sorted by group; w (G, K, N); out (M, N), zeroed by the
-// caller so rows past sum(group_sizes) stay 0.  tiles (4, T) int32 is the
-// device-side tile table: [group, live, first row, end row] per row tile.
+// tile table and padded copy around it (group_shrink.build_tile_table /
+// pad_rows_to_tiles / unpad_rows).  x (M, K) rows sorted by group; w (G, K,
+// N); group_sizes (G,) int64, straight from torch.bincount; out
+// (M, N), rows past sum(group_sizes) written as 0 here, so the caller
+// allocates it with torch.empty and a call is exactly one launch.
 //
-// Grid = (T = M / tm + G row tiles) x (N / tn column tiles).  A dead tile
-// (empty group or past the live count) returns after one metadata read —
-// the paper's early stop — so only the weights of live groups are read.
-// The TPU's sequential K grid axis becomes a loop over K: stage the x rows
-// of the tile and the w slab in shared memory, accumulate in fp32.
-// bfloat16: 64x64x32 tiles, four warps of 2x2 WMMA 16x16x16 fragments, the
-// next K slab prefetched into registers during the current products.
-// float32: 32x32x32 tiles of scalar FMAs (the exact path for the tests).
-// Bound on an H100: the live groups' weight bytes at decode, tensor-core
-// operations at prefill; TMA + wgmma + a persistent schedule come later.
-#include <mma.h>
+// What bounds it on an H100: bytes.  At decode a server's ~16 live rows
+// touch ~15 experts, and each live expert's weights (K x N bf16) are read
+// once: 0.133 ms at 3.35 TB/s for gate/up at deepseek-r1 widths.  At
+// prefill ~16 rows per group still leave it below the 295 operations a
+// byte at which the tensor cores would bind.  So the design keeps the
+// weight stream at full rate and spends nothing on padding:
+//   - group-shrink in the kernel: each CTA prefix-scans the sizes in shared
+//     memory (group_shrink.cuh) and walks only live work items
+//     (group, 64-row tile, 64-column tile); dead groups cost nothing;
+//   - persistent: one CTA per SM walks the items in a fixed stride, each
+//     output tile written by exactly one CTA, no split-K, no atomics, so
+//     the output is bitwise repeatable;
+//   - a ring of kStages weight tiles (64 columns x 64 K, 8 KB) and token
+//     tiles in shared memory, filled by TMA under mbarriers from one
+//     producer thread, so ~128 KB of loads are in flight per SM;
+//   - swap-AB: the weight tile is the wgmma M side (64) and the item's few
+//     tokens the N side, rounded up to 8, 16, 32 or 64 — a decode item with
+//     2 rows runs m64n8k16 and loads 8 token rows, not 64;
+//   - the epilogue rounds the fp32 accumulator to bf16 once, stages it in
+//     shared memory and writes only the item's own rows [r0, r1) with
+//     16-byte stores (neighbouring groups' rows enter the token box and are
+//     masked here).
+// float32 (the exact path of the tests): 32x32x32 tiles of scalar FMAs,
+// one block per (row tile, column tile) of the static bound M/32 + G, with
+// the same in-kernel scan.
+#include <cuda.h>
+
+#include <mutex>
+#include <vector>
 
 #include "common.cuh"
+#include "group_shrink.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
+using repro::RowTile;
 
-constexpr int kBM = 64, kBN = 64, kBK = 32, kThreads = 128;
-constexpr int kLda = kBK + 8;   // bf16 elements; rows stay 16-byte aligned
-constexpr int kLdb = kBN + 8;
-constexpr int kLdc = kBN + 4;   // floats
+// ---- bfloat16: TMA + wgmma, persistent ----------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-grouped_gemm_bf16_kernel(const bf16* __restrict__ x,
-                         const bf16* __restrict__ w, bf16* __restrict__ out,
-                         const int* __restrict__ tiles, int T, int K, int N) {
-  const int t = blockIdx.x;
-  if (tiles[T + t] == 0) return;           // dead tile: group-shrink stop
-  const int g = tiles[t];
-  const int r0 = tiles[2 * T + t];
-  const int r1 = tiles[3 * T + t];
-  const int n0 = blockIdx.y * kBN;
+constexpr int kBN = 64;                       // weight columns: wgmma M
+constexpr int kBK = 64;                       // K per stage: a 128-byte row
+constexpr int kTM = 64;                       // token rows per item, at most
+constexpr int kStages = 8;
+constexpr int kWBytes = kBN * kBK * 2;        // 8 KB
+constexpr int kStageBytes = kWBytes + kTM * kBK * 2;
+constexpr int kConsumers = 128;               // one warpgroup
+constexpr int kThreads = kConsumers + 32;     // + one producer warp
+constexpr int kCsLd = kBN + 8;                // bf16; rows stay 16-byte aligned
+constexpr int kSmemBytes =
+    1024 + kStages * kStageBytes + kTM * kCsLd * 2 + 2 * kStages * 8 +
+    (2 * repro::kMaxGroups + 2) * 4;
 
-  __shared__ __align__(128) bf16 As[kBM * kLda];
-  __shared__ __align__(128) bf16 Bs[kBK * kLdb];
-  __shared__ __align__(128) float Cs[kBM * kLdc];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const bf16* wg = w + static_cast<long long>(g) * K * N;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = (warp >> 1) * 32;         // warp's 32x32 quadrant
-  const int wn = (warp & 1) * 32;
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A phase that
+// never completes (a load that cannot land) traps after ~10 s of spinning
+// rather than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x NT, fp32) += A (64 x 16, weights, MN-major) * B (16 x NT, tokens,
+// K-major), both from shared memory.
+template <int NT>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  __device__ __forceinline__ static void mma(float* d, uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3 "
+        "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  __device__ __forceinline__ static void mma(float* d, uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7 "
+        "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  __device__ __forceinline__ static void mma(float* d, uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15 "
+        "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  __device__ __forceinline__ static void mma(float* d, uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31 "
+        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ int token_width(int rows) {
+  return rows <= 8 ? 8 : rows <= 16 ? 16 : rows <= 32 ? 32 : 64;
+}
+
+// The consumer warpgroup's share of one work item: the K loop over the
+// ring, then the epilogue.
+template <int NT>
+__device__ __forceinline__ void consume_item(unsigned char* ring,
+                                             uint64_t* full, uint64_t* empty,
+                                             int& stage, uint32_t& phase,
+                                             int ksteps, bf16* cs,
+                                             bf16* __restrict__ out,
+                                             RowTile tl, int n0, int N) {
+  float acc[NT / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  for (int kk = 0; kk < ksteps; ++kk) {
+    mbar_wait(full + stage, phase);
+    const uint32_t st = smem_u32(ring + stage * kStageBytes);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // 16-byte vectors: A slab 64x32 = 256 vectors, B slab 32x64 = 256
-  // vectors, two of each per thread.  K and N are multiples of 8, so a
-  // vector is wholly inside or wholly outside the matrix.
-  uint4 ra[2], rb[2];
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;
-      const int ar = v >> 2, ac = (v & 3) * 8;
-      const int r = r0 + ar, kk = k0 + ac;
-      ra[i] = (r < r1 && kk < K)
-                  ? *reinterpret_cast<const uint4*>(
-                        x + static_cast<long long>(r) * K + kk)
-                  : zero;
-      const int br = v >> 3, bc = (v & 7) * 8;
-      const int kr = k0 + br, nn = n0 + bc;
-      rb[i] = (kr < K && nn < N)
-                  ? *reinterpret_cast<const uint4*>(
-                        wg + static_cast<long long>(kr) * N + nn)
-                  : zero;
+    for (int k = 0; k < kBK / 16; ++k) {
+      // A: 16 K-rows of 128 bytes, 8-row groups 1024 bytes apart; B: the
+      // next 16 K of each 128-byte token row
+      Wgmma<NT>::mma(acc, make_desc(st + k * 2048, 8192, 1024),
+                     make_desc(st + kWBytes + k * 32, 16, 1024), 1);
     }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(As + (v >> 2) * kLda + (v & 3) * 8) = ra[i];
-      *reinterpret_cast<uint4*>(Bs + (v >> 3) * kLdb + (v & 7) * 8) = rb[i];
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    mbar_arrive(empty + stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    store();
-    __syncthreads();
-    if (k0 + kBK < K) load(k0 + kBK);      // next slab in flight
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * kLda + kk, kLda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * kLdb + wn + 16 * j, kLdb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * kLdc + wn + 16 * j,
-                              acc[i][j], kLdc, wmma::mem_row_major);
-  __syncthreads();
-
-  // 64x64 outputs as 512 vectors of 8, four per thread; only rows of the
-  // tile's own range are written
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int v = tid + i * kThreads;
-    const int row = v >> 3, col = (v & 7) * 8;
-    const int r = r0 + row, nn = n0 + col;
-    if (r < r1 && nn < N) {
-      union {
-        uint4 u;
-        __nv_bfloat162 h[4];
-      } pk;
-      const float* c = Cs + row * kLdc + col;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        pk.h[q] = __floats2bfloat162_rn(c[2 * q], c[2 * q + 1]);
-      *reinterpret_cast<uint4*>(out + static_cast<long long>(r) * N + nn) =
-          pk.u;
+  for (int v = 0; v < NT / 2; ++v) {   // D fragment: row = column of out
+    const int n = 16 * warp + (lane >> 2) + 8 * ((v >> 1) & 1);
+    const int t = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+    cs[t * kCsLd + n] = __float2bfloat16(acc[v]);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  const int rows = tl.r1 - tl.r0;
+  for (int i = tid; i < rows * (kBN / 8); i += kConsumers) {
+    const int r = i >> 3, c = (i & 7) * 8;
+    if (n0 + c < N) {
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(tl.r0 + r) * N +
+                                n0 + c) =
+          *reinterpret_cast<const uint4*>(cs + r * kCsLd + c);
     }
   }
 }
+
+__global__ void __launch_bounds__(kThreads, 1)
+grouped_gemm_bf16_kernel(__grid_constant__ const CUtensorMap w_map,
+                         __grid_constant__ const CUtensorMap x_map,
+                         bf16* __restrict__ out,
+                         const long long* __restrict__ sizes, int M, int K,
+                         int N, int G) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // 128-byte swizzle atoms are 1024 bytes: align the ring to them
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = smem;
+  bf16* cs = reinterpret_cast<bf16*>(smem + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cs + kTM * kCsLd);
+  uint64_t* empty = full + kStages;
+  int* row_end = reinterpret_cast<int*>(empty + kStages);
+  int* tile_end = row_end + repro::kMaxGroups;
+  int* totals = tile_end + repro::kMaxGroups;
+
+  const int tid = threadIdx.x;
+  if (tid == kConsumers) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  repro::scan_groups(sizes, G, M, kTM, row_end, tile_end, totals);
+  __syncthreads();
+  const int live_rows = totals[0];
+  const int nct = (N + kBN - 1) / kBN;
+  const int items = totals[1] * nct;
+  const int ksteps = (K + kBK - 1) / kBK;
+
+  if (tid >= kConsumers) {              // producer warp: one thread
+    if (tid != kConsumers) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const RowTile tl =
+          repro::find_tile(it / nct, row_end, tile_end, G, kTM);
+      const int n0 = (it % nct) * kBN;
+      const int nt = token_width(tl.r1 - tl.r0);
+      const uint32_t bytes = kWBytes + nt * kBK * 2;
+      for (int kk = 0; kk < ksteps; ++kk) {
+        mbar_wait(empty + stage, phase ^ 1);
+        unsigned char* st = ring + stage * kStageBytes;
+        mbar_expect_tx(full + stage, bytes);
+        tma_load_3d(st, &w_map, full + stage, n0, kk * kBK, tl.g);
+        // 8-row boxes, each one 1024-byte swizzle atom; rows past M are
+        // zero-filled, rows of the next group masked in the epilogue
+        for (int r = 0; r < nt; r += 8)
+          tma_load_2d(st + kWBytes + r * 128, &x_map, full + stage, kk * kBK,
+                      tl.r0 + r);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: first the rows past the live ones, while the ring fills
+  {
+    const long long chunks = static_cast<long long>(M - live_rows) * N / 8;
+    uint4* tail = reinterpret_cast<uint4*>(
+        out + static_cast<long long>(live_rows) * N);
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    for (long long i = static_cast<long long>(blockIdx.x) * kConsumers + tid;
+         i < chunks; i += static_cast<long long>(gridDim.x) * kConsumers)
+      tail[i] = zero;
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const RowTile tl = repro::find_tile(it / nct, row_end, tile_end, G, kTM);
+    const int n0 = (it % nct) * kBN;
+    switch (token_width(tl.r1 - tl.r0)) {
+      case 8:
+        consume_item<8>(ring, full, empty, stage, phase, ksteps, cs, out, tl,
+                        n0, N);
+        break;
+      case 16:
+        consume_item<16>(ring, full, empty, stage, phase, ksteps, cs, out,
+                         tl, n0, N);
+        break;
+      case 32:
+        consume_item<32>(ring, full, empty, stage, phase, ksteps, cs, out,
+                         tl, n0, N);
+        break;
+      default:
+        consume_item<64>(ring, full, empty, stage, phase, ksteps, cs, out,
+                         tl, n0, N);
+    }
+  }
+}
+
+// ---- float32: scalar FMAs, the same scan --------------------------------
 
 constexpr int kFM = 32, kFN = 32, kFK = 32, kFThreads = 256;
 
 __global__ void __launch_bounds__(kFThreads)
 grouped_gemm_f32_kernel(const float* __restrict__ x,
                         const float* __restrict__ w, float* __restrict__ out,
-                        const int* __restrict__ tiles, int T, int K, int N) {
-  const int t = blockIdx.x;
-  if (tiles[T + t] == 0) return;           // dead tile: group-shrink stop
-  const int g = tiles[t];
-  const int r0 = tiles[2 * T + t];
-  const int r1 = tiles[3 * T + t];
-  const int n0 = blockIdx.y * kFN;
-
+                        const long long* __restrict__ sizes, int M, int K,
+                        int N, int G) {
+  __shared__ int row_end[repro::kMaxGroups], tile_end[repro::kMaxGroups];
+  __shared__ int totals[2];
   __shared__ float As[kFM][kFK + 1];
   __shared__ float Bs[kFK][kFN + 1];
-  const float* wg = w + static_cast<long long>(g) * K * N;
+  repro::scan_groups(sizes, G, M, kFM, row_end, tile_end, totals);
+  __syncthreads();
   const int tid = threadIdx.x;
+  {  // rows past the live ones, shared over all blocks
+    const long long first = static_cast<long long>(totals[0]) * N;
+    const long long n = static_cast<long long>(M) * N - first;
+    const long long nthreads =
+        static_cast<long long>(gridDim.x) * gridDim.y * kFThreads;
+    for (long long i = (static_cast<long long>(blockIdx.y) * gridDim.x +
+                        blockIdx.x) * kFThreads + tid;
+         i < n; i += nthreads)
+      out[first + i] = 0.f;
+  }
+  const int t = blockIdx.x;
+  if (t >= totals[1]) return;              // dead tile: group-shrink stop
+  const RowTile tl = repro::find_tile(t, row_end, tile_end, G, kFM);
+  const int r0 = tl.r0, r1 = tl.r1;
+  const int n0 = blockIdx.y * kFN;
+
+  const float* wg = w + static_cast<long long>(tl.g) * K * N;
   const int tx = tid & 15, ty = tid >> 4;
   float c[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 
@@ -197,22 +426,130 @@ grouped_gemm_f32_kernel(const float* __restrict__ x,
     }
 }
 
+// ---- host: tensor maps, cached by (pointer, shape) ----------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API symbol: fetched through the
+// runtime, so the library needs no -lcuda.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of the weights (G, K, N) — dims (N, K, G), box
+// 64x64x1 — or, with d2 == 0, of the tokens (M, K) — dims (K, M), box 64x8.
+bool encode_map(const void* ptr, long long d0, long long d1, long long d2,
+                CUtensorMap* out) {
+  EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                              static_cast<cuuint64_t>(d1),
+                              static_cast<cuuint64_t>(d2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
+                                 static_cast<cuuint64_t>(d0 * d1) * 2};
+  const bool w = d2 > 0;
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(w ? kBN : kBK),
+                             static_cast<cuuint32_t>(w ? kBK : 8), 1};
+  const CUresult r = encode(
+      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w ? 3 : 2,
+      const_cast<void*>(ptr), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
+}
+
+struct WeightMap {
+  const void* ptr;
+  long long g, k, n;
+  CUtensorMap map;
+};
+
+// The weights' maps, encoded once each: a map depends only on its pointer
+// and shape, so an entry with the same key is always right.  The tokens'
+// map changes with every call's activations and is encoded per call.
+bool weight_map(const void* w, int G, int K, int N, CUtensorMap* out) {
+  static std::mutex mu;
+  static std::vector<WeightMap> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const WeightMap& e : cache) {
+    if (e.ptr == w && e.g == G && e.k == K && e.n == N) {
+      *out = e.map;
+      return true;
+    }
+  }
+  WeightMap e{w, G, K, N, {}};
+  if (!encode_map(w, N, K, G, &e.map)) return false;
+  if (cache.size() >= 256) cache.clear();
+  cache.push_back(e);
+  *out = e.map;
+  return true;
+}
+
+int launch_bf16(const void* x, const void* w, void* out,
+                const long long* sizes, int M, int K, int N, int G,
+                cudaStream_t s) {
+  static bool smem_set[64] = {};
+  static int sms[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err);
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(grouped_gemm_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_set[dev] = true;
+  }
+  CUtensorMap w_map, x_map;
+  if (!weight_map(w, G, K, N, &w_map) || !encode_map(x, K, M, 0, &x_map))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // more CTAs than the static bound on items would only idle
+  const long long bound =
+      (static_cast<long long>(M) / kTM + G) * ((N + kBN - 1) / kBN);
+  const int grid = static_cast<int>(bound < sms[dev] ? bound : sms[dev]);
+  grouped_gemm_bf16_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+      w_map, x_map, static_cast<bf16*>(out), sizes, M, K, N, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int grouped_gemm_launch(const void* x, const void* w, void* out,
-                                   const void* tiles, int T, int K, int N,
-                                   int dtype, void* stream) {
+                                   const void* group_sizes, int M, int K,
+                                   int N, int G, int dtype, void* stream) {
+  if (M < 1 || K < 1 || N < 1 || G < 1 || G > repro::kMaxGroups)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long* sizes = static_cast<const long long*>(group_sizes);
   if (dtype == repro::kBFloat16) {
-    dim3 grid(T, (N + kBN - 1) / kBN);
-    grouped_gemm_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<bf16*>(out), static_cast<const int*>(tiles), T, K, N);
-  } else {
-    dim3 grid(T, (N + kFN - 1) / kFN);
-    grouped_gemm_f32_kernel<<<grid, kFThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(out), static_cast<const int*>(tiles), T, K, N);
+    if (K % 8 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_bf16(x, w, out, sizes, M, K, N, G, s);
   }
+  dim3 grid(M / kFM + G, (N + kFN - 1) / kFN);
+  grouped_gemm_f32_kernel<<<grid, kFThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<float*>(out), sizes, M, K, N, G);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,42 +9,70 @@
 // the scratch block 0).
 //
 // The Pallas kernel gathers in its index map (grid step (b, kv, s) DMAs
-// pool block T[b, s]).  Here each block first stages its table row in
-// shared memory, then walks logical positions in the dense kernel's
-// 32-slot tiles, resolving each slot's address through the row.  The
-// summation order is thus the dense kernel's, and the output is bitwise
-// equal to it over the gathered view, for any block size.
+// pool block T[b, s]).  Here the split-KV body of the dense kernel
+// (decode_attention.cuh) runs over logical positions, chunk by chunk, and
+// only its address policy differs: each of the chunk's 64 slots resolves
+// its pool row once, in parallel, reading just the table entries the chunk
+// covers (any block size, 12 as well as 16).  The chunks and the summation
+// order are thus the dense kernel's, and the output is bitwise equal to it
+// over the gathered view.
 //
-// What bounds it on an H100: the valid K/V bytes (plus q, out and the
-// table row) at 3.35 TB/s; ~1 operation per byte.  Like the dense kernel
-// it runs B * KV blocks, which under-fill the 132 SMs at decode batch
-// sizes; split-KV is later work.
+// What bounds it on an H100: the valid K/V bytes (plus q, out, the table
+// entries and the lengths) at 3.35 TB/s; ~1 operation per byte.  As for
+// the dense kernel, the latency of two launches dominates that bound.
 #include "decode_attention.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, int HD, int MT>
 __global__ void paged_flash_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const int* __restrict__ tables,
-    const int* __restrict__ lengths, T* __restrict__ out, int max_blocks,
-    int bs, int KV, int G, int hd, float scale) {
-  extern __shared__ float smem[];
-  int* table = reinterpret_cast<int*>(smem);      // max_blocks ints
+    const int* __restrict__ lengths, T* __restrict__ out,
+    float* __restrict__ partial, int max_blocks, int bs, int KV, int G,
+    int hd, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
-  const int* row = tables + static_cast<long long>(b) * max_blocks;
-  for (int i = threadIdx.x; i < max_blocks; i += blockDim.x) {
-    table[i] = row[i];
-  }
-  // visible to the whole block after the body's first __syncthreads,
-  // which precedes the first read of the table
   const int cap = max_blocks * bs;
   int len = lengths[b];
   len = len < cap ? len : cap;
   len = len > 0 ? len : 0;
-  repro::decode_body<T>(q, k_pool, v_pool, out, len,
-                        repro::PagedRows{table, bs}, KV, G, hd, scale,
-                        smem + max_blocks);
+  const int* row = tables + static_cast<long long>(b) * max_blocks;
+  repro::decode_split<T, HD, MT>(q, k_pool, v_pool, out, partial, len,
+                                 repro::PagedRows{row, bs}, KV, G, hd, scale,
+                                 smem);
+}
+
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const T*, const int*, const int*,
+                        T*, float*, int, int, int, int, int, float);
+
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* tables, const void* lengths, void* out, void* partial,
+           int B, int max_blocks, int bs, int KV, int G, int hd,
+           cudaStream_t s) {
+  const int threads = repro::decode_threads<T>(G, hd);
+  Kernel<T> kernel;
+  REPRO_PICK_DECODE_KERNEL(paged_flash_decode_kernel, T, hd, G, kernel)
+  if (threads == 0 || kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = max_blocks * bs;
+  const size_t smem = repro::decode_smem_bytes<T>(G, hd);
+  const int nsplit = repro::split_count(cap);
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.f / sqrtf(static_cast<float>(hd));
+  kernel<<<dim3(B, KV, nsplit), threads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
+      static_cast<const int*>(lengths), static_cast<T*>(out),
+      static_cast<float*>(partial), max_blocks, bs, KV, G, hd, scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess && nsplit > 1)
+    err = repro::launch_combine<T>(partial, lengths, out, B, KV, G, hd,
+                                   nsplit, cap, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -53,31 +81,16 @@ extern "C" int paged_flash_decode_launch(const void* q, const void* k_pool,
                                          const void* v_pool,
                                          const void* tables,
                                          const void* lengths, void* out,
-                                         int B, int max_blocks, int bs,
-                                         int KV, int G, int hd, int dtype,
+                                         void* partial, int B,
+                                         int max_blocks, int bs, int KV,
+                                         int G, int hd, int dtype,
                                          void* stream) {
-  const int warps = repro::decode_warps(G, hd);
-  if (warps == 0 || max_blocks < 1 || bs < 1)
+  if (max_blocks < 1 || bs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      sizeof(float) * (max_blocks + repro::decode_smem_floats(G, hd));
-  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  dim3 grid(B, KV);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kBFloat16) {
-    paged_flash_decode_kernel<__nv_bfloat16><<<grid, 32 * warps, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k_pool),
-        static_cast<const __nv_bfloat16*>(v_pool),
-        static_cast<const int*>(tables), static_cast<const int*>(lengths),
-        static_cast<__nv_bfloat16*>(out), max_blocks, bs, KV, G, hd, scale);
-  } else {
-    paged_flash_decode_kernel<float><<<grid, 32 * warps, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pool),
-        static_cast<const float*>(v_pool), static_cast<const int*>(tables),
-        static_cast<const int*>(lengths), static_cast<float*>(out),
-        max_blocks, bs, KV, G, hd, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == repro::kBFloat16)
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, out,
+                                 partial, B, max_blocks, bs, KV, G, hd, s);
+  return launch<float>(q, k_pool, v_pool, tables, lengths, out, partial, B,
+                       max_blocks, bs, KV, G, hd, s);
 }

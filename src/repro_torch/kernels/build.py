@@ -36,15 +36,16 @@ _vp, _int = ctypes.c_void_p, ctypes.c_int
 # C entry points: pointers and the stream as void*, sizes as int; each
 # returns cudaGetLastError() right after its launch
 _SIGNATURES = {
-    # x, w, out, tiles(4, T), T, K, N, dtype, stream
-    "grouped_gemm_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    # q, k, v, lengths, out, B, S, KV, G, hd, dtype, stream
-    "flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
-                            _int, _int, _vp],
-    # q, k_pool, v_pool, tables, lengths, out, B, max_blocks, bs, KV, G,
-    # hd, dtype, stream
-    "paged_flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-                                  _int, _int, _int, _int, _int, _vp],
+    # x, w, out, group_sizes (int64), M, K, N, G, dtype, stream
+    "grouped_gemm_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+                            _vp],
+    # q, k, v, lengths, out, partial, B, S, KV, G, hd, dtype, stream
+    "flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                            _int, _int, _int, _vp],
+    # q, k_pool, v_pool, tables, lengths, out, partial, B, max_blocks, bs,
+    # KV, G, hd, dtype, stream
+    "paged_flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
+                                  _int, _int, _int, _int, _int, _int, _vp],
     # x, w, out, T, k, d, dtype, stream
     "combine_weighted_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
 }

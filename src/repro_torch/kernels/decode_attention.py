@@ -11,21 +11,30 @@ softmax, positions ``>= lengths[b]`` masked.  Two variants, as in
   in pool block ``tables[b, p // bs]`` at offset ``p % bs``.
 
 CUDA kernels (``csrc/flash_decode.cu``, ``csrc/paged_flash_decode.cu``,
-one body in ``csrc/decode_attention.cuh``): one block per
-``(b, kv_head)`` holding the G query heads of that KV head, one warp per
-head (several heads per warp when G > 8).  A loop over logical positions
-in 32-slot tiles stages K and V in shared memory; each lane scores one
-slot, warp shuffles give the tile max and sum, and the fp32 accumulator
-lives in registers.  The paged kernel stages its table row in shared
-memory and resolves each slot's address through it, so its output is
-bitwise the dense kernel's over the gathered view.  The loop stops at the
-length clamped to the cache width — the clamp matters because the engine
-decodes idle slots too, whose lengths grow past it.
+one body in ``csrc/decode_attention.cuh``): split-KV flash-decoding in two
+launches.  Pass 1 runs one block per ``(b, kv_head, chunk)``, a chunk being
+:data:`SPLIT` logical positions; a chunk at or past the sequence's clamped
+length returns at once, a live one loads q and its K/V tiles with 16-byte
+``cp.async`` into shared memory and writes an fp32 partial
+``(m, l, acc[G, hd])``.  In bfloat16 one warp runs the chunk on tensor
+cores (``mma.sync.m16n8k16``: the G = 16 query heads of a KV head are the
+M side; P enters P V as two bf16 parts, so it stays fp32 to ~2^-17 as in
+the reference); in float32 the warps use FMAs, which keep the exact path
+exact.  Any ``hd <= 128`` is taken (rows staged zero-padded to the mma's
+k of 16; element-wise when a row is not a 16-byte multiple).
+Pass 2 merges the partials of each ``(b, kv_head)`` in a fixed order (no
+atomics: bitwise repeatable), launched as a programmatic dependent of pass
+1 so that its launch overlaps it.  The paged kernel resolves each slot's
+pool row once, from only the table entries its chunk covers; chunks are
+cut in logical positions, so its output is bitwise the dense kernel's over
+the gathered view.  Lengths are clamped to the cache width — the engine
+decodes idle slots too, whose lengths grow past it.  The C entry points
+size the grid from the view width; :func:`split_plan` is the same count,
+which sizes the partials' scratch.
 
 What bounds it on an H100: the K/V bytes of the valid prefix (3.35 TB/s);
-the operations are ~1 per byte.  With ``B * KV`` = 64 blocks at the
-full-width deepseek-r1 decode shape, half the 132 SMs idle: a split over
-the cache (flash-decoding's second pass) is later work.
+the operations are ~1 per byte.  At the full-width deepseek-r1 decode shape
+that bound is ~0.002 ms, below the latency of the two launches.
 """
 
 from __future__ import annotations
@@ -36,7 +45,25 @@ import torch
 
 from repro_torch.kernels import build
 
-TS = 32            # cache slots per tile (one per lane)
+SPLIT = 64         # logical positions per chunk; equal to csrc kSplit
+
+
+def split_plan(view: int) -> int:
+    """Chunks of the cache view of width ``view`` (S dense,
+    ``max_blocks * bs`` paged): the grid's third axis (csrc
+    ``split_count``).  A constant chunk width, not derived from the
+    lengths (no host sync) or the SM count."""
+    return max(1, -(-view // SPLIT))
+
+
+def _scratch(q: torch.Tensor, KV: int, G: int, hd: int,
+             nsplit: int) -> torch.Tensor:
+    """Pass 1's fp32 partials: acc (B*KV*nsplit*G, hd) then (m, l) pairs;
+    none when one chunk covers the view (pass 1 writes the output)."""
+    if nsplit == 1:
+        return torch.empty(0, dtype=torch.float32, device=q.device)
+    rows = q.shape[0] * KV * nsplit * G
+    return torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
 
 
 def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor,
@@ -91,13 +118,16 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     build.require(k_cache.shape[0] == B and lengths.shape == (B,),
                   f"flash_decode: k{tuple(k_cache.shape)} and "
                   f"lengths{tuple(lengths.shape)} need batch {B}")
+    S = k_cache.shape[1]
+    build.require(B * S < 2 ** 31, f"flash_decode: B*S={B * S} >= 2**31")
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    partial = _scratch(q, KV, G, hd, split_plan(S))
     lib = build.load_library()
     err = lib.flash_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, k_cache.shape[1], KV, G, hd,
-        build.dtype_code(q.dtype), build.stream_of(q))
+        lengths.data_ptr(), out.data_ptr(), partial.data_ptr(), B, S, KV, G,
+        hd, build.dtype_code(q.dtype), build.stream_of(q))
     build.check(err, "flash_decode")
     build.count("flash_decode")
     return out
@@ -131,19 +161,23 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         and lengths.shape == (B,),
         f"paged_flash_decode: tables{tuple(block_tables.shape)} and "
         f"lengths{tuple(lengths.shape)} need batch {B}")
-    bs, mb = k_pool.shape[1], block_tables.shape[1]
+    nb, bs = k_pool.shape[:2]
+    mb = block_tables.shape[1]
     build.require(
-        1 <= mb <= 4096 and mb * bs < 2 ** 31,
-        f"paged_flash_decode: needs 1 <= max_blocks <= 4096 and "
-        f"max_blocks*bs < 2**31 (max_blocks={mb}, bs={bs})")
+        mb >= 1 and mb * bs < 2 ** 31 and nb * bs < 2 ** 31,
+        f"paged_flash_decode: needs max_blocks >= 1, max_blocks*bs < 2**31 "
+        f"and num_blocks*bs < 2**31 (max_blocks={mb}, bs={bs}, "
+        f"num_blocks={nb})")
     tables = block_tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    partial = _scratch(q, KV, G, hd, split_plan(mb * bs))
     lib = build.load_library()
     err = lib.paged_flash_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, mb, bs,
-        KV, G, hd, build.dtype_code(q.dtype), build.stream_of(q))
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), B, mb, bs, KV, G, hd,
+        build.dtype_code(q.dtype), build.stream_of(q))
     build.check(err, "paged_flash_decode")
     build.count("paged_flash_decode")
     return out

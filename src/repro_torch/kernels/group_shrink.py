@@ -1,16 +1,19 @@
 """Group-shrink: active-group compaction for the grouped GEMM (paper §4.1).
 
-Port of ``src/repro/kernels/group_shrink.py``.  The group sizes are
-prefix-scanned on the device into a *tile table*: for each of the
-statically bounded ``m // tm + G`` row tiles, its group, whether it is live,
-and — what the CUDA kernel needs in place of the TPU's padded copy — the
-range of ``x_sorted`` rows it covers.  Empty groups get no tile, so the
-kernel's blocks for dead tiles return at once (the paper's early stop).
+Port of ``src/repro/kernels/group_shrink.py``, as plain PyTorch: the
+statement of the scan that the CUDA kernel runs itself in shared memory
+(``csrc/group_shrink.cuh``).  The group sizes are prefix-scanned into a
+*tile table*: for each of the statically bounded ``m // tm + G`` row
+tiles, its group, whether it is live, and the range of ``x_sorted`` rows it
+covers.  Empty groups get no tile, so the kernel's walk over the live
+tiles never meets them (the paper's early stop).  The kernel computes a
+tile's entry on demand (``find_tile``: a binary search over the tile
+prefix, ``searchsorted`` here) instead of materialising the table.
 
 The reference's ``pad_rows_to_tiles`` / ``unpad_rows`` have no counterpart:
 Pallas needs static blocks, so the TPU kernel copies rows into a
-tile-aligned buffer and back; a CUDA block reads its row range straight
-from ``x_sorted`` and writes straight into ``out``.
+tile-aligned buffer and back; the CUDA kernel reads a tile's row range
+straight from ``x_sorted`` and writes straight into ``out``.
 
 Everything stays on the device: no ``.item()``, no host sync.
 """
@@ -29,12 +32,6 @@ class TileTable(NamedTuple):
     num_tiles: torch.Tensor      # () int32 live tile count
     row_start: torch.Tensor      # (T,) int32 first x_sorted row of the tile
     row_end: torch.Tensor        # (T,) int32 one past its last row
-
-    def packed(self) -> torch.Tensor:
-        """(4, T) int32 [gid, valid, row_start, row_end] — the kernel's
-        per-block metadata."""
-        return torch.stack([self.tile_gid, self.tile_valid, self.row_start,
-                            self.row_end]).contiguous()
 
 
 def max_tiles(m: int, g: int, tm: int) -> int:

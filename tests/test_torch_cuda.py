@@ -104,7 +104,7 @@ def test_paged_flash_decode_cuda_vs_plain(cuda, b, h, kv, hd, bs, dtype, tol,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("bs", [8, 16, 32, 12])
 def test_paged_cuda_equals_dense_cuda_on_gathered_view(cuda, bs, dtype, rng):
     q, kp, vp, tables, lengths = _paged_inputs(cuda, rng, 4, 16, 2, 64, bs,
                                                dtype)
@@ -114,3 +114,183 @@ def test_paged_cuda_equals_dense_cuda_on_gathered_view(cuda, bs, dtype, rng):
     assert torch.equal(
         ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="cuda"),
         ops.flash_decode(q, kd, vd, lengths, impl="cuda"))
+
+
+# ---- split-KV edges: chunk boundaries, lengths past the view, grid sizes --
+
+def _edge_lengths(b, s):
+    """1, exactly one chunk, one past it, past S, 0 (zero output), then
+    the rest spread over the view."""
+    base = [1, 64, 65, s + 7, 0, s, 128, 129]
+    return [base[i] if i < len(base) else 1 + (37 * i) % s
+            for i in range(b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,kv,hd,s", [
+    (3, 8, 2, 32, 64),        # one chunk: pass 1 writes the output
+    (8, 32, 2, 64, 320),      # B*KV = 16 blocks per chunk, < 132 SMs
+    (24, 128, 8, 64, 200),    # B*KV = 192 > 132 SMs, ragged last chunk
+    (5, 4, 4, 128, 130),      # G = 1, hd = 128
+    (4, 64, 2, 16, 256),      # G = 32: two m16 tiles, hd = 16
+    (8, 64, 8, 112, 200),     # kimi-k2's G = 8, hd = 112
+    (3, 12, 2, 40, 130),      # hd = 40: rows zero-padded to 48 (bf16)
+    (4, 6, 2, 33, 100),       # hd = 33: rows staged element by element
+])
+def test_flash_decode_split_edges(cuda, b, h, kv, hd, s, dtype, tol, rng):
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    lengths = torch.as_tensor(_edge_lengths(b, s), device=cuda)
+    out = ops.flash_decode(q, k, v, lengths, impl="cuda")
+    live = lengths > 0
+    exp = ops.flash_decode(q, k, v, lengths, impl="torch")
+    torch.testing.assert_close(out[live].float(), exp[live].float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16, 32, 12])
+def test_paged_split_edges_equal_dense(cuda, bs, dtype, rng):
+    """Chunk-boundary lengths through a paged pool: torch.equal to the
+    dense kernel over the gathered view, and close to the plain version."""
+    b, h, kv, hd, mb = 8, 32, 2, 64, 12
+    nb = b * mb + 1
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    kp = torch.as_tensor(rng.normal(size=(nb, bs, kv, hd)),
+                         device=cuda).to(dtype)
+    vp = torch.as_tensor(rng.normal(size=(nb, bs, kv, hd)),
+                         device=cuda).to(dtype)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, nb))
+                             .reshape(b, mb), device=cuda)
+    lengths = torch.as_tensor(_edge_lengths(b, mb * bs), device=cuda)
+    kd = kp[tables].reshape(b, mb * bs, kv, hd)
+    vd = vp[tables].reshape(b, mb * bs, kv, hd)
+    out = ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="cuda")
+    assert torch.equal(out, ops.flash_decode(q, kd, vd, lengths,
+                                             impl="cuda"))
+    live = lengths > 0
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    exp = ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="torch")
+    torch.testing.assert_close(out[live].float(), exp[live].float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [112, 40, 33])
+def test_paged_head_widths_equal_dense(cuda, hd, dtype, rng):
+    """Head widths off the 16-wide mma grid, through a bs-12 pool: torch.equal
+    to the dense kernel over the gathered view, and close to the plain
+    version."""
+    q, kp, vp, tables, lengths = _paged_inputs(cuda, rng, 4, 16, 2, hd, 12,
+                                               dtype)
+    b, mb = tables.shape
+    kd = kp[tables].reshape(b, mb * 12, *kp.shape[2:])
+    vd = vp[tables].reshape(b, mb * 12, *vp.shape[2:])
+    out = ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="cuda")
+    assert torch.equal(out, ops.flash_decode(q, kd, vd, lengths,
+                                             impl="cuda"))
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    exp = ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_unaligned_inputs(cuda, dtype, rng):
+    """q, k and v whose bases are not 16-byte aligned (views one element
+    in) take the element-wise staging and still match the plain version."""
+    b, h, kv, hd, s = 3, 16, 2, 64, 130
+
+    def shifted(*shape):
+        n = int(np.prod(shape))
+        flat = torch.as_tensor(rng.normal(size=n + 1), device=cuda).to(dtype)
+        return flat[1:].view(*shape)
+    q, k, v = shifted(b, h, hd), shifted(b, s, kv, hd), shifted(b, s, kv, hd)
+    assert q.data_ptr() % 16 != 0
+    lengths = torch.as_tensor([1, 65, 200], device=cuda)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(
+        ops.flash_decode(q, k, v, lengths, impl="cuda").float(),
+        ops.flash_decode(q, k, v, lengths, impl="torch").float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_kernels_run_twice_bitwise(cuda, rng):
+    """No atomics in the split-KV combine: two runs are torch.equal."""
+    b, h, kv, hd, bs, mb = 8, 128, 8, 64, 16, 64
+    q, kp, vp, tables, lengths = _paged_inputs(cuda, rng, b, h, kv, hd, bs,
+                                               torch.bfloat16)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, b * mb + 1))
+                             .reshape(b, mb), device=cuda)
+    kp = torch.as_tensor(rng.normal(size=(b * mb + 1, bs, kv, hd)),
+                         device=cuda).to(torch.bfloat16)
+    vp = kp.flip(0).contiguous()
+    lengths = torch.as_tensor(rng.integers(64, 545, size=b), device=cuda)
+    kd = kp[tables].reshape(b, mb * bs, kv, hd)
+    vd = vp[tables].reshape(b, mb * bs, kv, hd)
+    for fn, args in ((ops.flash_decode, (q, kd, vd, lengths)),
+                     (ops.paged_flash_decode, (q, kp, vp, tables, lengths))):
+        first = fn(*args, impl="cuda")
+        assert torch.equal(first, fn(*args, impl="cuda"))
+
+
+# ---- grouped GEMM edges: the in-kernel scan and the zero tail ------------
+
+GG_EDGES = {
+    # name: (M, K, N, sizes)
+    "all_empty": (96, 64, 64, [0] * 6),
+    "sizes_003555": (32, 128, 96, [0, 0, 3, 5, 5, 5]),
+    "one_group": (200, 64, 128, [0, 0, 200, 0]),
+    "sum_below_m": (300, 256, 200, "150 over 8"),
+    "g_above_66": (1280, 128, 64, "1000 over 130"),
+    "m_ragged": (100, 72, 136, "100 over 5"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(GG_EDGES))
+def test_grouped_gemm_edges(cuda, case, dtype, tol, rng):
+    m, k, n, sizes = GG_EDGES[case]
+    if isinstance(sizes, str):
+        live, g = (int(t) for t in sizes.split(" over "))
+        sizes = rng.multinomial(live, np.ones(g) / g)
+    g = len(sizes)
+    sizes = torch.as_tensor(np.asarray(sizes), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(g, k, n)) * 0.1,
+                        device=cuda).to(dtype)
+    out = ops.grouped_gemm(x, w, sizes, impl="cuda")
+    exp = ops.grouped_gemm(x, w, sizes, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    live = int(sizes.sum())
+    assert torch.equal(out[live:], torch.zeros_like(out[live:]))
+    # int32 sizes (cast to the kernel's int64 by the wrapper) give the same
+    assert torch.equal(out, ops.grouped_gemm(x, w, sizes.to(torch.int32),
+                                             impl="cuda"))
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_run_twice_bitwise(cuda, rng):
+    """Each output tile has one writer (no split-K atomics): two runs over
+    garbage-filled outputs are torch.equal."""
+    m, k, n, g = 1280, 1024, 512, 66
+    sizes = torch.as_tensor(rng.multinomial(1000, np.ones(g) / g),
+                            device=cuda)
+    x = torch.as_tensor(rng.normal(size=(m, k)),
+                        device=cuda).to(torch.bfloat16)
+    w = torch.as_tensor(rng.normal(size=(g, k, n)) * 0.05,
+                        device=cuda).to(torch.bfloat16)
+    first = ops.grouped_gemm(x, w, sizes, impl="cuda")
+    torch.empty(m * n * 4, device=cuda).fill_(float("nan"))   # dirty pool
+    assert torch.equal(first, ops.grouped_gemm(x, w, sizes, impl="cuda"))
