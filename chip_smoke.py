@@ -18,7 +18,13 @@ Phases, each of which raises on failure (exit code != 0):
    redesigned kernels run twice and must agree bitwise; edge cases (split
    boundaries, block size 12, kimi-k2's head width 112 and an odd 33,
    empty and ragged groups, G > 66) are checked
-   against the plain versions;
+   against the plain versions; the combine's slot entry (the servers'
+   response buffers read in place, drops skipped, the shared experts'
+   output added) must be bitwise the plain sequential loop and the direct
+   entry over the gathered view, at decode and prefill shapes and edges
+   (T = 0, an all-dropped token, k = 1, S = 1 and 16, the scalar path),
+   and is timed beside the stage it replaced and an empty kernel (the
+   launch floor);
 4. reference: a reduced deepseek-r1 decoder in float32 on the card (CUDA
    kernels) against the same weights on the CPU (plain versions): prefill
    logits plus 8 teacher-forced decode steps, over the dense cache and
@@ -28,13 +34,16 @@ Phases, each of which raises on failure (exit code != 0):
 5. serve: the port's ServingEngine at the full published width of
    deepseek-r1 (depth cut to 1 dense + 2 MoE blocks), 8 requests of 32
    greedy tokens, expert server 1 failing at step 10 and recovering at step
-   20; the dense path's kernels must each launch in this run;
+   20; the dense path's kernels must each launch in this run; prints the
+   greedy tokens' digest;
 6. serve, paged: the same model with a 129-block KV pool, chunked prefill
    (256) under the fair policy, 16 requests over two shared 256-token
    system prompts; it must show prefix hits, a copy-on-write fork and
    preemption, and the paged kernel must launch in this run;
 7. profile: torch.profiler over 8 full-batch decode steps of each engine,
-   with the device operations (kernels, copies) launched per step.
+   with the device operations (kernels, copies) launched per step; then 8
+   more with the combine stage as it ran before the slot entry, and the
+   device rows that moved.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -43,7 +52,9 @@ rest of the repository beside it, the script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -57,7 +68,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}    # dense, per second
 TOL = {"grouped_gemm": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
        "paged_flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
-       "combine_weighted": {"float32": 1e-5, "bfloat16": 2e-2}}
+       "combine_weighted": {"float32": 1e-5, "bfloat16": 2e-2},
+       "combine_slots": {"float32": 1e-5, "bfloat16": 2e-2}}
 SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
                             "src/repro/kernels/grouped_gemm.py:43"),
            "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -66,7 +78,9 @@ SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
                "src/repro_torch/csrc/paged_flash_decode.cu",
                "src/repro/kernels/decode_attention.py:124"),
            "combine_weighted": ("src/repro_torch/csrc/combine.cu",
-                                "src/repro/kernels/combine.py:23")}
+                                "src/repro/kernels/combine.py:23"),
+           "combine_slots": ("src/repro_torch/csrc/combine.cu",
+                             "src/repro/kernels/combine.py:23")}
 
 
 def log(*a):
@@ -112,7 +126,8 @@ def check_case(torch, name, label, dtype, got, want) -> float:
     """Kernel output vs plain output within the stated tolerance."""
     torch.cuda.synchronize()
     tol = TOL[name][dtype]
-    err = (got.float() - want.float()).abs().max().item()
+    err = ((got.float() - want.float()).abs().max().item() if got.numel()
+           else 0.0)
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}[{label}]: non-finite output")
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
@@ -142,7 +157,11 @@ def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
 
 
 
-def kernels_phase(torch, cfg) -> dict:
+def kernels_phase(torch, cfg):
+    """Returns (cases by kernel, the launch floor)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import combine as kcb
     from repro_torch.kernels import grouped_gemm as kgg
     from repro_torch.kernels import ops
 
@@ -222,7 +241,6 @@ def kernels_phase(torch, cfg) -> dict:
 
     # ---- flash decode: B=8 slots, 128 heads over 8 KV heads, hd=64 ------
     def sdpa(q, k, v, lens):
-        import torch.nn.functional as F
         S = k.shape[1]
         valid = lens.clamp(max=S).long()
         mask = (torch.arange(S, device=dev)[None, :] < valid[:, None])
@@ -335,7 +353,141 @@ def kernels_phase(torch, cfg) -> dict:
     cb_case("decode, 8 tokens", 8, m.top_k, d, bf)
     cb_case("prefill, 512 tokens", 512, m.top_k, d, bf)
     cb_case("float32 small", 64, 2, 128, torch.float32)
-    return cases
+
+    # ---- combine over the servers' response buffers: 4 x C = 1280 rows --
+    slot_gen = torch.Generator().manual_seed(8)
+
+    def cs_inputs(T, k, S, C, dd, dtype, addend=True, layout="list",
+                  offset=0, all_dropped=False):
+        """S response buffers (C, d) read in place (a list, or one (S, C, d)
+        tensor), slots over distinct rows with ~10 % dropped (and, with
+        ``all_dropped``, every slot of token 0), an addend (T, d)."""
+        flat = torch.randn(S * C * dd + offset, generator=gen,
+                           device=dev).to(dtype)[offset:]
+        stacked = flat.view(S, C, dd)
+        resp = list(stacked.unbind(0)) if layout == "list" else stacked
+        slots = torch.randperm(S * C, generator=slot_gen)[:T * k]
+        slots = slots.reshape(T, k)
+        slots[torch.rand(T, k, generator=slot_gen) < 0.1] = -1
+        if all_dropped and T:
+            slots[0] = -1
+        add = (torch.randn(T, dd, generator=gen, device=dev).to(dtype)
+               if addend else None)
+        return resp, stacked, slots.to(dev), add
+
+    def cs_bitwise(label, resp, stacked, slots, add) -> None:
+        """torch.equal to the plain sequential fp32 loop and to the direct
+        entry over the gathered view with 0/1 weights (+ the addend)."""
+        got = ops.combine_slots(resp, slots, addend=add, impl="cuda")
+        if not torch.equal(got, ops.combine_slots(resp, slots, addend=add,
+                                                  impl="torch")):
+            raise AssertionError(f"combine_slots[{label}]: not bitwise the "
+                                 "sequential fp32 loop")
+        T, k = slots.shape
+        dd = stacked.shape[-1]
+        view = stacked.reshape(-1, dd)[slots.clamp(min=0)].reshape(T, k, dd)
+        direct = ops.combine_weighted(view, (slots >= 0).float(),
+                                      impl="cuda")
+        if not torch.equal(got, direct if add is None else direct + add):
+            raise AssertionError(f"combine_slots[{label}]: not bitwise the "
+                                 "direct entry over the gathered view")
+
+    def cs_case(label, T, dtype, addend, k=m.top_k, S=4, C=1280, dd=d):
+        resp, stacked, slots, add = cs_inputs(T, k, S, C, dd, dtype, addend)
+        cs_bitwise(label, resp, stacked, slots, add)
+        flat = stacked.reshape(-1, dd)
+        idx, keep = slots.clamp(min=0), (slots >= 0).to(dtype)
+        library_name = "embedding_bag(sum, per_sample_weights)"
+        try:
+            F.embedding_bag(idx, flat, per_sample_weights=keep, mode="sum")
+        except RuntimeError:
+            library_name = "gather + einsum (embedding_bag refused the dtype)"
+
+        def library():
+            if library_name.startswith("embedding_bag"):
+                return F.embedding_bag(idx, flat, per_sample_weights=keep,
+                                       mode="sum")
+            return torch.einsum("tkd,tk->td", flat[idx], keep)
+        es = flat.element_size()
+        live = int((slots >= 0).sum())
+        extra = 0 if add is None else T * dd
+        case = run_case(
+            torch, "combine_slots", label, str(dtype)[6:],
+            lambda: ops.combine_slots(resp, slots, addend=add, impl="cuda"),
+            lambda: ops.combine_slots(resp, slots, addend=add, impl="torch"),
+            library, (live * dd + T * dd + extra) * es + 8 * T * k,
+            float(live * dd + extra), twice=True)
+        old = lambda: old_combine_stage(torch, resp, slots, None, add)  # noqa
+        case.update(library=library_name + ", addend not added",
+                    live_rows=live,
+                    old_stage_ms=time_ms(torch, old),
+                    old_stage_device_ms=time_ms(torch, old, graph=True))
+        log(f"kernels: combine_slots[{label}] old stage (stack + gather + "
+            f"mask + combine_weighted + add) {case['old_stage_ms']:.4f} ms, "
+            f"device {case['old_stage_device_ms']:.4f} ms")
+        cases["combine_slots"].append(case)
+
+    cs_case("decode, 8 tokens, 4 x 1280 rows, addend", 8, bf, True)
+    cs_case("decode, 8 tokens, 4 x 1280 rows", 8, bf, False)
+    cs_case("prefill, 512 tokens, 4 x 1280 rows, addend", 512, bf, True)
+    cs_case("prefill, 512 tokens, 4 x 1280 rows", 512, bf, False)
+    cs_case("float32 small, 64 tokens, 4 x 64 rows, addend", 64,
+            torch.float32, True, k=2, C=64, dd=128)
+
+    # edges: (T, k, S, C, d, layout, offset); token 0 has every slot dropped
+    edges = {"T = 0": (0, 8, 4, 64, 256, "list", 0),
+             "k = 1": (16, 1, 4, 64, 256, "list", 0),
+             "S = 1": (16, 8, 1, 256, 256, "list", 0),
+             "S = 1, one tensor": (16, 8, 1, 256, 256, "tensor", 0),
+             "S = 16 as a list": (32, 8, 16, 64, 512, "list", 0),
+             "S = 4, one tensor": (32, 8, 4, 128, 512, "tensor", 0),
+             "d = 7164 (scalar path)": (8, 8, 4, 64, 7164, "list", 0),
+             "offset base (scalar path)": (8, 8, 4, 64, 7168, "list", 1)}
+    for dtype in (bf, torch.float32):
+        for label, (T, k, S, C, dd, layout, offset) in edges.items():
+            resp, stacked, slots, add = cs_inputs(
+                T, k, S, C, dd, dtype, True, layout, offset, True)
+            got = ops.combine_slots(resp, slots, addend=add, impl="cuda")
+            err = check_case(torch, "combine_slots", label, str(dtype)[6:],
+                             got, ops.combine_slots(resp, slots, addend=add,
+                                                    impl="torch"))
+            cs_bitwise(label, resp, stacked, slots, add)
+            if not torch.equal(got, ops.combine_slots(resp, slots,
+                                                      addend=add,
+                                                      impl="cuda")):
+                raise AssertionError(f"combine_slots[{label}]: two runs "
+                                     "differ")
+            if got.shape != (T, dd) or (T and not torch.equal(got[0],
+                                                              add[0])):
+                raise AssertionError(f"combine_slots[{label}]: shape "
+                                     f"{tuple(got.shape)} or the all-dropped "
+                                     "token is not the addend")
+            log(f"kernels: combine_slots edge [{label}, {str(dtype)[6:]}] "
+                f"max |err| {err:.3g}, bitwise the loop, the direct entry "
+                "and a second run")
+
+    # the card's launch floor: an empty kernel, timed the same way
+    floor = {"ms": time_ms(torch, lambda: kcb.empty_cuda(dev)),
+             "device_ms": time_ms(torch, lambda: kcb.empty_cuda(dev),
+                                  graph=True)}
+    log(f"kernels: launch floor (empty kernel) {json.dumps(floor)}")
+    return cases, floor
+
+
+def old_combine_stage(torch, responses, combine_slot, out_dtype, addend):
+    """The combine stage as it ran before the slot entry: stack the
+    servers' buffers, gather the (T, k, d) view, mask, the direct kernel,
+    then the shared experts' add."""
+    from repro_torch.kernels import ops
+
+    result = torch.stack(list(responses))
+    S, C, d = result.shape
+    T, k = combine_slot.shape
+    flat = result.reshape(S * C, d)
+    gathered = flat[combine_slot.clamp(min=0).reshape(-1)].reshape(T, k, d)
+    keep = (combine_slot >= 0).to(torch.float32)
+    y = ops.combine_weighted(gathered, keep).to(out_dtype or result.dtype)
+    return y if addend is None else y + addend
 
 
 def reference_phase(torch, get_config) -> None:
@@ -445,8 +597,8 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-DENSE_PATH = ("grouped_gemm", "flash_decode", "combine_weighted")
-PAGED_PATH = ("grouped_gemm", "paged_flash_decode", "combine_weighted")
+DENSE_PATH = ("grouped_gemm", "flash_decode", "combine_slots")
+PAGED_PATH = ("grouped_gemm", "paged_flash_decode", "combine_slots")
 
 
 def serve_phase(torch, get_config):
@@ -534,9 +686,12 @@ def serve_phase(torch, get_config):
         f"steps)")
     log(f"serve: TTFT p50 {s['ttft']['p50']} ms p99 {s['ttft']['p99']} ms; "
         f"ITL p50 {s['itl']['p50']} ms p99 {s['itl']['p99']} ms")
+    tokens = [list(map(int, r.output_tokens)) for r in reqs]
     log(f"serve: dropped {int(eng.executor.dropped)} miss "
         f"{int(eng.executor.miss)}; server 1 failed at step 10, recovered "
-        f"at step 20")
+        f"at step 20; tokens sha1 "
+        f"{hashlib.sha1(json.dumps(tokens).encode()).hexdigest()[:12]} "
+        "(as repro_torch.tools.serve_variants digests them)")
     log(f"serve: launches {json.dumps(launches)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_decode(torch, eng, cfg, rng, "dense")
@@ -626,28 +781,15 @@ def paged_serve_phase(torch, cfg, params, rng) -> dict:
     return launches
 
 
-def profile_decode(torch, eng, cfg, rng, label: str,
-                   steps: int = 8) -> None:
-    """Where a full-batch decode step's time goes: ``steps`` lockstep decode
-    steps of 8 fresh requests timed on the host clock, then ``steps`` more
-    under torch.profiler (after the measured run, so its overhead touches
-    no reported latency)."""
+def _step_profile(torch, eng, steps: int):
+    """``steps`` decode steps timed on the host clock, then ``steps`` more
+    under torch.profiler (so its overhead touches no reported latency):
+    wall ms, device busy ms, launches and copies per step, and the device
+    rows as {name: (ms per step, calls per step)}; None if the profiler
+    saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request, SamplingParams
-
-    for i in range(8):
-        eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size, 128)
-                           .astype("int32"),
-                           SamplingParams(max_new_tokens=2 * steps + 10)))
-    # the 8 prefills (interleaved with decode steps under the fair policy)
-    for _ in range(32):
-        if len(eng.scheduler.decode_ready()) == 8:
-            break
-        eng.step()
-    if len(eng.scheduler.decode_ready()) != 8:
-        raise AssertionError(f"profile ({label}): the batch never filled")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -661,29 +803,95 @@ def profile_decode(torch, eng, cfg, rng, label: str,
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    eng.run()
     # device-side rows only: a CPU op's row repeats its kernels' time
-    rows = [e for e in prof.key_averages()
+    rows = {e.key: (e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+            and e.self_device_time_total > 0}
+    busy_ms = sum(t for t, _ in rows.values())
     if busy_ms <= 0:
+        return None
+    copies = sum(n for key, (_, n) in rows.items()
+                 if key.startswith(("Memcpy", "Memset")))
+    return {"plain_ms": plain_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "launches": sum(n for _, n in rows.values()) - copies,
+            "copies": copies, "rows": rows}
+
+
+@contextlib.contextmanager
+def _old_combine(torch):
+    """Route the MoE layer's combine through the stage it ran before the
+    slot entry (``old_combine_stage``)."""
+    from repro_torch.core import dispatch
+
+    fused = dispatch.combine
+    dispatch.combine = (
+        lambda responses, slot, out_dtype=None, addend=None:
+        old_combine_stage(torch, responses, slot, out_dtype, addend))
+    try:
+        yield
+    finally:
+        dispatch.combine = fused
+
+
+def profile_decode(torch, eng, cfg, rng, label: str,
+                   steps: int = 8) -> None:
+    """Where a full-batch decode step's time goes: 8 fresh requests, then
+    ``steps`` decode steps timed alone and ``steps`` under the profiler
+    (``_step_profile``), with the combine stage as it runs now and, for the
+    same count of steps, as it ran before the slot entry; the device rows
+    whose calls per step differ between the two hold the stage's kernels
+    (beside other calls of the same kernels: the difference is the
+    stage's)."""
+    from repro_torch.serving import Request, SamplingParams
+
+    for i in range(8):
+        eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size, 128)
+                           .astype("int32"),
+                           SamplingParams(max_new_tokens=4 * steps + 40)))
+    # the 8 prefills (interleaved with decode steps under the fair policy)
+    for _ in range(32):
+        if len(eng.scheduler.decode_ready()) == 8:
+            break
+        eng.step()
+    if len(eng.scheduler.decode_ready()) != 8:
+        raise AssertionError(f"profile ({label}): the batch never filled")
+    now = _step_profile(torch, eng, steps)
+    with _old_combine(torch):
+        before = _step_profile(torch, eng, steps)
+    eng.run()
+    if now is None or before is None:
         log(f"profile ({label}): the profiler saw no device time "
             "(not measured)")
         return
-    copies = sum(e.count for e in rows
-                 if e.key.startswith(("Memcpy", "Memset"))) / steps
-    launches = sum(e.count for e in rows) / steps - copies
-    log(f"profile ({label}): decode step (8 slots, full batch) wall "
-        f"{plain_ms:.2f} ms ({8e3 / plain_ms:.1f} tok/s), {wall_ms:.2f} ms "
-        f"under the profiler, device busy {busy_ms:.2f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} under the profiler "
-        f"({max(0.0, 1 - busy_ms / plain_ms):.3f} of the plain wall); "
-        f"{launches:.1f} kernel launches and {copies:.1f} copies per step")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:12]:
-        log(f"profile ({label}): {e.self_device_time_total / 1e3 / steps:8.3f}"
-            f" ms/step {e.count / steps:6.1f} calls/step  {e.key[:90]}")
+    for stage, p in (("slot entry", now), ("old combine stage", before)):
+        log(f"profile ({label}, {stage}): decode step (8 slots, full batch) "
+            f"wall {p['plain_ms']:.2f} ms ({8e3 / p['plain_ms']:.1f} tok/s), "
+            f"{p['wall_ms']:.2f} ms under the profiler, device busy "
+            f"{p['busy_ms']:.3f} ms, idle share "
+            f"{max(0.0, 1 - p['busy_ms'] / p['wall_ms']):.3f} under the "
+            f"profiler ({max(0.0, 1 - p['busy_ms'] / p['plain_ms']):.3f} of "
+            f"the plain wall); {p['launches']:.1f} kernel launches and "
+            f"{p['copies']:.1f} copies per step")
+    top = sorted(now["rows"].items(), key=lambda kv: -kv[1][0])
+    for key, (ms, n) in top[:12]:
+        log(f"profile ({label}): {ms:8.3f} ms/step {n:6.1f} calls/step  "
+            f"{key[:90]}")
+    # the combine stage's rows: those whose calls per step moved
+    moved = [0.0, 0.0]
+    for key in sorted(set(now["rows"]) | set(before["rows"])):
+        t1, n1 = now["rows"].get(key, (0.0, 0.0))
+        t0, n0 = before["rows"].get(key, (0.0, 0.0))
+        if n1 != n0:
+            moved[0] += t0
+            moved[1] += t1
+            log(f"profile ({label}, combine stage): old {t0:8.4f} ms/step "
+                f"{n0:6.1f} calls -> slot entry {t1:8.4f} ms/step {n1:6.1f} "
+                f"calls  {key[:80]}")
+    log(f"profile ({label}, combine stage): rows that moved, old "
+        f"{moved[0]:.4f} ms/step -> slot entry {moved[1]:.4f} ms/step "
+        f"(difference {moved[0] - moved[1]:.4f} ms/step, "
+        f"{before['launches'] - now['launches']:.1f} launches)")
 
 
 def _leaves(tree):
@@ -723,23 +931,28 @@ def main() -> int:
     log(f"build: {len(info['sources'])} sources "
         f"{[Path(p).name for p in info['sources']]} in {info['seconds']:.1f}s "
         f"-> {info['path']}")
+    entry = ""
     for line in info.get("log", "").splitlines():
-        if "registers" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1][-72:]      # the mangled name's tail
+        elif "registers" in line:
+            log(f"build: {entry}: {line.split(':', 1)[-1].strip()}")
+        elif line.startswith("=="):
             log(f"build: {line.strip()}")
 
     cfg = get_config("deepseek-r1")
-    cases = kernels_phase(torch, cfg)
+    cases, floor = kernels_phase(torch, cfg)
     reference_phase(torch, get_config)
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
     paged_launches = paged_serve_phase(torch, serve_cfg, eng.params, rng)
 
-    summary = []
-    for name, cs in cases.items():
+    def entry(name):
+        cs = cases[name]
         head = cs[0]                      # the decode shape: most launches
         src, replaces = SOURCES[name]
         # each kernel's count from the run of the path that carries it
         main = paged_launches if name not in DENSE_PATH else launches
-        summary.append({
+        return {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": main[name],
             "launches_by_phase": {"serve": launches[name],
@@ -748,7 +961,15 @@ def main() -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
-            "card": smi, "cases": cs})
+            "card": smi, "cases": cs}
+
+    # kernel 4 is one CUDA body with two entries: the slot entry carries
+    # the serving path, the direct entry (the Pallas kernel's signature)
+    # is listed under it
+    summary = [entry(n) for n in ("grouped_gemm", "flash_decode",
+                                  "paged_flash_decode", "combine_slots")]
+    summary[-1].update(launch_floor=floor,
+                       entries=[entry("combine_weighted")])
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ code is a pure function from received slots to result slots.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from repro_torch.core.types import DispatchBuffers
@@ -25,7 +27,9 @@ def send_to_servers(buffers: DispatchBuffers, mode: str = "local"):
     return buffers.hidden, buffers.expert_id, buffers.score, buffers.counts
 
 
-def return_to_clients(result_hidden: torch.Tensor,
-                      mode: str = "local") -> torch.Tensor:
+def return_to_clients(result_hidden: Sequence[torch.Tensor],
+                      mode: str = "local") -> Sequence[torch.Tensor]:
+    """The servers' (C, d) result buffers, one per server, as the client
+    reads them (in place: no stacked copy)."""
     _check_local(mode)
     return result_hidden

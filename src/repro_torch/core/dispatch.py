@@ -10,6 +10,8 @@ here the writes are masked explicitly.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -63,19 +65,15 @@ def pack(x: torch.Tensor, expert_ids: torch.Tensor, scores: torch.Tensor,
         dropped=(counts - C).clamp(min=0).sum())
 
 
-def combine(result_hidden: torch.Tensor, combine_slot: torch.Tensor,
-            out_dtype=None) -> torch.Tensor:
+def combine(responses, combine_slot: torch.Tensor, out_dtype=None,
+            addend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sum the k score-weighted expert outputs back per token.
 
-    result_hidden (S, C, d) server responses (already score-weighted);
-    combine_slot (T, k) flat indices into S*C (-1 = dropped).  The gather
-    runs in PyTorch; the weighted sum is ``ops.combine_weighted`` with
-    weight 1 for a kept slot and 0 for a dropped one.
+    responses: the servers' (already score-weighted) results, one (S, C, d)
+    tensor or S (C, d) buffers, read in place; combine_slot (T, k) flat
+    indices into S*C (-1 = dropped); ``addend`` (T, d), added after the
+    cast to the responses' dtype.  One ``ops.combine_slots`` call: gather,
+    drop mask, fp32 sum and the add in one kernel on the card.
     """
-    S, C, d = result_hidden.shape
-    T, k = combine_slot.shape
-    flat = result_hidden.reshape(S * C, d)
-    gathered = flat[combine_slot.clamp(min=0).reshape(-1)].reshape(T, k, d)
-    keep = (combine_slot >= 0).to(torch.float32)
-    out = ops.combine_weighted(gathered, keep)
-    return out.to(out_dtype or result_hidden.dtype)
+    out = ops.combine_slots(responses, combine_slot, addend=addend)
+    return out if out_dtype is None else out.to(out_dtype)

@@ -128,12 +128,13 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
                                       sc[s][None], cnt[s][None], w)
         outs.append(out[0])
         miss = miss + st.miss
-    result = comm.return_to_clients(torch.stack(outs), mode)
+    result = comm.return_to_clients(outs, mode)
 
-    # ---- client: combine (+ shared experts) ------------------------------
-    y = dispatch.combine(result, buffers.combine_slot, out_dtype=x.dtype)
-    if "shared" in params:
-        y = y + mlp(params["shared"], x, activation)
+    # ---- client: combine + shared experts, one kernel on the card --------
+    shared = (mlp(params["shared"], x, activation) if "shared" in params
+              else None)
+    y = dispatch.combine(result, buffers.combine_slot, out_dtype=x.dtype,
+                         addend=shared)
 
     stats = MoEStats(aux_loss=r.aux_loss, z_loss=r.z_loss,
                      dropped=buffers.dropped, miss=miss,

@@ -30,9 +30,10 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "flash_decode": 0,
-                            "paged_flash_decode": 0, "combine_weighted": 0}
+                            "paged_flash_decode": 0, "combine_weighted": 0,
+                            "combine_slots": 0}
 
-_vp, _int = ctypes.c_void_p, ctypes.c_int
+_vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: pointers and the stream as void*, sizes as int; each
 # returns cudaGetLastError() right after its launch
 _SIGNATURES = {
@@ -48,6 +49,12 @@ _SIGNATURES = {
                                   _int, _int, _int, _int, _int, _int, _vp],
     # x, w, out, T, k, d, dtype, stream
     "combine_weighted_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    # bases (host array of S pointers), S, rows per base, slots (int64),
+    # addend (or null), out, T, k, d, dtype, stream
+    "combine_slots_launch": [ctypes.POINTER(_vp), _int, _i64, _vp, _vp, _vp,
+                             _int, _int, _int, _int, _vp],
+    # stream
+    "empty_launch": [_vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None

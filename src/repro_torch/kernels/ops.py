@@ -12,10 +12,14 @@ kernel to the plain version.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.combine import (combine_weighted_cuda,
+from repro_torch.kernels.combine import (combine_slots_cuda,
+                                         combine_slots_torch,
+                                         combine_weighted_cuda,
                                          combine_weighted_torch)
 from repro_torch.kernels.decode_attention import (
     flash_decode_cuda, flash_decode_torch, paged_flash_decode_cuda,
@@ -73,6 +77,20 @@ def combine_weighted(x: torch.Tensor, w: torch.Tensor, *,
     if _resolve(impl, x) == "cuda":
         return combine_weighted_cuda(x, w)
     return combine_weighted_torch(x, w)
+
+
+def combine_slots(responses, combine_slot: torch.Tensor, *,
+                  addend: Optional[torch.Tensor] = None,
+                  impl: str = "auto") -> torch.Tensor:
+    """The expert servers' responses (one (S, C, d) tensor or S (C, d)
+    buffers) combined per token: the rows that ``combine_slot (T, k)``
+    names (flat ``s*C + c``, -1 = dropped) summed in fp32, cast to their
+    dtype, plus ``addend (T, d)`` if given."""
+    data = (responses if isinstance(responses, torch.Tensor)
+            else responses[0])
+    if _resolve(impl, data) == "cuda":
+        return combine_slots_cuda(responses, combine_slot, addend)
+    return combine_slots_torch(responses, combine_slot, addend)
 
 
 def launch_counts() -> dict:

@@ -1,6 +1,6 @@
 """Which kernel moves the dense serve's result.
 
-    PYTHONPATH=src python -m repro_torch.tools.serve_variants
+    PYTHONPATH=src python -m repro_torch.tools.serve_variants [--variants kernels,...]
 
 Runs the dense serve of ``chip_smoke.py`` (deepseek-r1 at full width, depth
 1 dense + 2 MoE blocks, 8 requests of 32 greedy tokens, expert server 1 down
@@ -13,12 +13,18 @@ the variants that agree on the tokens agree on ``miss``.  A kernel whose
 rounding moves the count shows as the variant that differs from the run
 with every kernel.
 
+``--variants`` runs only the named variants (comma-separated labels of
+:data:`VARIANTS`); ``--variants kernels`` is the quick way to digest another
+tree's served tokens, by running this file against that tree's package
+(``PYTHONPATH=<tree>/src python <this file> --variants kernels``).
+
 Needs one CUDA card with ~55 GiB free; the plain grouped GEMM makes its
 variants take about a minute each.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import hashlib
@@ -85,6 +91,13 @@ def serve(cfg, ecfg) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated labels of the variants to run")
+    labels = ap.parse_args().variants.split(",")
+    unknown = [v for v in labels if v not in VARIANTS]
+    if unknown:
+        ap.error(f"unknown variants {unknown}; expected {list(VARIANTS)}")
     if not torch.cuda.is_available():
         print("serve_variants: no CUDA device", file=sys.stderr)
         return 1
@@ -97,7 +110,8 @@ def main() -> int:
                         n_redundant=2, pool_tokens_per_client=512)
     kernels = {name: getattr(ops, name) for name in PLAIN}
     results = {}
-    for label, plain in VARIANTS.items():
+    for label in labels:
+        plain = VARIANTS[label]
         for name in PLAIN:
             setattr(ops, name, PLAIN[name] if name in plain
                     else kernels[name])

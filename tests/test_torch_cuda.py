@@ -294,3 +294,103 @@ def test_grouped_gemm_run_twice_bitwise(cuda, rng):
     first = ops.grouped_gemm(x, w, sizes, impl="cuda")
     torch.empty(m * n * 4, device=cuda).fill_(float("nan"))   # dirty pool
     assert torch.equal(first, ops.grouped_gemm(x, w, sizes, impl="cuda"))
+
+
+# ---- combine over the servers' response buffers (slot entry) -------------
+
+def _slot_inputs(cuda, rng, T, k, S, C, d, dtype, *, layout="list",
+                 addend=True, offset=0):
+    """S response buffers (C, d) (as a list, or one (S, C, d) tensor), slots
+    (T, k) over distinct rows with ~10 % dropped and every slot of token 0
+    dropped, and an addend (T, d).  ``offset`` elements shift every base
+    off the 16-byte grid."""
+    n = S * C * d
+    flat = torch.as_tensor(rng.normal(size=n + offset),
+                           device=cuda).to(dtype)[offset:]
+    stacked = flat.view(S, C, d)
+    responses = list(stacked.unbind(0)) if layout == "list" else stacked
+    slots = rng.permutation(S * C)[:T * k].reshape(T, k)
+    slots[rng.random((T, k)) < 0.1] = -1
+    if T:
+        slots[0] = -1
+    slots = torch.as_tensor(slots, device=cuda)
+    add = (torch.as_tensor(rng.normal(size=(T, d)), device=cuda).to(dtype)
+           if addend else None)
+    return responses, stacked, slots, add
+
+
+def _check_slots(responses, stacked, slots, add, tol):
+    """Close to the plain version, and bitwise: equal to the plain
+    sequential loop, to the direct entry over the gathered view with 0/1
+    weights (+ the addend added after it), and to a second run."""
+    out = ops.combine_slots(responses, slots, addend=add, impl="cuda")
+    exp = ops.combine_slots(responses, slots, addend=add, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    assert torch.equal(out, exp)
+    T, k = slots.shape
+    d = stacked.shape[-1]
+    gathered = stacked.reshape(-1, d)[slots.clamp(min=0)].reshape(T, k, d)
+    direct = ops.combine_weighted(gathered, (slots >= 0).float(),
+                                  impl="cuda")
+    assert torch.equal(out, direct if add is None else direct + add)
+    assert torch.equal(out, ops.combine_slots(responses, slots, addend=add,
+                                              impl="cuda"))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T", [8, 512])
+@pytest.mark.parametrize("addend", [False, True])
+def test_combine_slots_cuda_deepseek_width(cuda, T, addend, dtype, tol, rng):
+    """deepseek-r1's combine: 4 servers x C = 1280, top-8, d = 7168."""
+    _check_slots(*_slot_inputs(cuda, rng, T, 8, 4, 1280, 7168, dtype,
+                               addend=addend), tol)
+
+
+SLOT_EDGES = {
+    # name: (T, k, S, C, d, layout, offset)
+    "T0": (0, 8, 4, 64, 256, "list", 0),
+    "k1": (16, 1, 4, 64, 256, "list", 0),
+    "S1": (16, 8, 1, 256, 256, "list", 0),
+    "S1_tensor": (16, 8, 1, 256, 256, "tensor", 0),
+    "S16_list": (32, 8, 16, 64, 512, "list", 0),
+    "S4_tensor": (32, 8, 4, 128, 512, "tensor", 0),
+    "d7164_scalar": (8, 8, 4, 64, 7164, "list", 0),
+    "offset_base_scalar": (8, 8, 4, 64, 7168, "list", 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(SLOT_EDGES))
+def test_combine_slots_cuda_edges(cuda, case, dtype, tol, rng):
+    T, k, S, C, d, layout, offset = SLOT_EDGES[case]
+    inputs = _slot_inputs(cuda, rng, T, k, S, C, d, dtype, layout=layout,
+                          offset=offset)
+    if offset:
+        assert inputs[1].data_ptr() % 16 != 0
+    out = _check_slots(*inputs, tol)
+    if T:                                # token 0: every slot dropped
+        assert torch.equal(out[0], inputs[3][0])
+
+
+@pytest.mark.cuda
+def test_combine_slots_cuda_graph_capture(cuda, rng):
+    """The S buffer addresses travel in the launch's parameters: a captured
+    launch replays over the buffers' new contents."""
+    responses, stacked, slots, add = _slot_inputs(
+        cuda, rng, 8, 8, 4, 1280, 7168, torch.bfloat16)
+    ops.combine_slots(responses, slots, addend=add, impl="cuda")   # build
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = ops.combine_slots(responses, slots, addend=add, impl="cuda")
+    stacked.copy_(torch.as_tensor(rng.normal(size=tuple(stacked.shape)),
+                                  device=cuda).to(torch.bfloat16))
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.combine_slots(responses, slots, addend=add,
+                                              impl="torch"))

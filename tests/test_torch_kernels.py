@@ -102,3 +102,57 @@ def test_combine_plain_vs_pallas(t, k, d, tt, td, dtype, rng):
                                 td=td)
     out = ops.combine_weighted(tx, tw)
     _close(out, exp, 1e-5 if dtype == "float32" else 2e-2)
+
+
+def _slots(rng, T, k, S, C, drop=0.1):
+    """(T, k) flat slots into S*C, distinct rows, ~``drop`` of them -1 and
+    every slot of token 0 dropped."""
+    slots = rng.permutation(S * C)[:T * k].reshape(T, k)
+    slots[rng.random((T, k)) < drop] = -1
+    slots[0] = -1
+    return slots
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["tensor", "list"])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("with_addend", [False, True])
+def test_combine_slots_plain_vs_reference(dtype, layout, k, with_addend,
+                                          rng):
+    """The slot entry against repro.core.dispatch.combine (+ the addend
+    added after it, as the reference's MoE layer adds the shared experts)."""
+    from repro.core import dispatch as jdispatch
+    S, C, d, T = 4, 32, 64, 12
+    jr, tr = _both(rng.normal(size=(S, C, d)), dtype)
+    slots = _slots(rng, T, k, S, C)
+    exp = jdispatch.combine(jr, jnp.asarray(slots, jnp.int32))
+    addend = None
+    if with_addend:
+        ja, addend = _both(rng.normal(size=(T, d)), dtype)
+        exp = exp + ja
+    responses = tr if layout == "tensor" else list(tr.unbind(0))
+    out = ops.combine_slots(responses, torch.as_tensor(slots),
+                            addend=addend)
+    assert out.dtype == tr.dtype and out.shape == (T, d)
+    _close(out, exp, 1e-5 if dtype == "float32" else 2e-2)
+    if addend is None:
+        assert torch.equal(out[0], torch.zeros(d, dtype=tr.dtype))
+    else:
+        assert torch.equal(out[0], addend[0])
+
+
+def test_combine_slots_cuda_entry_refuses_what_the_kernel_cannot_take():
+    """No fallback: a CPU tensor given to the kernel's entry raises, and so
+    do buffers that differ in dtype or more buffers than the launch's
+    parameters hold."""
+    from repro_torch.kernels import combine
+    bufs = [torch.zeros(4, 8) for _ in range(3)]
+    slots = torch.zeros(2, 2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="impl='cuda'"):
+        ops.combine_slots(bufs, slots, impl="cuda")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        combine.combine_slots_cuda(bufs, slots)
+    with pytest.raises(ValueError, match="one\\s+shape, dtype"):
+        combine.combine_slots_cuda(bufs[:2] + [bufs[2].double()], slots)
+    with pytest.raises(ValueError, match="buffers, expected"):
+        combine.combine_slots_cuda(bufs * 22, slots)

@@ -179,3 +179,30 @@ def test_eaas_moe_apply_matches_jax(arch, dead):
     assert int(tst.miss) == int(st.miss)
     if dead is not None:
         assert int(tst.miss) > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-r1", "kimi-k2-1t-a32b"])
+def test_eaas_moe_apply_with_drops_matches_jax(arch):
+    """A capacity of 8 slots per server drops tokens, so -1 slots reach the
+    combine (skipped, as the reference masks them)."""
+    cfg = jget_config(arch).reduced().replace(dtype="float32")
+    tcfg = get_config(arch).reduced().replace(dtype="float32")
+    S, T = 4, 24
+    _, red = jlb.eplb_plan(np.ones(cfg.moe.num_experts), S, n_redundant=2)
+    jp = jmoe.init_eaas_moe(jax.random.PRNGKey(0), cfg, S,
+                            redundant_table=red)
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(2),
+                                     (T, cfg.d_model))) * 0.3
+    jrt = jmoe.default_runtime(cfg, S, T, redundant_table=red,
+                               gemm_impl="xla_ragged")._replace(capacity=8)
+    trt = moe_layer.default_runtime(tcfg, S, T, "cpu",
+                                    redundant_table=red)._replace(capacity=8)
+    y, st = jmoe.eaas_moe_apply(jp, jnp.asarray(x), cfg.moe, jrt,
+                                activation=cfg.activation)
+    tp = params_from_numpy(jax.tree.map(np.asarray, {"embed": np.zeros(
+        (tcfg.padded_vocab, tcfg.d_model), np.float32), **jp}), tcfg, "cpu")
+    ty, tst = moe_layer.eaas_moe_apply(tp, _t(x), tcfg.moe, trt,
+                                       activation=tcfg.activation)
+    assert int(tst.dropped) == int(st.dropped) > 0
+    _close(ty, y)
+    _eq(tst.expert_load, st.expert_load)
