@@ -43,7 +43,21 @@ Phases, each of which raises on failure (exit code != 0):
 7. profile: torch.profiler over 8 full-batch decode steps of each engine,
    with the device operations (kernels, copies) launched per step; then 8
    more with the combine stage as it ran before the slot entry, and the
-   device rows that moved.
+   device rows that moved;
+8. control plane: the earlier engines freed, the same full-width model
+   serves 8 requests (prompts 64-512, 32 greedy tokens) under a Zipf(1.2)
+   router skew twice on one set of weights — frozen, then elastic: the
+   live rebalance controller, a page-out of 16 experts (the 15 coldest and
+   the hottest, so a cold start follows), a one-shot rebalance and
+   scale_to 8 -> 2 -> 4 after the last prefill, all in place.  The token
+   digests must match, nothing may be dropped or missed, the grouped GEMM,
+   flash decode and the combine's slot entry must launch at every pool
+   size, replicas must equal their primaries and freed slots be zero, and
+   each resize must peak within the larger resident set plus one stacked
+   weight tensor (+5 %); each migration chunk, resize and page-out is
+   printed with its device time, bytes and bound (the kernels phase also
+   checks the grouped GEMM at G = 34 and 130 and the slot entry over 8 and
+   2 server buffers, the shapes of pool sizes 8 and 2).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -54,6 +68,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import statistics
@@ -137,17 +152,20 @@ def check_case(torch, name, label, dtype, got, want) -> float:
 
 
 def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
-             ops, twice: bool = False):
+             ops, twice: bool = False, plain_reps: int = 20):
     """Check kernel vs plain on one input (and, with ``twice``, run-to-run
-    bitwise); time kernel, plain, library."""
+    bitwise); time kernel, plain (``plain_reps`` single calls when it is
+    slow), library."""
     got = kernel()
     err = check_case(torch, name, label, dtype, got, plain())
     if twice and not torch.equal(got, kernel()):
         raise AssertionError(f"{name}[{label}]: two runs differ")
     b_ms, b_by = bound_ms(nbytes, ops, dtype)
+    plain_ms = (time_ms(torch, plain) if plain_reps == 20 else
+                time_ms(torch, plain, reps=plain_reps, inner=1, warmup=1))
     case = {"case": label, "dtype": dtype, "max_abs_err": err,
             "tol": TOL[name][dtype],
-            "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
+            "ms": time_ms(torch, kernel), "plain_ms": plain_ms,
             "library_ms": time_ms(torch, library),
             "device_ms": time_ms(torch, kernel, graph=True),
             "library_device_ms": time_ms(torch, library, graph=True),
@@ -175,14 +193,16 @@ def kernels_phase(torch, cfg):
     d, f = cfg.d_model, m.d_expert
     L, M = m.num_experts // 4 + 2, 1280
 
-    def gg_case(label, live_rows, K, N, dtype):
-        G = L if K * N > 1 << 20 else 6
+    def gg_case(label, live_rows, K, N, dtype, G=None, Mr=None,
+                plain_reps=20):
+        big = K * N > 1 << 20
+        G = G or (L if big else 6)
         probs = torch.full((G,), 1.0 / G)
         sizes = torch.bincount(torch.multinomial(
             probs, live_rows, replacement=True,
             generator=torch.Generator().manual_seed(1)), minlength=G)
         sizes_d = sizes.to(dev)
-        Mr = M if G == L else 96
+        Mr = Mr or (M if big else 96)
         x = torch.randn(Mr, K, generator=gen, device=dev).to(dtype)
         w = (torch.randn(G, K, N, generator=gen, device=dev)
              / K ** 0.5).to(dtype)
@@ -201,13 +221,22 @@ def kernels_phase(torch, cfg):
             torch, "grouped_gemm", label, str(dtype)[6:],
             lambda: ops.grouped_gemm(x, w, sizes_d, impl="cuda"),
             lambda: kgg.grouped_gemm_torch(x, w, sizes_d), library,
-            nbytes, 2.0 * live_rows * K * N, twice=live_rows == 16))
+            nbytes, 2.0 * live_rows * K * N, twice=live_rows == 16,
+            plain_reps=plain_reps))
 
     gg_case("decode gate/up, 16 live rows", 16, d, f, bf)
     gg_case("decode down, 16 live rows", 16, f, d, bf)
     gg_case("prefill gate/up, 1024 live rows", 1024, d, f, bf)
     gg_case("prefill down, 1024 live rows", 1024, f, d, bf)
     gg_case("float32 small, 64 live rows", 64, 64, 48, torch.float32)
+    # the control-plane phase's pool sizes (pool_tokens_per_client 1664):
+    # S = 8 servers of 32 + 2 slots over C = 2080 rows, S = 2 of 128 + 2
+    # over C = 8320; decode's 64 picks spread over fewer or more servers
+    for S_, G_, C_, live_ in ((8, 34, 2080, 16), (2, 130, 8320, 40)):
+        for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
+            gg_case(f"control plane, S = {S_}: decode {what}, G = {G_}, "
+                    f"{live_} live rows of {C_}", live_, K_, N_, bf, G=G_,
+                    Mr=C_, plain_reps=3)
 
     # edges of the in-kernel scan: (M, K, N, sizes); rows past the live
     # ones must come back zero from an uninitialised output
@@ -433,6 +462,11 @@ def kernels_phase(torch, cfg):
     cs_case("prefill, 512 tokens, 4 x 1280 rows", 512, bf, False)
     cs_case("float32 small, 64 tokens, 4 x 64 rows, addend", 64,
             torch.float32, True, k=2, C=64, dd=128)
+    # the control-plane phase's pool sizes
+    cs_case("control plane, decode, 8 tokens, 8 x 2080 rows, addend", 8,
+            bf, True, S=8, C=2080)
+    cs_case("control plane, decode, 8 tokens, 2 x 8320 rows, addend", 8,
+            bf, True, S=2, C=8320)
 
     # edges: (T, k, S, C, d, layout, offset); token 0 has every slot dropped
     edges = {"T = 0": (0, 8, 4, 64, 256, "list", 0),
@@ -781,6 +815,291 @@ def paged_serve_phase(torch, cfg, params, rng) -> dict:
     return launches
 
 
+CONTROL_PATH = ("grouped_gemm", "flash_decode", "combine_slots")
+# the live controller and the scripted events, by engine step: 8 prefills
+# take steps 1-8, the 31 decode steps 9-39
+PAGE_OUT_STEP, REBALANCE_STEP = 20, 21
+SCALE_STEPS = {23: 8, 27: 2, 31: 4}
+
+
+def _weights_consistent(torch, eng) -> None:
+    """Every redundant slot holds its expert's primary bit for bit; every
+    empty slot is zero."""
+    pool = eng.pool
+    per = pool.cfg.moe.num_experts // pool.num_servers
+    for name, w in eng.params["blocks"]["moe"]["servers"].items():
+        for s, row in enumerate(pool.redundant_table):
+            for j, e in enumerate(row):
+                slot = w[:, s, per + j]
+                ok = (torch.equal(slot, w[:, e // per, e % per]) if e >= 0
+                      else not bool(slot.any()))
+                if not ok:
+                    raise AssertionError(
+                        f"control plane: {name} server {s} slot {per + j} "
+                        f"(expert {e}) is not its primary / zero")
+
+
+def _slot_bytes(cfg) -> int:
+    """Bytes of one expert slot over both MoE layers and the three
+    weights (w_gate, w_up, w_down), bf16."""
+    return 2 * 3 * cfg.d_model * cfg.moe.d_expert * 2
+
+
+def control_plane_phase(torch, cfg, smi) -> dict:
+    """Full-width deepseek-r1 (1 dense + 2 MoE blocks), dense KV,
+    WallClock, 4 servers x (64 + 2) slots, a Zipf(1.2) router skew from
+    step 0: the same 8 requests served frozen, then elastic — the live
+    RebalanceController, a page-out of 16 experts with a cold start, a
+    one-shot rebalance and scale_to 8 -> 2 -> 4, all in place on one set of
+    weights.  Tokens must be identical, nothing dropped or missed, the
+    replicas bitwise their primaries.  Returns the elastic run's
+    launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (EngineConfig, Request, SamplingParams,
+                                     ServingEngine, VirtualClock, WallClock,
+                                     zipf_bias)
+
+    E = cfg.moe.num_experts
+    # capacity at S = 4 (prefill): ceil(1664 * 8 / 4 * 1.25 / 8) * 8 = 4160
+    # >= 512 tokens x top-8, so no routing can drop a prompt token; the
+    # resizes come after the last prefill (decode: 64 picks a step)
+    base = dict(max_batch=8, max_seq=1024, num_servers=4, n_redundant=2,
+                pool_tokens_per_client=1664)
+    bias = zipf_bias(E, 1.2, scale=1.0, seed=15)
+    rng = np.random.default_rng(15)
+    lengths = rng.integers(64, 513, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), np.int32)
+               for n in lengths]
+    slot_b = _slot_bytes(cfg)
+    vclock = VirtualClock()
+    log(f"control plane: {smi}; deepseek-r1 full width, 2 MoE blocks, "
+        f"4 servers x ({E // 4} + 2) slots, pool_tokens_per_client "
+        f"{base['pool_tokens_per_client']}, zipf_bias(256, 1.2, scale=1.0, "
+        f"seed=15), prompt lengths {lengths.tolist()}")
+
+    def serve(eng, on_step=None):
+        eng.set_skew(bias)
+        reqs = [Request(i, p, SamplingParams(max_new_tokens=32))
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        ops.reset_launches()
+        metrics = eng.run(on_step=on_step)
+        torch.cuda.synchronize()
+        return reqs, metrics, ops.launch_counts()
+
+    def digest(reqs):
+        toks = [list(map(int, r.output_tokens)) for r in reqs]
+        return hashlib.sha1(json.dumps(toks).encode()).hexdigest()[:12]
+
+    def decode_timer(eng, record):
+        """Wrap the engine's decode step: wall seconds by pool size
+        (WallClock.stop synchronizes the card inside it)."""
+        step = eng._step_decode
+
+        def timed(plan):
+            t0 = time.perf_counter()
+            step(plan)
+            record.setdefault(eng.pool.num_servers, []).append(
+                time.perf_counter() - t0)
+        eng._step_decode = timed
+
+    # ---- frozen: no control events, no live controller ------------------
+    frozen = ServingEngine(cfg, EngineConfig(**base), seed=0,
+                           clock=WallClock())
+    frozen_steps = {}
+    decode_timer(frozen, frozen_steps)
+    f_reqs, f_m, f_launch = serve(frozen)
+    _check_completed("control plane (frozen)", f_m, f_reqs, cfg)
+    f_drop, f_miss = int(frozen.executor.dropped), int(frozen.executor.miss)
+    params = frozen.params
+    del frozen                  # (its decode timer holds a cycle: collect)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident0 = torch.cuda.memory_allocated()
+
+    # ---- elastic: the same weights, the control plane at work ------------
+    eng = ServingEngine(cfg, EngineConfig(
+        **base, rebalance_interval=1e-3, rebalance_chunk=2,
+        rebalance_min_gain=0.0), params=params, clock=WallClock())
+    del params
+    steps = {}
+    decode_timer(eng, steps)
+    chunks, scales, page = [], [], {}
+    source = {"now": "live controller"}
+    migrate = eng.apply_migration
+
+    def timed_migration(copies):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        migrate(copies)
+        ev[1].record()
+        ev[1].synchronize()
+        n_copy = sum(1 for _, _, e in copies if e >= 0)
+        chunks.append({"source": source["now"], "copies": n_copy,
+                       "zeroed": len(copies) - n_copy,
+                       "device_ms": ev[0].elapsed_time(ev[1]),
+                       "bytes": (2 * n_copy + len(copies) - n_copy)
+                       * slot_b})
+    eng.apply_migration = timed_migration
+
+    resize = eng.scale_to
+
+    def timed_scale(n):
+        old = eng.pool.num_servers
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        alloc0 = torch.cuda.memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        resize(n)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        alloc1 = torch.cuda.memory_stats()
+        # the caching allocator's own work in the window: fresh device
+        # allocations, releases and out-of-memory retries
+        allocator = {k: alloc1.get(k, 0) - alloc0.get(k, 0) for k in (
+            "num_device_alloc", "num_device_free", "num_alloc_retries")}
+        peak = torch.cuda.max_memory_allocated()
+        after = torch.cuda.memory_allocated()
+        red = eng.pool.redundant_table
+        L2 = E // n + red.shape[1]
+        # one stacked weight tensor (a third of a slot's bytes), the larger
+        # of the old and the new: growing, the resident set grows name by
+        # name, and the last name is built on top of the others' new ones
+        one = max(n * L2, old * (E // old + red.shape[1])) * slot_b // 3
+        read_slots = E + int((red >= 0).sum())
+        nbytes = (read_slots + n * L2) * slot_b
+        scales.append({"from": old, "to": n,
+                       "device_ms": ev[0].elapsed_time(ev[1]),
+                       "wall_ms": wall * 1e3, "bytes": nbytes,
+                       "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                       "resident_gib": resident / 2**30,
+                       "after_gib": after / 2**30,
+                       "peak_gib": peak / 2**30,
+                       "one_tensor_gib": one / 2**30,
+                       "reserved_gib": torch.cuda.memory_reserved() / 2**30,
+                       "allocator": allocator})
+        limit = max(resident, after) + 1.05 * one
+        if peak > limit:
+            raise AssertionError(
+                f"control plane: scale_to({n}) peaked at {peak / 2**30:.2f} "
+                f"GiB, above the larger resident set ({resident / 2**30:.2f} "
+                f"/ {after / 2**30:.2f} GiB) + one stacked tensor "
+                f"{one / 2**30:.2f} GiB + 5 %")
+
+    eng.scale_to = timed_scale
+    # launches by pool size: serve() zeroes the counts before the run
+    seen = {"launch": dict.fromkeys(ops.launch_counts(), 0), "size": 4}
+    by_size = {}
+
+    def tally():
+        now = ops.launch_counts()
+        acc = by_size.setdefault(seen["size"], dict.fromkeys(now, 0))
+        for k in now:
+            acc[k] += now[k] - seen["launch"][k]
+        seen["launch"], seen["size"] = now, eng.pool.num_servers
+
+    def on_step(e):
+        nxt = e.step_idx + 1                  # the step about to run
+        if nxt == PAGE_OUT_STEP:
+            ema = e.pool.stats.ema
+            order = np.argsort(ema, kind="stable")
+            victims = [int(x) for x in order[:15]] + [int(order[-1])]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            source["now"] = "page-out"
+            paged = e.page_out_experts(victims)
+            torch.cuda.synchronize()
+            zero = [c for c in chunks if c["source"] == "page-out"]
+            page.update(experts=len(paged), hottest=int(order[-1]),
+                        wall_ms=(time.perf_counter() - t0) * 1e3,
+                        zeroed_slots=sum(c["zeroed"] for c in zero),
+                        device_ms=sum(c["device_ms"] for c in zero))
+            source["now"] = "live controller"
+        elif nxt == REBALANCE_STEP:
+            before = e.metrics.rebalances
+            source["now"] = "one-shot rebalance"
+            e.rebalance()
+            source["now"] = "live controller"
+            if e.metrics.rebalances != before + 1:
+                raise AssertionError("control plane: the one-shot "
+                                     "rebalance changed no placement")
+            _weights_consistent(torch, e)
+        elif nxt in SCALE_STEPS:
+            live = sum(r is not None for r in e.slots)
+            if e.queue or len(e.scheduler.decode_ready()) != live:
+                raise AssertionError("control plane: a resize before the "
+                                     "last prefill")
+            tally()
+            e.scale_to(SCALE_STEPS[nxt])
+            seen["size"] = e.pool.num_servers
+
+    e_reqs, e_m, e_launch = serve(eng, on_step)
+    tally()
+    _check_completed("control plane (elastic)", e_m, e_reqs, cfg)
+    e_drop, e_miss = int(eng.executor.dropped), int(eng.executor.miss)
+    d_f, d_e = digest(f_reqs), digest(e_reqs)
+    trace = [4] + [x["to"] for x in scales]
+    log(f"control plane: frozen tokens sha1 {d_f}, elastic tokens sha1 "
+        f"{d_e}; dropped {f_drop} / {e_drop}, miss {f_miss} / {e_miss}; "
+        f"pool trace {' -> '.join(map(str, trace))}")
+    m = e_m
+    log(f"control plane: rebalances {m.rebalances} (noops "
+        f"{m.rebalance_noops}), migrated experts {m.migrated_experts}, "
+        f"migration time {m.migration_time * 1e3:.3f} ms on the clock, "
+        f"expert page-outs {m.expert_page_outs}, cold starts "
+        f"{m.cold_starts}; launches by pool size {json.dumps(by_size)}")
+    for c in chunks:
+        if c["source"] == "page-out":
+            continue
+        c["bound_ms"] = c["bytes"] / PEAK_BYTES * 1e3
+        c["bound_share"] = c["bound_ms"] / max(c["device_ms"], 1e-9)
+        c["virtual_ms"] = vclock.stop("migrate", tokens=c["copies"]) * 1e3
+        log(f"control plane: migration chunk {json.dumps(c)} ({smi})")
+    for sc in scales:
+        sc["bound_share"] = sc["bound_ms"] / max(sc["device_ms"], 1e-9)
+        log(f"control plane: scale_to {json.dumps(sc)} ({smi}; the "
+            f"reference's VirtualClock charges a resize nothing)")
+    log(f"control plane: page-out {json.dumps(page)} ({smi}; "
+        f"VirtualClock: no charge, cold start {vclock.cold_start_base} s "
+        "per expert)")
+    def med(rec):
+        return {n: statistics.median(v) * 1e3 for n, v in sorted(rec.items())}
+    log(f"control plane: decode step wall ms (median) by pool size, "
+        f"elastic {json.dumps(med(steps))}, frozen "
+        f"{json.dumps(med(frozen_steps))} ({smi})")
+    log(f"control plane: memory resident after the frozen run "
+        f"{resident0 / 2**30:.2f} GiB")
+
+    _weights_consistent(torch, eng)
+    bad = []
+    if d_f != d_e:
+        bad.append("elastic tokens differ from frozen")
+    if (f_drop, f_miss, e_drop, e_miss) != (0, 0, 0, 0):
+        bad.append("a token was dropped or missed")
+    if m.rebalances < 2 or m.migrated_experts <= 0:
+        bad.append("fewer than 2 rebalances or no migrated expert")
+    if m.expert_page_outs <= 0 or m.cold_starts <= 0:
+        bad.append("no page-out or no cold start")
+    if trace != [4, 8, 2, 4]:
+        bad.append(f"pool trace {trace}")
+    for n in (4, 8, 2):
+        if any(by_size.get(n, {}).get(k, 0) <= 0 for k in CONTROL_PATH):
+            bad.append(f"a kernel never launched at S = {n}")
+    if not any(c["copies"] for c in chunks):
+        bad.append("no migration chunk copied weights")
+    if bad:
+        raise AssertionError(f"control plane: {bad}")
+    del eng
+    return e_launch
+
+
 def _step_profile(torch, eng, steps: int):
     """``steps`` decode steps timed on the host clock, then ``steps`` more
     under torch.profiler (so its overhead touches no reported latency):
@@ -945,6 +1264,11 @@ def main() -> int:
     reference_phase(torch, get_config)
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
     paged_launches = paged_serve_phase(torch, serve_cfg, eng.params, rng)
+    # the control plane owns its weights: it reshards them in place
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    control_launches = control_plane_phase(torch, serve_cfg, smi)
 
     def entry(name):
         cs = cases[name]
@@ -956,7 +1280,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": main[name],
             "launches_by_phase": {"serve": launches[name],
-                                  "serve-paged": paged_launches[name]},
+                                  "serve-paged": paged_launches[name],
+                                  "control-plane": control_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -9,6 +9,7 @@ into the slot layout.  It holds no sequence state and starts no transfer.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -67,21 +68,111 @@ def build_server_weights(bank: Dict, num_servers: int,
     return {k: torch.where(keep, w[gather], 0) for k, w in bank.items()}
 
 
+def _apply_slots(w: torch.Tensor, num_experts: int, updates) -> None:
+    """Write ``[(server, local_slot, expert_id)]`` into ``(…, S, L, a, b)``
+    per-server weights in place: each update is one copy from the expert's
+    primary slot (server ``e // per``, slot ``e % per``; primaries never
+    move and are never targets) or, for ``expert_id == -1``, one zero
+    fill."""
+    S = w.shape[-4]
+    per = num_experts // S
+    assert per * S == num_experts, (num_experts, S)
+    for s, slot, e in updates:
+        dst = w[..., s, slot, :, :]
+        if e >= 0:
+            dst.copy_(w[..., e // per, e % per, :, :])
+        else:
+            dst.zero_()
+
+
 def fill_redundant(server_w: torch.Tensor, num_experts: int,
                    redundant_table: np.ndarray) -> torch.Tensor:
     """Fill the redundant slots of ``(…, S, L, a, b)`` per-server weights
-    in place by copying each expert's primary slot (server e // per, slot
-    e % per); unused slots are zeroed."""
+    in place by copying each expert's primary slot; unused slots are
+    zeroed."""
     S = server_w.shape[-4]
-    per = num_experts // S
     red = np.asarray(redundant_table, np.int32).reshape(S, -1)
-    for s in range(S):
-        for j, e in enumerate(red[s]):
-            dst = server_w[..., s, per + j, :, :]
-            if e >= 0:
-                dst.copy_(server_w[..., e // per, e % per, :, :])
-            else:
-                dst.zero_()
+    _apply_slots(server_w, num_experts,
+                 [(s, redundant_slot(num_experts, S, j), int(e))
+                  for s in range(S) for j, e in enumerate(red[s])])
+    return server_w
+
+
+def extract_bank(server_w: Dict, num_experts: int) -> Dict:
+    """The global ``(…, E, a, b)`` expert bank from per-server ``(…, S, L,
+    a, b)`` arrays: the primary slots, block-contiguous.  A copy whenever
+    redundant slots exist — the serving paths below never build it; the
+    tests compare layouts through it."""
+    def un_shard(w):
+        *lead, S, L, a, b = w.shape
+        per = num_experts // S
+        assert per * S == num_experts, (num_experts, S)
+        return w[..., :per, :, :].reshape(*lead, num_experts, a, b)
+
+    return {k: un_shard(v) for k, v in server_w.items()}
+
+
+def redundant_slot(num_experts: int, num_servers: int, j: int) -> int:
+    """Local slot index of redundant column ``j`` (slots 0..E/S-1 are the
+    block-contiguous primaries)."""
+    return num_experts // num_servers + j
+
+
+def replica_columns(redundant_table: np.ndarray,
+                    expert: int) -> Tuple[Tuple[int, int], ...]:
+    """``(server, column)`` of every replica slot holding ``expert`` in the
+    redundant table, row-major (the scale-to-zero page-out scan)."""
+    red = np.asarray(redundant_table)
+    return tuple((int(s), int(j)) for s, j in np.argwhere(red == expert))
+
+
+def migrate_slots(server_w: Dict, num_experts: int, updates) -> Dict:
+    """Copy expert weights into server slots **in place** — the weight half
+    of one incremental rebalance chunk (paper §4.5 live migration).
+
+    updates: ``[(server, local_slot, expert_id)]``; ``expert_id == -1``
+    zeroes the slot (replica dropped).  Each update is one ``copy_`` (or
+    ``zero_``) of an ``(…, a, b)`` slice from the expert's primary slot, so
+    a chunk moves O(chunk) bytes and never rebuilds a stacked tensor.  The
+    reference's functional ``.at[].set`` gives the same values; here every
+    holder of these tensors sees the change."""
+    for w in server_w.values():
+        _apply_slots(w, num_experts, updates)
+    return server_w
+
+
+def reshard_server_weights(server_w: Dict, num_experts: int,
+                           new_servers: int,
+                           redundant_table: np.ndarray) -> Dict:
+    """Re-lay the per-server weights out for ``new_servers`` servers and
+    the replication plan ``redundant_table`` (elastic scaling's weight
+    path, paper §5.3), replacing each entry of ``server_w`` in place.
+
+    One weight tensor at a time: the new ``(…, S', L', a, b)`` tensor's
+    primaries are copied straight from the old primary slots (a run of
+    experts contiguous in both layouts is one copy), its redundant slots
+    from its own primaries (:func:`fill_redundant`); then it replaces the
+    old tensor, which is dropped before the next name is built.  The global
+    bank is never materialised: while no one else holds the old tensors,
+    the peak is one stacked tensor above the resident weights (the larger
+    of the sets before and after).  Bitwise the reference's gather."""
+    E, S2 = num_experts, new_servers
+    per2 = E // S2
+    assert per2 * S2 == E, (E, S2)
+    red = np.asarray(redundant_table, np.int32).reshape(S2, -1)
+    for name in list(server_w):
+        old = server_w[name]
+        *lead, S, _, a, b = old.shape
+        per = E // S
+        new = torch.empty((*lead, S2, per2 + red.shape[1], a, b),
+                          dtype=old.dtype, device=old.device)
+        n = math.gcd(per, per2)          # runs inside a block of both
+        for e0 in range(0, E, n):
+            new[..., e0 // per2, e0 % per2:e0 % per2 + n, :, :].copy_(
+                old[..., e0 // per, e0 % per:e0 % per + n, :, :])
+        fill_redundant(new, E, red)
+        server_w[name] = new
+        del old, new
     return server_w
 
 

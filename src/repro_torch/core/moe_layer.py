@@ -9,7 +9,7 @@ shared experts on the client.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +33,12 @@ class MoERuntime(NamedTuple):
     num_servers: int
     capacity: int              # tokens per (client, server) slot
     dispatch_method: str = "onehot"   # "onehot" | "sort"
+    # (E,) fp32 router-logit offset (scenario traffic shaping); None =
+    # unbiased
+    route_bias: Optional[torch.Tensor] = None
+    # (S,) fp32 relative server capacities: replica picks spread tokens in
+    # proportion (heterogeneous pools); None = uniform spreading
+    replica_weights: Optional[torch.Tensor] = None
 
 
 class MoEStats(NamedTuple):
@@ -106,12 +112,12 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
     dev = x.device
 
     # ---- client: route + resolve service instances ----------------------
-    r = router.route(params["router"], x, cfg_moe)
+    r = router.route(params["router"], x, cfg_moe, bias=runtime.route_bias)
     k = r.expert_ids.shape[1]
     salt = (torch.arange(T, device=dev)[:, None]
             + torch.arange(k, device=dev)[None, :])
     server_ids = emap.lookup(runtime.mapping, runtime.alive, r.expert_ids,
-                             salt)
+                             salt, weights=runtime.replica_weights)
 
     # ---- client: pack buffer slots (paper §3.2) --------------------------
     buffers = dispatch.pack(x, r.expert_ids, r.scores, server_ids, S, C,

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -24,9 +24,16 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(params: Dict, x: torch.Tensor, cfg: MoEConfig) -> RouterOutput:
-    """x (T, d) -> RouterOutput over cfg.num_experts with cfg.top_k."""
+def route(params: Dict, x: torch.Tensor, cfg: MoEConfig,
+          bias: Optional[torch.Tensor] = None) -> RouterOutput:
+    """x (T, d) -> RouterOutput over cfg.num_experts with cfg.top_k.
+
+    ``bias``: optional (E,) fp32 logit offset added before scoring (the
+    scenario's traffic shaping, ``set_skew``); zeros reproduce the unbiased
+    router bit for bit."""
     logits = x.float() @ params["w_router"]                  # (T, E)
+    if bias is not None:
+        logits = logits + bias.float()
     if cfg.router_score_fn == "softmax":
         probs = torch.softmax(logits, dim=-1)
     elif cfg.router_score_fn == "sigmoid":

@@ -2,10 +2,21 @@
 
 :class:`ServingEngine` wires :class:`~repro_torch.serving.scheduler
 .Scheduler` -> :class:`~repro_torch.serving.executor.Executor` -> metrics
-around a :class:`~repro_torch.serving.clock.Clock`, and keeps the EAAS
-failover control: a server failure is a liveness-mask update in the
-expert->server mapping, so the next step routes around the dead server's
-experts (to their replicas) without stopping.
+around a :class:`~repro_torch.serving.clock.Clock`, and keeps the control
+plane over the expert tier:
+
+* failover — a server failure is a liveness-mask update in the
+  expert->server mapping, so the next step routes around the dead
+  server's experts (to their replicas) without stopping;
+* rebalancing — one-shot (``rebalance``) or live
+  (``rebalance_interval > 0``: the
+  :class:`~repro_torch.serving.rebalance.RebalanceController` migrates
+  replica weights a chunk per step, in place);
+* elasticity — ``scale_to`` reshards the expert weights for a new pool
+  size, ``page_out_experts`` evicts cold experts' replicas (the first
+  token routed back pays the clock's cold start); the
+  :class:`~repro_torch.serving.autoscale.Autoscaler` drives both;
+* traffic shaping (``set_skew``) and stragglers (``set_server_speed``).
 
 The KV cache is either dense (per-slot buffers) or paged
 (``kv_mode="paged"``: a shared block pool with prefix caching,
@@ -26,11 +37,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.elastic import ServerPool
+from repro_torch.core.monitor import Monitor
 from repro_torch.models.transformer import build_model
 from repro_torch.serving.clock import Clock, WallClock
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.kv_pool import BlockPool
 from repro_torch.serving.metrics import ServingMetrics
+from repro_torch.serving.rebalance import (RebalanceConfig,
+                                           RebalanceController,
+                                           oneshot_rebalance)
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampling import sample_batch
 from repro_torch.serving.scheduler import (DecodeBatch, PrefillChunk,
@@ -68,6 +83,21 @@ class EngineConfig:
     # feed chunked-prefill router traffic into the expert-load EMA (decode
     # steps always feed it)
     prefill_load_feedback: bool = True
+    # --- live rebalancing ------------------------------------------------
+    # seconds between live replan evaluations (0 = off: placement changes
+    # only through rebalance() / scale_to())
+    rebalance_interval: float = 0.0
+    # expert-weight copies migrated per engine step once a replan is staged
+    rebalance_chunk: int = 2
+    # relative imbalance improvement required before migrating (hysteresis)
+    rebalance_min_gain: float = 0.05
+    # post-placement-change quiet period, shared with the autoscaler
+    rebalance_cooldown: float = 0.05
+    # charge decode steps for hot-expert skew: the virtual step's expert
+    # share stretches by the pool's max/mean alive-server load
+    charge_imbalance: bool = False
+    # relative per-server capacity weights ((num_servers,) or None)
+    server_capacities: Optional[np.ndarray] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -103,13 +133,17 @@ class ServingEngine:
                 cfg, S,
                 tokens_per_client=(engine_cfg.pool_tokens_per_client
                                    or engine_cfg.max_batch),
-                n_redundant=engine_cfg.n_redundant)
+                n_redundant=engine_cfg.n_redundant,
+                capacities=engine_cfg.server_capacities)
         self.model = build_model(
             cfg, S, self.pool.redundant_table if self.pool else None,
             self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init_params(gen)
+        self.monitor = Monitor(heartbeat_timeout=3.0)
+        if self.pool:
+            self.monitor.subscribe_server_down(self.pool.server_failed)
         self.kv_pool: Optional[BlockPool] = None
         if engine_cfg.kv_mode == "paged":
             bs = engine_cfg.kv_block_size
@@ -140,6 +174,21 @@ class ServingEngine:
         self.metrics = ServingMetrics()
         self.step_idx = 0
         self.clock = 0.0
+        # per-server straggler factors (scenario slow_server): a lockstep
+        # decode step is charged the slowest alive server's factor
+        self.server_speed = np.ones(self._pool_size())
+        # shared placement cooldown (rebalance commits, resizes, page-outs)
+        self.last_placement_change = float("-inf")
+        self.rebalancer: Optional[RebalanceController] = None
+        if engine_cfg.rebalance_interval > 0 and self.pool is not None:
+            self.rebalancer = RebalanceController(RebalanceConfig(
+                interval=engine_cfg.rebalance_interval,
+                chunk=engine_cfg.rebalance_chunk,
+                min_gain=engine_cfg.rebalance_min_gain,
+                cooldown=engine_cfg.rebalance_cooldown))
+        # compute the imbalance gauge each decode step (it walks the
+        # mapping in Python): only when the controller reads it
+        self.track_imbalance = self.rebalancer is not None
 
     @property
     def queue(self):
@@ -159,6 +208,23 @@ class ServingEngine:
 
     def _pool_size(self) -> int:
         return self.pool.num_servers if self.pool else 1
+
+    def _straggle(self) -> float:
+        """Slowdown factor of the slowest *alive* expert server — a
+        lockstep expert phase finishes with its slowest server."""
+        if self.pool is None:
+            return 1.0
+        alive = self.pool.smap.alive
+        n = min(len(alive), len(self.server_speed))
+        sp = self.server_speed[:n][alive[:n]]
+        return float(sp.max()) if sp.size else 1.0
+
+    # ----------------------------------------------------- autoscaler signals
+    def pending_prefill_tokens(self) -> int:
+        return self.scheduler.pending_prefill_tokens()
+
+    def kv_free_fraction(self) -> float:
+        return self.scheduler.kv_free_fraction()
 
     # ------------------------------------------------------------- control
     def submit(self, req: Request) -> None:
@@ -186,6 +252,109 @@ class ServingEngine:
         if self.pool and rank < self.pool.num_servers:
             self.pool.server_recovered(rank)
 
+    def set_server_speed(self, rank: int, factor: float) -> None:
+        """Mark expert server ``rank`` as ``factor``x slower (scenario
+        ``slow_server``; 1.0 restores it): every lockstep decode step is
+        charged the slowest alive server's factor."""
+        if self.pool is None or rank >= len(self.server_speed):
+            return
+        if factor <= 0:
+            raise ValueError(f"server speed factor must be > 0: {factor}")
+        self.server_speed[rank] = float(factor)
+        self.metrics.events.append(
+            {"t": self.clock, "event": "slow_server", "rank": rank,
+             "factor": float(factor)})
+
+    def apply_migration(self, copies) -> None:
+        """Apply one expert-weight migration chunk to the executor's
+        weights, in place."""
+        self.executor.migrate_slots(copies)
+
+    def charge_migration(self, dt: float) -> None:
+        """A migration chunk stalls the lockstep engine: advance the
+        clock."""
+        self.clock += dt
+
+    def page_out_experts(self, experts) -> list:
+        """Scale-to-zero: page cold experts out of the expert tier (their
+        replica slots are zeroed through the migration path; the mapping
+        keeps the primary as the page-in source).  The first token later
+        routed to one pages it back in at the clock's ``cold_start_base``.
+        Returns the experts paged out."""
+        if self.pool is None:
+            return []
+        paged, updates = self.pool.page_out_experts(experts)
+        if updates:
+            self.apply_migration(updates)
+        if paged:
+            self.last_placement_change = self.clock
+            self.metrics.expert_page_outs += len(paged)
+            self.metrics.events.append(
+                {"t": self.clock, "event": "page_out",
+                 "experts": len(paged)})
+        return paged
+
+    def _charge_cold_starts(self, load: np.ndarray) -> float:
+        """Page in every cold expert this step's routed load touched;
+        return the stall (``cold_start`` on the clock).  Values never
+        depend on residency — the primary stayed addressable, so the
+        tokens already computed exactly; only time passes here."""
+        pool = self.pool
+        if not pool.cold:
+            return 0.0
+        hits = sorted(e for e in pool.cold
+                      if e < load.shape[0] and load[e] > 0)
+        if not hits:
+            return 0.0
+        for e in hits:
+            pool.page_in_expert(e, self.clock)
+        self.clk.start()
+        dt = self.clk.stop("cold_start", tokens=len(hits))
+        self.metrics.cold_starts += len(hits)
+        self.metrics.cold_start_time += dt
+        self.metrics.events.append(
+            {"t": self.clock, "event": "cold_start", "experts": len(hits),
+             "dt": dt})
+        return dt
+
+    def rebalance(self) -> None:
+        """One-shot EPLB replica re-planning from live traffic (paper
+        §4.5): a placement-identical plan is a no-op; a changed one
+        migrates the replica weights and the mapping in one step (charged
+        as one ``migrate``)."""
+        if self.pool is None:
+            return
+        if self.rebalancer is not None:
+            self.rebalancer.abort()      # the one-shot replan supersedes it
+        oneshot_rebalance(self)
+
+    def set_skew(self, bias: np.ndarray) -> None:
+        """Install a router-logit bias (scenario ``set_skew``): runtime
+        data, read at the next step."""
+        if self.pool is None:
+            return
+        self.pool.set_route_bias(bias)
+        bias = np.asarray(bias, np.float64)
+        self.metrics.events.append(
+            {"t": self.clock, "event": "set_skew",
+             "spread": round(float(bias.max() - bias.min()), 6)})
+
+    def scale_to(self, n: int) -> None:
+        """Resize the expert-server pool to ``n`` servers (paper §5.3): the
+        pool re-plans (liveness kept), the executor reshards the expert
+        weights in place, in-flight requests keep their KV cache."""
+        if self.pool is None or n == self.pool.num_servers:
+            return
+        old = self.pool.num_servers
+        if self.rebalancer is not None:
+            self.rebalancer.abort()      # a resize replans placement anyway
+        self.pool.scale_to(n)
+        self.executor.resize(self.pool)
+        self.server_speed = np.ones(n)   # fresh pool, fresh speeds
+        self.last_placement_change = self.clock
+        self.metrics.events.append(
+            {"t": self.clock, "event": "scale", "from": old, "to": n})
+
     # ---------------------------------------------------------------- step
     def step(self) -> None:
         """Run whatever the scheduler plans next: a prefill chunk, a decode
@@ -198,6 +367,9 @@ class ServingEngine:
             self._step_decode(plan)
         else:
             self.clock += self.clk.idle()
+        if self.rebalancer is not None:
+            # migration chunks interleave with decode steps (paper §4.5)
+            self.rebalancer.step(self)
         if self.kv_pool is not None:
             self.metrics.observe_kv(self.kv_pool, self.scheduler.preemptions)
 
@@ -223,13 +395,17 @@ class ServingEngine:
             logits, expert_load = self.executor.prefill_chunk(
                 b, plan.tokens, plan.start, is_first=plan.is_first,
                 is_last=plan.is_last)
-        if (expert_load is not None and self.pool is not None
-                and self.ecfg.prefill_load_feedback):
-            self.pool.observe_load(expert_load.cpu().numpy())
+        load = (expert_load.cpu().numpy()
+                if expert_load is not None and self.pool is not None
+                else None)
+        if load is not None and self.ecfg.prefill_load_feedback:
+            self.pool.observe_load(load)
         self.clock += self.clk.stop("prefill", result=logits,
                                     tokens=plan.length,
                                     servers=self._pool_size(),
                                     alive_frac=self._alive_frac())
+        if load is not None:
+            self.clock += self._charge_cold_starts(load)
         self.scheduler.prefill_advanced(b, plan.length)
         if plan.is_last and not req.output_tokens:
             # a resumed (preempted) request already holds its next input
@@ -255,12 +431,24 @@ class ServingEngine:
                 tokens, sch.block_tables, sch.cache_lengths())
         else:
             logits, expert_load = self.executor.decode(tokens)
+        imbalance = 1.0
         if self.pool is not None:
-            self.pool.observe_load(expert_load.cpu().numpy())
+            # this step's traffic first, so the imbalance charged (and
+            # surfaced) reflects it
+            load = expert_load.cpu().numpy()
+            self.pool.observe_load(load)
+            if self.ecfg.charge_imbalance or self.track_imbalance:
+                imbalance = self.pool.current_imbalance()
+                self.metrics.observe_balance(imbalance)
         dt = self.clk.stop("decode", result=logits, tokens=len(active),
                            servers=self._pool_size(),
-                           alive_frac=self._alive_frac())
+                           alive_frac=self._alive_frac(),
+                           imbalance=(imbalance if self.ecfg.charge_imbalance
+                                      else 1.0),
+                           straggle=self._straggle())
         self.clock += dt
+        if self.pool is not None:
+            self.clock += self._charge_cold_starts(load)
         reqs = [sch.slots[b] for b in active]
         next_tokens = self._sample(logits[active], reqs,
                                    [len(r.output_tokens) for r in reqs])

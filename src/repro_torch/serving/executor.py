@@ -20,7 +20,10 @@ every layer (``copy_blocks``).
 
 The reference's ``jax.jit`` has no counterpart: PyTorch runs eagerly.  The
 expert->server mapping, liveness mask and local table are read from the
-pool at every step, so failover takes effect at the next step.
+pool at every step, so failover, rebalancing and resizing take effect at
+the next step.  The executor owns its params: ``migrate_slots`` and
+``resize`` write the expert weights in place (no other engine may hold
+them then).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import expert_server
 from repro_torch.core.moe_layer import MoEStats
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.transformer import Model
@@ -162,3 +166,30 @@ class Executor:
         dst = torch.as_tensor([d for _, d in pairs], device=self.device)
         for c in self.cache.values():
             kvc.copy_blocks(c, src, dst, stacked=True)
+
+    # ------------------------------------------------------ control plane
+    def _server_weights(self):
+        """The per-server expert weight dicts of every MoE layer stack."""
+        return [group["moe"]["servers"] for group in self.params.values()
+                if isinstance(group, dict) and "moe" in group]
+
+    @torch.no_grad()
+    def migrate_slots(self, updates) -> None:
+        """One incremental migration chunk on every MoE layer, in place:
+        ``[(server, local_slot, expert_id)]``, ``-1`` zeroes the slot.  The
+        pool drops the old replica before this copy and registers the new
+        one after it lands (break-before-make)."""
+        E = self.model.cfg.moe.num_experts
+        for sw in self._server_weights():
+            expert_server.migrate_slots(sw, E, updates)
+
+    @torch.no_grad()
+    def resize(self, pool) -> None:
+        """Adopt a resized pool: reshard the expert weights for its size
+        and replication plan, one stacked tensor at a time.  The KV cache
+        and staging caches are untouched — scaling drops no work."""
+        self.pool = pool
+        E = self.model.cfg.moe.num_experts
+        for sw in self._server_weights():
+            expert_server.reshard_server_weights(
+                sw, E, pool.num_servers, pool.redundant_table)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import hashlib
 import json
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -30,6 +30,17 @@ class ServingMetrics:
     kv_evictions: int = 0              # cached blocks reclaimed by the pool
     kv_cow_forks: int = 0              # copy-on-write block forks
     kv_peak_block_util: float = 0.0    # max live-block share over the run
+    # --- scale-to-zero experts (zero unless experts are paged out) -------
+    cold_starts: int = 0               # page-ins triggered by routed traffic
+    cold_start_time: float = 0.0       # seconds stalled on cold starts
+    expert_page_outs: int = 0          # experts this engine paged out
+    # --- expert balance and live placement changes ----------------------
+    expert_imbalance: float = 1.0      # latest max/mean alive-server load
+    peak_expert_imbalance: float = 1.0  # worst imbalance seen over the run
+    rebalances: int = 0                # committed live placement re-plans
+    rebalance_noops: int = 0           # evaluations whose plan was identical
+    migrated_experts: int = 0          # expert-weight copies applied
+    migration_time: float = 0.0        # seconds charged to migration chunks
 
     @property
     def decode_throughput(self) -> float:
@@ -40,6 +51,12 @@ class ServingMetrics:
     def prefix_hit_rate(self) -> float:
         """Cached share of the prompt blocks probed at admission."""
         return self.prefix_hit_blocks / max(self.prefix_lookup_blocks, 1)
+
+    def observe_balance(self, imbalance: float) -> None:
+        """Record the pool's traffic-EMA imbalance after a decode step."""
+        self.expert_imbalance = imbalance
+        self.peak_expert_imbalance = max(self.peak_expert_imbalance,
+                                         imbalance)
 
     def observe_kv(self, pool, preemptions: int) -> None:
         """Snapshot the block pool after an engine step (idempotent —
@@ -57,6 +74,21 @@ class ServingMetrics:
 
     def ttft_stats(self) -> Dict[str, float]:
         return _latency_stats(self.ttfts)
+
+    def throughput_curve(self, bin_width: float
+                         ) -> List[Tuple[float, float]]:
+        """Decode throughput per time bin, [(bin midpoint, tok/s), ...]:
+        the paper's Fig. 10 curve, from the step timeline."""
+        if not self.timeline:
+            return []
+        t_end = max(entry["t"] for entry in self.timeline)
+        n_bins = max(1, int(np.ceil(t_end / bin_width)))
+        toks = np.zeros(n_bins)
+        for entry in self.timeline:
+            b = min(int(entry["t"] / bin_width), n_bins - 1)
+            toks[b] += entry["tokens"]
+        return [((b + 0.5) * bin_width, float(toks[b] / bin_width))
+                for b in range(n_bins)]
 
     def fingerprint(self, ndigits: int = 9) -> str:
         """Content hash of the full run timeline (times rounded to
@@ -87,11 +119,17 @@ class ServingMetrics:
             "kv": [self.preemptions, self.prefix_hit_blocks,
                    self.prefix_lookup_blocks, self.kv_evictions,
                    self.kv_cow_forks, self.kv_peak_block_util],
-            # live rebalancing is not ported: the reference's defaults
-            # (rebalances, no-ops, migrated, migration time, imbalance,
-            # peak imbalance)
-            "balance": [0, 0, 0, 0.0, 1.0, 1.0],
+            "balance": [self.rebalances, self.rebalance_noops,
+                        self.migrated_experts, self.migration_time,
+                        self.expert_imbalance,
+                        self.peak_expert_imbalance],
         })
+        if self.cold_starts or self.expert_page_outs:
+            # conditional, as in the reference: a run that never pages an
+            # expert fingerprints as before
+            payload["elastic"] = [self.cold_starts,
+                                  round(self.cold_start_time, ndigits),
+                                  self.expert_page_outs]
         blob = json.dumps(payload, sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()
 
@@ -106,6 +144,17 @@ class ServingMetrics:
             "ttft": {k: round(v * 1e3, 3)
                      for k, v in self.ttft_stats().items()},
         }
+        if self.rebalances or self.migrated_experts or \
+                self.peak_expert_imbalance > 1.0:
+            out["balance"] = {
+                "expert_imbalance": round(self.expert_imbalance, 4),
+                "peak_expert_imbalance": round(self.peak_expert_imbalance,
+                                               4),
+                "rebalances": self.rebalances,
+                "rebalance_noops": self.rebalance_noops,
+                "migrated_experts": self.migrated_experts,
+                "migration_time_s": round(self.migration_time, 4),
+            }
         if self.prefix_lookup_blocks or self.kv_peak_block_util:
             out["kv"] = {
                 "peak_block_util": round(self.kv_peak_block_util, 4),
@@ -114,6 +163,12 @@ class ServingMetrics:
                 "preemptions": self.preemptions,
                 "evictions": self.kv_evictions,
                 "cow_forks": self.kv_cow_forks,
+            }
+        if self.cold_starts or self.expert_page_outs:
+            out["elastic"] = {
+                "cold_starts": self.cold_starts,
+                "cold_start_time_s": round(self.cold_start_time, 4),
+                "expert_page_outs": self.expert_page_outs,
             }
         return out
 

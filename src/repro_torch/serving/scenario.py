@@ -1,9 +1,10 @@
-"""Deterministic scenario engine for serving experiments (a subset of
-``src/repro/serving/scenario.py``).
+"""Deterministic scenario engine for serving experiments (the reference's
+``src/repro/serving/scenario.py`` without the cluster verbs).
 
 A :class:`Scenario` scripts a timeline once, deterministically — traffic
-arrives, expert servers fail and recover, the scheduling policy switches —
-and replays it against a :class:`~repro_torch.serving.engine.ServingEngine`,
+arrives, expert servers fail, recover and straggle, the router skews, the
+placement rebalances, the pool resizes (or an autoscaler resizes it) — and
+replays it against a :class:`~repro_torch.serving.engine.ServingEngine`,
 usually under a :class:`~repro_torch.serving.clock.VirtualClock`, so two
 runs with the same seed give bit-identical metrics, and so do the port and
 the reference on the same trace.
@@ -16,14 +17,17 @@ DSL (chained calls, times are engine-clock seconds)::
           .shared_prefix(n_prefixes=2, prefix_len=16, suffix_len=6)
           .fail(rank=1, t=0.5)              # expert-server failure
           .recover(rank=1, t=0.9)
-          .set_policy(t=1.2, policy="fair"))
+          .set_policy(t=1.2, policy="fair")
+          .zipf_skew(alpha=1.2, scale=1.0)  # Zipf-skewed expert traffic
+          .rebalance(t=1.2)
+          .scale_to(n=2, t=1.5))            # or .autoscale(Autoscaler(...))
     result = sc.run(engine)
 
 Arrival processes are inhomogeneous Poisson, sampled by Lewis–Shedler
 thinning from a seeded generator — the trace depends only on
-(seed, rate schedule, horizon), never on engine state.  The reference's
-other verbs raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+(seed, rate schedule, horizon), never on engine state.  The cluster verbs
+(``fail_client``, ``recover_client``, ``set_frontend_policy``) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -38,6 +42,32 @@ from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.request import Request, SamplingParams
 
 RateFn = Callable[[float], float]
+
+
+# ------------------------------------------------------------ traffic skew
+
+def zipf_bias(num_experts: int, alpha: float, scale: float = 2.0,
+              seed: int = 0, rotation: int = 0) -> np.ndarray:
+    """Router-logit bias tilting expert traffic toward a Zipf(``alpha``)
+    profile over a seeded expert permutation.
+
+    Rank r (0-based) of the permutation gets bias ``scale * log p_r`` with
+    ``p_r ∝ (r+1)^-alpha`` (normalized so the hottest expert sits at 0 and
+    everything else is negative).  ``scale`` sets how hard the bias
+    dominates the natural router logits: ~0.5 nudges, ≥3 concentrates
+    traffic onto the top-k hottest experts.  ``rotation`` rolls the
+    permutation — the shifting-hot-set trace rotates it every period, the
+    regime where frozen placement is always chasing stale traffic.
+    ``alpha=0`` is the uniform profile: an all-zero bias, bit-identical to
+    unbiased routing.
+    """
+    ranks = np.arange(1, num_experts + 1, dtype=np.float64) ** (-alpha)
+    p = ranks / ranks.sum()
+    perm = np.roll(np.random.default_rng(seed).permutation(num_experts),
+                   rotation)
+    bias = np.empty(num_experts, np.float64)
+    bias[perm] = scale * np.log(p)
+    return (bias - bias.max()).astype(np.float32)
 
 
 # --------------------------------------------------------------- rate shapes
@@ -87,8 +117,10 @@ def sample_arrival_times(rate_fn: RateFn, horizon: float,
 @dataclass(frozen=True)
 class ScenarioEvent:
     t: float
-    kind: str                          # fail | recover | set_policy
-    value: Optional[object] = None     # rank / policy
+    # fail | recover | rebalance | scale_to | set_policy | set_skew |
+    # slow_server | set_elastic
+    kind: str
+    value: Optional[object] = None     # rank / pool size / policy / ...
 
 
 @dataclass
@@ -115,8 +147,7 @@ def _not_ported(verb: str, item: str):
 
 
 class Scenario:
-    """A scripted, seeded timeline of traffic, failures and policy
-    switches."""
+    """A scripted, seeded timeline of traffic, faults, skew and scaling."""
 
     def __init__(self, horizon: float, seed: int = 0, prompt_len: int = 8,
                  max_new: int = 16, vocab: int = 512):
@@ -128,6 +159,7 @@ class Scenario:
         self.events: List[ScenarioEvent] = []
         self._base_rate: RateFn = constant_rate(0.0)
         self._rate_overrides: List[Tuple[float, float]] = []  # set_rate pts
+        self._autoscaler = None
         self._shared_prefix: Optional[Tuple[int, int, int]] = None
 
     # ------------------------------------------------------------- traffic
@@ -183,19 +215,81 @@ class Scenario:
         self.events.append(ScenarioEvent(float(t), "set_policy", policy))
         return self
 
-    slow_server = _not_ported("slow_server", "item 7 (control plane)")
-    rebalance = _not_ported("rebalance", "item 7 (control plane)")
-    scale_to = _not_ported("scale_to", "item 7 (control plane)")
-    set_skew = _not_ported("set_skew", "item 7 (control plane)")
-    zipf_skew = _not_ported("zipf_skew", "item 7 (control plane)")
-    shifting_hot_set = _not_ported("shifting_hot_set",
-                                   "item 7 (control plane)")
-    autoscale = _not_ported("autoscale", "item 7 (control plane)")
-    set_elastic = _not_ported("set_elastic", "item 8 (elasticity)")
-    fail_client = _not_ported("fail_client", "item 8 (cluster)")
-    recover_client = _not_ported("recover_client", "item 8 (cluster)")
+    def slow_server(self, rank: int, t: float,
+                    factor: float = 4.0) -> "Scenario":
+        """Expert server ``rank`` becomes a straggler at ``t``: its compute
+        runs ``factor``× slower until reset (``factor=1.0``).  A lockstep
+        engine waits for its slowest server every decode step."""
+        self.events.append(ScenarioEvent(
+            float(t), "slow_server", (int(rank), float(factor))))
+        return self
+
+    def rebalance(self, t: float) -> "Scenario":
+        self.events.append(ScenarioEvent(float(t), "rebalance"))
+        return self
+
+    def scale_to(self, n: int, t: float) -> "Scenario":
+        self.events.append(ScenarioEvent(float(t), "scale_to", n))
+        return self
+
+    # ---------------------------------------------------------- skew events
+    def set_skew(self, t: float, alpha: float, scale: float = 2.0,
+                 rotation: int = 0) -> "Scenario":
+        """From time ``t``, bias the engine's router toward a Zipf(alpha)
+        expert profile (:func:`zipf_bias` over this scenario's seed).
+        ``alpha=0`` clears the skew.  Applied at t=0 the skew is constant
+        over the run, so routing stays a pure function of request content —
+        engines with different placements (frozen vs rebalanced) still
+        produce bitwise-identical greedy token streams."""
+        self.events.append(ScenarioEvent(
+            float(t), "set_skew",
+            (float(alpha), float(scale), int(rotation))))
+        return self
+
+    def zipf_skew(self, alpha: float, scale: float = 2.0) -> "Scenario":
+        """Constant Zipf-skewed expert traffic for the whole run (the
+        hot-expert regime MegaScale-Infer targets)."""
+        return self.set_skew(0.0, alpha, scale)
+
+    def shifting_hot_set(self, alpha: float, period: float,
+                         scale: float = 2.0) -> "Scenario":
+        """Rotate the Zipf hot set every ``period`` seconds: each shift
+        re-rolls which experts are hot, so a frozen placement is always
+        provisioned for the *previous* hot set while a live rebalancer
+        chases the traffic."""
+        t, rotation = 0.0, 0
+        while t < self.horizon:
+            self.set_skew(t, alpha, scale, rotation=rotation)
+            t += float(period)
+            rotation += 1
+        return self
+
+    def autoscale(self, autoscaler, min_clients: int = None,
+                  max_clients: int = None) -> "Scenario":
+        """Attach an :class:`~repro_torch.serving.autoscale.Autoscaler`
+        policy loop (observed each step; its decisions become
+        ``engine.scale_to`` / ``engine.page_out_experts``).  ``min_clients``
+        / ``max_clients`` bound its attention-tier controller, which acts
+        only on a cluster (not ported)."""
+        if min_clients is not None:
+            autoscaler.cfg.min_clients = int(min_clients)
+        if max_clients is not None:
+            autoscaler.cfg.max_clients = int(max_clients)
+        self._autoscaler = autoscaler
+        return self
+
+    def set_elastic(self, t: float, enabled: bool = True) -> "Scenario":
+        """Freeze/unfreeze the attached autoscaler at ``t`` (all three
+        controllers: servers, clients, expert paging).  A scenario can
+        script a static warm-up phase, then flip elasticity on."""
+        self.events.append(ScenarioEvent(float(t), "set_elastic",
+                                         bool(enabled)))
+        return self
+
+    fail_client = _not_ported("fail_client", "item 8 (the cluster)")
+    recover_client = _not_ported("recover_client", "item 8 (the cluster)")
     set_frontend_policy = _not_ported("set_frontend_policy",
-                                      "item 8 (cluster)")
+                                      "item 8 (the cluster)")
 
     # ------------------------------------------------------------ sampling
     def build_arrivals(self) -> List[Request]:
@@ -243,11 +337,17 @@ class Scenario:
             t = engine.clock
             while ai < len(arrivals) and arrivals[ai].arrival_time <= t:
                 engine.submit(arrivals[ai])
+                if self._autoscaler is not None:
+                    self._autoscaler.observe_arrival(t)
                 ai += 1
             while ei < len(pending) and pending[ei].t <= t:
                 self._apply(pending[ei], engine)
                 applied.append(dataclasses.asdict(pending[ei]))
                 ei += 1
+            # the policy loop runs only while the scripted timeline is live;
+            # drain time would read as a rate collapse and scale to min
+            if self._autoscaler is not None and t < self.horizon:
+                self._autoscaler.step(engine, t)
             trace.append((t, pool_size()))
             exhausted = ai >= len(arrivals) and ei >= len(pending)
             busy = engine.queue or any(s is not None for s in engine.slots)
@@ -261,13 +361,30 @@ class Scenario:
         return ScenarioResult(metrics=engine.metrics, requests=arrivals,
                               applied=applied, server_trace=trace)
 
-    @staticmethod
-    def _apply(ev: ScenarioEvent, engine) -> None:
+    def _apply(self, ev: ScenarioEvent, engine) -> None:
         if ev.kind == "fail":
             engine.inject_server_failure(ev.value)
         elif ev.kind == "recover":
             engine.recover_server(ev.value)
+        elif ev.kind == "rebalance":
+            engine.rebalance()
+        elif ev.kind == "scale_to":
+            engine.scale_to(ev.value)
         elif ev.kind == "set_policy":
             engine.set_policy(ev.value)
+        elif ev.kind == "slow_server":
+            engine.set_server_speed(*ev.value)
+        elif ev.kind == "set_elastic":
+            if self._autoscaler is None:
+                raise ValueError("set_elastic needs an attached autoscaler "
+                                 "(call .autoscale(...) first)")
+            self._autoscaler.enabled = bool(ev.value)
+        elif ev.kind == "set_skew":
+            if engine.cfg.moe is None:
+                return
+            alpha, scale, rotation = ev.value
+            engine.set_skew(zipf_bias(engine.cfg.moe.num_experts, alpha,
+                                      scale=scale, seed=self.seed,
+                                      rotation=rotation))
         else:
             raise ValueError(f"unknown scenario event {ev.kind!r}")

@@ -170,6 +170,19 @@ class Scheduler:
             np.asarray(req.prompt, np.int32),
             np.asarray(req.output_tokens[:-1], np.int32)])
 
+    def pending_prefill_tokens(self) -> int:
+        """Sequence tokens not yet prefilled (queued + mid-chunk backlog) —
+        the autoscaler's prefill-pressure signal."""
+        queued = sum(self._eff_len(r) for r in self.queue)
+        inflight = sum(self._eff_len(self.slots[b]) - done
+                       for b, done in self._progress.items())
+        return queued + inflight
+
+    def kv_free_fraction(self) -> float:
+        """Free-block fraction of the KV pool (1.0 when not paged) — the
+        autoscaler's KV-pressure signal."""
+        return self.kv.free_fraction() if self.kv is not None else 1.0
+
     def cache_length(self, slot: int) -> int:
         """Tokens a live slot's cache holds right now (paged lengths are
         host-authoritative; the engine uploads them at each step)."""

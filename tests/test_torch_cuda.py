@@ -394,3 +394,118 @@ def test_combine_slots_cuda_graph_capture(cuda, rng):
     torch.cuda.synchronize()
     assert torch.equal(out, ops.combine_slots(responses, slots, addend=add,
                                               impl="torch"))
+
+
+# ------------------------------------------------- control-plane weight paths
+
+def _stacked_servers(device, E, S, red, d, f, dtype, seed=0):
+    """(2, S, L, ...) per-server weights with the redundant slots filled, as
+    ``init_eaas_moe(lead=(2,))`` lays them out."""
+    from repro_torch.core import expert_server
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    out = {}
+    for name, (a, b) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                         ("w_down", (f, d))):
+        w = torch.empty((2, S, E // S + red.shape[1], a, b), dtype=dtype)
+        w[:, :, :E // S] = torch.randn((2, S, E // S, a, b),
+                                       generator=gen).to(dtype)
+        out[name] = expert_server.fill_redundant(w, E, red).to(device)
+    return out
+
+
+@pytest.mark.cuda
+def test_migrate_slots_on_card_equals_cpu_bitwise(cuda):
+    from repro_torch.core import expert_server, load_balance
+
+    E, S = 64, 4
+    red_old = np.array([[5, -1], [17, 40], [-1, 2], [63, 20]], np.int32)
+    red_new = np.array([[40, 7], [17, -1], [2, 33], [-1, 0]], np.int32)
+    _, updates = load_balance.migration_updates(red_old, red_new)
+    per = E // S
+    copies = [(s, per + j, e) for s, j, _, e in updates]
+    card = _stacked_servers(cuda, E, S, red_old, 256, 128, torch.bfloat16)
+    host = {k: v.cpu() for k, v in card.items()}
+    ptrs = {k: v.data_ptr() for k, v in card.items()}
+    expert_server.migrate_slots(card, E, copies)
+    expert_server.migrate_slots(host, E, copies)
+    for k in card:
+        assert card[k].data_ptr() == ptrs[k]            # in place
+        assert torch.equal(card[k].cpu(), host[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("new_servers", [8, 2])
+def test_reshard_on_card_equals_cpu_and_bounds_peak(cuda, new_servers):
+    """E = 64, d = 1024 in bf16: the card's per-tensor reshard equals the
+    CPU's bitwise, and its peak stays within the larger of the resident
+    weights before and after plus one stacked tensor (the larger of old
+    and new) plus 5 % — growing, the last name is built on top of the
+    others' new tensors."""
+    from repro_torch.core import expert_server, load_balance
+
+    E, S, d, f = 64, 4, 1024, 512
+    red = load_balance.eplb_plan(np.arange(E, dtype=float), S, 2)[1]
+    new_red = load_balance.eplb_plan(np.arange(E, dtype=float)[::-1],
+                                     new_servers, 2)[1]
+    card = _stacked_servers(cuda, E, S, red, d, f, torch.bfloat16)
+    host = {k: v.cpu() for k, v in card.items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    L2 = E // new_servers + 2
+    one = 2 * max(new_servers * L2, S * (E // S + 2)) * d * f * 2  # bf16
+    torch.cuda.reset_peak_memory_stats()
+    expert_server.reshard_server_weights(card, E, new_servers, new_red)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_allocated()
+    expert_server.reshard_server_weights(host, E, new_servers, new_red)
+    for k in card:
+        assert card[k].shape == (2, new_servers, L2, *host[k].shape[-2:])
+        assert torch.equal(card[k].cpu(), host[k]), k
+    assert peak <= max(resident, after) + 1.05 * one, (peak, resident, after)
+
+
+@pytest.mark.cuda
+def test_expert_output_independent_of_placement(cuda):
+    """The identity the elastic serve rests on: a token's expert output
+    does not depend on which server, slot or group count computes it —
+    one server of 66 slots vs the same experts spread over 8 servers of
+    10 slots, with replicas (bitwise, bf16)."""
+    from repro_torch.core import expert_server
+    from repro_torch.core.expert_server import ServerWeights
+
+    E, d, f, C = 64, 512, 256, 96
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    bank = {k: (torch.randn((E, a, b), generator=gen) / a ** 0.5).to(
+        torch.bfloat16).to(cuda)
+        for k, (a, b) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                          ("w_down", (f, d)))}
+    x = torch.randn((1, C, d), generator=gen).to(torch.bfloat16).to(cuda)
+    eid = torch.randint(0, E, (1, C), generator=gen).to(cuda)
+    sc = torch.rand((1, C), generator=gen).to(cuda)
+
+    def run(S, red):
+        sw = expert_server.build_server_weights(bank, S, red)
+        local = expert_server.make_local_table(E, S, red)
+        # each token to one server hosting its expert, spread by index
+        hosts = [np.flatnonzero(local[:, e] >= 0) for e in range(E)]
+        owner = torch.as_tensor([hosts[e][t % len(hosts[e])] for t, e in
+                                 enumerate(eid[0].tolist())], device=cuda)
+        out = torch.zeros((C, d), dtype=torch.bfloat16, device=cuda)
+        for s in range(S):
+            mine = owner == s
+            w = ServerWeights(sw["w_gate"][s], sw["w_up"][s],
+                              sw["w_down"][s],
+                              torch.as_tensor(local[s], device=cuda))
+            y, st = expert_server.serve(
+                x, torch.where(mine, eid, -1), sc,
+                torch.tensor([C], device=cuda), w)
+            assert int(st.miss) == 0
+            out += torch.where(mine[:, None], y[0], 0)
+        return out
+
+    one = run(1, np.array([[3, 9]], np.int32))
+    red8 = np.array([[9, 3], [1, -1], [17, 40], [-1, 2], [63, 20],
+                     [5, 6], [7, -1], [0, 8]], np.int32)
+    assert torch.equal(one, run(8, red8))

@@ -13,7 +13,7 @@ import torch
 import repro_torch
 from repro_torch.kernels import ops
 from repro_torch.configs import get_config
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import EngineConfig, Scenario, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -42,6 +42,10 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(_modules()) >= 25
+    # the control plane's modules are among those imported
+    assert {"repro_torch.core.monitor", "repro_torch.core.elastic",
+            "repro_torch.serving.rebalance",
+            "repro_torch.serving.autoscale"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -82,3 +86,12 @@ def test_unknown_impl_raises():
     with pytest.raises(ValueError, match="unknown kernel impl"):
         ops.combine_weighted(torch.zeros(2, 2, 8), torch.zeros(2, 2),
                              impl="pallas")
+
+
+@pytest.mark.parametrize("verb", ["fail_client", "recover_client",
+                                  "set_frontend_policy"])
+def test_cluster_scenario_verbs_raise_naming_roadmap_item_8(verb):
+    """The cluster's verbs are the scenario verbs still not ported."""
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1 item 8"):
+        getattr(Scenario(horizon=1.0), verb)(0, t=0.5)
