@@ -44,7 +44,22 @@ Phases, each of which raises on failure (exit code != 0):
    with the device operations (kernels, copies) launched per step; then 8
    more with the combine stage as it ran before the slot entry, and the
    device rows that moved;
-8. control plane: the earlier engines freed, the same full-width model
+8. decode modes: the dense serve's 8 requests with no failure, on its
+   weights, in lockstep, pipelined (the second half-batch microbatch on
+   its own CUDA stream) and serialized EAAS decode; the two split modes
+   must give equal token digests and first-step logits; each mode's
+   tokens against lockstep's, its decode step wall, device busy and
+   launches (profiled as in 7);
+9. baselines: the dense serve's traffic and failure in monolithic EP (4
+   servers x 64 slots, no replicas) and TP (one server of all 256
+   experts, tp_batch_cap 4), each on its own seeded weights, one engine at
+   a time: all 8 requests complete, exactly restart_steps (50) /
+   tp_restart_steps (12) halted steps, miss 0, every dense-path kernel
+   launched; TTFT / ITL, decode tok/s over the non-halted steps and the
+   halt's charge on the engine clock (the engine does not sleep through
+   it); the kernels phase also checks the grouped GEMM at G = 64 and at
+   G = 256 over C = 5120 rows, and flash decode at B = 4;
+10. control plane: the earlier engines freed, the same full-width model
    serves 8 requests (prompts 64-512, 32 greedy tokens) under a Zipf(1.2)
    router skew twice on one set of weights — frozen, then elastic: the
    live rebalance controller, a page-out of 16 experts (the 15 coldest and
@@ -237,6 +252,17 @@ def kernels_phase(torch, cfg):
             gg_case(f"control plane, S = {S_}: decode {what}, G = {G_}, "
                     f"{live_} live rows of {C_}", live_, K_, N_, bf, G=G_,
                     Mr=C_, plain_reps=3)
+    # the baselines at the dense serve's pool_tokens_per_client 512:
+    # monolithic EP, 4 servers of 64 slots (no replicas) over C = 1280 rows;
+    # TP, one server of all 256 experts over C = 5120 rows (decode: 64
+    # picks; prefill: one 512-token prompt, 4096 picks)
+    for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
+        gg_case(f"monolithic_ep: decode {what}, G = 64, 16 live rows of "
+                f"1280", 16, K_, N_, bf, G=64)
+    for phase, live_ in (("decode", 64), ("prefill", 4096)):
+        for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
+            gg_case(f"tp: {phase} {what}, G = 256, {live_} live rows of "
+                    f"5120", live_, K_, N_, bf, G=256, Mr=5120, plain_reps=3)
 
     # edges of the in-kernel scan: (M, K, N, sizes); rows past the live
     # ones must come back zero from an uninitialised output
@@ -305,6 +331,10 @@ def kernels_phase(torch, cfg):
     fd_case("decode, 8 slots, split-edge lengths 1-1030 of 1024", 8,
             cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 1024, edge_lens,
             bf)
+    # one microbatch of the pipelined / serialized decode: half the slots
+    fd_case("decode, 4 slots (one microbatch), lengths 64-544 of 1024", 4,
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 1024,
+            rng_lens[:4], bf)
     fd_case("float32 small, lengths past S", 3, 8, 2, 32, 64, [70, 1, 33],
             torch.float32)
     fd_case("float32, split-edge lengths", 8, 16, 2, 64, 320,
@@ -467,6 +497,11 @@ def kernels_phase(torch, cfg):
             bf, True, S=8, C=2080)
     cs_case("control plane, decode, 8 tokens, 2 x 8320 rows, addend", 8,
             bf, True, S=2, C=8320)
+    # tp: the one server's buffer of all 256 experts
+    cs_case("tp, decode, 8 tokens, 1 x 5120 rows, addend", 8, bf, True,
+            S=1, C=5120)
+    cs_case("tp, prefill, 512 tokens, 1 x 5120 rows, addend", 512, bf, True,
+            S=1, C=5120)
 
     # edges: (T, k, S, C, d, layout, offset); token 0 has every slot dropped
     edges = {"T = 0": (0, 8, 4, 64, 256, "list", 0),
@@ -635,15 +670,82 @@ DENSE_PATH = ("grouped_gemm", "flash_decode", "combine_slots")
 PAGED_PATH = ("grouped_gemm", "paged_flash_decode", "combine_slots")
 
 
+def _dense_requests(np, cfg, rng):
+    """The dense serve's traffic: a 64-token warm-up request, then 8
+    requests of 64-512 prompt tokens and 32 greedy tokens."""
+    from repro_torch.serving import Request, SamplingParams
+
+    warm = Request(-1, rng.integers(0, cfg.vocab_size, 64, np.int32),
+                   SamplingParams(max_new_tokens=2))
+    lengths = rng.integers(64, 513, 8)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n), np.int32),
+                    SamplingParams(max_new_tokens=32))
+            for i, n in enumerate(lengths)]
+    return warm, lengths, reqs
+
+
+def _serve(torch, eng, warm, reqs, fail: bool, on_start=None):
+    """Serve ``warm`` (cuBLAS handles, allocator), then ``reqs`` from a
+    fresh clock, metrics and counters — expert server 1 down at steps 10-20
+    when ``fail``.  Returns (metrics, launches over the run, [(wall s,
+    tokens)] of each decode step that ran)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.metrics import ServingMetrics
+
+    eng.submit(warm)
+    eng.run()
+    eng.metrics, eng.clock, eng.step_idx = ServingMetrics(), 0.0, 0
+    eng.executor.dropped.zero_()
+    eng.executor.miss.zero_()
+    if on_start is not None:
+        on_start(eng)
+    for r in reqs:
+        eng.submit(r)
+    steps = []
+    decode = eng._step_decode
+
+    def timed(plan):
+        t0 = time.perf_counter()
+        decode(plan)                 # WallClock.stop synchronizes inside
+        steps.append((time.perf_counter() - t0, len(plan.slots)))
+
+    def on_step(e):
+        if fail and e.step_idx == 10:
+            e.inject_server_failure(1)
+        if fail and e.step_idx == 20:
+            e.recover_server(1)
+
+    eng._step_decode = timed
+    ops.reset_launches()
+    metrics = eng.run(on_step=on_step)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    del eng._step_decode             # the class's method again
+    return metrics, launches, steps
+
+
+def _digest(reqs) -> str:
+    toks = [list(map(int, r.output_tokens)) for r in reqs]
+    return hashlib.sha1(json.dumps(toks).encode()).hexdigest()[:12]
+
+
+def _halts(metrics):
+    """(halted steps, engine-clock seconds they were charged)."""
+    n, charged, prev = 0, 0.0, 0.0
+    for x in metrics.timeline:
+        if x["halted"]:
+            n += 1
+            charged += x["t"] - prev
+        prev = x["t"]
+    return n, charged
+
+
 def serve_phase(torch, get_config):
     """Dense-KV serve at full width through a server failure; returns
     (launches over the run, engine, model config, rng)."""
     import numpy as np
 
-    from repro_torch.kernels import ops
-    from repro_torch.serving import (EngineConfig, Request, SamplingParams,
-                                     ServingEngine, WallClock)
-    from repro_torch.serving.metrics import ServingMetrics
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
 
     base = get_config("deepseek-r1")
     cfg = base.replace(num_layers=3,
@@ -664,31 +766,8 @@ def serve_phase(torch, get_config):
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
 
     rng = np.random.default_rng(0)
-    # warm-up request (cuBLAS handles, allocator) before the measured run
-    eng.submit(Request(-1, rng.integers(0, cfg.vocab_size, 64, np.int32),
-                       SamplingParams(max_new_tokens=2)))
-    eng.run()
-    eng.metrics, eng.clock, eng.step_idx = ServingMetrics(), 0.0, 0
-    eng.executor.dropped.zero_()
-    eng.executor.miss.zero_()
-
-    lengths = rng.integers(64, 513, 8)
-    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n), np.int32),
-                    SamplingParams(max_new_tokens=32))
-            for i, n in enumerate(lengths)]
-    for r in reqs:
-        eng.submit(r)
-
-    def on_step(e):
-        if e.step_idx == 10:
-            e.inject_server_failure(1)
-        if e.step_idx == 20:
-            e.recover_server(1)
-
-    ops.reset_launches()
-    metrics = eng.run(on_step=on_step)
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    warm, lengths, reqs = _dense_requests(np, cfg, rng)
+    metrics, launches, steps = _serve(torch, eng, warm, reqs, fail=True)
 
     _check_completed("serve", metrics, reqs, cfg)
     # re-prefilling a prompt must reproduce its first greedy token, from
@@ -700,8 +779,9 @@ def serve_phase(torch, get_config):
     if int(logits.argmax()) != reqs[0].output_tokens[0]:
         raise AssertionError("serve: re-prefill changed the first token")
     fails = [e for e in metrics.events if e["event"].startswith("server_")]
-    if len(fails) != 2:
-        raise AssertionError(f"serve: failure events {fails}")
+    if len(fails) != 2 or _halts(metrics)[0] != 0:
+        raise AssertionError(f"serve: failure events {fails}, halted "
+                             f"steps {_halts(metrics)[0]} (EAAS: 0)")
     zero = [k for k in DENSE_PATH if launches[k] <= 0]
     if zero:
         raise AssertionError(f"serve: kernels never launched: {zero}")
@@ -717,19 +797,23 @@ def serve_phase(torch, get_config):
         f"{metrics.total_output_tokens} output tokens in "
         f"{metrics.wall_time:.3f}s ({s['decode_tok_per_s']} tok/s overall, "
         f"{dec_tok / max(dec_s, 1e-9):.1f} tok/s over the decode-only "
-        f"steps)")
+        f"steps, {_step_rate(steps):.1f} tok/s over the decode steps' own "
+        f"wall); halted steps 0")
     log(f"serve: TTFT p50 {s['ttft']['p50']} ms p99 {s['ttft']['p99']} ms; "
         f"ITL p50 {s['itl']['p50']} ms p99 {s['itl']['p99']} ms")
-    tokens = [list(map(int, r.output_tokens)) for r in reqs]
     log(f"serve: dropped {int(eng.executor.dropped)} miss "
         f"{int(eng.executor.miss)}; server 1 failed at step 10, recovered "
-        f"at step 20; tokens sha1 "
-        f"{hashlib.sha1(json.dumps(tokens).encode()).hexdigest()[:12]} "
-        "(as repro_torch.tools.serve_variants digests them)")
+        f"at step 20; tokens sha1 {_digest(reqs)} (as "
+        "repro_torch.tools.serve_variants digests them)")
     log(f"serve: launches {json.dumps(launches)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_decode(torch, eng, cfg, rng, "dense")
     return launches, eng, cfg, rng
+
+
+def _step_rate(steps) -> float:
+    """Tokens per second over the decode steps' own wall time."""
+    return sum(n for _, n in steps) / max(sum(t for t, _ in steps), 1e-9)
 
 
 def _check_completed(label, metrics, reqs, cfg) -> None:
@@ -813,6 +897,174 @@ def paged_serve_phase(torch, cfg, params, rng) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_decode(torch, eng, cfg, rng, "paged")
     return launches
+
+
+def _mode_profile(torch, eng, cfg, rng, label: str, slots: int,
+                  steps: int = 8) -> None:
+    """``slots`` fresh 128-token requests, then ``steps`` decode steps
+    timed alone and ``steps`` under the profiler (``_step_profile``): wall,
+    device busy (summed over streams) and launches per step."""
+    from repro_torch.serving import Request, SamplingParams
+
+    for i in range(slots):
+        eng.submit(Request(200 + i, rng.integers(0, cfg.vocab_size, 128)
+                           .astype("int32"),
+                           SamplingParams(max_new_tokens=2 * steps + 8)))
+    for _ in range(slots + 4):
+        if len(eng.scheduler.decode_ready()) == slots:
+            break
+        eng.step()
+    if len(eng.scheduler.decode_ready()) != slots:
+        raise AssertionError(f"modes ({label}): the batch never filled")
+    p = _step_profile(torch, eng, steps)
+    eng.run()
+    if p is None:
+        log(f"modes ({label}): the profiler saw no device time (not "
+            "measured)")
+        return None
+    log(f"modes ({label}): decode step ({slots} live slots of "
+        f"{eng.ecfg.max_batch}) wall {p['plain_ms']:.2f} ms, "
+        f"{p['wall_ms']:.2f} ms under the profiler, device busy "
+        f"{p['busy_ms']:.3f} ms (kernel time summed over streams; "
+        f"{p['union_ms']:.3f} ms with any kernel running, so "
+        f"{p['busy_ms'] - p['union_ms']:.3f} ms ran concurrently), idle "
+        f"share {max(0.0, 1 - p['busy_ms'] / p['plain_ms']):.3f} of the "
+        f"plain wall; {p['launches']:.1f} kernel launches and "
+        f"{p['copies']:.1f} copies per step")
+    top = sorted(p["rows"].items(), key=lambda kv: -kv[1][0])
+    log(f"modes ({label}): top device rows (ms/step, calls/step) "
+        + "; ".join(f"{k[:48]} {t:.3f} {n:.1f}" for k, (t, n) in top[:6]))
+    return p
+
+
+def decode_modes_phase(torch, cfg, params, smi) -> dict:
+    """The dense serve's traffic with no failure, on the dense serve's
+    weights, in lockstep, pipelined (microbatch B on a second stream) and
+    serialized EAAS decode: the two split modes must give equal token
+    digests (the same split shapes on one card); against lockstep, the
+    share of equal tokens and the first decode step's logits.  Returns the
+    launches of each run."""
+    import numpy as np
+
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    out, digests, first, tokens = {}, {}, {}, {}
+    for mode in ("lockstep", "pipelined", "serialized"):
+        eng = ServingEngine(cfg, EngineConfig(
+            max_batch=8, max_seq=1024, num_servers=4, n_redundant=2,
+            pool_tokens_per_client=512, decode_mode=mode), params=params,
+            clock=WallClock())
+        rng = np.random.default_rng(0)
+        warm, _, reqs = _dense_requests(np, cfg, rng)
+
+        def on_start(e, mode=mode):
+            dec = e.executor.decode
+
+            def capture(toks):
+                logits, load = dec(toks)
+                if mode not in first:
+                    first[mode] = logits.float().clone()
+                return logits, load
+            e.executor.decode = capture
+
+        metrics, launches, steps = _serve(torch, eng, warm, reqs,
+                                          fail=False, on_start=on_start)
+        del eng.executor.decode
+        _check_completed(f"modes ({mode})", metrics, reqs, cfg)
+        zero = [k for k in DENSE_PATH if launches[k] <= 0]
+        if zero:
+            raise AssertionError(f"modes ({mode}): kernels never launched: "
+                                 f"{zero}")
+        s = metrics.summary()
+        digests[mode] = _digest(reqs)
+        tokens[mode] = [t for r in reqs for t in r.output_tokens]
+        log(f"modes ({mode}): completed {metrics.completed}/8, tokens sha1 "
+            f"{digests[mode]}, dropped {int(eng.executor.dropped)} miss "
+            f"{int(eng.executor.miss)}; {_step_rate(steps):.1f} tok/s over "
+            f"the decode steps' wall ({len(steps)} steps, median "
+            f"{statistics.median(t for t, _ in steps) * 1e3:.2f} ms); TTFT "
+            f"p50 {s['ttft']['p50']} p99 {s['ttft']['p99']} ms, ITL p50 "
+            f"{s['itl']['p50']} p99 {s['itl']['p99']} ms; launches "
+            f"{json.dumps(launches)} ({smi})")
+        _mode_profile(torch, eng, cfg, rng, mode, 8)
+        out[mode] = launches
+        del eng
+        gc.collect()
+    for mode in ("pipelined", "serialized"):
+        same = sum(a == b for a, b in zip(tokens[mode], tokens["lockstep"]))
+        err = (first[mode] - first["lockstep"]).abs().max().item()
+        log(f"modes ({mode} vs lockstep): {same}/{len(tokens[mode])} tokens "
+            f"equal, first decode step's max |logit diff| {err:.4g} (bf16; "
+            f"max |logit| {first['lockstep'].abs().max().item():.4g})")
+    if digests["pipelined"] != digests["serialized"]:
+        raise AssertionError(f"modes: pipelined and serialized tokens "
+                             f"differ {digests}")
+    if not torch.equal(first["pipelined"], first["serialized"]):
+        raise AssertionError("modes: pipelined and serialized first-step "
+                             "logits differ")
+    return out
+
+
+# the baselines' restart stalls at EngineConfig's defaults
+RESTART = {"monolithic_ep": 50, "tp": 12}
+
+
+def baselines_phase(torch, cfg, smi) -> dict:
+    """The dense serve's traffic and failure (server 1 down at steps 10-20)
+    in monolithic EP (4 servers x 64 slots, no replicas) and TP (one server
+    of all 256 experts, tp_batch_cap = max_batch // 2), each on its own
+    seeded weights, one engine at a time.  All 8 requests must complete,
+    the halted steps equal the mode's restart steps, miss 0 (neither mode
+    consults liveness), every dense-path kernel launched.  Returns the
+    launches of each run."""
+    import numpy as np
+
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    out = {}
+    for mode in ("monolithic_ep", "tp"):
+        eng = ServingEngine(cfg, EngineConfig(
+            mode=mode, max_batch=8, max_seq=1024, num_servers=4,
+            n_redundant=2, pool_tokens_per_client=512, tp_batch_cap=4),
+            seed=0, clock=WallClock())
+        torch.cuda.synchronize()
+        G = eng.params["blocks"]["moe"]["servers"]["w_gate"].shape[2]
+        rng = np.random.default_rng(0)
+        warm, _, reqs = _dense_requests(np, cfg, rng)
+        metrics, launches, steps = _serve(torch, eng, warm, reqs, fail=True)
+        _check_completed(f"baselines ({mode})", metrics, reqs, cfg)
+        halted, charged = _halts(metrics)
+        drop, miss = int(eng.executor.dropped), int(eng.executor.miss)
+        s = metrics.summary()
+        gib = torch.cuda.memory_allocated() / 2**30
+        log(f"baselines ({mode}): {eng.pool.num_servers} server(s) x {G} "
+            f"slots (the grouped GEMM's G), {gib:.1f} GiB; completed "
+            f"{metrics.completed}/8, tokens sha1 {_digest(reqs)}; halted "
+            f"steps {halted} (restart {RESTART[mode]}), charged {charged * 1e3:.2f} ms on the engine "
+            f"clock (a charge: the engine does not sleep through a "
+            f"restart); dropped {drop} miss {miss}; {_step_rate(steps):.1f} "
+            f"tok/s over the {len(steps)} non-halted decode steps' wall "
+            f"(median {statistics.median(t for t, _ in steps) * 1e3:.2f} "
+            f"ms); TTFT p50 {s['ttft']['p50']} p99 {s['ttft']['p99']} ms, "
+            f"ITL p50 {s['itl']['p50']} p99 {s['itl']['p99']} ms (halts "
+            f"included); launches {json.dumps(launches)} ({smi})")
+        _mode_profile(torch, eng, cfg, rng, mode,
+                      4 if mode == "tp" else 8)
+        bad = []
+        if halted != RESTART[mode]:
+            bad.append(f"halted {halted} steps, not {RESTART[mode]}")
+        if miss:
+            bad.append(f"miss {miss}")
+        zero = [k for k in DENSE_PATH if launches[k] <= 0]
+        if zero:
+            bad.append(f"kernels never launched: {zero}")
+        if bad:
+            raise AssertionError(f"baselines ({mode}): {bad}")
+        out[mode] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 CONTROL_PATH = ("grouped_gemm", "flash_decode", "combine_slots")
@@ -1132,7 +1384,18 @@ def _step_profile(torch, eng, steps: int):
         return None
     copies = sum(n for key, (_, n) in rows.items()
                  if key.startswith(("Memcpy", "Memset")))
+    # the time the device ran anything at all: the union of its operations'
+    # intervals (below the sum when two streams' kernels ran at once)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
     return {"plain_ms": plain_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "union_ms": union / 1e3 / steps,
             "launches": sum(n for _, n in rows.values()) - copies,
             "copies": copies, "rows": rows}
 
@@ -1264,10 +1527,13 @@ def main() -> int:
     reference_phase(torch, get_config)
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
     paged_launches = paged_serve_phase(torch, serve_cfg, eng.params, rng)
-    # the control plane owns its weights: it reshards them in place
+    mode_launches = decode_modes_phase(torch, serve_cfg, eng.params, smi)
+    # the baselines have their own layouts, and the control plane owns its
+    # weights (it reshards them in place): one full-width model at a time
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    mode_launches.update(baselines_phase(torch, serve_cfg, smi))
     control_launches = control_plane_phase(torch, serve_cfg, smi)
 
     def entry(name):
@@ -1281,6 +1547,8 @@ def main() -> int:
             "replaces": replaces, "launches": main[name],
             "launches_by_phase": {"serve": launches[name],
                                   "serve-paged": paged_launches[name],
+                                  **{f"modes ({m})": n[name]
+                                     for m, n in mode_launches.items()},
                                   "control-plane": control_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],

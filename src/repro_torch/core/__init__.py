@@ -8,4 +8,6 @@
   moe_layer       the EaasMoELayer                           (Fig. 4)
   load_balance    EPLB-style replication planner             (§4.5)
   elastic         the server pool: liveness + replication    (§5.3)
+  monolithic      the baselines: monolithic EP, TP (S = 1)    (§2.2, §5)
+  overlap         two-microbatch (double-batch) decode        (§4.2)
 """

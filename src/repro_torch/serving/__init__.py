@@ -1,5 +1,8 @@
-"""Serving runtime of the port: the lockstep EAAS engine over a dense or
-a paged KV cache, with the control plane over the expert tier.
+"""Serving runtime of the port: the lockstep engine over a dense or a
+paged KV cache, in the three system modes (``eaas`` with the control plane
+over the expert tier, and the paper's baselines ``monolithic_ep`` and
+``tp``) and three decode modes (``lockstep``, ``pipelined`` two-microbatch
+decode on two CUDA streams, and its ``serialized`` ablation).
 
 ``ServingEngine`` (scheduler -> executor -> metrics around a clock), with
 ``WallClock`` for real timing on the card and ``VirtualClock`` for the

@@ -2,8 +2,24 @@
 
 :class:`ServingEngine` wires :class:`~repro_torch.serving.scheduler
 .Scheduler` -> :class:`~repro_torch.serving.executor.Executor` -> metrics
-around a :class:`~repro_torch.serving.clock.Clock`, and keeps the control
-plane over the expert tier:
+around a :class:`~repro_torch.serving.clock.Clock`.  One engine class
+serves the three system modes (paper §5 baselines):
+
+* ``mode="eaas"`` — EAAS: replicated experts, liveness-masked mapping; a
+  server failure re-routes traffic to replicas within the same step
+  (throughput dips only by the lost compute share — paper Fig. 10);
+* ``mode="monolithic_ep"`` — DeepEP-style: primary-only mapping; a server
+  failure halts the WHOLE engine for ``restart_steps`` (the collective
+  group's restart) before resuming;
+* ``mode="tp"`` — tensor-parallel MoE (one server holding every expert): a
+  failure halts only one unit (a shorter stall, ``tp_restart_steps``), but
+  per-unit weight replication caps the batch (``tp_batch_cap``).
+
+A halted step produces no token and advances the engine's clock by the
+last decode step's duration.  That is a charge, under ``WallClock`` too:
+the engine does not sleep through a restart.
+
+EAAS keeps the control plane over the expert tier:
 
 * failover — a server failure is a liveness-mask update in the
   expert->server mapping, so the next step routes around the dead
@@ -18,13 +34,20 @@ plane over the expert tier:
   :class:`~repro_torch.serving.autoscale.Autoscaler` drives both;
 * traffic shaping (``set_skew``) and stragglers (``set_server_speed``).
 
+Decode runs as one full-batch step (``decode_mode="lockstep"``) or as two
+half-batch microbatches (``"pipelined"``, paper §4.2: on the card the
+second microbatch runs on its own CUDA stream; ``"serialized"`` is the
+ablation, chained on one stream).  The outputs are those of lockstep; the
+``VirtualClock`` charges a pipelined step ``max(attention, expert) + eps``
+instead of the sum.
+
 The KV cache is either dense (per-slot buffers) or paged
 (``kv_mode="paged"``: a shared block pool with prefix caching,
 copy-on-write, memory-aware admission and preemption — every paged prefill
-runs the chunk path).  Prompts are prefilled whole or in chunks of
-``prefill_chunk`` tokens, interleaved with decode steps by the scheduler's
-policy.  This engine runs ``mode="eaas"`` with ``exec_mode="lockstep"`` and
-``decode_mode="lockstep"``; other values raise.
+runs the chunk path; decode is lockstep only).  Prompts are prefilled
+whole or in chunks of ``prefill_chunk`` tokens, interleaved with decode
+steps by the scheduler's policy.  ``exec_mode="async"`` (the event-driven
+expert tier) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -51,22 +74,27 @@ from repro_torch.serving.sampling import sample_batch
 from repro_torch.serving.scheduler import (DecodeBatch, PrefillChunk,
                                            Scheduler, SchedulerConfig)
 
-_SUPPORTED = {"mode": "eaas", "exec_mode": "lockstep",
-              "decode_mode": "lockstep"}
+MODES = ("eaas", "monolithic_ep", "tp")
 
 
 @dataclass
 class EngineConfig:
     max_batch: int = 8
     max_seq: int = 256
-    mode: str = "eaas"
+    mode: str = "eaas"                 # eaas | monolithic_ep | tp
     num_servers: int = 4
     n_redundant: int = 2
+    restart_steps: int = 50            # monolithic group restart cost
+    tp_restart_steps: int = 12         # one TP unit restart
+    tp_batch_cap: Optional[int] = None  # TP: weight replication caps batch
     eos_token: Optional[int] = None
     # max prompt tokens per prefill step (0 = whole prompt in one step)
     prefill_chunk: int = 0
     policy: str = "prefill-priority"   # prefill-priority | fair | fcfs
-    exec_mode: str = "lockstep"
+    exec_mode: str = "lockstep"        # async (the event tier): not ported
+    # lockstep (one full-batch step) | pipelined (two microbatches, the
+    # second on its own stream on the card, §4.2) | serialized (the
+    # ablation: the same split chained on one stream)
     decode_mode: str = "lockstep"
     # dispatch-buffer sizing (tokens per client step); default max_batch.
     # A prefill step of P tokens drops tokens unless this is >= P.
@@ -112,28 +140,32 @@ def resolve_device(device=None) -> torch.device:
 
 
 class ServingEngine:
-    """Scheduler -> executor -> metrics orchestrator with EAAS failover."""
+    """Scheduler -> executor -> metrics orchestrator: EAAS with failover,
+    or one of the paper's monolithic baselines."""
 
     def __init__(self, cfg: ModelConfig, engine_cfg: EngineConfig,
                  params=None, seed: int = 0, clock: Optional[Clock] = None,
                  device=None):
-        for name, value in _SUPPORTED.items():
-            if getattr(engine_cfg, name) != value:
-                raise NotImplementedError(
-                    f"{name}={getattr(engine_cfg, name)!r} is not ported "
-                    f"(this engine runs {name}={value!r})")
+        if engine_cfg.exec_mode != "lockstep":
+            raise NotImplementedError(
+                f"exec_mode={engine_cfg.exec_mode!r} is not ported (this "
+                "engine runs exec_mode='lockstep')")
+        if engine_cfg.mode not in MODES:
+            raise ValueError(f"unknown mode {engine_cfg.mode!r}; expected "
+                             f"one of {MODES}")
         self.cfg = cfg
         self.ecfg = engine_cfg
         self.device = resolve_device(device)
         self.clk = clock if clock is not None else WallClock()
-        S = engine_cfg.num_servers
+        eaas = engine_cfg.mode == "eaas"
+        S = engine_cfg.num_servers if engine_cfg.mode != "tp" else 1
         self.pool = None
         if cfg.moe:
             self.pool = ServerPool(
                 cfg, S,
                 tokens_per_client=(engine_cfg.pool_tokens_per_client
                                    or engine_cfg.max_batch),
-                n_redundant=engine_cfg.n_redundant,
+                n_redundant=engine_cfg.n_redundant if eaas else 0,
                 capacities=engine_cfg.server_capacities)
         self.model = build_model(
             cfg, S, self.pool.redundant_table if self.pool else None,
@@ -164,23 +196,30 @@ class ServingEngine:
         self.executor = Executor(
             self.model, params, self.pool, max_batch=engine_cfg.max_batch,
             max_seq=engine_cfg.max_seq, device=self.device,
-            kv_mode=engine_cfg.kv_mode,
+            decode_mode=engine_cfg.decode_mode, kv_mode=engine_cfg.kv_mode,
             kv_block_size=engine_cfg.kv_block_size,
             kv_num_blocks=self.kv_pool.num_blocks if self.kv_pool else 0)
         self.scheduler = Scheduler(SchedulerConfig(
             max_batch=engine_cfg.max_batch,
             prefill_chunk=engine_cfg.prefill_chunk, policy=engine_cfg.policy,
+            batch_cap=(engine_cfg.tp_batch_cap
+                       if engine_cfg.mode == "tp" else None),
             max_seq=engine_cfg.max_seq), kv_pool=self.kv_pool)
         self.metrics = ServingMetrics()
         self.step_idx = 0
         self.clock = 0.0
+        # monolithic / tp restart: steps up to this index are halted, each
+        # charged the last decode step's duration
+        self.halted_until = -1
+        self._last_decode_time = 0.01
         # per-server straggler factors (scenario slow_server): a lockstep
         # decode step is charged the slowest alive server's factor
         self.server_speed = np.ones(self._pool_size())
         # shared placement cooldown (rebalance commits, resizes, page-outs)
         self.last_placement_change = float("-inf")
         self.rebalancer: Optional[RebalanceController] = None
-        if engine_cfg.rebalance_interval > 0 and self.pool is not None:
+        if (engine_cfg.rebalance_interval > 0 and self.pool is not None
+                and eaas):
             self.rebalancer = RebalanceController(RebalanceConfig(
                 interval=engine_cfg.rebalance_interval,
                 chunk=engine_cfg.rebalance_chunk,
@@ -204,7 +243,9 @@ class ServingEngine:
 
     def _alive_frac(self) -> float:
         """Alive share of the expert-server pool (EAAS failover slowdown)."""
-        return float(self.pool.smap.alive.mean()) if self.pool else 1.0
+        if self.pool is None or self.ecfg.mode != "eaas":
+            return 1.0
+        return float(self.pool.smap.alive.mean())
 
     def _pool_size(self) -> int:
         return self.pool.num_servers if self.pool else 1
@@ -212,7 +253,7 @@ class ServingEngine:
     def _straggle(self) -> float:
         """Slowdown factor of the slowest *alive* expert server — a
         lockstep expert phase finishes with its slowest server."""
-        if self.pool is None:
+        if self.pool is None or self.ecfg.mode != "eaas":
             return 1.0
         alive = self.pool.smap.alive
         n = min(len(alive), len(self.server_speed))
@@ -239,12 +280,19 @@ class ServingEngine:
 
     def inject_server_failure(self, rank: int) -> None:
         """Simulated hardware failure of one expert server (paper §5.4):
-        a mapping-mask update only."""
+        EAAS updates the mapping mask only; monolithic EP halts the engine
+        for ``restart_steps``, TP for ``tp_restart_steps`` (the pool is
+        left alone: neither mode consults liveness)."""
         self.metrics.events.append(
             {"t": self.clock, "event": "server_fail", "rank": rank,
              "mode": self.ecfg.mode})
-        if self.pool and rank < self.pool.num_servers:
-            self.pool.server_failed(rank)
+        if self.ecfg.mode == "eaas":
+            if self.pool and rank < self.pool.num_servers:
+                self.pool.server_failed(rank)
+        elif self.ecfg.mode == "monolithic_ep":
+            self.halted_until = self.step_idx + self.ecfg.restart_steps
+        else:
+            self.halted_until = self.step_idx + self.ecfg.tp_restart_steps
 
     def recover_server(self, rank: int) -> None:
         self.metrics.events.append(
@@ -360,6 +408,12 @@ class ServingEngine:
         """Run whatever the scheduler plans next: a prefill chunk, a decode
         step over the ready slots, or idle."""
         self.step_idx += 1
+        if self.step_idx <= self.halted_until:
+            # monolithic / tp restart: time passes, no tokens are produced
+            self.clock += self._last_decode_time
+            self.metrics.timeline.append(
+                {"t": self.clock, "tokens": 0, "halted": True})
+            return
         plan = self.scheduler.next_plan()
         if isinstance(plan, PrefillChunk):
             self._step_prefill(plan)
@@ -443,9 +497,11 @@ class ServingEngine:
         dt = self.clk.stop("decode", result=logits, tokens=len(active),
                            servers=self._pool_size(),
                            alive_frac=self._alive_frac(),
+                           overlap=(self.ecfg.decode_mode == "pipelined"),
                            imbalance=(imbalance if self.ecfg.charge_imbalance
                                       else 1.0),
                            straggle=self._straggle())
+        self._last_decode_time = dt
         self.clock += dt
         if self.pool is not None:
             self.clock += self._charge_cold_starts(load)

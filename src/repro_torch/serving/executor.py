@@ -8,7 +8,16 @@ variants:
 * ``prefill_chunk`` — chunked-prefill continuation against a batch-1
   staging cache, committed into the slot on the last chunk (dense mode);
 * ``decode``        — one token for the whole slot batch (idle slots
-  included, as in the reference, so capacity use and routing match).
+  included, as in the reference, so capacity use and routing match), in
+  one of three modes: ``lockstep`` (one full-batch step), ``pipelined``
+  (two half-batch microbatches,
+  :func:`repro_torch.core.overlap.split_batch_decode`; on the card the
+  second runs on its own CUDA stream, paper §4.2) or ``serialized`` (the
+  same split chained on one stream: the ablation).  The halves are views
+  of the batch cache, so their appends land in it in place;
+* ``decode_masked`` — one full-batch step where only the masked slots
+  advance: the other rows' K, V and length are restored bit-exactly (the
+  reference's async tier decodes a subset of slots this way).
 
 ``kv_mode="paged"`` swaps the dense per-slot cache for the block-pool
 cache: one shared pool per layer, addressed through block tables the
@@ -16,7 +25,9 @@ host-side scheduler owns.  Tables and lengths are host-authoritative and
 uploaded at every step (the reference passes them as jit arguments); all
 paged prefill goes through the chunk path straight into the pool blocks
 (``prefill_chunk_paged``), and copy-on-write forks copy pool blocks on
-every layer (``copy_blocks``).
+every layer (``copy_blocks``).  Paged decode is lockstep only, as in the
+reference: the pool is shared across the batch, so a microbatch split has
+no batch axis to cut.
 
 The reference's ``jax.jit`` has no counterpart: PyTorch runs eagerly.  The
 expert->server mapping, liveness mask and local table are read from the
@@ -35,24 +46,48 @@ import torch
 
 from repro_torch.core import expert_server
 from repro_torch.core.moe_layer import MoEStats
+from repro_torch.core.overlap import split_batch_decode
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.transformer import Model
+
+
+DECODE_MODES = ("lockstep", "pipelined", "serialized")
 
 
 class Executor:
     """Owns params + caches + step variants for one engine."""
 
     def __init__(self, model: Model, params: Dict, pool, *, max_batch: int,
-                 max_seq: int, device, kv_mode: str = "dense",
-                 kv_block_size: int = 16, kv_num_blocks: int = 0):
+                 max_seq: int, device, decode_mode: str = "lockstep",
+                 kv_mode: str = "dense", kv_block_size: int = 16,
+                 kv_num_blocks: int = 0):
         if kv_mode not in ("dense", "paged"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
+        if decode_mode not in DECODE_MODES:
+            raise ValueError(f"unknown decode_mode {decode_mode!r}")
+        if decode_mode != "lockstep":
+            if max_batch % 2:
+                raise ValueError(
+                    f"decode_mode={decode_mode!r} needs an even max_batch "
+                    f"(got {max_batch}) to form two microbatches")
+            if kv_mode == "paged":
+                raise ValueError(
+                    "kv_mode='paged' shares one block pool across the "
+                    "batch — microbatch-split decode modes need the dense "
+                    "per-slot cache (use decode_mode='lockstep')")
         self.model = model
         self.params = params
         self.pool = pool
         self.device = torch.device(device)
         self.max_batch = max_batch
         self.max_seq = max_seq
+        self.decode_mode = decode_mode
+        self.kv_mode = kv_mode
+        # pipelined decode's second stream on the card, one for the
+        # executor's life (the allocator caches its blocks per stream)
+        self._side_stream = (torch.cuda.Stream(self.device)
+                             if decode_mode == "pipelined"
+                             and self.device.type == "cuda" else None)
         if kv_mode == "paged":
             # raises unless max_seq is a multiple of the block size
             self.cache = model.init_paged_cache(kv_num_blocks, kv_block_size,
@@ -114,9 +149,47 @@ class Executor:
     def decode(self, tokens: np.ndarray) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
         """One decode step over the whole slot batch -> (logits (B, V),
-        per-expert token counts (E,))."""
+        per-expert token counts (E,)), in the executor's decode mode."""
+        tok, rt = self._tokens(tokens), self._runtime()
+        if self.decode_mode == "lockstep":
+            logits, self.cache, stats = self.model.decode_step(
+                self.params, tok, self.cache, rt)
+        else:
+            logits, self.cache, stats = split_batch_decode(
+                lambda t, c: self.model.decode_step(self.params, t, c, rt),
+                tok, self.cache, axis=1,
+                enabled=self.decode_mode == "pipelined",
+                stream=self._side_stream)
+        self._tally(stats)
+        return logits, stats.expert_load
+
+    @torch.inference_mode()
+    def decode_masked(self, tokens: np.ndarray, mask: np.ndarray
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One full-batch decode step where only ``mask``-true slots advance
+        their cache row; the others' K, V and length are restored
+        bit-exactly (the dense append advances every row, so the restore is
+        what keeps inactive slots resumable).  Active rows' logits are
+        bitwise those of :meth:`decode`'s lockstep step."""
+        if self.kv_mode != "dense":
+            raise ValueError("decode_masked needs the dense per-slot cache")
+        keep = torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        # the slot each row's append is about to write, and its old values
+        saved = {}
+        for name, c in self.cache.items():
+            n_layers, B, slots = c.k.shape[:3]
+            li = torch.arange(n_layers, device=self.device)[:, None]
+            bi = torch.arange(B, device=self.device)[None, :]
+            at = (li, bi, c.length.clamp(max=slots - 1).long())
+            saved[name] = (at, c.k[at], c.v[at], c.length.clone())
         logits, self.cache, stats = self.model.decode_step(
             self.params, self._tokens(tokens), self.cache, self._runtime())
+        for name, (at, k_old, v_old, len_old) in saved.items():
+            c = self.cache[name]
+            row = keep[None, :, None, None]
+            c.k[at] = torch.where(row, c.k[at], k_old)
+            c.v[at] = torch.where(row, c.v[at], v_old)
+            c.length.copy_(torch.where(keep[None, :], c.length, len_old))
         self._tally(stats)
         return logits, stats.expert_load
 

@@ -75,6 +75,11 @@ class ServingMetrics:
     def ttft_stats(self) -> Dict[str, float]:
         return _latency_stats(self.ttfts)
 
+    @property
+    def p99_itl(self) -> float:
+        """Tail inter-token latency (the latency figure's headline)."""
+        return self.itl_stats()["p99"]
+
     def throughput_curve(self, bin_width: float
                          ) -> List[Tuple[float, float]]:
         """Decode throughput per time bin, [(bin midpoint, tok/s), ...]:

@@ -138,6 +138,9 @@ class ScenarioResult:
         return out
 
 
+_CLUSTER_ITEM = "item 2 (the async tier and the cluster)"
+
+
 def _not_ported(verb: str, item: str):
     def method(self, *args, **kwargs):
         raise NotImplementedError(
@@ -286,10 +289,9 @@ class Scenario:
                                          bool(enabled)))
         return self
 
-    fail_client = _not_ported("fail_client", "item 8 (the cluster)")
-    recover_client = _not_ported("recover_client", "item 8 (the cluster)")
-    set_frontend_policy = _not_ported("set_frontend_policy",
-                                      "item 8 (the cluster)")
+    fail_client = _not_ported("fail_client", _CLUSTER_ITEM)
+    recover_client = _not_ported("recover_client", _CLUSTER_ITEM)
+    set_frontend_policy = _not_ported("set_frontend_policy", _CLUSTER_ITEM)
 
     # ------------------------------------------------------------ sampling
     def build_arrivals(self) -> List[Request]:

@@ -29,9 +29,12 @@ lowest-priority slot (latest arrival, ties to the larger request id),
 which is re-queued at the front and later recomputed as a prompt extension
 (``prompt + outputs[:-1]``), so token streams are unchanged.
 
+TP mode (``batch_cap``): admission stops at slot ``batch_cap`` — the
+per-unit weight replication caps the batch.
+
 Not ported from the reference: ``slot_keys`` (the port samples from
-(seed, request id, token index)), ``batch_cap`` (TP mode), ``hold`` /
-``unhold`` (the async tier) and the autoscaler's pressure signals.
+(seed, request id, token index)), ``hold`` / ``unhold`` (the async tier)
+and the autoscaler's pressure signals.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ class SchedulerConfig:
     max_batch: int
     prefill_chunk: int = 0             # 0 = whole prompt in one step
     policy: str = "prefill-priority"   # prefill-priority | fair | fcfs
+    batch_cap: Optional[int] = None    # TP weight-replication slot cap
     max_seq: int = 0                   # cache capacity (paged mode only)
 
 
@@ -199,7 +203,10 @@ class Scheduler:
 
     # ----------------------------------------------------------- planning
     def _admit(self) -> None:
+        cap = self.cfg.batch_cap
         for b in range(len(self.slots)):
+            if cap is not None and b >= cap:
+                break
             if self.slots[b] is None and self.queue:
                 req = self.queue[0]
                 if self.kv is not None and not self._admit_blocks(b, req):

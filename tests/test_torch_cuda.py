@@ -7,6 +7,8 @@ Imports no JAX, so it also runs where only the port is installed:
 Without a CUDA card every test skips (the CUDA kernels have no CPU mode).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -509,3 +511,180 @@ def test_expert_output_independent_of_placement(cuda):
     red8 = np.array([[9, 3], [1, -1], [17, 40], [-1, 2], [63, 20],
                      [5, 6], [7, -1], [0, 8]], np.int32)
     assert torch.equal(one, run(8, red8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [64, 4096])
+def test_grouped_gemm_tp_shape(cuda, live, rng):
+    """The TP mode's one server: G = 256 groups over C = 5120 rows (decode:
+    64 live rows; prefill: 4096), narrow K and N so the plain loop stays
+    quick; rows past the live ones come back zero."""
+    G, C, K, N = 256, 5120, 256, 192
+    sizes = torch.as_tensor(rng.multinomial(live, np.ones(G) / G),
+                            device=cuda)
+    x = torch.as_tensor(rng.normal(size=(C, K)), device=cuda).to(
+        torch.bfloat16)
+    w = torch.as_tensor(rng.normal(size=(G, K, N)) * K ** -0.5,
+                        device=cuda).to(torch.bfloat16)
+    out = ops.grouped_gemm(x, w, sizes, impl="cuda")
+    exp = ops.grouped_gemm(x, w, sizes, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert not out[live:].any()
+
+
+def _reduced_bf16():
+    from repro_torch.configs import get_config
+    return get_config("deepseek-r1").reduced()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["monolithic_ep", "tp"])
+def test_monolithic_moe_on_card_equals_cpu(cuda, mode):
+    """Both baselines' MoE layers on the card (the CUDA kernels) against the
+    port's plain versions on the CPU, same bf16 weights (bf16 tolerance)."""
+    from repro_torch.core import monolithic
+
+    cfg = _reduced_bf16()
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn((24, cfg.d_model), generator=gen) * 0.3).to(
+        torch.bfloat16)
+    if mode == "tp":
+        params = monolithic.init_tp_moe(cfg, torch.bfloat16, "cpu", gen)
+        run = lambda p, a: monolithic.tp_moe_apply(p, a, cfg)  # noqa: E731
+    else:
+        params = monolithic.init_monolithic_ep(cfg, 4, torch.bfloat16,
+                                               "cpu", gen)
+
+        def run(p, a):
+            rt = monolithic.monolithic_runtime(cfg, 4, a.shape[0], a.device)
+            return monolithic.monolithic_ep_apply(p, a, cfg, rt)
+    y_cpu, st_cpu = run(params, x)
+    y_card, st_card = run(_to(params, cuda), x.to(cuda))
+    torch.testing.assert_close(y_card.float().cpu(), y_cpu.float(),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(st_card.expert_load.cpu(), st_cpu.expert_load)
+    assert int(st_card.miss) == int(st_cpu.miss) == 0
+
+
+def _card_decoder(cuda, batch=4):
+    from repro_torch.core import moe_layer
+    from repro_torch.models.transformer import build_model
+
+    cfg = _reduced_bf16()
+    model = build_model(cfg, 4, np.zeros((4, 0), np.int32), cuda)
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
+    rt = moe_layer.default_runtime(cfg, 4, 4 * batch, cuda)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, 6), generator=gen)
+    _, cache, _ = model.prefill(params, prompt.to(cuda), rt, max_slots=32)
+    return cfg, model, params, rt, cache, gen
+
+
+def _clone_cache(cache):
+    return {n: type(c)(c.k.clone(), c.v.clone(), c.length.clone())
+            for n, c in cache.items()}
+
+
+@pytest.mark.cuda
+def test_pipelined_two_streams_equal_serialized_bitwise(cuda):
+    """Pipelined decode (microbatch B on a second stream, joined by an
+    event) gives logits and caches bitwise those of the serialized split
+    (one stream), step after step on a reduced decoder in bf16."""
+    from repro_torch.core.overlap import split_batch_decode
+
+    cfg, model, params, rt, cache, gen = _card_decoder(cuda)
+    caches = {True: cache, False: _clone_cache(cache)}
+    side = torch.cuda.Stream(cuda)
+    for _ in range(4):
+        tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=gen).to(
+            cuda)
+        logits = {}
+        for enabled, c in caches.items():
+            logits[enabled], _, _ = split_batch_decode(
+                lambda t, c: model.decode_step(params, t, c, rt), tok, c,
+                axis=1, enabled=enabled, stream=side)
+        torch.cuda.synchronize()
+        assert torch.equal(logits[True], logits[False])
+        for name in cache:
+            for f in ("k", "v", "length"):
+                assert torch.equal(getattr(caches[True][name], f),
+                                   getattr(caches[False][name], f)), (name, f)
+
+
+@pytest.mark.cuda
+def test_pipelined_second_stream_runs_beside_the_first(cuda):
+    """Microbatch B's stream waits for the caller's earlier work, not for
+    microbatch A: while A's half still runs (a ~0.2 s spin on the caller's
+    stream), B's half finishes.  Without a side stream on the card the
+    pipelined split raises."""
+    from repro_torch.core.overlap import split_batch_decode
+
+    side = torch.cuda.Stream(cuda)
+    done = {}
+
+    def step(t, c):
+        if not done:                      # microbatch A, the caller's stream
+            torch.cuda._sleep(400_000_000)
+            done["a"] = torch.cuda.Event()
+            done["a"].record()
+        else:                             # microbatch B, the side stream
+            done["b"] = torch.cuda.Event()
+            done["b"].record()
+        return t.float() * 2, c, {"n": t.shape[0]}
+
+    tok = torch.arange(4, device=cuda)[:, None]
+    cache = {"k": torch.zeros(2, 4, 3, device=cuda)}
+    logits, _, stats = split_batch_decode(step, tok, cache, axis=1,
+                                          stream=side)
+    deadline = time.monotonic() + 5.0
+    while not done["b"].query() and time.monotonic() < deadline:
+        time.sleep(1e-3)
+    assert done["b"].query() and not done["a"].query()
+    torch.cuda.synchronize()
+    assert torch.equal(logits, tok.float() * 2) and stats == {"n": 4}
+    with pytest.raises(ValueError, match="side stream"):
+        split_batch_decode(step, tok, cache, axis=1)
+
+
+@pytest.mark.cuda
+def test_decode_masked_restores_rows_on_card(cuda):
+    """The executor's decode_masked on the card: the inactive rows' K, V and
+    length come back bitwise, the active rows' logits are bitwise a full
+    decode's."""
+    from repro_torch.serving import EngineConfig, ServingEngine, VirtualClock
+    from repro_torch.serving.request import Request, SamplingParams
+
+    cfg = _reduced_bf16()
+    eng = ServingEngine(cfg, EngineConfig(max_batch=4, max_seq=64,
+                                          pool_tokens_per_client=64),
+                        clock=VirtualClock(), device=cuda)
+    rng = np.random.default_rng(3)
+    for i in range(4):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab_size, 5 + i)
+                           .astype(np.int32),
+                           SamplingParams(max_new_tokens=9)))
+    for _ in range(5):
+        eng.step()
+    ex = eng.executor
+    tokens = np.array([[3], [17], [250], [9]], np.int64)
+    mask = np.array([False, True, True, False])
+    before = _clone_cache(ex.cache)
+    logits_m, _ = ex.decode_masked(tokens, mask)
+    masked = _clone_cache(ex.cache)
+    ex.cache = _clone_cache(before)
+    logits_full, _ = ex.decode(tokens)
+    active = torch.as_tensor(mask, device=cuda)
+    assert torch.equal(logits_m[active], logits_full[active])
+    for name, c in masked.items():
+        for f in ("k", "v", "length"):
+            got, old, new = (getattr(x[name], f)
+                             for x in (masked, before, ex.cache))
+            assert torch.equal(got[:, ~active], old[:, ~active]), (name, f)
+            assert torch.equal(got[:, active], new[:, active]), (name, f)

@@ -42,10 +42,12 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(_modules()) >= 25
-    # the control plane's modules are among those imported
+    # the control plane's and the baselines' modules are among those
+    # imported
     assert {"repro_torch.core.monitor", "repro_torch.core.elastic",
             "repro_torch.serving.rebalance",
-            "repro_torch.serving.autoscale"} <= set(_modules())
+            "repro_torch.serving.autoscale", "repro_torch.core.monolithic",
+            "repro_torch.core.overlap"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -93,5 +95,5 @@ def test_unknown_impl_raises():
 def test_cluster_scenario_verbs_raise_naming_roadmap_item_8(verb):
     """The cluster's verbs are the scenario verbs still not ported."""
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 8"):
+                       match="ROADMAP Queue 1 item 2"):
         getattr(Scenario(horizon=1.0), verb)(0, t=0.5)

@@ -480,10 +480,10 @@ def test_paged_config_validation(paged_runs):
 
 def test_scenario_unported_verbs_raise():
     """The control plane's verbs build events now; the cluster's still
-    raise and name ROADMAP item 8."""
+    raise and name ROADMAP Queue 1 item 2."""
     sc = (Scenario(horizon=1.0).scale_to(2, t=0.5).rebalance(t=0.6)
           .slow_server(1, t=0.7).zipf_skew(1.2).set_elastic(0.8, False))
     assert [e.kind for e in sc.events] == [
         "scale_to", "rebalance", "slow_server", "set_skew", "set_elastic"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
         Scenario(horizon=1.0).fail_client(0, t=0.5)
