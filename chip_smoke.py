@@ -50,7 +50,26 @@ Phases, each of which raises on failure (exit code != 0):
    must give equal token digests and first-step logits; each mode's
    tokens against lockstep's, its decode step wall, device busy and
    launches (profiled as in 7);
-9. baselines: the dense serve's traffic and failure in monolithic EP (4
+9. cluster (lockstep, WallClock), on the dense serve's weights (one bank
+   for every client; these three phases run before the baselines free
+   them): 16 requests of 64-512 prompt tokens and 32 greedy tokens through
+   a 1-client cluster, then 4 round-robin clients, the router steered off
+   expert server 1 (its 64 primaries and 2 replicas, so its failure moves
+   no token), server 1 down at cluster steps 30-60, client 2 failing after
+   its second decode step and recovering 40 steps later: client 2's
+   requests strand (failed_requests), every other request's tokens equal
+   the 1-client run's, the 4-client run peaks below 1.1x the 1-client
+   run's memory; step wall p50/p99, tok/s, routed counts, launches per
+   client decode step (profiled);
+10. cluster, async (VirtualClock): the same requests through 4 lockstep
+   and 4 async clients (one shared tier, depth 2, per-expert lanes),
+   server 3 slowed 3x, server 1 failing with micro-batches queued on it:
+   equal token digests, micro-batches re-dispatched; virtual (modelled)
+   tok/s, ITL and queue delays, and the phase's wall on the card;
+11. cluster, paged: the paged serve's 16 shared-prefix requests through 4
+   paged clients under session affinity, then round robin: affinity's
+   prefix hit rate at least round robin's;
+12. baselines: the dense serve's traffic and failure in monolithic EP (4
    servers x 64 slots, no replicas) and TP (one server of all 256
    experts, tp_batch_cap 4), each on its own seeded weights, one engine at
    a time: all 8 requests complete, exactly restart_steps (50) /
@@ -59,7 +78,7 @@ Phases, each of which raises on failure (exit code != 0):
    halt's charge on the engine clock (the engine does not sleep through
    it); the kernels phase also checks the grouped GEMM at G = 64 and at
    G = 256 over C = 5120 rows, and flash decode at B = 4;
-10. control plane: the earlier engines freed, the same full-width model
+13. control plane: the earlier engines freed, the same full-width model
    serves 8 requests (prompts 64-512, 32 greedy tokens) under a Zipf(1.2)
    router skew twice on one set of weights — frozen, then elastic: the
    live rebalance controller, a page-out of 16 experts (the 15 coldest and
@@ -828,12 +847,13 @@ def _check_completed(label, metrics, reqs, cfg) -> None:
                                  f"produced {r.output_tokens}")
 
 
-def paged_serve_phase(torch, cfg, params, rng) -> dict:
+def paged_serve_phase(torch, cfg, params, rng):
     """Paged-KV serve at full width: 16 requests of 32 greedy tokens at
     t=0 over two shared 256-token system prompts (alternating) with unique
     suffixes of 64-256 tokens; the last two are a bare shared prefix, so
     their admission forks the cached tail block.  The 129-block pool holds
-    one maximal request plus slack, so admission gates and preempts."""
+    one maximal request plus slack, so admission gates and preempts.
+    Returns the launches over the run and the 16 prompts."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -896,7 +916,7 @@ def paged_serve_phase(torch, cfg, params, rng) -> dict:
     log(f"serve-paged: launches {json.dumps(launches)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_decode(torch, eng, cfg, rng, "paged")
-    return launches
+    return launches, [r.prompt for r in reqs]
 
 
 def _mode_profile(torch, eng, cfg, rng, label: str, slots: int,
@@ -1003,6 +1023,385 @@ def decode_modes_phase(torch, cfg, params, smi) -> dict:
         raise AssertionError("modes: pipelined and serialized first-step "
                              "logits differ")
     return out
+
+
+# the cluster phases: 4 attention clients over one expert tier, on the
+# dense serve's weights
+CLUSTER = dict(max_batch=8, max_seq=1024, num_servers=4, n_redundant=2,
+               pool_tokens_per_client=512)
+DEAD = 1                       # the expert server that fails
+
+
+def _off_server(np, pool, rank: int):
+    """Router bias steering every token off server ``rank``: its 64
+    primary experts and the 2 it holds replicas of.  At full width only 8
+    of 256 experts have a replica, so a failed server's tokens are missed
+    (the dense serve's miss) and a run's tokens then depend on when the
+    failure lands; with no traffic on the server its failure moves only
+    queued work, and a token stream is the same at any client count and in
+    either execution mode — the reference's failover contract, which its
+    reduced configuration (every expert replicated) holds by
+    construction."""
+    E = pool.cfg.moe.num_experts
+    per = E // pool.num_servers
+    off = set(range(rank * per, (rank + 1) * per))
+    off |= {int(e) for e in pool.redundant_table[rank] if e >= 0}
+    bias = np.zeros(E, np.float32)
+    bias[sorted(off)] = -30.0
+    return bias, len(off)
+
+
+def _cluster_requests(np, cfg):
+    """The cluster phases' traffic, drawn like the dense serve's: 16
+    requests of 64-512 prompt tokens and 32 greedy tokens."""
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(64, 513, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n), np.int32)
+               for n in lengths]
+    return lengths, lambda: [Request(i, p, SamplingParams(max_new_tokens=32))
+                             for i, p in enumerate(prompts)]
+
+
+def _cluster(cfg, params, n, clock_factory, off=None, **kw):
+    """A cluster on ``params``; ``off``: a server to steer traffic off."""
+    import numpy as np
+
+    from repro_torch.serving import Cluster, ClusterConfig, EngineConfig
+
+    ekw = dict(CLUSTER, **{k: v for k, v in kw.items()
+                           if k != "frontend_policy"})
+    cl = Cluster(cfg, ClusterConfig(
+        clients=n, frontend_policy=kw.get("frontend_policy", "round_robin"),
+        engine=EngineConfig(**ekw)), clock_factory=clock_factory,
+        params=params)
+    if off is not None:
+        cl.set_skew(_off_server(np, cl.pool, off)[0])
+    return cl
+
+
+def _time_decodes(cl):
+    """Wrap every client's decode step: [(wall s, tokens)] over all of
+    them (WallClock.stop synchronizes the card inside the step)."""
+    steps = []
+    for eng in cl.clients:
+        def timed(plan, step=eng._step_decode):
+            t0 = time.perf_counter()
+            step(plan)
+            steps.append((time.perf_counter() - t0, len(plan.slots)))
+        eng._step_decode = timed
+    return steps
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+def cluster_phase(torch, cfg, params, smi) -> dict:
+    """Lockstep cluster under WallClock: the 16 requests through a 1-client
+    cluster (server 1 down at cluster steps 30-60), then a 4-client
+    round-robin cluster with the same server failure and client 2 failing
+    after its second decode step (recovering 40 steps later).  Client 2's
+    requests strand; every other request's tokens must equal the 1-client
+    run's; the 4 clients hold one weight bank (peak memory < 1.1x the
+    1-client run's).  Returns the 4-client run's launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import WallClock
+
+    lengths, make = _cluster_requests(np, cfg)
+    fail_at = {}
+
+    def on_step(c):
+        nxt = c.step_idx + 1
+        if nxt == 30:
+            c.inject_server_failure(DEAD)
+        elif nxt == 60:
+            c.recover_server(DEAD)
+        if len(c.clients) > 2:
+            two = c.clients[2]
+            decoded = sum(1 for x in two.metrics.timeline if x["tokens"])
+            if "client" not in fail_at and decoded >= 2:
+                fail_at["client"] = nxt
+                c.fail_client(2)
+            elif fail_at.get("client") and nxt == fail_at["client"] + 40:
+                c.recover_client(2)
+
+    runs = {}
+    for n in (1, 4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cl = _cluster(cfg, params, n, WallClock, off=DEAD)
+        reqs = make()
+        for r in reqs:
+            cl.submit(r)
+        steps = _time_decodes(cl)
+        ops.reset_launches()
+        m = cl.run(on_step=on_step)
+        torch.cuda.synchronize()
+        runs[n] = dict(cl=cl, reqs=reqs, m=m, steps=steps,
+                       launches=ops.launch_counts(),
+                       wall=time.perf_counter() - t0,
+                       peak=torch.cuda.max_memory_allocated())
+    one, four = runs[1], runs[4]
+    m = four["m"]
+    done = [r.request_id for r in four["reqs"] if r.finish_time is not None]
+    want = _digest([one["reqs"][i] for i in done])
+    got = _digest([four["reqs"][i] for i in done])
+    for n, r in runs.items():
+        walls = [w for w, _ in r["steps"]]
+        tok = sum(k for _, k in r["steps"])
+        log(f"cluster ({n} client{'s' if n > 1 else ''}, lockstep, "
+            f"WallClock): completed {r['m'].completed}/16, failed "
+            f"{r['m'].failed_requests}, routed {r['m'].routed}; "
+            f"{r['m'].total_output_tokens} tokens; {len(walls)} client "
+            f"decode steps, wall p50 {_pct(walls, 50) * 1e3:.2f} ms p99 "
+            f"{_pct(walls, 99) * 1e3:.2f} ms; "
+            f"{tok / max(sum(walls), 1e-9):.1f} tok/s over the decode "
+            f"steps' wall (the clients take turns on "
+            f"one card), {r['m'].total_output_tokens / r['wall']:.1f} tok/s "
+            f"over the phase's elapsed {r['wall']:.2f} s, "
+            f"{r['m'].decode_throughput:.1f} tok/s on the cluster clock "
+            f"(each client's own clock: clients as parallel hardware); "
+            f"TTFT p50 {r['m'].ttft_stats()['p50'] * 1e3:.1f} ms, ITL p50 "
+            f"{r['m'].itl_stats()['p50'] * 1e3:.2f} p99 "
+            f"{r['m'].itl_stats()['p99'] * 1e3:.2f} ms; peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB; launches "
+            f"{json.dumps(r['launches'])} ({smi})")
+    n_off = _off_server(np, four["cl"].pool, DEAD)[1]
+    log(f"cluster: prompt lengths {lengths.tolist()}; router bias -30 on "
+        f"the {n_off} experts server {DEAD} holds (its failure moves no "
+        f"token)")
+    log(f"cluster: client 2 failed at cluster step {fail_at.get('client')}"
+        f" stranding {m.failed_requests}; tokens sha1 of the {len(done)} "
+        f"survivors {got}, the 1-client run's same requests {want}; "
+        f"1-client tokens sha1 {_digest(one['reqs'])}; peak memory 4 "
+        f"clients / 1 client {four['peak'] / one['peak']:.4f}")
+    bad = []
+    if one["m"].completed != 16 or one["m"].failed_requests:
+        bad.append("the 1-client run did not complete 16/16")
+    if not m.failed_requests or m.completed != 16 - m.failed_requests \
+            or len(done) != m.completed:
+        bad.append(f"completed {m.completed}, failed {m.failed_requests}")
+    if got != want:
+        bad.append("survivors' tokens differ from the 1-client run's")
+    if four["peak"] >= 1.1 * one["peak"]:
+        bad.append("four clients peaked above 1.1x one client")
+    zero = [k for k in DENSE_PATH if four["launches"][k] <= 0]
+    if zero:
+        bad.append(f"kernels never launched: {zero}")
+    if bad:
+        raise AssertionError(f"cluster: {bad}")
+    _cluster_profile(torch, four["cl"], cfg)
+    del four["cl"], one["cl"]
+    return four["launches"]
+
+
+def _cluster_profile(torch, cl, cfg, steps: int = 8) -> None:
+    """8 fresh 128-token requests (2 a client), then ``steps`` cluster
+    steps — each one client's decode — timed alone and under the profiler
+    (``_step_profile``): launches per client decode step."""
+    import numpy as np
+
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(9)
+    for i in range(8):
+        cl.submit(Request(300 + i, rng.integers(0, cfg.vocab_size, 128)
+                          .astype("int32"),
+                          SamplingParams(max_new_tokens=4 * steps + 8)))
+    for _ in range(64):
+        if not cl.ingress and all(
+                not c.queue and not c.scheduler._progress
+                for c in cl.clients):
+            break
+        cl.step()
+    p = _step_profile(torch, cl, steps)
+    cl.run()
+    if p is None:
+        log("cluster: the profiler saw no device time (not measured)")
+        return
+    log(f"cluster: client decode step (2 live slots of 8) wall "
+        f"{p['plain_ms']:.2f} ms, device busy {p['busy_ms']:.3f} ms, idle "
+        f"share {max(0.0, 1 - p['busy_ms'] / p['plain_ms']):.3f}; "
+        f"{p['launches']:.1f} kernel launches and {p['copies']:.1f} copies "
+        f"per client decode step")
+
+
+def async_cluster_phase(torch, cfg, params, smi) -> dict:
+    """The 16 requests through 4 clients under VirtualClock, lockstep and
+    then async (one shared tier, depth 2, per-expert lanes): server 3
+    slowed 3x at cluster step 25, server 1 failing at the first step after
+    60 with micro-batches queued on it (the async run's step, reused by
+    lockstep) and recovering 40 steps later.  The async digest must equal
+    lockstep's; micro-batches must re-dispatch.  Times are the
+    VirtualClock's model, not the card's.  Returns the async run's
+    launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import VirtualClock
+
+    _, make = _cluster_requests(np, cfg)
+    events = {}
+    runs = {}
+    for mode in ("async", "lockstep"):
+        def on_step(c, mode=mode):
+            nxt = c.step_idx + 1
+            if nxt == 25:
+                c.set_server_speed(3, 3.0)
+            if mode == "async" and "fail" not in events and nxt > 60 \
+                    and c._tier.queues[DEAD].in_flight() > 0:
+                events["fail"] = nxt
+                events["queued"] = c._tier.queues[DEAD].in_flight()
+            if nxt == events.get("fail"):
+                c.inject_server_failure(DEAD)
+            elif nxt == events.get("fail", -99) + 40:
+                c.recover_server(DEAD)
+        cl = _cluster(cfg, params, 4, VirtualClock, off=DEAD,
+                      exec_mode=mode, async_depth=2, queue_mode="expert")
+        reqs = make()
+        for r in reqs:
+            cl.submit(r)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        m = cl.run(on_step=on_step)
+        torch.cuda.synchronize()
+        runs[mode] = dict(cl=cl, reqs=reqs, m=m, wall=time.perf_counter() - t0,
+                          launches=ops.launch_counts())
+    a, lk = runs["async"], runs["lockstep"]
+    tier = a["cl"]._tier
+    qd = a["m"].queue_delay_stats()
+    for mode, r in runs.items():
+        s = r["m"]
+        log(f"cluster-async ({mode}, VirtualClock): completed "
+            f"{s.completed}/16, tokens sha1 {_digest(r['reqs'])}; virtual "
+            f"(the VirtualClock's model, not the card) "
+            f"{s.decode_throughput:.1f} tok/s, ITL p50 "
+            f"{s.itl_stats()['p50'] * 1e3:.3f} p99 "
+            f"{s.p99_itl * 1e3:.3f} ms, TTFT p50 "
+            f"{s.ttft_stats()['p50'] * 1e3:.3f} ms; the phase's wall on the "
+            f"card {r['wall']:.2f} s; launches {json.dumps(r['launches'])} "
+            f"({smi})")
+    log(f"cluster-async: server {DEAD} failed at cluster step "
+        f"{events.get('fail')} with {events.get('queued')} micro-batches "
+        f"queued on it; re-dispatched {tier.redispatched}, enqueued "
+        f"{tier.enqueued}, completed {tier.completed}, cancelled "
+        f"{tier.cancelled}; queue delay (virtual) p50 {qd['p50'] * 1e3:.4f} "
+        f"p99 {qd['p99'] * 1e3:.4f} ms over {len(a['m'].queue_delays)} "
+        f"micro-batches; migration none")
+    bad = []
+    if _digest(a["reqs"]) != _digest(lk["reqs"]):
+        bad.append("async tokens differ from lockstep's")
+    if a["m"].completed != 16 or lk["m"].completed != 16:
+        bad.append("not 16/16 completed")
+    if tier.redispatched <= 0 or tier.in_flight() != 0:
+        bad.append(f"re-dispatched {tier.redispatched}, in flight "
+                   f"{tier.in_flight()}")
+    zero = [k for k in DENSE_PATH if a["launches"][k] <= 0]
+    if zero:
+        bad.append(f"kernels never launched: {zero}")
+    if bad:
+        raise AssertionError(f"cluster-async: {bad}")
+    _wave_profile(torch, a["cl"], cfg)
+    return a["launches"]
+
+
+def _wave_profile(torch, cl, cfg, steps: int = 24) -> None:
+    """Kernel launches per async decode wave: 8 fresh requests (2 a
+    client) on the async cluster, then ``steps`` cluster steps under
+    torch.profiler once every client decodes; a step either dispatches a
+    wave (``decode_masked``) or handles an event, which launches
+    nothing."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(10)
+    for i in range(8):
+        cl.submit(Request(400 + i, rng.integers(0, cfg.vocab_size, 128)
+                          .astype("int32"),
+                          SamplingParams(max_new_tokens=48)))
+    for _ in range(200):
+        if not cl.ingress and all(not c.queue and not c.scheduler._progress
+                                  for c in cl.clients):
+            break
+        cl.step()
+    waves = [0]
+    for eng in cl.clients:
+        def counted(tokens, mask, f=eng.executor.decode_masked):
+            waves[0] += 1
+            return f(tokens, mask)
+        eng.executor.decode_masked = counted
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            cl.step()
+        torch.cuda.synchronize()
+    for eng in cl.clients:
+        del eng.executor.decode_masked
+    cl.run()
+    rows = [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    copies = sum(n for k, n in rows if k.startswith(("Memcpy", "Memset")))
+    kernels = sum(n for _, n in rows) - copies
+    if not rows or not waves[0]:
+        log("cluster-async: the profiler saw no device time or no wave "
+            "(not measured)")
+        return
+    log(f"cluster-async: {waves[0]} waves in {steps} cluster steps: "
+        f"{kernels / waves[0]:.1f} kernel launches and "
+        f"{copies / waves[0]:.1f} copies per wave")
+
+
+def paged_cluster_phase(torch, cfg, params, prompts, smi) -> dict:
+    """The paged serve's 16 shared-prefix requests through 4 paged
+    lockstep clients (the paged serve's engine settings), routed by
+    session affinity, then round robin: affinity's prefix hit rate must be
+    at least round robin's.  Returns the affinity run's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, SamplingParams, WallClock
+
+    rates, first = {}, None
+    for policy in ("session_affinity", "round_robin"):
+        cl = _cluster(cfg, params, 4, WallClock, kv_mode="paged",
+                      kv_block_size=16, kv_num_blocks=129, prefill_chunk=256,
+                      policy="fair", frontend_policy=policy)
+        reqs = [Request(i, p, SamplingParams(max_new_tokens=32))
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            cl.submit(r)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        m = cl.run()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        hits = sum(c.prefix_hit_blocks for c in m.per_client)
+        probes = sum(c.prefix_lookup_blocks for c in m.per_client)
+        rates[policy] = m.prefix_hit_rate
+        log(f"cluster-paged ({policy}): completed {m.completed}/16, routed "
+            f"{m.routed}, prefix hit rate {m.prefix_hit_rate:.4f} ({hits} "
+            f"of {probes} blocks), preemptions {m.preemptions}, tokens sha1 "
+            f"{_digest(reqs)}, {time.perf_counter() - t0:.2f} s; launches "
+            f"{json.dumps(launches)} ({smi})")
+        zero = [k for k in PAGED_PATH if launches[k] <= 0]
+        if m.completed != 16 or zero:
+            raise AssertionError(f"cluster-paged ({policy}): completed "
+                                 f"{m.completed}, never launched {zero}")
+        first = first or launches
+        del cl
+    if rates["session_affinity"] < rates["round_robin"]:
+        raise AssertionError(f"cluster-paged: affinity's hit rate below "
+                             f"round robin's {rates}")
+    return first
 
 
 # the baselines' restart stalls at EngineConfig's defaults
@@ -1526,8 +1925,15 @@ def main() -> int:
     cases, floor = kernels_phase(torch, cfg)
     reference_phase(torch, get_config)
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
-    paged_launches = paged_serve_phase(torch, serve_cfg, eng.params, rng)
+    paged_launches, paged_prompts = paged_serve_phase(torch, serve_cfg,
+                                                      eng.params, rng)
     mode_launches = decode_modes_phase(torch, serve_cfg, eng.params, smi)
+    # the cluster phases share the dense serve's weights (one bank on the
+    # card for every client); they run before the baselines free them
+    cluster_launches = cluster_phase(torch, serve_cfg, eng.params, smi)
+    async_launches = async_cluster_phase(torch, serve_cfg, eng.params, smi)
+    cpaged_launches = paged_cluster_phase(torch, serve_cfg, eng.params,
+                                          paged_prompts, smi)
     # the baselines have their own layouts, and the control plane owns its
     # weights (it reshards them in place): one full-width model at a time
     del eng
@@ -1549,7 +1955,10 @@ def main() -> int:
                                   "serve-paged": paged_launches[name],
                                   **{f"modes ({m})": n[name]
                                      for m, n in mode_launches.items()},
-                                  "control-plane": control_launches[name]},
+                                  "control-plane": control_launches[name],
+                                  "cluster": cluster_launches[name],
+                                  "cluster-async": async_launches[name],
+                                  "cluster-paged": cpaged_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -1,5 +1,5 @@
 """Elastic scaling of the expert-service tier (paper §5.3) — the
-reference's ``core/elastic.py`` without the cluster's ``PoolClient``.
+reference's ``core/elastic.py``.
 
 * :class:`ServerPool` — host-side pool state (liveness, replication,
   router skew, paged-out experts, pool size) that emits fresh
@@ -8,6 +8,9 @@ reference's ``core/elastic.py`` without the cluster's ``PoolClient``.
   pool owns placement only; the weight paths are
   :mod:`repro_torch.core.expert_server`'s ``migrate_slots`` and
   ``reshard_server_weights``, applied by the executor.
+* :class:`PoolClient` — one attention client's view of a pool shared by a
+  cluster: everything delegates to the pool, and its runtime's ``alive``
+  tensor also drops the servers this client masked out locally.
 * :func:`provision` / :func:`resource_saving` — the traffic -> server-count
   policy of the weak-scaling benchmark (the paper's 37.5 % saving).
 """
@@ -116,6 +119,10 @@ class ServerPool:
         return load_balance.imbalance(
             self.stats.ema, self.smap.table, self.num_servers,
             alive=self.smap.alive, capacities=self.capacities)
+
+    def client_view(self, client_id: int = 0) -> "PoolClient":
+        """A per-client handle on this shared pool (cluster front-end)."""
+        return PoolClient(self, client_id)
 
     def apply_plan(self, mapping: np.ndarray, red: np.ndarray) -> None:
         """Adopt a placement wholesale, preserving liveness (the one-shot
@@ -242,6 +249,52 @@ class ServerPool:
                              else torch.as_tensor(self.capacities,
                                                   dtype=torch.float32,
                                                   device=device)))
+
+
+class PoolClient:
+    """One attention client's handle on a shared :class:`ServerPool`.
+
+    The placement, replicas and global liveness are one object every
+    client reads, so failures and migrations are seen consistently; a
+    client may also mask out servers it observed misbehaving before the
+    monitor confirms the failure pool-wide.  Everything but
+    :meth:`alive_mask` and :meth:`runtime` delegates to the pool;
+    ``runtime`` ANDs the client's mask into the ``alive`` tensor on the
+    engine's device."""
+
+    def __init__(self, pool: ServerPool, client_id: int = 0):
+        self.pool = pool
+        self.client_id = client_id
+        self._masked: set = set()      # server ranks this client masked out
+
+    def mask_server(self, rank: int) -> None:
+        """Locally stop routing to ``rank`` (this client only)."""
+        self._masked.add(int(rank))
+
+    def unmask_server(self, rank: int) -> None:
+        self._masked.discard(int(rank))
+
+    @property
+    def masked_servers(self) -> Tuple[int, ...]:
+        return tuple(sorted(self._masked))
+
+    def alive_mask(self) -> np.ndarray:
+        """(S,) shared liveness AND the client's local mask."""
+        mask = self.pool.smap.alive.copy()
+        for r in self._masked:
+            if r < mask.shape[0]:
+                mask[r] = False
+        return mask
+
+    def runtime(self, device) -> MoERuntime:
+        rt = self.pool.runtime(device)
+        if not self._masked:
+            return rt                  # the shared view verbatim
+        return rt._replace(alive=torch.as_tensor(self.alive_mask(),
+                                                 device=device))
+
+    def __getattr__(self, name):
+        return getattr(self.pool, name)
 
 
 def provision(request_rate: float, rate_per_server: float,

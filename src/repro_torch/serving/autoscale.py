@@ -9,9 +9,11 @@ communication group under a traffic drop.  With ``expert_idle_fraction >
 0`` experts whose traffic-EMA share decays below the threshold page out of
 the tier (``engine.page_out_experts``); the first token routed back to one
 pays the clock's ``cold_start_base``, and ``page_in_protect`` keeps a
-freshly paged-in expert resident.  The attention-tier controller
-(``rate_per_client``) acts only on a target with ``scale_clients`` — the
-cluster, not ported — and stays inert against the engine.
+freshly paged-in expert resident.  With ``rate_per_client > 0`` the
+attention-tier controller drives a :class:`~repro_torch.serving.cluster
+.Cluster`'s ``scale_clients`` (spawn: join empty at cluster time; drain:
+stop admitting, finish in-flight waves, park), with the ingress backlog as
+its backpressure term; it stays inert against a single engine.
 
 The sub-controllers fire at most ONE action per control step and share
 the engine's ``last_placement_change`` cooldown with the rebalance

@@ -32,9 +32,9 @@ no batch axis to cut.
 The reference's ``jax.jit`` has no counterpart: PyTorch runs eagerly.  The
 expert->server mapping, liveness mask and local table are read from the
 pool at every step, so failover, rebalancing and resizing take effect at
-the next step.  The executor owns its params: ``migrate_slots`` and
-``resize`` write the expert weights in place (no other engine may hold
-them then).
+the next step.  ``migrate_slots`` and ``resize`` write the expert weights
+in place: engines that share them (a cluster's clients) have one of them
+write, once.
 """
 
 from __future__ import annotations

@@ -17,7 +17,11 @@ reference's ``serving/rebalance.py``.
 The controller drives a narrow host interface — ``pool``, ``clk``,
 ``clock``, ``metrics``, ``apply_migration(copies)``,
 ``charge_migration(dt)``, ``last_placement_change`` — which
-:class:`~repro_torch.serving.engine.ServingEngine` implements.  It shares
+:class:`~repro_torch.serving.engine.ServingEngine` implements, and
+:class:`~repro_torch.serving.cluster.Cluster` too (its chunks write the one
+shared weight bank once).  ``charge_migration`` is where the execution
+modes differ: a lockstep host advances its clock, an async host occupies
+the expert tier's queues instead.  It shares
 the engine's ``last_placement_change`` cooldown with the
 :class:`~repro_torch.serving.autoscale.Autoscaler`, which holds off while
 a migration is in flight; ``engine.scale_to`` aborts a staged migration.
@@ -44,8 +48,8 @@ def _slot_moves(pool, updates):
 
 def oneshot_rebalance(host) -> None:
     """Re-plan from the traffic EMA and migrate in ONE step (the scripted
-    ``rebalance`` scenario event / manual path).  ``host`` is the engine —
-    see the module docstring for the interface."""
+    ``rebalance`` scenario event / manual path).  ``host`` is an engine or
+    a cluster — see the module docstring for the interface."""
     pool = host.pool
     mapping, red = pool.plan()
     changed = (load_balance.plan_digest(mapping, pool.num_servers)
@@ -86,18 +90,19 @@ class RebalanceConfig:
     cooldown: float = 0.05
     # decode steps observed before the first evaluation (EMA warm-up)
     min_observations: int = 4
-    # read a host's live queue signals (``host.queue_signals()``, the
-    # reference's async tier): when the tier is measurably backlogged,
-    # ``min_gain`` is evaluated against a modelled queue-delay reduction
-    # instead of the routed-count imbalance.  The port's lockstep engine
-    # has no tier, so the count gate decides, as in the reference's
-    # lockstep path
+    # read the host's live async-tier queue signals
+    # (``host.queue_signals()``): when the tier is measurably backlogged,
+    # ``min_gain`` is evaluated against a modelled queue-delay reduction —
+    # the max server backlog now vs the balanced backlog the planned
+    # placement would leave — instead of the routed-count imbalance alone.
+    # Lockstep hosts (no tier) and an idle tier fall back to the count gate
     queue_aware: bool = True
 
 
 @dataclass
 class RebalanceController:
-    """Periodic replan + incremental migration for one engine."""
+    """Periodic replan + incremental migration for one engine or
+    cluster."""
 
     cfg: RebalanceConfig = field(default_factory=RebalanceConfig)
     # (server, red_slot, old_eid, new_eid) still to apply

@@ -1,33 +1,36 @@
 """Deterministic scenario engine for serving experiments (the reference's
-``src/repro/serving/scenario.py`` without the cluster verbs).
+``src/repro/serving/scenario.py``).
 
 A :class:`Scenario` scripts a timeline once, deterministically — traffic
 arrives, expert servers fail, recover and straggle, the router skews, the
 placement rebalances, the pool resizes (or an autoscaler resizes it) — and
-replays it against a :class:`~repro_torch.serving.engine.ServingEngine`,
-usually under a :class:`~repro_torch.serving.clock.VirtualClock`, so two
-runs with the same seed give bit-identical metrics, and so do the port and
-the reference on the same trace.
+replays it against a :class:`~repro_torch.serving.engine.ServingEngine` or
+a :class:`~repro_torch.serving.cluster.Cluster` of N attention clients
+(which adds client failures and front-end policy switches), usually under
+a :class:`~repro_torch.serving.clock.VirtualClock`, so two runs with the
+same seed give bit-identical metrics, and so do the port and the reference
+on the same trace.
 
 DSL (chained calls, times are engine-clock seconds)::
 
-    sc = (Scenario(horizon=2.0, seed=0, max_new=16)
+    sc = (Scenario(horizon=2.0, seed=0, max_new=16, clients=4)
           .poisson(rate=40)                 # or .bursty(...) / .diurnal(...)
           .set_rate(t=1.0, rate=10)         # piecewise-constant override
           .shared_prefix(n_prefixes=2, prefix_len=16, suffix_len=6)
           .fail(rank=1, t=0.5)              # expert-server failure
           .recover(rank=1, t=0.9)
           .set_policy(t=1.2, policy="fair")
+          .fail_client(i=0, t=0.6)          # attention-client failure
+          .recover_client(i=0, t=1.1)       #   (Cluster engines only)
+          .set_frontend_policy(t=1.0, policy="least_loaded")
           .zipf_skew(alpha=1.2, scale=1.0)  # Zipf-skewed expert traffic
           .rebalance(t=1.2)
           .scale_to(n=2, t=1.5))            # or .autoscale(Autoscaler(...))
-    result = sc.run(engine)
+    result = sc.run(engine)                 # engine or Cluster
 
 Arrival processes are inhomogeneous Poisson, sampled by Lewis–Shedler
 thinning from a seeded generator — the trace depends only on
-(seed, rate schedule, horizon), never on engine state.  The cluster verbs
-(``fail_client``, ``recover_client``, ``set_frontend_policy``) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+(seed, rate schedule, horizon), never on engine state.
 """
 
 from __future__ import annotations
@@ -118,9 +121,10 @@ def sample_arrival_times(rate_fn: RateFn, horizon: float,
 class ScenarioEvent:
     t: float
     # fail | recover | rebalance | scale_to | set_policy | set_skew |
-    # slow_server | set_elastic
+    # slow_server | fail_client | recover_client | set_frontend_policy |
+    # set_elastic
     kind: str
-    value: Optional[object] = None     # rank / pool size / policy / ...
+    value: Optional[object] = None     # rank / client / pool size / policy
 
 
 @dataclass
@@ -138,27 +142,22 @@ class ScenarioResult:
         return out
 
 
-_CLUSTER_ITEM = "item 2 (the async tier and the cluster)"
-
-
-def _not_ported(verb: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"Scenario.{verb} is not ported yet (ROADMAP Queue 1 {item})")
-    method.__name__ = verb
-    return method
-
-
 class Scenario:
-    """A scripted, seeded timeline of traffic, faults, skew and scaling."""
+    """A scripted, seeded timeline of traffic, faults, skew and scaling.
+
+    ``clients`` is the cluster shape the timeline is written for (trace
+    metadata: a benchmark builds a :class:`~repro_torch.serving.cluster
+    .Cluster` of that width); the client-level events need a cluster to
+    replay on."""
 
     def __init__(self, horizon: float, seed: int = 0, prompt_len: int = 8,
-                 max_new: int = 16, vocab: int = 512):
+                 max_new: int = 16, vocab: int = 512, clients: int = 1):
         self.horizon = float(horizon)
         self.seed = seed
         self.prompt_len = prompt_len
         self.max_new = max_new
         self.vocab = vocab
+        self.clients = int(clients)
         self.events: List[ScenarioEvent] = []
         self._base_rate: RateFn = constant_rate(0.0)
         self._rate_overrides: List[Tuple[float, float]] = []  # set_rate pts
@@ -222,7 +221,8 @@ class Scenario:
                     factor: float = 4.0) -> "Scenario":
         """Expert server ``rank`` becomes a straggler at ``t``: its compute
         runs ``factor``× slower until reset (``factor=1.0``).  A lockstep
-        engine waits for its slowest server every decode step."""
+        engine waits for its slowest server every decode step; the async
+        tier slows only that server's micro-batch queue."""
         self.events.append(ScenarioEvent(
             float(t), "slow_server", (int(rank), float(factor))))
         return self
@@ -271,9 +271,9 @@ class Scenario:
                   max_clients: int = None) -> "Scenario":
         """Attach an :class:`~repro_torch.serving.autoscale.Autoscaler`
         policy loop (observed each step; its decisions become
-        ``engine.scale_to`` / ``engine.page_out_experts``).  ``min_clients``
-        / ``max_clients`` bound its attention-tier controller, which acts
-        only on a cluster (not ported)."""
+        ``engine.scale_to`` / ``engine.scale_clients`` /
+        ``engine.page_out_experts``).  ``min_clients`` / ``max_clients``
+        bound its attention-tier controller, which acts on a cluster."""
         if min_clients is not None:
             autoscaler.cfg.min_clients = int(min_clients)
         if max_clients is not None:
@@ -289,9 +289,23 @@ class Scenario:
                                          bool(enabled)))
         return self
 
-    fail_client = _not_ported("fail_client", _CLUSTER_ITEM)
-    recover_client = _not_ported("recover_client", _CLUSTER_ITEM)
-    set_frontend_policy = _not_ported("set_frontend_policy", _CLUSTER_ITEM)
+    # ------------------------------------------------- cluster-level events
+    def fail_client(self, i: int, t: float) -> "Scenario":
+        """An attention client (not an expert server) dies at ``t``: its
+        in-flight requests strand while the shared expert tier keeps
+        serving every other client."""
+        self.events.append(ScenarioEvent(float(t), "fail_client", int(i)))
+        return self
+
+    def recover_client(self, i: int, t: float) -> "Scenario":
+        self.events.append(ScenarioEvent(float(t), "recover_client", int(i)))
+        return self
+
+    def set_frontend_policy(self, t: float, policy: str) -> "Scenario":
+        """Swap the cluster's request-routing policy mid-run."""
+        self.events.append(
+            ScenarioEvent(float(t), "set_frontend_policy", policy))
+        return self
 
     # ------------------------------------------------------------ sampling
     def build_arrivals(self) -> List[Request]:
@@ -376,6 +390,14 @@ class Scenario:
             engine.set_policy(ev.value)
         elif ev.kind == "slow_server":
             engine.set_server_speed(*ev.value)
+        elif ev.kind in ("fail_client", "recover_client",
+                         "set_frontend_policy"):
+            if not hasattr(engine, "fail_client"):
+                raise ValueError(
+                    f"scenario event {ev.kind!r} needs a Cluster engine "
+                    "(N attention clients); got a single-client engine — "
+                    "wrap it in repro_torch.serving.Cluster")
+            getattr(engine, ev.kind)(ev.value)
         elif ev.kind == "set_elastic":
             if self._autoscaler is None:
                 raise ValueError("set_elastic needs an attached autoscaler "

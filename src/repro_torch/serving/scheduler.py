@@ -32,9 +32,12 @@ which is re-queued at the front and later recomputed as a prompt extension
 TP mode (``batch_cap``): admission stops at slot ``batch_cap`` — the
 per-unit weight replication caps the batch.
 
+Async exec mode (``hold``): a slot whose final token is already in flight
+on the expert tier leaves decode planning until its completion releases
+it.
+
 Not ported from the reference: ``slot_keys`` (the port samples from
-(seed, request id, token index)), ``hold`` / ``unhold`` (the async tier)
-and the autoscaler's pressure signals.
+(seed, request id, token index)).
 """
 
 from __future__ import annotations
@@ -126,6 +129,8 @@ class Scheduler:
         # slot -> sequence tokens already prefilled (present = mid-prefill,
         # i.e. NOT decode-ready); insertion order = admission order
         self._progress: Dict[int, int] = {}
+        # slots held out of decode planning (async exec mode)
+        self._held: set = set()
         self._last_was_prefill = False
         self.preemptions = 0
         if kv_pool is not None:
@@ -150,13 +155,20 @@ class Scheduler:
         """Free a slot whose request completed."""
         self.slots[slot] = None
         self._progress.pop(slot, None)
+        self._held.discard(slot)
         if self.kv is not None:
             self._release_slot_kv(slot)
+
+    def hold(self, slot: int) -> None:
+        """Exclude a slot from decode planning (async exec mode: its last
+        wave is in flight; the release at its completion unholds it)."""
+        self._held.add(slot)
 
     # ------------------------------------------------------------ signals
     def decode_ready(self) -> List[int]:
         return [b for b, r in enumerate(self.slots)
-                if r is not None and b not in self._progress]
+                if r is not None and b not in self._progress
+                and b not in self._held]
 
     @staticmethod
     def _eff_len(req: Request) -> int:

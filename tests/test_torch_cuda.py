@@ -688,3 +688,132 @@ def test_decode_masked_restores_rows_on_card(cuda):
                              for x in (masked, before, ex.cache))
             assert torch.equal(got[:, ~active], old[:, ~active]), (name, f)
             assert torch.equal(got[:, active], new[:, active]), (name, f)
+
+
+@pytest.mark.cuda
+def test_pool_client_runtime_masks_alive_on_card(cuda):
+    """A cluster client's PoolClient view: its runtime's ``alive`` tensor
+    lies on the card and drops the servers this client masked; the shared
+    pool and a sibling's view are untouched."""
+    from repro_torch.core.elastic import ServerPool
+
+    pool = ServerPool(_reduced_bf16(), 4, tokens_per_client=8)
+    mine, other = pool.client_view(0), pool.client_view(1)
+    mine.mask_server(2)
+    pool.server_failed(0)
+    rt = mine.runtime(cuda)
+    assert rt.alive.device.type == "cuda"
+    assert rt.alive.cpu().tolist() == [False, True, False, True]
+    assert other.runtime(cuda).alive.cpu().tolist() == [False, True, True,
+                                                        True]
+    assert pool.runtime(cuda).alive.cpu().tolist() == [False, True, True,
+                                                       True]
+    assert rt.mapping.device.type == "cuda"
+    assert torch.equal(rt.mapping, pool.runtime(cuda).mapping)
+
+
+def _async_engine(device, params):
+    from repro_torch.serving import EngineConfig, ServingEngine, VirtualClock
+    from repro_torch.serving.request import Request, SamplingParams
+
+    cfg = _reduced_bf16()
+    eng = ServingEngine(cfg, EngineConfig(max_batch=4, max_seq=64,
+                                          pool_tokens_per_client=64,
+                                          exec_mode="async"),
+                        params=params, clock=VirtualClock(), device=device)
+    rng = np.random.default_rng(5)
+    for i in range(6):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab_size, 5 + i)
+                           .astype(np.int32),
+                           SamplingParams(max_new_tokens=6)))
+    waves = []
+    masked = eng.executor.decode_masked
+
+    def record(tokens, mask):
+        before = _clone_cache(eng.executor.cache)
+        logits, load = masked(tokens, mask)
+        waves.append((tokens.copy(), mask.copy(), before, logits.clone()))
+        return logits, load
+    eng.executor.decode_masked = record
+    eng.run()
+    return eng, waves
+
+
+@pytest.mark.cuda
+def test_async_wave_logits_on_card(cuda):
+    """The async engine on the card: each wave's logits are bitwise those
+    of ``decode_masked`` replayed on the same cache; its greedy tokens are
+    their argmax; the first wave's logits agree with the CPU port's on the
+    same weights within bf16 tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    from repro_torch.models.transformer import build_model
+    cfg = _reduced_bf16()
+    model = build_model(cfg, 4, np.zeros((4, 0), np.int32), cuda)
+    params = model.init_params(gen)
+    eng, waves = _async_engine(cuda, params)
+    assert eng.metrics.completed == 6 and len(waves) > 3
+    ex = eng.executor
+    keep = ex.cache
+    for tokens, mask, before, logits in waves[:3]:
+        ex.cache = _clone_cache(before)
+        again, _ = ex.decode_masked(tokens, mask)
+        assert torch.equal(again, logits)
+    ex.cache = keep
+    cpu_eng, cpu_waves = _async_engine("cpu", _to(params, "cpu"))
+    tokens, mask, _, logits = waves[0]
+    ctok, cmask, _, clogits = cpu_waves[0]
+    assert np.array_equal(tokens, ctok) and np.array_equal(mask, cmask)
+    rows = torch.as_tensor(mask)
+    torch.testing.assert_close(logits.cpu()[rows].float(),
+                               clogits[rows].float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_cluster_writes_the_shared_bank_once_on_card(cuda):
+    """Four clients on the card hold one bank: building them allocates no
+    second copy; a one-shot rebalance calls ``migrate_slots`` on one
+    executor only; after it and ``scale_to`` 8 -> 2 -> 4 the bank is
+    bitwise a 1-client cluster's on the same traffic."""
+    from repro_torch.serving import (Cluster, ClusterConfig, EngineConfig,
+                                     Request, SamplingParams, VirtualClock,
+                                     zipf_bias)
+
+    cfg = _reduced_bf16()
+    ecfg = EngineConfig(max_batch=4, max_seq=64, pool_tokens_per_client=64)
+    banks, calls = [], []
+    for n in (1, 4):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cl = Cluster(cfg, ClusterConfig(clients=n, engine=ecfg), seed=0,
+                     clock_factory=VirtualClock, device=cuda)
+        torch.cuda.synchronize()
+        banks.append(torch.cuda.memory_allocated() - base)
+        assert all(c.params is cl.params for c in cl.clients)
+        cl.set_skew(zipf_bias(cfg.moe.num_experts, 1.2, scale=2.0))
+        rng = np.random.default_rng(1)
+        for i in range(8):
+            cl.submit(Request(i, rng.integers(0, cfg.vocab_size, 8)
+                              .astype(np.int32),
+                              SamplingParams(max_new_tokens=4)))
+        cl.run()
+        count = [0] * n
+        for i, c in enumerate(cl.clients):
+            def counted(copies, i=i, f=c.executor.migrate_slots):
+                count[i] += 1
+                return f(copies)
+            c.executor.migrate_slots = counted
+        cl.rebalance()
+        assert cl.metrics.rebalances == 1
+        calls.append(count)
+        for size in (8, 2, 4):
+            cl.scale_to(size)
+        sw = cl.params["blocks"]["moe"]["servers"]
+        banks[-1] = (banks[-1], {k: v.clone() for k, v in sw.items()})
+        del cl
+    (one, w1), (four, w4) = banks
+    assert calls == [[1], [1, 0, 0, 0]]
+    bank = sum(w.numel() * w.element_size() for w in w1.values())
+    # three more clients add their KV caches, not a second bank
+    assert four - one < 0.25 * bank
+    for k in w1:
+        assert torch.equal(w1[k], w4[k]), k

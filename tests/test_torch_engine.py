@@ -6,6 +6,7 @@ replica placement must be identical."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.serving import EngineConfig as JEngineConfig
@@ -17,6 +18,18 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.serving import (EngineConfig, Request, SamplingParams,
                                  ServingEngine, VirtualClock)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The reduced engines run thousands of tiny ops: one intra-op thread
+    spares them a thread pool's spin-waits when test workers share the
+    cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ENGINE = dict(mode="eaas", num_servers=4, max_batch=4, max_seq=64,
               n_redundant=2, pool_tokens_per_client=16)
@@ -105,10 +118,20 @@ def test_temperature_streams_replay(runs):
 
 
 def test_unported_modes_raise():
-    """The async tier is the one engine mode still not ported (the system
-    and decode modes are: tests/test_torch_monolithic.py and
-    tests/test_torch_overlap.py)."""
+    """Every engine mode is ported now (the async tier too:
+    tests/test_torch_async.py); what raises is async's validation, as in
+    the reference's test_async_depth_validation."""
     tcfg = get_config("deepseek-r1").reduced()
-    with pytest.raises(NotImplementedError, match="exec_mode='async'"):
+    for kw in ({"async_depth": 0}, {"queue_mode": "bogus"},
+               {"lane_budget": 0}):
+        with pytest.raises(ValueError):
+            ServingEngine(tcfg, EngineConfig(**{**ENGINE, **kw,
+                                                "exec_mode": "async"}),
+                          clock=VirtualClock(), device="cpu")
+    with pytest.raises(ValueError, match="needs a VirtualClock"):
         ServingEngine(tcfg, EngineConfig(**{**ENGINE, "exec_mode": "async"}),
                       device="cpu")
+    eng = ServingEngine(tcfg, EngineConfig(**{**ENGINE, "exec_mode": "async",
+                                              "async_depth": 3}),
+                        clock=VirtualClock(), device="cpu")
+    assert eng.tier is not None and eng.tier.num_servers == 4

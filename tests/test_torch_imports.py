@@ -13,7 +13,8 @@ import torch
 import repro_torch
 from repro_torch.kernels import ops
 from repro_torch.configs import get_config
-from repro_torch.serving import EngineConfig, Scenario, ServingEngine
+from repro_torch.serving import (EngineConfig, Scenario, ServingEngine,
+                                 VirtualClock)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -42,12 +43,14 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(_modules()) >= 25
-    # the control plane's and the baselines' modules are among those
-    # imported
+    # the control plane's, the baselines' and the async tier's and the
+    # cluster's modules are among those imported
     assert {"repro_torch.core.monitor", "repro_torch.core.elastic",
             "repro_torch.serving.rebalance",
             "repro_torch.serving.autoscale", "repro_torch.core.monolithic",
-            "repro_torch.core.overlap"} <= set(_modules())
+            "repro_torch.core.overlap", "repro_torch.serving.event_loop",
+            "repro_torch.serving.frontend",
+            "repro_torch.serving.cluster"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -90,10 +93,19 @@ def test_unknown_impl_raises():
                              impl="pallas")
 
 
-@pytest.mark.parametrize("verb", ["fail_client", "recover_client",
-                                  "set_frontend_policy"])
-def test_cluster_scenario_verbs_raise_naming_roadmap_item_8(verb):
-    """The cluster's verbs are the scenario verbs still not ported."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 2"):
-        getattr(Scenario(horizon=1.0), verb)(0, t=0.5)
+@pytest.mark.parametrize("verb,key,arg", [
+    ("fail_client", "i", 0), ("recover_client", "i", 1),
+    ("set_frontend_policy", "policy", "least_loaded")])
+def test_cluster_scenario_verbs_raise_naming_roadmap_item_8(verb, key, arg):
+    """The cluster's scenario verbs are ported (they were ROADMAP Queue 1
+    item 2): each builds its event; replayed on a single engine it raises
+    the reference's "needs a Cluster" error before the engine steps."""
+    sc = getattr(Scenario(horizon=1.0, clients=2), verb)(t=0.0,
+                                                         **{key: arg})
+    assert [(e.t, e.kind, e.value) for e in sc.events] == [(0.0, verb, arg)]
+    assert sc.clients == 2
+    eng = ServingEngine(get_config("deepseek-r1").reduced(), EngineConfig(),
+                        clock=VirtualClock(), device="cpu")
+    with pytest.raises(ValueError, match="needs a Cluster engine"):
+        sc.run(eng)
+    assert eng.step_idx == 0

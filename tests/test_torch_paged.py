@@ -35,6 +35,18 @@ from repro_torch.serving import (EngineConfig, Scenario, ServingEngine,
                                  VirtualClock, kv_pool, scheduler)
 from repro_torch.serving.request import Request, SamplingParams
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The reduced engines run thousands of tiny ops: one intra-op thread
+    spares them a thread pool's spin-waits when test workers share the
+    cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 ENGINE = dict(mode="eaas", num_servers=4, max_batch=4, max_seq=128,
               n_redundant=2, pool_tokens_per_client=128, prefill_chunk=8,
@@ -479,11 +491,19 @@ def test_paged_config_validation(paged_runs):
 
 
 def test_scenario_unported_verbs_raise():
-    """The control plane's verbs build events now; the cluster's still
-    raise and name ROADMAP Queue 1 item 2."""
-    sc = (Scenario(horizon=1.0).scale_to(2, t=0.5).rebalance(t=0.6)
-          .slow_server(1, t=0.7).zipf_skew(1.2).set_elastic(0.8, False))
+    """Every scenario verb builds its event now, the cluster's too; a
+    client-level event replayed on a single engine raises the reference's
+    "needs a Cluster" error."""
+    sc = (Scenario(horizon=1.0, clients=4).scale_to(2, t=0.5)
+          .rebalance(t=0.6).slow_server(1, t=0.7).zipf_skew(1.2)
+          .set_elastic(0.8, False).fail_client(0, t=0.1)
+          .recover_client(0, t=0.2)
+          .set_frontend_policy(0.3, "session_affinity"))
     assert [e.kind for e in sc.events] == [
-        "scale_to", "rebalance", "slow_server", "set_skew", "set_elastic"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        Scenario(horizon=1.0).fail_client(0, t=0.5)
+        "scale_to", "rebalance", "slow_server", "set_skew", "set_elastic",
+        "fail_client", "recover_client", "set_frontend_policy"]
+    eng = ServingEngine(get_config("deepseek-r1").reduced(), EngineConfig(
+        kv_mode="paged", max_batch=2, max_seq=64), clock=VirtualClock(),
+        device="cpu")
+    with pytest.raises(ValueError, match="needs a Cluster engine"):
+        (Scenario(horizon=1.0).fail_client(0, t=0.0)).run(eng)
