@@ -91,10 +91,38 @@ Phases, each of which raises on failure (exit code != 0):
    weight tensor (+5 %); each migration chunk, resize and page-out is
    printed with its device time, bytes and bound (the kernels phase also
    checks the grouped GEMM at G = 34 and 130 and the slot entry over 8 and
-   2 server buffers, the shapes of pool sizes 8 and 2).
+   2 server buffers, the shapes of pool sizes 8 and 2);
+14. reference, the rest of the decoder family: reduced arctic-480b,
+   gemma3-4b (10 layers: a group of 5 local + 1 global and 4 remainder
+   locals; the 80-token prompt wraps the 64-slot rings), qwen2-vl-2b (text
+   ids and an image grid's M-RoPE ids), minitron-8b (squared ReLU) and
+   phi3-medium-14b in float32, card (CUDA kernels) against the same
+   weights on the CPU: prefill logits plus 8 teacher-forced decode steps;
+15. disaggregated: the paper's protocol-literal tier at full deepseek-r1
+   width, one MoE layer, 2 clients x 8 expert servers (32 primaries + 8
+   replicas each) polling their shared-buffer slots: one dynamic batch per
+   server holds both clients' rows, the grouped GEMM launches; server 0
+   killed silently, then a straggler (slow_factor 50), then re-registered:
+   retries > 0 and outputs within 1e-3 of the healthy pass; per server its
+   batches, rows, tick wall and the three GEMMs' device time beside their
+   bytes bound;
+16. arctic: arctic-480b at full width (128 experts top-2 softmax, d_expert
+   4864, the dense residual FFN; depth cut 35 -> 2 MoE layers, ~59 GB)
+   through the lockstep EAAS engine, the dense serve's traffic and server
+   failure: 8/8 complete; the grouped GEMM (G = 34), flash decode and the
+   combine's slot entry launch; TTFT / ITL, tok/s, launches per decode
+   step, peak memory, the token digest;
+17. gemma3: gemma3-4b at full width and full depth (34 layers, window
+   1024, d_head 256, vocab 262144) through the dense engine (no expert
+   tier), whole-prompt prefill of 8 prompts of 1100-1800 tokens (every
+   ring wraps), 32 greedy tokens: 8/8 complete and flash decode launches
+   at hd 256 on the rings and on the global caches (the kernels phase
+   checks hd 256, the paged kernel at hd 256 and a softcap of 50).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
+arctic|gemma3`` builds the kernels and runs that one phase (14-17) alone,
+printing no summary.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits 1 and prints no result.
 """
 
@@ -200,9 +228,10 @@ def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
     case = {"case": label, "dtype": dtype, "max_abs_err": err,
             "tol": TOL[name][dtype],
             "ms": time_ms(torch, kernel), "plain_ms": plain_ms,
-            "library_ms": time_ms(torch, library),
+            "library_ms": library and time_ms(torch, library),
             "device_ms": time_ms(torch, kernel, graph=True),
-            "library_device_ms": time_ms(torch, library, graph=True),
+            "library_device_ms": library and time_ms(torch, library,
+                                                     graph=True),
             "bound_ms": b_ms, "bound_by": b_by}
     log(f"kernels: {name}[{label}] {json.dumps(case)}")
     return case
@@ -282,6 +311,19 @@ def kernels_phase(torch, cfg):
         for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
             gg_case(f"tp: {phase} {what}, G = 256, {live_} live rows of "
                     f"5120", live_, K_, N_, bf, G=256, Mr=5120, plain_reps=3)
+    # arctic-480b's expert servers (4 x 32 primaries + 2 replicas, d_expert
+    # 4864): a decode's 16 picks over C = 640 rows, a 512-token prefill's
+    # 1024 picks spread over 4 servers
+    for phase, live_ in (("decode", 4), ("prefill", 256)):
+        for what, K_, N_ in (("gate/up", d, 4864), ("down", 4864, d)):
+            gg_case(f"arctic-480b: {phase} {what}, G = 34, {live_} live "
+                    f"rows of 640", live_, K_, N_, bf, G=34, Mr=640,
+                    plain_reps=3)
+    # the disaggregated tier's server: 32 primaries + 8 replicas, one
+    # dynamic batch of both clients' rows (28 x 8 picks over 8 servers)
+    for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
+        gg_case(f"disaggregated server: {what}, G = 40, a batch of 28 rows",
+                28, K_, N_, bf, G=40, Mr=28, plain_reps=3)
 
     # edges of the in-kernel scan: (M, K, N, sizes); rows past the live
     # ones must come back zero from an uninitialised output
@@ -323,7 +365,7 @@ def kernels_phase(torch, cfg):
             attn_mask=mask[:, None, None, :], enable_gqa=True)
         return o[:, :, 0, :]
 
-    def fd_case(label, B, H, KV, hd, S, lengths, dtype):
+    def fd_case(label, B, H, KV, hd, S, lengths, dtype, softcap=0.0):
         q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
         k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
         v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
@@ -335,11 +377,15 @@ def kernels_phase(torch, cfg):
         es = q.element_size()
         n_valid = int(valid.sum())
         nbytes = (2 * B * H * hd + 2 * n_valid * KV * hd) * es + 4 * B
+        # SDPA has no softcap: no one-call yardstick for that case
         cases["flash_decode"].append(run_case(
             torch, "flash_decode", label, str(dtype)[6:],
-            lambda: ops.flash_decode(q, k, v, lens, impl="cuda"),
-            lambda: ops.flash_decode(q, k, v, lens, impl="torch"), library,
-            nbytes, 4.0 * n_valid * H * hd, twice=True))
+            lambda: ops.flash_decode(q, k, v, lens, softcap=softcap,
+                                     impl="cuda"),
+            lambda: ops.flash_decode(q, k, v, lens, softcap=softcap,
+                                     impl="torch"),
+            None if softcap else library, nbytes, 4.0 * n_valid * H * hd,
+            twice=True))
 
     rng_lens = torch.randint(64, 545, (8,), generator=torch.Generator()
                              .manual_seed(2)).tolist()
@@ -366,6 +412,24 @@ def kernels_phase(torch, cfg):
             [1, 65, 200, 129], bf)
     fd_case("float32, hd 33, split-edge lengths", 4, 12, 2, 33, 200,
             [1, 65, 200, 129], torch.float32)
+    # gemma3-4b: 8 heads over 4 KV heads, hd = 256 (two warps a chunk);
+    # prompts of 1100-1800 tokens: a local layer's 1024-slot ring is full
+    # (wrapped), a global layer at max_seq 2048 holds the whole prefix
+    g3_lens = torch.randint(1100, 1833, (8,), generator=torch.Generator()
+                            .manual_seed(9)).tolist()
+    fd_case("gemma3-4b local ring, 8 slots, G 2, hd 256, 1024 slots "
+            "wrapped (lengths 1100-1832)", 8, 8, 4, 256, 1024, g3_lens, bf)
+    fd_case("gemma3-4b global, 8 slots, G 2, hd 256, lengths 1100-1832 of "
+            "2048", 8, 8, 4, 256, 2048, g3_lens, bf)
+    fd_case("float32, hd 256, split-edge lengths", 4, 8, 4, 256, 200,
+            [1, 65, 200, 129], torch.float32)
+    fd_case("hd 160 (staged 160), G 24, split-edge lengths", 4, 24, 1, 160,
+            200, [1, 65, 200, 129], bf)
+    # no config of the repository sets attn_logit_softcap: a synthetic cap
+    fd_case("softcap 50, gemma3-4b global shape", 8, 8, 4, 256, 2048,
+            g3_lens, bf, softcap=50.0)
+    fd_case("float32, softcap 5, hd 64", 4, 16, 2, 64, 320,
+            [1, 64, 200, 320], torch.float32, softcap=5.0)
 
     # ---- paged flash decode: the same decode shape over a block pool ----
     def pfd_case(label, B, H, KV, hd, bs, mb, lengths, dtype):
@@ -415,6 +479,10 @@ def kernels_phase(torch, cfg):
              [1, 64, 65, 400, 128, 129, 257, 324], torch.float32)
     pfd_case("kimi-k2 width, 8 slots, bs 16, G 8, hd 112", 8, 64, 8, 112,
              16, 64, rng_lens, bf)
+    pfd_case("gemma3-4b width, 8 slots, bs 16, G 2, hd 256", 8, 8, 4, 256,
+             16, 128, g3_lens, bf)
+    pfd_case("float32, bs 12, hd 256", 4, 8, 4, 256, 12, 20,
+             [1, 65, 240, 129], torch.float32)
 
     # ---- combine: T tokens x top-8 partials x d_model -------------------
     def cb_case(label, T, k, dd, dtype):
@@ -1875,6 +1943,375 @@ def profile_decode(torch, eng, cfg, rng, label: str,
         f"{before['launches'] - now['launches']:.1f} launches)")
 
 
+# ---- slice 8: the disaggregated tier, Arctic, gemma3 ----------------------
+
+def _free(torch) -> None:
+    """Drop the previous phase's tensors before the next full-width one."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def family_reference_phase(torch, get_config) -> None:
+    """The new families' reduced configs in float32: the card (CUDA
+    kernels) against the same weights on the CPU (plain versions),
+    prefill logits plus 8 teacher-forced decode steps — Arctic's dense
+    residual, gemma3 at 10 layers (one group of 5 local + 1 global, 4
+    remainder locals; an 80-token prompt wraps the 64-slot rings),
+    qwen2-vl with text ids and with an image grid, minitron's squared ReLU,
+    phi3."""
+    from repro_torch.core.elastic import ServerPool
+    from repro_torch.models.transformer import build_model
+    from repro_torch.models.vlm import image_mrope_positions
+
+    cases = (("arctic-480b", {}, 24, None), ("gemma3-4b",
+             {"num_layers": 10}, 80, None),
+             ("qwen2-vl-2b", {}, 24, None), ("qwen2-vl-2b", {}, 24, (4, 3, 4)),
+             ("minitron-8b", {}, 24, None), ("phi3-medium-14b", {}, 24, None))
+    for arch, kw, plen, grid in cases:
+        cfg = get_config(arch).reduced().replace(dtype="float32", **kw)
+        S = 2 if cfg.moe else 1
+        pool = (ServerPool(cfg, S, tokens_per_client=48, n_redundant=1)
+                if cfg.moe else None)
+        g = torch.Generator().manual_seed(3)
+        prompt = torch.randint(0, cfg.vocab_size, (2, plen), generator=g)
+        steps = torch.randint(0, cfg.vocab_size, (8, 2, 1), generator=g)
+        outs, params_cpu = {}, None
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, S, pool.redundant_table if pool
+                                else None, dev)
+            if params_cpu is None:
+                params_cpu = model.init_params(
+                    torch.Generator().manual_seed(0))
+            params = _tree_to(params_cpu, dev)
+            rt = pool.runtime(dev) if pool else None
+            batch = None
+            if grid is not None:
+                t0, gh, gw = grid
+                batch = {"mrope_positions": image_mrope_positions(
+                    t0, gh, gw, plen - t0 - gh * gw, device=dev)}
+            logits, cache, _ = model.prefill(params, prompt.to(dev), rt,
+                                             max_slots=96, batch=batch)
+            seq = [logits]
+            for t in range(8):
+                lg, cache, _ = model.decode_step(params, steps[t].to(dev),
+                                                 cache, rt)
+                seq.append(lg)
+            outs[dev] = torch.stack(seq).cpu()
+        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+        what = f"{arch} {kw or ''} {'image grid' if grid else ''}".strip()
+        log(f"reference: reduced {what} float32, prefill ({plen} tokens) + "
+            f"8 decode steps, card vs CPU max |logit err| {err:.3e} "
+            f"(tol 1e-4)")
+        if not err <= 1e-4 or not torch.isfinite(outs["cuda"]).all():
+            raise AssertionError(f"reference phase ({what}): card and CPU "
+                                 f"disagree ({err})")
+
+
+def disaggregated_phase(torch, get_config, smi) -> dict:
+    """The paper's protocol-literal tier at full deepseek-r1 width, one MoE
+    layer: 2 attention clients, 8 expert servers (32 primaries + 8
+    replicas each, capacity 512) over one bank, polling their buffer slots.
+    Both clients' requests are in the slots before the first tick (one
+    dynamic batch per server holds both); then server 0 killed silently
+    (the timeout path re-routes to replicas), server 0 a straggler
+    (slow_factor 50), and re-registration: retries > 0 and outputs within
+    1e-3 of the healthy pass.  Server 0 carries the faults: under the
+    uniform plan eplb_plan replicates experts 0-31 only (ties toward the
+    low index), so only server 0 has no single-homed expert.  Returns the
+    healthy pass's launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.disaggregated import build_cluster
+
+    cfg = get_config("deepseek-r1")
+    m = cfg.moe
+    _free(torch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    clients, servers, smap, bank = build_cluster(
+        cfg, 2, 8, n_redundant=8, capacity=512, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    single = [sum(1 for e in s.expert_ids if (smap.table[e] >= 0).sum() == 1)
+              for s in servers]
+    log(f"disaggregated: deepseek-r1 d_model={cfg.d_model} experts="
+        f"{m.num_experts} top-{m.top_k} d_expert={m.d_expert} {cfg.dtype}, "
+        f"2 clients x 8 servers, hosted {[len(s.expert_ids) for s in servers]}"
+        f", single-homed {single}, capacity 512; built in "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    if single[0] != 0:
+        raise AssertionError("disaggregated: server 0 has single-homed "
+                             "experts; its failure would strand rows")
+    x0 = torch.randn(16, cfg.d_model, generator=gen, device="cuda")
+    x1 = torch.randn(12, cfg.d_model, generator=gen, device="cuda")
+
+    def drive():
+        for s in servers:
+            s.tick()
+
+    # per-server tick wall and the three GEMMs' device time
+    gemm_events, ticks, current = [], {}, [None]
+    real_gemm = ops.grouped_gemm
+
+    def timed_gemm(x, w, sizes, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real_gemm(x, w, sizes, **kw)
+        b.record()
+        gemm_events.append((current[0], a, b, x, w, sizes))
+        return out
+
+    def timed_compute(s, fn):
+        def compute(x, eids, scores):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            current[0] = s.rank
+            out = fn(x, eids, scores)
+            torch.cuda.synchronize()
+            ticks.setdefault(s.rank, []).append(
+                ((time.perf_counter() - t) * 1e3, x.shape[0]))
+            return out
+        return compute
+
+    def healthy():
+        y1 = []
+
+        def drive0():                   # client 1 sends, then servers tick
+            if not y1:
+                y1.append(clients[1].moe_layer(x1, drive))
+            else:
+                drive()
+        y0 = clients[0].moe_layer(x0, drive0)
+        return y0, y1[0]
+
+    healthy()                           # warm-up: cuBLAS, allocator
+    for s in servers:
+        s.compute = timed_compute(s, s.compute)
+    before = [(s.batches, s.served_tokens) for s in servers]
+    ops.grouped_gemm = timed_gemm
+    ops.reset_launches()
+    try:
+        y0, y1 = healthy()
+        torch.cuda.synchronize()
+    finally:
+        ops.grouped_gemm = real_gemm
+    launches = ops.launch_counts()
+    if launches["grouped_gemm"] <= 0:
+        raise AssertionError("disaggregated: the grouped GEMM never "
+                             "launched")
+    batches = [s.batches - b for s, (b, _) in zip(servers, before)]
+    rows = [s.served_tokens - n for s, (_, n) in zip(servers, before)]
+    if sum(rows) != (16 + 12) * m.top_k or max(batches) != 1:
+        raise AssertionError(f"disaggregated: rows {rows} batches {batches}"
+                             " (both clients' rows in one batch each)")
+    for rank in range(8):
+        ev = [e for e in gemm_events if e[0] == rank]
+        dev_ms = sum(a.elapsed_time(b) for _, a, b, *_ in ev)
+        nbytes = 0
+        for _, _, _, x, w, sizes in ev:
+            live_g = int((sizes > 0).sum())
+            nbytes += (x.shape[0] * w.shape[1] + live_g * w.shape[1]
+                       * w.shape[2] + x.shape[0] * w.shape[2]) * 2
+        wall = sum(t for t, _ in ticks.get(rank, []))
+        log(f"disaggregated: server {rank}: batches {batches[rank]}, rows "
+            f"{rows[rank]}, tick wall {wall:.3f} ms, 3 grouped GEMMs "
+            f"{dev_ms:.4f} ms device against a bytes bound of "
+            f"{nbytes / PEAK_BYTES * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB: the "
+            f"touched groups' weights read once) ({smi})")
+    outs = {"healthy": (y0, y1)}
+    # server 0 killed silently: the timeout path re-routes to replicas
+    servers[0].alive = False
+    r0 = clients[0].retries
+    outs["server 0 killed"] = (clients[0].moe_layer(x0, drive), None)
+    retries = {"server 0 killed": clients[0].retries - r0}
+    servers[0].alive = True
+    smap.mark_alive(0)
+    servers[0].slow_factor = 50
+    r1 = clients[1].retries
+    outs["server 0 straggler"] = (None, clients[1].moe_layer(x1, drive))
+    retries["server 0 straggler"] = clients[1].retries - r1
+    servers[0].slow_factor = 1
+    smap.mark_alive(0)
+    r1 = clients[1].retries
+    outs["re-registered"] = (clients[0].moe_layer(x0, drive),
+                             clients[1].moe_layer(x1, drive))
+    retries["re-registered"] = clients[1].retries - r1
+    for what, (a, b) in outs.items():
+        errs = [(got - want).abs().max().item()
+                for got, want in ((a, y0), (b, y1)) if got is not None]
+        ok = all(torch.isfinite(t).all() for t in (a, b) if t is not None)
+        log(f"disaggregated: {what}: retries {retries.get(what, 0)}, max "
+            f"|y - healthy| {max(errs):.3e} (tol 1e-3), finite {ok}")
+        if not ok or max(errs) > 1e-3:
+            raise AssertionError(f"disaggregated ({what}): output moved")
+    if not (retries["server 0 killed"] > 0
+            and retries["server 0 straggler"] > 0):
+        raise AssertionError(f"disaggregated: the timeout path never fired "
+                             f"{retries}")
+    log(f"disaggregated: launches (healthy pass) {json.dumps(launches)}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def _family_step_profile(torch, eng, cfg, rng, label: str) -> None:
+    """8 fresh 128-token requests, then 4 full-batch decode steps timed
+    alone and 4 under the profiler: wall, device busy, idle share and the
+    kernel launches per step."""
+    from repro_torch.serving import Request, SamplingParams
+
+    for i in range(8):
+        eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size, 128)
+                           .astype("int32"),
+                           SamplingParams(max_new_tokens=24)))
+    for _ in range(16):
+        if len(eng.scheduler.decode_ready()) == 8:
+            break
+        eng.step()
+    p = _step_profile(torch, eng, 4)
+    if p is None:
+        log(f"{label}: the profiler saw no device time (not measured)")
+        return
+    log(f"{label}: decode step (8 slots, full batch) wall "
+        f"{p['plain_ms']:.2f} ms ({8e3 / p['plain_ms']:.1f} tok/s), device "
+        f"busy {p['busy_ms']:.3f} ms, idle share "
+        f"{max(0.0, 1 - p['busy_ms'] / p['plain_ms']):.3f} of the plain "
+        f"wall; {p['launches']:.1f} kernel launches and {p['copies']:.1f} "
+        f"copies per step")
+    top = sorted(p["rows"].items(), key=lambda kv: -kv[1][0])
+    for key, (ms, n) in top[:6]:
+        log(f"{label}: {ms:8.3f} ms/step {n:6.1f} calls/step  {key[:90]}")
+
+
+def _family_serve_report(torch, label, eng, metrics, reqs, launches,
+                         steps) -> None:
+    s = metrics.summary()
+    log(f"{label}: completed {metrics.completed}/{len(reqs)} requests, "
+        f"{metrics.total_output_tokens} output tokens in "
+        f"{metrics.wall_time:.3f}s, {_step_rate(steps):.1f} tok/s over the "
+        f"decode steps' own wall; TTFT p50 {s['ttft']['p50']} ms p99 "
+        f"{s['ttft']['p99']} ms; ITL p50 {s['itl']['p50']} ms p99 "
+        f"{s['itl']['p99']} ms")
+    log(f"{label}: dropped {int(eng.executor.dropped)} miss "
+        f"{int(eng.executor.miss)}; tokens sha1 {_digest(reqs)}; launches "
+        f"{json.dumps(launches)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def arctic_phase(torch, get_config, smi) -> dict:
+    """arctic-480b at its full published widths — d_model 7168, 56 heads
+    over 8 KV heads (d_head 128), 128 experts top-2 softmax (normalised),
+    d_expert 4864, the dense residual FFN (d_ff 4864) beside them, vocab
+    32000, bf16 — with the depth cut from 35 to 2 MoE layers so the
+    weights fit one card.  The dense serve's traffic through the lockstep
+    EAAS engine (dense KV, 4 servers x (32 + 2) slots), server 1 down at
+    steps 10-20: 8/8 complete (misses are expected: 8 replicas of 128
+    experts), and the grouped GEMM (G = 34), flash decode and the
+    combine's slot entry each launch."""
+    import numpy as np
+
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    _free(torch)
+    cfg = get_config("arctic-480b").replace(num_layers=2)
+    # C = 640 rows a server: a 512-token prompt's 1024 picks over 4
+    # servers, with the headroom 128 experts under a random router need
+    ecfg = EngineConfig(max_batch=8, max_seq=1024, num_servers=4,
+                        n_redundant=2, pool_tokens_per_client=1024)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, ecfg, seed=0, clock=WallClock())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    G = eng.params["blocks"]["moe"]["servers"]["w_gate"].shape[2]
+    log(f"arctic: arctic-480b d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} d_head={cfg.head_dim} vocab={cfg.vocab_size} "
+        f"experts={cfg.moe.num_experts} top-{cfg.moe.top_k} "
+        f"{cfg.moe.router_score_fn} d_expert={cfg.moe.d_expert} residual "
+        f"d_ff={cfg.d_ff} {cfg.dtype}; reduced: depth 35 -> 2 MoE layers; "
+        f"{n_params / 1e9:.2f}B params, G = {G} slots a server, init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    rng = np.random.default_rng(0)
+    warm, lengths, reqs = _dense_requests(np, cfg, rng)
+    metrics, launches, steps = _serve(torch, eng, warm, reqs, fail=True)
+    _check_completed("arctic", metrics, reqs, cfg)
+    zero = [k for k in DENSE_PATH if launches[k] <= 0]
+    if zero or G != 34:
+        raise AssertionError(f"arctic: kernels never launched {zero}, "
+                             f"G = {G}")
+    _family_serve_report(torch, "arctic", eng, metrics, reqs, launches,
+                         steps)
+    _family_step_profile(torch, eng, cfg, rng, "arctic")
+    del eng
+    return launches
+
+
+def gemma3_phase(torch, get_config, smi) -> dict:
+    """gemma3-4b at its full published widths and full depth — 34 layers
+    (5 groups of 5 sliding-window + 1 global, then 4 sliding-window),
+    window 1024, d_model 2560, 8 heads over 4 KV heads, d_head 256, vocab
+    262144 tied, bf16 — through the dense engine (no expert tier),
+    lockstep, whole-prompt prefill, max_seq 2048.  8 requests of 1100-1800
+    prompt tokens (every local ring wraps), 32 greedy tokens: 8/8 complete
+    and flash decode launches at hd 256 on the 1024-slot rings and on the
+    2048-slot global caches."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (EngineConfig, Request, SamplingParams,
+                                     ServingEngine, WallClock)
+
+    _free(torch)
+    cfg = get_config("gemma3-4b")
+    ecfg = EngineConfig(max_batch=8, max_seq=2048)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, ecfg, seed=0, clock=WallClock())
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    log(f"gemma3: gemma3-4b d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} d_head={cfg.head_dim} vocab={cfg.vocab_size} "
+        f"layers={cfg.num_layers} (pattern {cfg.local_global_pattern}:1, "
+        f"window {cfg.sliding_window}) {cfg.activation} {cfg.dtype}: "
+        f"{n_params / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; expert tier "
+        f"{eng.pool}")
+    rng = np.random.default_rng(1)
+    warm = Request(-1, rng.integers(0, cfg.vocab_size, 64, np.int32),
+                   SamplingParams(max_new_tokens=2))
+    lengths = rng.integers(1100, 1801, 8)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n), np.int32),
+                    SamplingParams(max_new_tokens=32))
+            for i, n in enumerate(lengths)]
+    # which cache widths and head widths reach the kernel
+    shapes = collections.Counter()
+    real = ops.flash_decode_cuda
+
+    def seen(q, k, v, lengths_, softcap=0.0):
+        shapes[(k.shape[1], q.shape[-1])] += 1
+        return real(q, k, v, lengths_, softcap)
+    ops.flash_decode_cuda = seen
+    try:
+        metrics, launches, steps = _serve(torch, eng, warm, reqs, fail=False)
+    finally:
+        ops.flash_decode_cuda = real
+    _check_completed("gemma3", metrics, reqs, cfg)
+    ring = shapes[(cfg.sliding_window, cfg.head_dim)]
+    glob = shapes[(ecfg.max_seq, cfg.head_dim)]
+    log(f"gemma3: prompt lengths {lengths.tolist()}; flash decode calls by "
+        f"(cache slots, hd): {dict(shapes)}")
+    if launches["flash_decode"] <= 0 or not ring or not glob:
+        raise AssertionError(f"gemma3: flash decode did not launch on ring "
+                             f"and global layers at hd 256: {dict(shapes)}")
+    _family_serve_report(torch, "gemma3", eng, metrics, reqs, launches,
+                         steps)
+    _family_step_profile(torch, eng, cfg, rng, "gemma3")
+    del eng
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1909,6 +2346,20 @@ def main() -> int:
 
     build.load_library()
     info = build.build_info
+    alone = {"families": lambda: family_reference_phase(torch, get_config),
+             "disaggregated": lambda: disaggregated_phase(torch, get_config,
+                                                          smi),
+             "arctic": lambda: arctic_phase(torch, get_config, smi),
+             "gemma3": lambda: gemma3_phase(torch, get_config, smi)}
+    if len(sys.argv) == 3 and sys.argv[1] == "--only" \
+            and sys.argv[2] in alone:
+        alone[sys.argv[2]]()             # one model's phase, no summary
+        log(f"chip_smoke: phase {sys.argv[2]} passed")
+        return 0
+    if len(sys.argv) > 1:
+        print(f"usage: chip_smoke.py [--only {{{','.join(alone)}}}]",
+              file=sys.stderr)
+        return 2
     log(f"build: {len(info['sources'])} sources "
         f"{[Path(p).name for p in info['sources']]} in {info['seconds']:.1f}s "
         f"-> {info['path']}")
@@ -1941,6 +2392,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mode_launches.update(baselines_phase(torch, serve_cfg, smi))
     control_launches = control_plane_phase(torch, serve_cfg, smi)
+    family_reference_phase(torch, get_config)
+    disagg_launches = disaggregated_phase(torch, get_config, smi)
+    arctic_launches = arctic_phase(torch, get_config, smi)
+    gemma3_launches = gemma3_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -1958,7 +2413,10 @@ def main() -> int:
                                   "control-plane": control_launches[name],
                                   "cluster": cluster_launches[name],
                                   "cluster-async": async_launches[name],
-                                  "cluster-paged": cpaged_launches[name]},
+                                  "cluster-paged": cpaged_launches[name],
+                                  "disaggregated": disagg_launches[name],
+                                  "arctic": arctic_launches[name],
+                                  "gemma3": gemma3_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

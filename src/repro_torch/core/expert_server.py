@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.common import dense_init
 
 
 class ServerWeights(NamedTuple):
@@ -28,6 +29,17 @@ class ServerWeights(NamedTuple):
     w_up: torch.Tensor
     w_down: torch.Tensor
     local_table: torch.Tensor
+
+
+def init_expert_weights(cfg, dtype, device, generator) -> Dict:
+    """The global expert bank (E, d, f) / (E, f, d) of the reference's
+    ``init_expert_weights``, drawn with its fan-in init (not its numbers)
+    a few experts at a time, so the fp32 scratch stays small."""
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_expert, m.num_experts
+    return {name: dense_init((E, a, b), dtype, device, generator)
+            for name, (a, b) in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                 ("w_down", (f, d)))}
 
 
 def _layout_ids(num_experts: int, num_servers: int,

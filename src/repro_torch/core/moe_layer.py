@@ -3,7 +3,8 @@
 router -> mapping lookup (replica choice, liveness) -> pack into
 per-server buffer slots -> each of the S logical servers serves its slot
 (a loop: the reference's ``jax.vmap`` over servers) -> combine, plus the
-shared experts on the client.
+client's dense tier: the shared experts and, for Arctic, the dense FFN
+residual that runs beside the experts (``moe.dense_residual``).
 """
 
 from __future__ import annotations
@@ -77,12 +78,11 @@ def default_runtime(cfg: ModelConfig, num_servers: int,
 def init_eaas_moe(cfg: ModelConfig, num_servers: int, redundant_table,
                   dtype, device, generator, lead=()) -> Dict:
     """Router + per-server expert weights (+ shared experts), stacked over
-    ``lead`` layers.  Each server's primaries are drawn straight into the
-    (S, L, d, f) layout and the redundant slots copied from them, so no
-    global (E, d, f) bank is ever materialized."""
+    ``lead`` layers, and Arctic's dense residual FFN (d_model -> d_ff).
+    Each server's primaries are drawn straight into the (S, L, d, f)
+    layout and the redundant slots copied from them, so no global
+    (E, d, f) bank is ever materialized."""
     m = cfg.moe
-    if m.dense_residual:
-        raise NotImplementedError("dense-residual MoE is not ported")
     d, f, E, S = cfg.d_model, m.d_expert, m.num_experts, num_servers
     red = np.asarray(redundant_table, np.int32).reshape(S, -1)
     L = E // S + red.shape[1]
@@ -100,7 +100,23 @@ def init_eaas_moe(cfg: ModelConfig, num_servers: int, redundant_table,
         params["shared"] = init_mlp(d, f * m.num_shared_experts,
                                     cfg.activation, dtype, device, generator,
                                     lead)
+    if m.dense_residual:
+        params["residual"] = init_mlp(d, cfg.d_ff, cfg.activation, dtype,
+                                      device, generator, lead)
     return params
+
+
+def client_extras(params: Dict, x: torch.Tensor,
+                  activation: str) -> Optional[torch.Tensor]:
+    """Shared experts + dense residual — the client-side dense FFN tier,
+    summed in the reference's order (zeros + shared + residual, in x's
+    dtype); None when the layer has neither."""
+    extra = None
+    for name in ("shared", "residual"):
+        if name in params:
+            y = mlp(params[name], x, activation)
+            extra = y if extra is None else extra + y
+    return extra
 
 
 def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
@@ -136,11 +152,9 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
         miss = miss + st.miss
     result = comm.return_to_clients(outs, mode)
 
-    # ---- client: combine + shared experts, one kernel on the card --------
-    shared = (mlp(params["shared"], x, activation) if "shared" in params
-              else None)
+    # ---- client: combine + the dense tier, one kernel on the card --------
     y = dispatch.combine(result, buffers.combine_slot, out_dtype=x.dtype,
-                         addend=shared)
+                         addend=client_extras(params, x, activation))
 
     stats = MoEStats(aux_loss=r.aux_loss, z_loss=r.z_loss,
                      dropped=buffers.dropped, miss=miss,

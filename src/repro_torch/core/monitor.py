@@ -1,18 +1,29 @@
-"""Control plane: the heartbeat monitor (paper §3.4, Fig. 6) — the
-reference's ``core/monitor.py::Monitor``.
+"""Control plane: the heartbeat monitor (paper §3.4, Fig. 6) and the
+paper's shared buffer (§3.2) — the reference's ``core/monitor.py``.
 
-Pure host-side logic with injected time (deterministic, no wall clock).
-Every worker heartbeats the monitor; on a missed heartbeat it notifies the
-subscribers: clients mask the dead server out of their expert->server
-mapping (``ServerPool.server_failed``).  Recovery is a new registration —
-no group rebuild.  The paper's shared buffer (``SharedBuffer``) belongs to
-the disaggregated engine and is not ported.
+The monitor is pure host-side logic with injected time (deterministic, no
+wall clock).  Every worker heartbeats it; on a missed heartbeat it notifies
+the subscribers: servers release the dead client's buffer slot (state ->
+OFFLINE), clients mask the dead server out of their expert->server mapping
+(``ServerPool.server_failed``).  Recovery is a new registration — no group
+rebuild.
+
+:class:`SharedBuffer` is one (client, server) slot of the disaggregated
+tier (``serving/disaggregated.py``): its state flag and header are host
+ints, as in the reference; its payload is tensors on an explicit device —
+on the card, device memory, which is where the paper's one-sided RDMA
+writes.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Set, Tuple
+
+import torch
+
+from repro_torch.core.types import (STATE_CLIENT_WRITE_DONE, STATE_EMPTY,
+                                    STATE_OFFLINE, STATE_SERVER_DONE)
 
 
 @dataclass
@@ -90,3 +101,64 @@ class Monitor:
     def alive_servers(self) -> Set[int]:
         return {w.server_rank for w in self.workers.values()
                 if w.kind == "server" and w.alive}
+
+
+class SharedBuffer:
+    """The literal paper §3.2 buffer for one (client, server) pair.
+
+    One-sided semantics: only the client calls ``write_request`` /
+    ``try_read_result``; only the server calls ``poll`` / ``take_request``
+    / ``write_result``.  ``state``, ``layer_id`` and ``count`` are host
+    ints; the payload lives on ``device`` (float32 by default, as the
+    reference's); a request or result is copied in, cast to the slot's
+    dtype.
+    """
+
+    def __init__(self, capacity: int, d_model: int, dtype=torch.float32,
+                 device="cpu"):
+        self.state = STATE_EMPTY
+        self.layer_id = -1
+        self.count = 0
+        self.hidden = torch.zeros((capacity, d_model), dtype=dtype,
+                                  device=device)
+        self.expert_id = torch.full((capacity,), -1, dtype=torch.int32,
+                                    device=device)
+        self.score = torch.zeros((capacity,), dtype=torch.float32,
+                                 device=device)
+        self.result = torch.zeros((capacity, d_model), dtype=dtype,
+                                  device=device)
+
+    # client side (one-sided writes / reads)
+    def write_request(self, layer_id: int, hidden, expert_id, score) -> None:
+        assert self.state == STATE_EMPTY, f"slot busy (state={self.state})"
+        n = len(hidden)
+        self.layer_id = layer_id
+        self.count = n
+        self.hidden[:n].copy_(torch.as_tensor(hidden))
+        self.expert_id[:n].copy_(torch.as_tensor(expert_id))
+        self.score[:n].copy_(torch.as_tensor(score))
+        self.state = STATE_CLIENT_WRITE_DONE        # flag write is the fence
+
+    def try_read_result(self):
+        if self.state != STATE_SERVER_DONE:
+            return None
+        out = self.result[:self.count].clone()
+        self.state = STATE_EMPTY
+        return out
+
+    # server side (never initiates communication — just polls its memory)
+    def poll(self) -> bool:
+        return self.state == STATE_CLIENT_WRITE_DONE
+
+    def take_request(self):
+        assert self.poll()
+        return (self.layer_id, self.hidden[:self.count],
+                self.expert_id[:self.count], self.score[:self.count])
+
+    def write_result(self, result) -> None:
+        self.result[:self.count].copy_(torch.as_tensor(result))
+        self.state = STATE_SERVER_DONE
+
+    def release(self) -> None:
+        """Monitor told the server this client is gone (paper Fig. 6 ①)."""
+        self.state = STATE_OFFLINE

@@ -12,6 +12,13 @@ from typing import NamedTuple
 
 import torch
 
+# Buffer protocol states (paper §3.2): the flag of one (client, server)
+# slot of :class:`~repro_torch.core.monitor.SharedBuffer`
+STATE_EMPTY = 0
+STATE_CLIENT_WRITE_DONE = 1
+STATE_SERVER_DONE = 2
+STATE_OFFLINE = 3
+
 
 class RouterOutput(NamedTuple):
     expert_ids: torch.Tensor   # (T, k) int64 global expert ids

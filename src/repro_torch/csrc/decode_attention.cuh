@@ -18,11 +18,11 @@
 //     tile 1 lands while tile 0 is scored, so a block waits on one memory
 //     round trip.  Tiles stay in the cache's element type; rows are padded
 //     by 16 bytes (conflict-free fragment loads); slots past the length are
-//     zero-filled.  Any hd <= 128 is taken: a row is staged hdp wide (hd
-//     rounded up to the mma's k of 16 in bf16, to 8 in fp32) with the
-//     columns past hd zero, and when rows are not 16-byte multiples (or a
-//     base is not 16-byte aligned) the same tiles are staged element by
-//     element instead.
+//     zero-filled.  Any hd <= 256 is taken: a row is staged hdp wide (hd
+//     rounded up to the mma's k of 16 in bf16 -- to 32 past 128 -- and to 8
+//     in fp32) with the columns past hd zero, and when rows are not 16-byte
+//     multiples (or a base is not 16-byte aligned) the same tiles are
+//     staged element by element instead.
 //   - bfloat16 (the serving path): one warp per chunk on tensor cores.  G =
 //     16 query heads are exactly the M of mma.sync.m16n8k16: the scores
 //     (16 x hdp) . (hdp x 32) are 16 mma per tile at hd = 64, and P V
@@ -32,10 +32,16 @@
 //     body spent ~1,500 warp instructions a tile on conversions, shuffles
 //     and shared loads around 256 FMAs and was bound by instruction issue.
 //     Heads past G are zero rows of the tile (G <= 16: one m16 tile, else
-//     two).
+//     two).  Past a staged width of 128 (gemma3's hd = 256) the block has
+//     two warps: both score the whole row (the same instructions, so the
+//     same m and l), and each owns half of the output columns in P V, so
+//     a warp's accumulator stays the size of the hd = 128 one.
 //   - float32 (the exact path of the tests): the same chunks on FMAs, warp
 //     w owning heads w, w + nwarps, ..., lane s scoring slot s; tensor
 //     cores would take it to TF32 and break the 1e-5 tolerance.
+//   - Softcap (cap > 0, gemma-style): a scaled score s becomes
+//     cap * tanh(s / cap) before the mask, as the reference's
+//     decode_attention applies it; cap = 0 leaves the scores as they were.
 //   - With one split the block normalises and writes the output; else it
 //     writes the unnormalised partial (acc[G, hd], m[G], l[G]) in fp32.
 // Pass 2 (decode_combine_kernel), grid (B*KV): merges the live partials of
@@ -56,7 +62,7 @@ namespace repro {
 constexpr int kTile = 32;             // slots per tile
 constexpr int kSplit = 64;            // logical positions per chunk
 constexpr int kTilesPerSplit = kSplit / kTile;
-constexpr int kMaxDimPairs = 2;       // fp32: lane owns dims 2l, 2l+1 (+64)
+constexpr int kMaxDimPairs = 4;       // fp32: lane owns dims 2l, 2l+1 (+64k)
 constexpr int kMaxHeadsPerWarp = 4;   // fp32: G <= 32 with 8 warps
 constexpr unsigned kFull = 0xffffffffu;
 static_assert(kTilesPerSplit == 2, "the body double-buffers two tiles");
@@ -114,12 +120,18 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// Staged row width: hd rounded up to the bf16 mma's k (16), or to the
+// Staged row width: hd rounded up to the bf16 mma's k (16; past 128 to 32,
+// so that each of the two warps owns a multiple of 16 columns), or to the
 // fp32 body's 8-wide loads; the columns past hd are zero.
 template <typename T>
 __host__ __device__ inline int padded_hd(int hd) {
-  const int w = sizeof(T) == 2 ? 16 : 8;
+  const int w = sizeof(T) == 2 ? (hd > 128 ? 32 : 16) : 8;
   return (hd + w - 1) / w * w;
+}
+
+// Scaled score, soft-capped when cap > 0.
+__device__ __forceinline__ float cap_score(float s, float cap) {
+  return cap > 0.f ? cap * tanhf(s / cap) : s;
 }
 
 // Row stride of a staged q row or K/V tile row, in elements: the padded
@@ -264,6 +276,13 @@ __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Warps of a bf16 block: one up to a staged width of 128, else two, each
+// owning HD / 2 output columns.
+template <int HD>
+__host__ __device__ constexpr int mma_warps() {
+  return HD > 128 ? 2 : 1;
+}
+
 // Fragment rows of lane (gq, tq): g = gq and gq + 8 of each m16 tile;
 // columns 2 tq, 2 tq + 1 of each 8-wide n tile.  HD is the staged width
 // (padded_hd(hd)); columns at or past hd are computed but not written.
@@ -272,15 +291,18 @@ __device__ __forceinline__ void decode_split_mma(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
     float* __restrict__ partial, int len, Rows rows, int KV, int G, int hd,
-    float scale, unsigned char* smem) {
+    float scale, float cap, unsigned char* smem) {
   using bf16 = __nv_bfloat16;
   constexpr int LD = HD + 8;
-  constexpr int NT = HD / 8;          // n tiles of the output
+  constexpr int NW = mma_warps<HD>();
+  constexpr int NT = HD / NW / 8;     // n tiles of this warp's output
+  static_assert(NT % 2 == 0, "P V loads two n tiles per ldmatrix");
   int c0, c1, n_tiles;
   if (!stage_chunk<bf16>(q, k, v, out, len, rows, KV, G, hd, smem, c0, c1,
                          n_tiles))
     return;
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int col0 = (threadIdx.x >> 5) * (HD / NW);   // this warp's columns
   const int gq = lane >> 2, tq = lane & 3;
   const bf16* qs = reinterpret_cast<const bf16*>(smem + kSplit * 4);
   const bf16* tiles = qs + MT * 16 * LD;
@@ -302,7 +324,8 @@ __device__ __forceinline__ void decode_split_mma(
 
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) cp_async_wait<1>(); else cp_async_wait<0>();
-    __syncwarp();                     // tile t (and q) visible to all lanes
+    // tile t (and q) visible to all lanes (both warps issued its copies)
+    if constexpr (NW > 1) __syncthreads(); else __syncwarp();
     const bf16* ks = tiles + (2 * t) * kTile * LD;
     const bf16* vs = ks + kTile * LD;
     const int nvalid = c1 - (c0 + t * kTile);    // >= 1
@@ -347,7 +370,7 @@ __device__ __forceinline__ void decode_split_mma(
           for (int c = 0; c < 2; ++c) {
             const bool ok = 8 * nn + 2 * tq + c < nvalid;
             float& x = sc[mt][nn][2 * r + c];
-            x = ok ? x * scale : -INFINITY;
+            x = ok ? cap_score(x * scale, cap) : -INFINITY;
             mx = fmaxf(mx, x);
           }
         mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
@@ -391,8 +414,8 @@ __device__ __forceinline__ void decode_split_mma(
       const int mat = lane >> 3, i = lane & 7;
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
-        const bf16* vr =
-            vs + (16 * kk + (mat & 1) * 8 + i) * LD + 8 * (j + (mat >> 1));
+        const bf16* vr = vs + (16 * kk + (mat & 1) * 8 + i) * LD + col0 +
+                         8 * (j + (mat >> 1));
         uint32_t b[4];
         asm volatile(
             "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
@@ -426,15 +449,15 @@ __device__ __forceinline__ void decode_split_mma(
         __nv_bfloat16* orow = out + (bh * G + g) * hd;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
-          store_pair(orow, 8 * j + 2 * tq, hd, o[mt][j][2 * r] * inv,
+          store_pair(orow, col0 + 8 * j + 2 * tq, hd, o[mt][j][2 * r] * inv,
                      o[mt][j][2 * r + 1] * inv);
       } else {
         float* pa = partial + (prow + g) * hd;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
-          store_pair(pa, 8 * j + 2 * tq, hd, o[mt][j][2 * r],
+          store_pair(pa, col0 + 8 * j + 2 * tq, hd, o[mt][j][2 * r],
                      o[mt][j][2 * r + 1]);
-        if (tq == 0) {
+        if (tq == 0 && col0 == 0) {
           partial[ml_base + 2 * (prow + g)] = m[mt][r];
           partial[ml_base + 2 * (prow + g) + 1] = l[mt][r];
         }
@@ -450,7 +473,7 @@ __device__ __forceinline__ void decode_split_fma(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out,
     float* __restrict__ partial, int len, Rows rows, int KV, int G, int hd,
-    float scale, unsigned char* smem) {
+    float scale, float cap, unsigned char* smem) {
   int c0, c1, n_tiles;
   if (!stage_chunk<float>(q, k, v, out, len, rows, KV, G, hd, smem, c0, c1,
                           n_tiles))
@@ -504,7 +527,7 @@ __device__ __forceinline__ void decode_split_fma(
 #pragma unroll
     for (int j = 0; j < kMaxHeadsPerWarp; ++j) {
       if (j >= nh) break;             // uniform across the warp
-      const float score = valid ? dot[j] * scale : -INFINITY;
+      const float score = valid ? cap_score(dot[j] * scale, cap) : -INFINITY;
       // slot s0 < len, so m_new is finite
       const float m_new = fmaxf(m[j], warp_max(score));
       const float p = valid ? expf(score - m_new) : 0.f;
@@ -563,21 +586,22 @@ __device__ __forceinline__ void decode_split_fma(
 template <typename T, int HD, int MT, typename Rows>
 __device__ __forceinline__ void decode_split(
     const T* q, const T* k, const T* v, T* out, float* partial, int len,
-    Rows rows, int KV, int G, int hd, float scale, unsigned char* smem) {
+    Rows rows, int KV, int G, int hd, float scale, float cap,
+    unsigned char* smem) {
   if constexpr (sizeof(T) == 4) {
-    decode_split_fma(q, k, v, out, partial, len, rows, KV, G, hd, scale,
+    decode_split_fma(q, k, v, out, partial, len, rows, KV, G, hd, scale, cap,
                      smem);
   } else {
     decode_split_mma<HD, MT>(q, k, v, out, partial, len, rows, KV, G, hd,
-                             scale, smem);
+                             scale, cap, smem);
   }
 }
 
 // Sets `fn` to the pass-1 kernel for (hd, G): `Kernel<T, HD, MT>` is the
 // including file's __global__ template.  bf16 has one kernel per staged
-// width (padded_hd: 16, 32, ..., 128) and m16 tile count (G <= 16: one,
-// else two), chosen here on the host so that each gets its own register
-// allocation; fp32 has one.
+// width (padded_hd: 16, 32, ..., 128, then 160, ..., 256) and m16 tile
+// count (G <= 16: one, else two), chosen here on the host so that each
+// gets its own register allocation; fp32 has one.
 #define REPRO_DECODE_CASE(Kernel, T, W, two, fn)                           \
   case W:                                                                   \
     fn = two ? Kernel<T, W, 2> : Kernel<T, W, 1>;                           \
@@ -596,18 +620,25 @@ __device__ __forceinline__ void decode_split(
       REPRO_DECODE_CASE(Kernel, T, 96, two, fn)                             \
       REPRO_DECODE_CASE(Kernel, T, 112, two, fn)                            \
       REPRO_DECODE_CASE(Kernel, T, 128, two, fn)                            \
+      REPRO_DECODE_CASE(Kernel, T, 160, two, fn)                            \
+      REPRO_DECODE_CASE(Kernel, T, 192, two, fn)                            \
+      REPRO_DECODE_CASE(Kernel, T, 224, two, fn)                            \
+      REPRO_DECODE_CASE(Kernel, T, 256, two, fn)                            \
       default:                                                              \
         fn = nullptr;                                                       \
     }                                                                       \
   }
 
+constexpr int kMaxGroupDims = 4096;  // G * hd a merge block holds
+
 // Threads per pass-1 block, or 0 when the kernels cannot take the shape
-// (hd <= 128, G <= 32, G * hd <= 2048 for the merge): one warp for bf16,
-// up to 8 for fp32.
+// (hd <= 256, G <= 32, G * hd <= kMaxGroupDims for the merge): one warp
+// for bf16 (two past a staged width of 128), up to 8 for fp32.
 template <typename T>
 inline int decode_threads(int G, int hd) {
-  if (G < 1 || G > 32 || hd < 1 || hd > 128 || G * hd > 2048) return 0;
-  if (sizeof(T) == 2) return 32;
+  if (G < 1 || G > 32 || hd < 1 || hd > 256 || G * hd > kMaxGroupDims)
+    return 0;
+  if (sizeof(T) == 2) return padded_hd<T>(hd) > 128 ? 64 : 32;
   const int warps = G < 8 ? G : 8;
   if ((G + warps - 1) / warps > kMaxHeadsPerWarp) return 0;
   return 32 * warps;
@@ -615,15 +646,16 @@ inline int decode_threads(int G, int hd) {
 
 constexpr int kCombineThreads = 256;
 constexpr int kCombineZ = 32;        // splits whose weights share memory
-constexpr int kCombinePerThread = 2048 / kCombineThreads;   // G * hd <= 2048
 
 // Pass 2: out[b, h*G + g, d] from the live chunks of (b, h).  One warp per
 // head reduces the chunks' maxima and weighted sums (a fixed shuffle
 // tree); the chunks' weights then go to shared memory, kCombineZ at a
 // time, and each thread sums its elements over the chunks in split order.
 // With one live chunk every weight is exp(0) = 1 and the result is pass
-// 1's own acc * (1 / l), bit for bit.
-template <typename T>
+// 1's own acc * (1 / l), bit for bit.  PER elements a thread: 8 up to G *
+// hd = 2048, 16 past it (hd 256): the hd <= 128 shapes keep the smaller
+// unrolled loop (16 everywhere slowed the deepseek-r1 decode shape).
+template <typename T, int PER>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ partial,
                       const int* __restrict__ lengths, T* __restrict__ out,
@@ -657,9 +689,9 @@ decode_combine_kernel(const float* __restrict__ partial,
       sinv[g] = 1.f / fmaxf(ls, 1e-30f);
     }
   }
-  float a[kCombinePerThread];
+  float a[PER];
 #pragma unroll
-  for (int j = 0; j < kCombinePerThread; ++j) a[j] = 0.f;
+  for (int j = 0; j < PER; ++j) a[j] = 0.f;
   for (int z0 = 0; z0 < nlive; z0 += kCombineZ) {
     const int zn = min(kCombineZ, nlive - z0);
     __syncthreads();                  // smax ready; previous weights used
@@ -669,7 +701,7 @@ decode_combine_kernel(const float* __restrict__ partial,
     }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kCombinePerThread; ++j) {
+    for (int j = 0; j < PER; ++j) {
       const int i = tid + j * kCombineThreads;
       if (i < G * hd) {
         const int g = i / hd;
@@ -681,7 +713,7 @@ decode_combine_kernel(const float* __restrict__ partial,
   }
   __syncthreads();                    // sinv ready when nlive == 0
 #pragma unroll
-  for (int j = 0; j < kCombinePerThread; ++j) {
+  for (int j = 0; j < PER; ++j) {
     const int i = tid + j * kCombineThreads;
     if (i < G * hd) {
       out[static_cast<long long>(bh) * G * hd + i] =
@@ -704,7 +736,9 @@ inline cudaError_t launch_combine(const void* partial, const void* lengths,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, decode_combine_kernel<T>,
+  auto* kernel = G * hd <= 2048 ? decode_combine_kernel<T, 8>
+                                : decode_combine_kernel<T, 16>;
+  return cudaLaunchKernelEx(&cfg, kernel,
                             static_cast<const float*>(partial),
                             static_cast<const int*>(lengths),
                             static_cast<T*>(out), B, KV, G, hd, nsplit, cap);

@@ -2,7 +2,11 @@
 //
 // Replaces src/repro/kernels/decode_attention.py::flash_decode_pallas.
 // q (B, H, hd) with H = KV * G; k/v (B, S, KV, hd); lengths (B,) int32;
-// out (B, H, hd).  Positions >= min(lengths[b], S) are masked.
+// out (B, H, hd).  Positions >= min(lengths[b], S) are masked; cap > 0
+// soft-caps the scaled scores (cap * tanh(s / cap)) first.  A sliding-window
+// layer's ring cache (S = window slots, written at length % S) is read as
+// it is: keys are cached rotated, so the slot order does not matter, and
+// min(length, S) is the ring's valid count.
 //
 // Split-KV flash-decoding (decode_attention.cuh, shared with the paged
 // kernel): grid (B, KV, ceil(S / kSplit)) blocks each attend over one
@@ -27,7 +31,8 @@ __global__ void flash_decode_kernel(const T* __restrict__ q,
                                     const int* __restrict__ lengths,
                                     T* __restrict__ out,
                                     float* __restrict__ partial, int S,
-                                    int KV, int G, int hd, float scale) {
+                                    int KV, int G, int hd, float scale,
+                                    float cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   int len = lengths[b];
@@ -35,17 +40,17 @@ __global__ void flash_decode_kernel(const T* __restrict__ q,
   len = len > 0 ? len : 0;
   repro::decode_split<T, HD, MT>(q, k, v, out, partial, len,
                                  repro::DenseRows{b * S}, KV, G, hd, scale,
-                                 smem);
+                                 cap, smem);
 }
 
 template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const int*, T*, float*,
-                        int, int, int, int, float);
+                        int, int, int, int, float, float);
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* partial, int B, int S, int KV, int G, int hd,
-           cudaStream_t s) {
+           float cap, cudaStream_t s) {
   const int threads = repro::decode_threads<T>(G, hd);
   Kernel<T> kernel;
   REPRO_PICK_DECODE_KERNEL(flash_decode_kernel, T, hd, G, kernel)
@@ -60,7 +65,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<T*>(out), static_cast<float*>(partial), S, KV, G, hd,
-      scale);
+      scale, cap);
   err = cudaGetLastError();
   if (err == cudaSuccess && nsplit > 1)
     err = repro::launch_combine<T>(partial, lengths, out, B, KV, G, hd,
@@ -73,11 +78,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* lengths,
                                    void* out, void* partial, int B, int S,
-                                   int KV, int G, int hd, int dtype,
-                                   void* stream) {
+                                   int KV, int G, int hd, float cap,
+                                   int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, lengths, out, partial, B, S, KV, G,
-                                 hd, s);
-  return launch<float>(q, k, v, lengths, out, partial, B, S, KV, G, hd, s);
+                                 hd, cap, s);
+  return launch<float>(q, k, v, lengths, out, partial, B, S, KV, G, hd, cap,
+                       s);
 }

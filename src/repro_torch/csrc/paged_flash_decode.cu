@@ -3,7 +3,8 @@
 // Replaces src/repro/kernels/decode_attention.py::paged_flash_decode_pallas
 // (body _paged_kernel = _kernel).  q (B, H, hd) with H = KV * G; k/v pool
 // (num_blocks, bs, KV, hd); tables (B, max_blocks) int32; lengths (B,)
-// int32; out (B, H, hd).  Sequence b's position p lives in pool block
+// int32; out (B, H, hd); cap > 0 soft-caps the scaled scores as the dense
+// kernel does.  Sequence b's position p lives in pool block
 // tables[b, p / bs] at offset p % bs; positions >= min(lengths[b],
 // max_blocks * bs) are masked (idle engine rows carry length 1 and read
 // the scratch block 0).
@@ -30,7 +31,7 @@ __global__ void paged_flash_decode_kernel(
     const T* __restrict__ v_pool, const int* __restrict__ tables,
     const int* __restrict__ lengths, T* __restrict__ out,
     float* __restrict__ partial, int max_blocks, int bs, int KV, int G,
-    int hd, float scale) {
+    int hd, float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int cap = max_blocks * bs;
@@ -40,18 +41,18 @@ __global__ void paged_flash_decode_kernel(
   const int* row = tables + static_cast<long long>(b) * max_blocks;
   repro::decode_split<T, HD, MT>(q, k_pool, v_pool, out, partial, len,
                                  repro::PagedRows{row, bs}, KV, G, hd, scale,
-                                 smem);
+                                 softcap, smem);
 }
 
 template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const int*, const int*,
-                        T*, float*, int, int, int, int, int, float);
+                        T*, float*, int, int, int, int, int, float, float);
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* tables, const void* lengths, void* out, void* partial,
            int B, int max_blocks, int bs, int KV, int G, int hd,
-           cudaStream_t s) {
+           float softcap, cudaStream_t s) {
   const int threads = repro::decode_threads<T>(G, hd);
   Kernel<T> kernel;
   REPRO_PICK_DECODE_KERNEL(paged_flash_decode_kernel, T, hd, G, kernel)
@@ -67,7 +68,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(tables),
       static_cast<const int*>(lengths), static_cast<T*>(out),
-      static_cast<float*>(partial), max_blocks, bs, KV, G, hd, scale);
+      static_cast<float*>(partial), max_blocks, bs, KV, G, hd, scale,
+      softcap);
   err = cudaGetLastError();
   if (err == cudaSuccess && nsplit > 1)
     err = repro::launch_combine<T>(partial, lengths, out, B, KV, G, hd,
@@ -83,14 +85,15 @@ extern "C" int paged_flash_decode_launch(const void* q, const void* k_pool,
                                          const void* lengths, void* out,
                                          void* partial, int B,
                                          int max_blocks, int bs, int KV,
-                                         int G, int hd, int dtype,
-                                         void* stream) {
+                                         int G, int hd, float cap,
+                                         int dtype, void* stream) {
   if (max_blocks < 1 || bs < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kBFloat16)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, out,
-                                 partial, B, max_blocks, bs, KV, G, hd, s);
+                                 partial, B, max_blocks, bs, KV, G, hd, cap,
+                                 s);
   return launch<float>(q, k_pool, v_pool, tables, lengths, out, partial, B,
-                       max_blocks, bs, KV, G, hd, s);
+                       max_blocks, bs, KV, G, hd, cap, s);
 }

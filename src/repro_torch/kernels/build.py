@@ -34,19 +34,22 @@ LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "flash_decode": 0,
                             "combine_slots": 0}
 
 _vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_float = ctypes.c_float
 # C entry points: pointers and the stream as void*, sizes as int; each
 # returns cudaGetLastError() right after its launch
 _SIGNATURES = {
     # x, w, out, group_sizes (int64), M, K, N, G, dtype, stream
     "grouped_gemm_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                             _vp],
-    # q, k, v, lengths, out, partial, B, S, KV, G, hd, dtype, stream
+    # q, k, v, lengths, out, partial, B, S, KV, G, hd, softcap, dtype,
+    # stream
     "flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                            _int, _int, _int, _vp],
+                            _int, _int, _float, _int, _vp],
     # q, k_pool, v_pool, tables, lengths, out, partial, B, max_blocks, bs,
-    # KV, G, hd, dtype, stream
+    # KV, G, hd, softcap, dtype, stream
     "paged_flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
-                                  _int, _int, _int, _int, _int, _int, _vp],
+                                  _int, _int, _int, _int, _int, _float, _int,
+                                  _vp],
     # x, w, out, T, k, d, dtype, stream
     "combine_weighted_launch": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # bases (host array of S pointers), S, rows per base, slots (int64),

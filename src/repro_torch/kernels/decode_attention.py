@@ -1,8 +1,10 @@
 """Flash-decode GQA attention over a dense or a paged KV cache.
 
 One new token per sequence: ``q (B, H, hd)`` attends over its cache with
-``G = H / KV`` query heads per KV head, scale ``1/sqrt(hd)``, fp32 online
-softmax, positions ``>= lengths[b]`` masked.  Two variants, as in
+``G = H / KV`` query heads per KV head, scale ``1/sqrt(hd)``, an optional
+softcap (``cap * tanh(s / cap)`` on the scaled scores, before the mask, as
+``src/repro/models/attention.py::decode_attention`` applies it), fp32
+online softmax, positions ``>= lengths[b]`` masked.  Two variants, as in
 ``src/repro/kernels/decode_attention.py``:
 
 * dense, replacing ``flash_decode_pallas``: ``k/v (B, S, KV, hd)``;
@@ -20,8 +22,13 @@ length returns at once, a live one loads q and its K/V tiles with 16-byte
 cores (``mma.sync.m16n8k16``: the G = 16 query heads of a KV head are the
 M side; P enters P V as two bf16 parts, so it stays fp32 to ~2^-17 as in
 the reference); in float32 the warps use FMAs, which keep the exact path
-exact.  Any ``hd <= 128`` is taken (rows staged zero-padded to the mma's
-k of 16; element-wise when a row is not a 16-byte multiple).
+exact.  Any ``hd <= 256`` is taken, as the TPU kernel takes any (rows
+staged zero-padded to the mma's k of 16, to 32 past 128; element-wise when
+a row is not a 16-byte multiple); past 128 two warps share a chunk, each
+owning half of the output columns (gemma3's hd = 256).  A sliding-window
+layer's ring cache is read unchanged: keys are cached rotated, so slot
+order does not matter, and the clamp ``min(length, S)`` is the ring's
+valid count.
 Pass 2 merges the partials of each ``(b, kv_head)`` in a fixed order (no
 atomics: bitwise repeatable), launched as a programmatic dependent of pass
 1 so that its launch overlaps it.  The paged kernel resolves each slot's
@@ -67,8 +74,8 @@ def _scratch(q: torch.Tensor, KV: int, G: int, hd: int,
 
 
 def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor,
-                       v_cache: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       v_cache: torch.Tensor, lengths: torch.Tensor,
+                       softcap: float = 0.0) -> torch.Tensor:
     """Plain version: materialized scores, masked softmax, in fp32."""
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
@@ -76,6 +83,8 @@ def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.reshape(B, KV, G, hd).float()
     scores = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float())
     scores = scores / math.sqrt(hd)
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
     mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
     scores = torch.where(mask[:, None, None, :], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
@@ -101,8 +110,8 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     KV = k.shape[2]
     G = H // KV
     req(G * KV == H, f"{name}: H={H} not a multiple of KV={KV}")
-    req(hd <= 128 and G <= 32 and G * hd <= 2048,
-        f"{name}: needs hd <= 128, G <= 32 and G*hd <= 2048 "
+    req(hd <= 256 and G <= 32 and G * hd <= 4096,
+        f"{name}: needs hd <= 256, G <= 32 and G*hd <= 4096 "
         f"(hd={hd}, G={G})")
     req(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
         f"{name}: q, k and v must be contiguous")
@@ -110,8 +119,8 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor,
-                      lengths: torch.Tensor) -> torch.Tensor:
+                      v_cache: torch.Tensor, lengths: torch.Tensor,
+                      softcap: float = 0.0) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no sync)."""
     B, H, hd, KV, G = _check_inputs("flash_decode", q, k_cache, v_cache,
                                     lengths)
@@ -127,7 +136,7 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     err = lib.flash_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), partial.data_ptr(), B, S, KV, G,
-        hd, build.dtype_code(q.dtype), build.stream_of(q))
+        hd, float(softcap), build.dtype_code(q.dtype), build.stream_of(q))
     build.check(err, "flash_decode")
     build.count("flash_decode")
     return out
@@ -135,7 +144,8 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
 
 def paged_flash_decode_torch(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, block_tables: torch.Tensor,
-                             lengths: torch.Tensor) -> torch.Tensor:
+                             lengths: torch.Tensor,
+                             softcap: float = 0.0) -> torch.Tensor:
     """Plain version: gather the block-table view, then the dense plain
     version (``ref.paged_flash_decode_ref``'s definition)."""
     B, mb = block_tables.shape
@@ -143,12 +153,13 @@ def paged_flash_decode_torch(q: torch.Tensor, k_pool: torch.Tensor,
     idx = block_tables.long()
     k = k_pool[idx].reshape(B, mb * bs, KV, hd)
     v = v_pool[idx].reshape(B, mb * bs, KV, hd)
-    return flash_decode_torch(q, k, v, lengths)
+    return flash_decode_torch(q, k, v, lengths, softcap)
 
 
 def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, block_tables: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            lengths: torch.Tensor,
+                            softcap: float = 0.0) -> torch.Tensor:
     """Launch the paged CUDA kernel on the current stream (no sync).
 
     Table entries are not range-checked here (that would need a device
@@ -176,7 +187,7 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     err = lib.paged_flash_decode_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), B, mb, bs, KV, G, hd,
+        partial.data_ptr(), B, mb, bs, KV, G, hd, float(softcap),
         build.dtype_code(q.dtype), build.stream_of(q))
     build.check(err, "paged_flash_decode")
     build.count("paged_flash_decode")

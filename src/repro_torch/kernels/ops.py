@@ -52,23 +52,25 @@ def grouped_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                 impl: str = "auto") -> torch.Tensor:
-    """One-token GQA attention over a dense cache (B, S, KV, hd)."""
+                 softcap: float = 0.0, impl: str = "auto") -> torch.Tensor:
+    """One-token GQA attention over a dense cache (B, S, KV, hd); a
+    ``softcap > 0`` caps the scaled scores (0 = off)."""
     if _resolve(impl, q) == "cuda":
-        return flash_decode_cuda(q, k_cache, v_cache, lengths)
-    return flash_decode_torch(q, k_cache, v_cache, lengths)
+        return flash_decode_cuda(q, k_cache, v_cache, lengths, softcap)
+    return flash_decode_torch(q, k_cache, v_cache, lengths, softcap)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, block_tables: torch.Tensor,
-                       lengths: torch.Tensor, *,
+                       lengths: torch.Tensor, *, softcap: float = 0.0,
                        impl: str = "auto") -> torch.Tensor:
     """One-token GQA attention over a block pool (num_blocks, bs, KV, hd)
     addressed through block tables (B, max_blocks)."""
     if _resolve(impl, q) == "cuda":
         return paged_flash_decode_cuda(q, k_pool, v_pool, block_tables,
-                                       lengths)
-    return paged_flash_decode_torch(q, k_pool, v_pool, block_tables, lengths)
+                                       lengths, softcap)
+    return paged_flash_decode_torch(q, k_pool, v_pool, block_tables, lengths,
+                                    softcap)
 
 
 def combine_weighted(x: torch.Tensor, w: torch.Tensor, *,

@@ -1,11 +1,13 @@
-"""GQA attention: full (prefill), chunked prefill and one-token decode,
-against a dense or a paged cache.
+"""GQA attention: full (prefill, optional sliding window), chunked prefill
+and one-token decode, against a dense, ring or paged cache.
 
-RoPE is applied to q/k before the keys are cached.  ``decode_attention``
-computes its core through ``ops.flash_decode`` (dense cache) or
-``ops.paged_flash_decode`` (block pool) — the CUDA kernels on the card,
-their plain versions on the CPU.  Softcap, sliding-window and M-RoPE
-attention are not ported (no ported config uses them).
+RoPE (or Qwen2-VL's M-RoPE) is applied to q/k before the keys are cached,
+so cached keys are already rotated and a sliding-window ring needs no
+reordering.  Gemma-style logit softcap caps the scaled scores wherever the
+reference applies it.  ``decode_attention`` computes its core through
+``ops.flash_decode`` (dense or ring cache) or ``ops.paged_flash_decode``
+(block pool) — the CUDA kernels on the card, their plain versions on the
+CPU; the softcap is the kernels' own argument.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models.common import dense_init
-from repro_torch.models.rope import apply_rope, rope_cos_sin
+from repro_torch.models.common import dense_init, softcap
+from repro_torch.models.rope import (apply_rope, mrope_cos_sin, rope_cos_sin,
+                                     text_mrope_positions)
 
 NEG_INF = -1e30
 # sequences at or above this length run the q-block loop, so (S, S) score
@@ -42,10 +45,17 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_logit_softcap or cfg.sliding_window or cfg.mrope_sections:
-        raise NotImplementedError(
-            "softcap, sliding-window and M-RoPE attention are not ported")
+def _rope_for(cfg: ModelConfig, positions: torch.Tensor,
+              mrope_positions=None):
+    """cos / sin for ``positions (b, s)``: M-RoPE when the config has
+    sections (text positions unless ``mrope_positions (3, b, s)`` is
+    given), standard RoPE otherwise."""
+    if cfg.mrope_sections is not None:
+        pos3 = (mrope_positions if mrope_positions is not None
+                else text_mrope_positions(positions))
+        return mrope_cos_sin(pos3, cfg.head_dim, cfg.rope_theta,
+                             cfg.mrope_sections)
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -63,34 +73,45 @@ def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, sq, kvh * g, v.shape[-1])
 
 
-def _dense_core(cfg, q, k, v, q_pos, k_pos):
-    """Causal, materialized scores; returns (b, sq, H, hd) fp32."""
+def _dense_core(cfg, q, k, v, q_pos, k_pos, *, is_local: bool = False):
+    """Causal, materialized scores (soft-capped when the config says so;
+    ``is_local`` masks keys ``sliding_window`` or more positions back);
+    returns (b, sq, H, hd) fp32."""
     scores = _gqa_scores(q, k) / math.sqrt(cfg.head_dim)
+    if cfg.attn_logit_softcap:
+        scores = softcap(scores, cfg.attn_logit_softcap)
     i = q_pos[:, None, None, :, None]
     j = k_pos[:, None, None, None, :]
-    scores = torch.where(j <= i, scores, NEG_INF)
+    mask = j <= i
+    if is_local and cfg.sliding_window:
+        mask &= (i - j) < cfg.sliding_window
+    scores = torch.where(mask, scores, NEG_INF)
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
-def _chunked_core(cfg, q, k, v, positions, *, q_blocks: int):
+def _chunked_core(cfg, q, k, v, positions, *, is_local: bool = False,
+                  q_blocks: int):
     """The reference's q-block scan: same math, one q block at a time."""
     b, s = q.shape[:2]
     bq = s // q_blocks
     outs = [_dense_core(cfg, q[:, i * bq:(i + 1) * bq], k, v,
-                        positions[:, i * bq:(i + 1) * bq], positions)
+                        positions[:, i * bq:(i + 1) * bq], positions,
+                        is_local=is_local)
             for i in range(q_blocks)]
     return torch.cat(outs, dim=1)
 
 
 def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                   positions: torch.Tensor, *, return_kv: bool = False,
+                   positions: torch.Tensor, *, is_local: bool = False,
+                   mrope_positions=None, return_kv: bool = False,
                    q_blocks: int = 16):
     """Causal self-attention over the whole sequence (prefill).
 
-    x (b, s, d); positions (b, s) or (s,) int.  ``return_kv`` also returns
-    the rotated (k, v) for the cache fill.
+    x (b, s, d); positions (b, s) or (s,) int.  ``is_local`` applies the
+    config's sliding window (gemma3's local layers); ``mrope_positions (3,
+    b, s)`` are an M-RoPE config's (t, h, w) ids (text positions if None);
+    ``return_kv`` also returns the rotated (k, v) for the cache fill.
     """
-    _check_supported(cfg)
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ params["wq"], h, hd)
@@ -98,12 +119,14 @@ def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     v = _split_heads(x @ params["wv"], kvh, hd)
     if positions.dim() == 1:
         positions = positions[None].expand(b, s)
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    cos, sin = _rope_for(cfg, positions, mrope_positions)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if s >= CHUNKED_ATTN_THRESHOLD and s % q_blocks == 0:
-        out = _chunked_core(cfg, q, k, v, positions, q_blocks=q_blocks)
+        out = _chunked_core(cfg, q, k, v, positions, is_local=is_local,
+                            q_blocks=q_blocks)
     else:
-        out = _dense_core(cfg, q, k, v, positions, positions)
+        out = _dense_core(cfg, q, k, v, positions, positions,
+                          is_local=is_local)
     out = out.reshape(b, s, h * hd).to(x.dtype) @ params["wo"]
     return (out, (k, v)) if return_kv else out
 
@@ -113,7 +136,8 @@ def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Prefill one prompt chunk against the cache (chunked prefill).
 
     x (b, chunk, d) holds global positions ``start + arange(chunk)`` (the
-    reference passes those positions; a host int avoids a device sync).
+    reference passes those positions; a host int avoids a device sync;
+    an M-RoPE config rotates them as text, as the reference does).
     The chunk's rotated K/V are written at ``start`` and its queries
     attend over every cached position ``<=`` their own, earlier chunks
     included.  A :class:`~repro_torch
@@ -121,14 +145,13 @@ def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     attended over the gathered view, which holds prefix-cache blocks an
     earlier request wrote.  Returns (output (b, chunk, d), cache).
     """
-    _check_supported(cfg)
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ params["wq"], h, hd)
     k = _split_heads(x @ params["wk"], kvh, hd)
     v = _split_heads(x @ params["wv"], kvh, hd)
     pos_b = (start + torch.arange(s, device=x.device))[None].expand(b, s)
-    cos, sin = rope_cos_sin(pos_b, hd, cfg.rope_theta)
+    cos, sin = _rope_for(cfg, pos_b)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if isinstance(cache, kvc.PagedKVCache):
         cache = kvc.paged_write_chunk(cache, k, v, start)
@@ -143,26 +166,31 @@ def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def decode_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                      cache):
-    """One-token decode: x (b, 1, d) against a dense cache or a block pool
-    (K/V written in place).  The paged branch runs the paged kernel on the
-    pool itself, not on a gathered copy.
+    """One-token decode: x (b, 1, d) against a dense cache, a sliding
+    window's ring or a block pool (K/V written in place).  The paged branch
+    runs the paged kernel on the pool itself, not on a gathered copy.  A
+    ring needs no local flag: it holds only the window, and the kernel's
+    ``min(length, slots)`` is its valid count.
 
     Returns (output (b, 1, d), cache).
     """
-    _check_supported(cfg)
     b = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ params["wq"], h, hd)            # (b, 1, H, hd)
     k = _split_heads(x @ params["wk"], kvh, hd)
     v = _split_heads(x @ params["wv"], kvh, hd)
-    cos, sin = rope_cos_sin(cache.length[:, None], hd, cfg.rope_theta)
+    cos, sin = _rope_for(cfg, cache.length[:, None])
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    cap = cfg.attn_logit_softcap or 0.0
     if isinstance(cache, kvc.PagedKVCache):
         cache = kvc.paged_append_decode(cache, k, v)
         out = ops.paged_flash_decode(q[:, 0], cache.k, cache.v,
-                                     cache.block_tables, cache.length)
+                                     cache.block_tables, cache.length,
+                                     softcap=cap)
     else:
         cache = kvc.append_decode(cache, k, v)
-        # lengths may exceed the slots for idle rows: the kernel clamps
-        out = ops.flash_decode(q[:, 0], cache.k, cache.v, cache.length)
+        # lengths may exceed the slots (idle rows, a wrapped ring): the
+        # kernel clamps
+        out = ops.flash_decode(q[:, 0], cache.k, cache.v, cache.length,
+                               softcap=cap)
     return out.reshape(b, 1, h * hd) @ params["wo"], cache

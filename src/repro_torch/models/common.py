@@ -1,4 +1,5 @@
-"""Shared building blocks: dtype policy, initializers, RMS norm."""
+"""Shared building blocks: dtype policy, initializers, RMS norm,
+activations and the gemma-style logit softcap."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -54,3 +56,20 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def activation_fn(name: str):
+    """The FFN activations of the reference's ``models/common.py``
+    (``jax.nn.gelu`` is the tanh approximation)."""
+    if name == "swiglu":      # handled structurally in mlp.py: the gate's
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu_sq":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-style logit soft-capping."""
+    return cap * torch.tanh(logits / cap)

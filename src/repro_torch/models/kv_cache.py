@@ -1,7 +1,10 @@
 """KV caches for serving (counterpart of ``src/repro/models/kv_cache.py``).
 
 :class:`KVCache` — per-layer ``(batch, slots, kv_heads, head_dim)`` buffers
-with a per-sequence length counter.
+with a per-sequence length counter.  Sliding-window layers allocate only
+``window`` slots and write round-robin (a ring: position ``p`` lives in
+slot ``p % window``); keys are cached rotated, so the ring's slot order
+does not matter to attention.
 
 :class:`PagedKVCache` — the block-pool alternative: one shared
 ``(num_blocks, block_size, kv_heads, head_dim)`` pool per layer, with each
@@ -31,38 +34,45 @@ import torch
 @dataclass
 class KVCache:
     """k/v: ([layers,] batch, slots, kv_heads, head_dim); length:
-    ([layers,] batch) int32 tokens written per sequence."""
+    ([layers,] batch) int32 tokens written per sequence; ``window > 0``
+    makes it a ring of ``slots = min(window, max_seq)``."""
 
     k: torch.Tensor
     v: torch.Tensor
     length: torch.Tensor
+    window: int = 0
 
     def layer(self, i: int) -> "KVCache":
         """Layer ``i`` of a stacked cache, as views (writes go through)."""
-        return KVCache(self.k[i], self.v[i], self.length[i])
+        return KVCache(self.k[i], self.v[i], self.length[i], self.window)
 
 
 def init_kv_cache(batch: int, max_seq: int, kv_heads: int, head_dim: int,
-                  dtype, device, layers: int = 0) -> KVCache:
+                  dtype, device, layers: int = 0,
+                  window: int = 0) -> KVCache:
     lead = (layers,) if layers else ()
-    shape = (*lead, batch, max_seq, kv_heads, head_dim)
+    slots = min(window, max_seq) if window else max_seq
+    shape = (*lead, batch, slots, kv_heads, head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        length=torch.zeros((*lead, batch), dtype=torch.int32, device=device))
+        length=torch.zeros((*lead, batch), dtype=torch.int32, device=device),
+        window=window)
 
 
 def append_decode(cache: KVCache, k_new: torch.Tensor,
                   v_new: torch.Tensor) -> KVCache:
     """Append ONE token per sequence; k_new/v_new (batch, 1, kv_heads, hd).
 
-    The write index is clamped to the last slot, as the reference's
-    ``dynamic_update_slice`` clamps it: the engine decodes idle slots too,
-    whose lengths run past the cache.
+    A ring writes at ``length % slots``.  A linear cache's write index is
+    clamped to the last slot, as the reference's ``dynamic_update_slice``
+    clamps it: the engine decodes idle slots too, whose lengths run past
+    the cache.
     """
     slots = cache.k.shape[1]
     rows = torch.arange(cache.k.shape[0], device=cache.k.device)
-    idx = cache.length.clamp(max=slots - 1).long()
+    idx = (cache.length % slots if cache.window
+           else cache.length.clamp(max=slots - 1)).long()
     cache.k[rows, idx] = k_new[:, 0]
     cache.v[rows, idx] = v_new[:, 0]
     cache.length += 1
@@ -71,10 +81,17 @@ def append_decode(cache: KVCache, k_new: torch.Tensor,
 
 def write_prefill(cache: KVCache, k: torch.Tensor,
                   v: torch.Tensor) -> KVCache:
-    """Write a full prompt (batch, seq, kv_heads, hd) from position 0."""
-    seq = k.shape[1]
-    cache.k[:, :seq] = k
-    cache.v[:, :seq] = v
+    """Write a full prompt (batch, seq, kv_heads, hd) from position 0.  A
+    ring shorter than the prompt keeps its trailing ``slots`` tokens at the
+    ring's phase (position ``p`` in slot ``p % slots``)."""
+    seq, slots = k.shape[1], cache.k.shape[1]
+    if cache.window and seq > slots:
+        pos = torch.arange(seq - slots, seq, device=k.device) % slots
+        cache.k[:, pos] = k[:, -slots:]
+        cache.v[:, pos] = v[:, -slots:]
+    else:
+        cache.k[:, :seq] = k
+        cache.v[:, :seq] = v
     cache.length.fill_(seq)
     return cache
 
@@ -85,7 +102,11 @@ def write_chunk(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
 
     The write offset clamps so the chunk fits, as the reference's
     ``dynamic_update_slice`` clamps it; the length is ``start + chunk``.
+    Linear caches only, as in the reference: chunked prefill is off for
+    sliding-window layers.
     """
+    if cache.window:
+        raise ValueError("write_chunk needs a linear cache")
     seq, slots = k.shape[1], cache.k.shape[1]
     at = max(0, min(start, slots - seq))
     cache.k[:, at:at + seq] = k
@@ -98,6 +119,8 @@ def valid_mask(cache: KVCache) -> torch.Tensor:
     """(batch, slots) bool — which cache slots hold valid tokens."""
     slots = cache.k.shape[1]
     pos = torch.arange(slots, device=cache.k.device)[None, :]
+    if cache.window:
+        return pos < cache.length.clamp(max=slots)[:, None]
     return pos < cache.length[:, None]
 
 

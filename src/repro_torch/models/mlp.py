@@ -1,4 +1,4 @@
-"""Dense SwiGLU FFN (the only activation the ported configs use)."""
+"""Dense FFN blocks (SwiGLU / GeLU / squared-ReLU)."""
 
 from __future__ import annotations
 
@@ -7,23 +7,27 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import activation_fn, dense_init
 
 
 def init_mlp(d_model: int, d_ff: int, activation: str, dtype, device,
              generator, lead=()) -> Dict:
-    """Weights ``(*lead, in, out)``; ``lead`` stacks layers."""
-    if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r} is not ported")
-    return {
-        "w_gate": dense_init((*lead, d_model, d_ff), dtype, device, generator),
-        "w_up": dense_init((*lead, d_model, d_ff), dtype, device, generator),
-        "w_down": dense_init((*lead, d_ff, d_model), dtype, device, generator),
-    }
+    """Weights ``(*lead, in, out)``; ``lead`` stacks layers.  SwiGLU has a
+    gate; the other activations have only up and down, as in the
+    reference."""
+    p = {}
+    if activation == "swiglu":
+        p["w_gate"] = dense_init((*lead, d_model, d_ff), dtype, device,
+                                 generator)
+    else:
+        activation_fn(activation)          # unknown names raise here
+    p["w_up"] = dense_init((*lead, d_model, d_ff), dtype, device, generator)
+    p["w_down"] = dense_init((*lead, d_ff, d_model), dtype, device, generator)
+    return p
 
 
 def mlp(params: Dict, x: torch.Tensor, activation: str) -> torch.Tensor:
-    if activation != "swiglu":
-        raise NotImplementedError(f"activation {activation!r} is not ported")
-    g = F.silu(x @ params["w_gate"])
-    return (g * (x @ params["w_up"])) @ params["w_down"]
+    if activation == "swiglu":
+        g = F.silu(x @ params["w_gate"])
+        return (g * (x @ params["w_up"])) @ params["w_down"]
+    return activation_fn(activation)(x @ params["w_up"]) @ params["w_down"]

@@ -1,4 +1,4 @@
-"""Rotary position embeddings (standard RoPE; M-RoPE is not ported yet)."""
+"""Rotary position embeddings: standard RoPE and Qwen2-VL M-RoPE."""
 
 from __future__ import annotations
 
@@ -30,3 +30,32 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     cos, sin = cos[..., :, None, :], sin[..., :, None, :]
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def mrope_cos_sin(positions_thw: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE.
+
+    positions_thw (3, ..., seq) int — temporal / height / width ids;
+    ``sections`` partitions the head_dim // 2 frequency slots into (t, h, w)
+    groups, each rotating by its own stream.  Returns cos, sin
+    (..., seq, head_dim // 2).
+    """
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    inv = rope_freqs(head_dim, theta, positions_thw.device)
+    ang = positions_thw.float()[..., None] * inv        # (3, ..., seq, hd/2)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=positions_thw.device),
+        torch.as_tensor(sections, device=positions_thw.device))
+    # each frequency slot takes its own stream's angle
+    ang = torch.movedim(ang, 0, -1).gather(
+        -1, sec_id.expand(*ang.shape[1:-1], -1)[..., None])[..., 0]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """For pure-text tokens all three M-RoPE streams share the position."""
+    return positions[None].expand(3, *positions.shape)

@@ -1,11 +1,20 @@
-"""The uniform decoder with the EAAS MoE FFN (counterpart of
-``src/repro/models/transformer.py::_build_decoder``).
+"""The decoder families (counterpart of ``src/repro/models/transformer.py``):
+
+* ``_build_decoder`` — the uniform decoder with a dense or an EAAS MoE FFN
+  (MoE, dense and the Qwen2-VL backbone with M-RoPE); a ``first_k_dense``
+  prefix runs first;
+* ``_build_local_global`` — gemma3: groups of ``local_global_pattern``
+  sliding-window layers plus one global layer, then a remainder of local
+  layers; local layers keep a ``sliding_window``-slot ring cache.
 
 Parameters are nested dicts with the reference's keys and layouts (weights
-``(in, out)``, used as ``x @ w``; per-layer leaves stacked on a leading
-layer axis), so :mod:`repro_torch.bridge` maps the reference's params one
-to one.  The reference's ``lax.scan`` over stacked blocks is a loop over
-the layer axis here; the dense prefix (``first_k_dense``) runs first.
+``(in, out)``, used as ``x @ w``; per-layer leaves stacked on leading layer
+axes), so :mod:`repro_torch.bridge` maps the reference's params one to one.
+The reference's ``lax.scan`` over stacked blocks is a loop over the layer
+axes here.  Caches are stacks ``(layers, batch, ...)`` (gemma3's local
+stack flattens its (group, layer) axes), so the executor writes a slot at
+batch axis 1 whatever the family.  The hybrid, SSM and encoder-decoder
+families are not ported.
 """
 
 from __future__ import annotations
@@ -22,25 +31,35 @@ from repro_torch.models import kv_cache as kvc
 from repro_torch.models.common import (dense_init, embed_init, rms_norm,
                                        resolve_dtype)
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.rope import text_mrope_positions
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init_params: Callable      # (generator) -> params
-    prefill: Callable          # (params, tokens, rt, max_slots) -> (logits, cache, stats)
+    # (params, tokens, rt, max_slots, batch) -> (logits, cache, stats)
+    prefill: Callable
     decode_step: Callable      # (params, token, cache, rt) -> (logits, cache, stats)
     init_cache: Callable       # (batch, max_slots) -> cache
     num_servers: int
-    # (params, tokens, cache, start, rt) -> (logits, cache, stats)
-    prefill_chunk: Callable
-    # (num_blocks, block_size, batch, max_slots) -> paged cache
-    init_paged_cache: Callable
+    # (params, tokens, cache, start, rt) -> (logits, cache, stats); None
+    # for families without cache-resident prefill (whole-prompt only)
+    prefill_chunk: Optional[Callable] = None
+    # (num_blocks, block_size, batch, max_slots) -> paged cache; None for
+    # families without paged-cache support (ring caches)
+    init_paged_cache: Optional[Callable] = None
+    # the batch axis every cache stack shares (microbatch splits, masked
+    # decode); None where the reference's cache layout has none
+    cache_batch_axis: Optional[int] = None
 
 
 def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
                 device) -> Model:
-    if cfg.family not in ("moe", "dense") or cfg.local_global_pattern:
+    """Dispatch on the model family, as the reference does."""
+    if cfg.family in ("hybrid", "ssm", "audio"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    if cfg.local_global_pattern:
+        return _build_local_global(cfg, device)
     return _build_decoder(cfg, num_servers, redundant_table, device)
 
 
@@ -74,9 +93,12 @@ def _ffn(p: Dict, cfg: ModelConfig, h: torch.Tensor, rt: MoERuntime,
 
 def _block_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, cache: kvc.KVCache,
-                   rt: MoERuntime, stats: list) -> torch.Tensor:
+                   rt: MoERuntime, stats: list, *, is_local: bool = False,
+                   mrope_positions=None) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     h, (k, v) = attn.full_attention(p["attn"], cfg, h, positions,
+                                    is_local=is_local,
+                                    mrope_positions=mrope_positions,
                                     return_kv=True)
     kvc.write_prefill(cache, k, v)
     x = x + h
@@ -97,13 +119,57 @@ def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _block_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  cache: kvc.KVCache, rt: MoERuntime,
+                  cache: kvc.KVCache, rt: Optional[MoERuntime],
                   stats: list) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     h, _ = attn.decode_attention(p["attn"], cfg, h, cache)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     return x + _ffn(p, cfg, h, rt, stats)
+
+
+def _mrope_from_batch(cfg: ModelConfig, batch, tokens: torch.Tensor):
+    """An M-RoPE config's (3, [B,] S) position ids: the batch's
+    ``mrope_positions`` (an image grid, ``models/vlm.py``) or the text
+    positions."""
+    if cfg.mrope_sections is None:
+        return None
+    mp = batch.get("mrope_positions") if batch else None
+    if mp is None:
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        return text_mrope_positions(pos)
+    return mp
+
+
+def _init_blocks(cfg: ModelConfig, lead, dt, device, gen,
+                 moe=None) -> Dict:
+    """Blocks stacked over ``lead`` layer axes: norms, attention and a
+    dense FFN, or ``moe = (num_servers, redundant_table)``'s EAAS layer."""
+    d = cfg.d_model
+    p = {"ln1": torch.ones((*lead, d), device=device),
+         "ln2": torch.ones((*lead, d), device=device),
+         "attn": attn.init_attention(cfg, dt, device, gen, lead)}
+    if moe is not None:
+        p["moe"] = eaas.init_eaas_moe(cfg, *moe, dt, device, gen, lead)
+    else:
+        p["mlp"] = init_mlp(d, cfg.d_ff, cfg.activation, dt, device, gen,
+                            lead)
+    return p
+
+
+def _init_embed(cfg: ModelConfig, dt, device, generator) -> Dict:
+    return {"embed": embed_init(cfg.padded_vocab, cfg.d_model, dt, device,
+                                generator),
+            "final_ln": torch.ones(cfg.d_model, device=device)}
+
+
+def _init_head(cfg: ModelConfig, dt, device, generator) -> Dict:
+    """The LM head, drawn last; none when it is the tied embedding."""
+    if cfg.tie_embeddings:
+        return {}
+    return {"head": dense_init((cfg.d_model, cfg.padded_vocab), dt, device,
+                               generator)}
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -124,31 +190,17 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
     dt = resolve_dtype(cfg.dtype)
     groups = (("dense", "dense_blocks", n_dense), ("blocks", "blocks", n_main))
 
-    def init_blocks(n: int, is_moe: bool, gen) -> Dict:
-        d = cfg.d_model
-        p = {"ln1": torch.ones((n, d), device=device),
-             "ln2": torch.ones((n, d), device=device),
-             "attn": attn.init_attention(cfg, dt, device, gen, (n,))}
-        if is_moe:
-            p["moe"] = eaas.init_eaas_moe(cfg, num_servers, redundant_table,
-                                          dt, device, gen, (n,))
-        else:
-            p["mlp"] = init_mlp(d, cfg.d_ff, cfg.activation, dt, device,
-                                gen, (n,))
-        return p
-
     def init_params(generator: Optional[torch.Generator]) -> Dict:
         """Weights drawn on ``device`` with the reference's distributions
         (not its numbers: jax.random cannot be reproduced in torch)."""
-        p = {"embed": embed_init(cfg.padded_vocab, cfg.d_model, dt, device,
-                                 generator),
-             "final_ln": torch.ones(cfg.d_model, device=device),
-             "blocks": init_blocks(n_main, m is not None, generator)}
+        p = _init_embed(cfg, dt, device, generator)
+        p["blocks"] = _init_blocks(
+            cfg, (n_main,), dt, device, generator,
+            (num_servers, redundant_table) if m is not None else None)
         if n_dense:
-            p["dense_blocks"] = init_blocks(n_dense, False, generator)
-        if not cfg.tie_embeddings:
-            p["head"] = dense_init((cfg.d_model, cfg.padded_vocab), dt,
-                                   device, generator)
+            p["dense_blocks"] = _init_blocks(cfg, (n_dense,), dt, device,
+                                             generator)
+        p.update(_init_head(cfg, dt, device, generator))
         return p
 
     def init_cache(batch: int, max_slots: int) -> Dict:
@@ -170,17 +222,21 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                 for name, _, n in groups if n}
 
     def prefill(params, tokens: torch.Tensor, rt: MoERuntime,
-                max_slots: Optional[int] = None):
-        """tokens (B, S) -> (last-position logits (B, V) fp32, cache, stats)."""
+                max_slots: Optional[int] = None, batch=None):
+        """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
+        stats); ``batch["mrope_positions"]`` places an image grid (M-RoPE
+        configs)."""
         B, S = tokens.shape
         cache = init_cache(B, max_slots or S)
         x = params["embed"][tokens]
         pos = torch.arange(S, device=tokens.device)
+        mrope = _mrope_from_batch(cfg, batch, tokens)
         stats = []
         for name, pname, n in groups:
             for i in range(n):
                 x = _block_prefill(_layer(params[pname], i), cfg, x, pos,
-                                   cache[name].layer(i), rt, stats)
+                                   cache[name].layer(i), rt, stats,
+                                   mrope_positions=mrope)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats(stats, cfg, tokens.device))
@@ -215,4 +271,86 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                 _sum_stats(stats, cfg, token.device))
 
     return Model(cfg, init_params, prefill, decode_step, init_cache,
-                 num_servers, prefill_chunk, init_paged_cache)
+                 num_servers, prefill_chunk, init_paged_cache,
+                 cache_batch_axis=1)
+
+
+def _build_local_global(cfg: ModelConfig, device) -> Model:
+    """gemma3: groups of (``pattern`` local layers + 1 global layer), then
+    a remainder of local layers; local layers keep only a
+    ``sliding_window``-slot ring cache.  Params keep the reference's keys
+    (``groups/local`` stacked (groups, pattern), ``groups/global``,
+    ``rem_local``).  Dense-only, whole-prompt prefill, as in the
+    reference: no paged cache, no chunked prefill, no batch axis shared by
+    every cache (the reference's local stack has a leading group axis)."""
+    pat = cfg.local_global_pattern
+    n_groups = cfg.num_layers // (pat + 1)
+    n_rem = cfg.num_layers - n_groups * (pat + 1)
+    dt = resolve_dtype(cfg.dtype)
+
+    def init_params(generator: Optional[torch.Generator]) -> Dict:
+        """Weights drawn on ``device`` with the reference's distributions
+        (not its numbers)."""
+        p = _init_embed(cfg, dt, device, generator)
+        p["groups"] = {
+            "local": _init_blocks(cfg, (n_groups, pat), dt, device,
+                                  generator),
+            "global": _init_blocks(cfg, (n_groups,), dt, device, generator)}
+        if n_rem:
+            p["rem_local"] = _init_blocks(cfg, (n_rem,), dt, device,
+                                          generator)
+        p.update(_init_head(cfg, dt, device, generator))
+        return p
+
+    def init_cache(batch: int, max_slots: int) -> Dict:
+        """Stacks ``local`` (group * pattern + layer), ``global`` and
+        ``rem``; the local ones are rings of ``min(window, max_slots)``."""
+        def stack(n, window=0):
+            return kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
+                                     cfg.head_dim, dt, device, layers=n,
+                                     window=window)
+        w = cfg.sliding_window
+        cache = {"local": stack(n_groups * pat, w), "global": stack(n_groups)}
+        if n_rem:
+            cache["rem"] = stack(n_rem, w)
+        return cache
+
+    def layers(params: Dict, cache: Dict):
+        """(block params, cache layer, is_local) in the reference's
+        order."""
+        g = params["groups"]
+        for i in range(n_groups):
+            loc = _layer(g["local"], i)
+            for j in range(pat):
+                yield _layer(loc, j), cache["local"].layer(i * pat + j), True
+            yield _layer(g["global"], i), cache["global"].layer(i), False
+        for i in range(n_rem):
+            yield _layer(params["rem_local"], i), cache["rem"].layer(i), True
+
+    def prefill(params, tokens: torch.Tensor, rt=None,
+                max_slots: Optional[int] = None, batch=None):
+        """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
+        stats); a prompt longer than the window keeps its trailing window
+        in each local ring."""
+        B, S = tokens.shape
+        cache = init_cache(B, max_slots or S)
+        x = params["embed"][tokens]
+        pos = torch.arange(S, device=tokens.device)
+        for p, c, local in layers(params, cache):
+            x = _block_prefill(p, cfg, x, pos, c, None, [], is_local=local)
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        return (_logits(params, cfg, x[:, -1]), cache,
+                _sum_stats([], cfg, tokens.device))
+
+    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+        """token (B, 1) -> (logits (B, V) fp32, cache (in place), stats).
+        The stats are zero (no MoE); the reference returns None here, which
+        its engine cannot read (ROADMAP Queue 3)."""
+        x = params["embed"][token]
+        for p, c, _ in layers(params, cache):
+            x = _block_decode(p, cfg, x, c, None, [])
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        return (_logits(params, cfg, x[:, 0]), cache,
+                _sum_stats([], cfg, token.device))
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)

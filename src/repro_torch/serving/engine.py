@@ -260,6 +260,12 @@ class ServingEngine:
         self.model = build_model(
             cfg, S, self.pool.redundant_table if self.pool else None,
             self.device)
+        if (engine_cfg.exec_mode == "async"
+                and self.model.cache_batch_axis is None):
+            raise ValueError(
+                "exec_mode='async' needs a model family with a uniform "
+                "cache batch axis (decoder family) — wave decodes mask "
+                "inactive slot rows")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init_params(gen)
@@ -289,9 +295,13 @@ class ServingEngine:
             decode_mode=engine_cfg.decode_mode, kv_mode=engine_cfg.kv_mode,
             kv_block_size=engine_cfg.kv_block_size,
             kv_num_blocks=self.kv_pool.num_blocks if self.kv_pool else 0)
+        # a family without cache-resident prefill (gemma3's rings) prefills
+        # whole prompts, as in the reference
+        chunk = (engine_cfg.prefill_chunk
+                 if self.executor.supports_chunked_prefill else 0)
         self.scheduler = Scheduler(SchedulerConfig(
             max_batch=engine_cfg.max_batch,
-            prefill_chunk=engine_cfg.prefill_chunk, policy=engine_cfg.policy,
+            prefill_chunk=chunk, policy=engine_cfg.policy,
             batch_cap=(engine_cfg.tp_batch_cap
                        if engine_cfg.mode == "tp" else None),
             max_seq=engine_cfg.max_seq), kv_pool=self.kv_pool)

@@ -66,6 +66,10 @@ class Executor:
         if decode_mode not in DECODE_MODES:
             raise ValueError(f"unknown decode_mode {decode_mode!r}")
         if decode_mode != "lockstep":
+            if model.cache_batch_axis is None:
+                raise ValueError(
+                    f"decode_mode={decode_mode!r} needs a model family with "
+                    "a uniform cache batch axis (decoder-family only)")
             if max_batch % 2:
                 raise ValueError(
                     f"decode_mode={decode_mode!r} needs an even max_batch "
@@ -75,6 +79,11 @@ class Executor:
                     "kv_mode='paged' shares one block pool across the "
                     "batch — microbatch-split decode modes need the dense "
                     "per-slot cache (use decode_mode='lockstep')")
+        if kv_mode == "paged" and (model.init_paged_cache is None
+                                   or model.prefill_chunk is None):
+            raise ValueError(
+                "kv_mode='paged' needs a model family with paged-cache and "
+                "chunked-prefill support (uniform decoder family)")
         self.model = model
         self.params = params
         self.pool = pool
@@ -98,6 +107,10 @@ class Executor:
         # MoE drop / miss totals over every step, kept on the device
         self.dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         self.miss = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        return self.model.prefill_chunk is not None
 
     def _runtime(self):
         return self.pool.runtime(self.device) if self.pool else None

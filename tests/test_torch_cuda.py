@@ -817,3 +817,126 @@ def test_cluster_writes_the_shared_bank_once_on_card(cuda):
     assert four - one < 0.25 * bank
     for k in w1:
         assert torch.equal(w1[k], w4[k]), k
+
+
+# ---- decode attention past hd = 128, softcap, ring caches ------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("b,h,kv,hd,s", [
+    (8, 8, 4, 256, 1024),     # gemma3-4b: G = 2, a local layer's ring
+    (8, 8, 4, 256, 2048),     # gemma3-4b: a global layer at max_seq 2048
+    (3, 24, 1, 160, 130),     # G = 24: two m16 tiles at a staged 160
+    (4, 16, 2, 200, 100),     # hd = 200: staged 224, two warps of 112
+    (4, 6, 2, 129, 70),       # hd = 129: element-wise staging, staged 160
+])
+def test_flash_decode_wide_heads(cuda, b, h, kv, hd, s, dtype, tol, rng):
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    lengths = torch.as_tensor(_edge_lengths(b, s), device=cuda)
+    out = ops.flash_decode(q, k, v, lengths, impl="cuda")
+    live = lengths > 0
+    exp = ops.flash_decode(q, k, v, lengths, impl="torch")
+    torch.testing.assert_close(out[live].float(), exp[live].float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+    assert torch.equal(out, ops.flash_decode(q, k, v, lengths, impl="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [16, 12])
+def test_paged_hd256_equals_dense(cuda, bs, dtype, rng):
+    """The paged kernel at hd = 256 is torch.equal to the dense one over
+    the gathered view and close to the plain version."""
+    q, kp, vp, tables, lengths = _paged_inputs(cuda, rng, 4, 8, 4, 256, bs,
+                                               dtype)
+    b, mb = tables.shape
+    kd = kp[tables].reshape(b, mb * bs, *kp.shape[2:])
+    vd = vp[tables].reshape(b, mb * bs, *vp.shape[2:])
+    out = ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="cuda")
+    assert torch.equal(out, ops.flash_decode(q, kd, vd, lengths,
+                                             impl="cuda"))
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    exp = ops.paged_flash_decode(q, kp, vp, tables, lengths, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cap", [50.0, 1.5])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_decode_softcap(cuda, hd, cap, dtype, tol, rng):
+    """cap * tanh(s / cap) on the scaled scores, dense and paged; at cap
+    1.5 the capped output differs from the uncapped one."""
+    b, h, kv, s = 4, 8, 2, 300
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)) * 3,
+                        device=cuda).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    lengths = torch.as_tensor([1, 64, 200, 300], device=cuda)
+    out = ops.flash_decode(q, k, v, lengths, softcap=cap, impl="cuda")
+    exp = ops.flash_decode(q, k, v, lengths, softcap=cap, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+    if cap < 2:
+        plain = ops.flash_decode(q, k, v, lengths, impl="torch")
+        assert (exp.float() - plain.float()).abs().max() > 10 * tol
+    args = _paged_inputs(cuda, rng, 4, h, kv, hd, 16, dtype)
+    pout = ops.paged_flash_decode(*args, softcap=cap, impl="cuda")
+    pexp = ops.paged_flash_decode(*args, softcap=cap, impl="torch")
+    torch.testing.assert_close(pout.float(), pexp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_decode_wrapped_ring(cuda, dtype, tol, rng):
+    """A sliding-window ring (64 slots, lengths past it, written at
+    length % 64) read unchanged: the kernel equals the plain version and
+    the same keys laid out in time order."""
+    b, h, kv, hd, w = 4, 8, 4, 256, 64
+    lengths = torch.as_tensor([30, 64, 65, 1000], device=cuda)
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(b, w, kv, hd)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(b, w, kv, hd)),
+                        device=cuda).to(dtype)
+    out = ops.flash_decode(q, k, v, lengths, impl="cuda")
+    torch.testing.assert_close(
+        out.float(), ops.flash_decode(q, k, v, lengths, impl="torch").float(),
+        rtol=tol, atol=tol)
+    # rotate each ring into time order: oldest slot first
+    order = [(torch.arange(w, device=cuda) + int(n) % w) % w
+             if int(n) > w else torch.arange(w, device=cuda)
+             for n in lengths.tolist()]
+    kt = torch.stack([k[i, o] for i, o in enumerate(order)]).contiguous()
+    vt = torch.stack([v[i, o] for i, o in enumerate(order)]).contiguous()
+    torch.testing.assert_close(
+        out.float(), ops.flash_decode(q, kt, vt, lengths, impl="cuda").float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(7168, 4864), (4864, 7168)])
+def test_grouped_gemm_arctic_shape(cuda, k, n, rng):
+    """Arctic's expert server: G = 34 hosted experts (32 primaries and 2
+    replicas), a decode's 40 live rows of C = 128."""
+    g, m = 34, 128
+    sizes = torch.as_tensor(rng.multinomial(40, np.ones(g) / g), device=cuda)
+    x = torch.as_tensor(rng.normal(size=(m, k)),
+                        device=cuda).to(torch.bfloat16)
+    w = (torch.randn(g, k, n, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+         * 0.02).to(torch.bfloat16)
+    out = ops.grouped_gemm(x, w, sizes, impl="cuda")
+    exp = ops.grouped_gemm(x, w, sizes, impl="torch")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(out[40:], torch.zeros_like(out[40:]))
