@@ -1,10 +1,12 @@
-"""Architecture registry of the port: the decoder configurations its
-serving path runs — the MoE models (``deepseek-r1``, the paper's
-evaluation model; ``kimi-k2-1t-a32b``; ``arctic-480b`` with its dense
-residual) and the dense family (``gemma3-4b``'s local/global attention,
-``granite-3-2b``, ``minitron-8b``'s squared ReLU, ``phi3-medium-14b``,
-``qwen2-vl-2b``'s M-RoPE backbone).  Copies of the reference's configs
-with their ``source`` strings; whisper, zamba2 and rwkv6 are not ported."""
+"""Architecture registry of the port: all eleven configurations of the
+reference — the MoE models (``deepseek-r1``, the paper's evaluation model;
+``kimi-k2-1t-a32b``; ``arctic-480b`` with its dense residual), the dense
+decoders (``gemma3-4b``'s local/global attention, ``granite-3-2b``,
+``minitron-8b``'s squared ReLU, ``phi3-medium-14b``, ``qwen2-vl-2b``'s
+M-RoPE backbone), the hybrid ``zamba2-2.7b`` (Mamba2 layers and one shared
+attention block), the recurrent ``rwkv6-7b`` and the encoder-decoder
+``whisper-base``.  Copies of the reference's configs with their ``source``
+strings."""
 
 from __future__ import annotations
 
@@ -12,13 +14,15 @@ from typing import Dict
 
 from repro_torch.configs import (arctic_480b, deepseek_r1, gemma3_4b,
                                  granite_3_2b, kimi_k2_1t_a32b, minitron_8b,
-                                 phi3_medium_14b, qwen2_vl_2b)
-from repro_torch.configs.base import ModelConfig, MoEConfig
+                                 phi3_medium_14b, qwen2_vl_2b, rwkv6_7b,
+                                 whisper_base, zamba2_2_7b)
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
     m.CONFIG.arch_id: m.CONFIG
     for m in (deepseek_r1, kimi_k2_1t_a32b, arctic_480b, gemma3_4b,
-              granite_3_2b, minitron_8b, phi3_medium_14b, qwen2_vl_2b)
+              granite_3_2b, minitron_8b, phi3_medium_14b, qwen2_vl_2b,
+              zamba2_2_7b, rwkv6_7b, whisper_base)
 }
 
 
@@ -28,4 +32,4 @@ def get_config(arch_id: str) -> ModelConfig:
     return REGISTRY[arch_id]
 
 
-__all__ = ["ModelConfig", "MoEConfig", "REGISTRY", "get_config"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "REGISTRY", "get_config"]

@@ -1,5 +1,6 @@
-"""GQA attention: full (prefill, optional sliding window), chunked prefill
-and one-token decode, against a dense, ring or paged cache.
+"""GQA attention: full (prefill, optional sliding window, causal or
+bidirectional), chunked prefill, one-token decode against a dense, ring or
+paged cache, and whisper's cross-attention.
 
 RoPE (or Qwen2-VL's M-RoPE) is applied to q/k before the keys are cached,
 so cached keys are already rotated and a sliding-window ring needs no
@@ -7,7 +8,9 @@ reordering.  Gemma-style logit softcap caps the scaled scores wherever the
 reference applies it.  ``decode_attention`` computes its core through
 ``ops.flash_decode`` (dense or ring cache) or ``ops.paged_flash_decode``
 (block pool) — the CUDA kernels on the card, their plain versions on the
-CPU; the softcap is the kernels' own argument.
+CPU; the softcap is the kernels' own argument.  Cross-attention against the cached encoder
+K/V is a one-token decode with every position valid: it runs through
+``ops.flash_decode`` with lengths filled with the encoder length.
 """
 
 from __future__ import annotations
@@ -73,16 +76,17 @@ def _gqa_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, sq, kvh * g, v.shape[-1])
 
 
-def _dense_core(cfg, q, k, v, q_pos, k_pos, *, is_local: bool = False):
-    """Causal, materialized scores (soft-capped when the config says so;
-    ``is_local`` masks keys ``sliding_window`` or more positions back);
-    returns (b, sq, H, hd) fp32."""
+def _dense_core(cfg, q, k, v, q_pos, k_pos, *, is_local: bool = False,
+                causal: bool = True):
+    """Materialized scores (soft-capped when the config says so), causal
+    unless ``causal=False``; ``is_local`` masks keys ``sliding_window`` or
+    more positions back; returns (b, sq, H, hd) fp32."""
     scores = _gqa_scores(q, k) / math.sqrt(cfg.head_dim)
     if cfg.attn_logit_softcap:
         scores = softcap(scores, cfg.attn_logit_softcap)
     i = q_pos[:, None, None, :, None]
     j = k_pos[:, None, None, None, :]
-    mask = j <= i
+    mask = j <= i if causal else torch.ones_like(j <= i)
     if is_local and cfg.sliding_window:
         mask &= (i - j) < cfg.sliding_window
     scores = torch.where(mask, scores, NEG_INF)
@@ -90,27 +94,28 @@ def _dense_core(cfg, q, k, v, q_pos, k_pos, *, is_local: bool = False):
 
 
 def _chunked_core(cfg, q, k, v, positions, *, is_local: bool = False,
-                  q_blocks: int):
+                  causal: bool = True, q_blocks: int):
     """The reference's q-block scan: same math, one q block at a time."""
     b, s = q.shape[:2]
     bq = s // q_blocks
     outs = [_dense_core(cfg, q[:, i * bq:(i + 1) * bq], k, v,
                         positions[:, i * bq:(i + 1) * bq], positions,
-                        is_local=is_local)
+                        is_local=is_local, causal=causal)
             for i in range(q_blocks)]
     return torch.cat(outs, dim=1)
 
 
 def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, *, is_local: bool = False,
-                   mrope_positions=None, return_kv: bool = False,
-                   q_blocks: int = 16):
-    """Causal self-attention over the whole sequence (prefill).
+                   mrope_positions=None, causal: bool = True,
+                   return_kv: bool = False, q_blocks: int = 16):
+    """Self-attention over the whole sequence (prefill).
 
     x (b, s, d); positions (b, s) or (s,) int.  ``is_local`` applies the
     config's sliding window (gemma3's local layers); ``mrope_positions (3,
     b, s)`` are an M-RoPE config's (t, h, w) ids (text positions if None);
-    ``return_kv`` also returns the rotated (k, v) for the cache fill.
+    ``causal=False`` is the bidirectional encoder (whisper); ``return_kv``
+    also returns the rotated (k, v) for the cache fill.
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -123,10 +128,10 @@ def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if s >= CHUNKED_ATTN_THRESHOLD and s % q_blocks == 0:
         out = _chunked_core(cfg, q, k, v, positions, is_local=is_local,
-                            q_blocks=q_blocks)
+                            causal=causal, q_blocks=q_blocks)
     else:
         out = _dense_core(cfg, q, k, v, positions, positions,
-                          is_local=is_local)
+                          is_local=is_local, causal=causal)
     out = out.reshape(b, s, h * hd).to(x.dtype) @ params["wo"]
     return (out, (k, v)) if return_kv else out
 
@@ -194,3 +199,57 @@ def decode_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         out = ops.flash_decode(q[:, 0], cache.k, cache.v, cache.length,
                                softcap=cap)
     return out.reshape(b, 1, h * hd) @ params["wo"], cache
+
+
+# ------------------------------------------------------------- cross-attn
+
+def init_cross_attention(cfg: ModelConfig, dtype, device, generator,
+                         lead=()) -> Dict:
+    return init_attention(cfg, dtype, device, generator, lead)
+
+
+def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The encoder output's K and V (b, S_enc, KV, hd), unrotated."""
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    return (_split_heads(enc_out @ params["wk"], kvh, hd),
+            _split_heads(enc_out @ params["wv"], kvh, hd))
+
+
+def cross_attention_plain(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention of x's queries (b, s, d) over encoder K/V,
+    materialized in fp32 (the reference's ``cross_attention_cached``)."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = _split_heads(x @ params["wq"], h, hd)
+    p = torch.softmax(_gqa_scores(q, k) / math.sqrt(hd), dim=-1)
+    out = _gqa_out(p, v).to(x.dtype)
+    return out.reshape(b, s, h * hd) @ params["wo"]
+
+
+def cross_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    enc_out: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention over a prompt (whisper's prefill): queries
+    from x (b, s, d), K/V from enc_out (b, S_enc, d); no RoPE, no mask.
+    Plain PyTorch, as in the reference."""
+    return cross_attention_plain(params, cfg, x, *cross_kv(params, cfg,
+                                                           enc_out))
+
+
+def cross_attention_cached(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor = None) -> torch.Tensor:
+    """Cross-attention of one decode token x (b, 1, d) against the cached
+    encoder K/V (b, S_enc, KV, hd): ``ops.flash_decode`` with every
+    position valid (``lengths``, filled with S_enc when not given).  More
+    than one query runs the plain core."""
+    b, s, _ = x.shape
+    if s != 1:
+        return cross_attention_plain(params, cfg, x, k, v)
+    h, hd = cfg.num_heads, cfg.head_dim
+    if lengths is None:
+        lengths = torch.full((b,), k.shape[1], dtype=torch.int32,
+                             device=x.device)
+    q = (x @ params["wq"]).reshape(b, h, hd)
+    out = ops.flash_decode(q, k, v, lengths)
+    return out.reshape(b, 1, h * hd) @ params["wo"]

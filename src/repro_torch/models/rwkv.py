@@ -1,0 +1,212 @@
+"""RWKV-6 "Finch" block (rwkv6-7b): attention-free time-mix with a
+data-dependent decay, and a squared-ReLU channel-mix (counterpart of
+``src/repro/models/rwkv.py``).
+
+Per head (key dim D = value dim D), state S (D, D):
+
+    y_t = r_t · (S_{t-1} + diag(u) k_t ⊗ v_t)
+    S_t = diag(w_t) S_{t-1} + k_t ⊗ v_t
+
+with w_t = exp(-exp(w0 + tanh(x_w A) B)), Finch's per-channel decay.  As
+in the reference, prefill batches the r / k / v / g projections and the
+decay over the whole sequence and loops over tokens only for the wkv
+recurrence; the token-shift mixes are static.  The recurrence is PyTorch
+on every device: the reference computes it in jnp, not in a Pallas kernel.
+
+Precision follows the reference's type promotion: the shift mixes ``mu``
+are fp32, so a mixed bf16 activation is fp32 and its r / k / v / g (and
+the channel-mix's k / r) products are fp32 products with the weights
+widened (``_mm``); the wkv state, the decay (``decay_A`` / ``decay_B``)
+and the group norm are fp32; the channel-mix rounds k to the activations'
+dtype before ``w_v``, and the time-mix its output before ``w_o``.
+``rwkv_block_spmd`` (the reference's tensor-parallel island) belongs to
+the multi-GPU tier and is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init, resolve_dtype, rms_norm
+
+
+class RwkvState(NamedTuple):
+    wkv: torch.Tensor          # ([lead,] B, H, D, D) fp32
+    shift_tmix: torch.Tensor   # ([lead,] B, d) last token seen by time-mix
+    shift_cmix: torch.Tensor   # ([lead,] B, d) last token seen by channel-mix
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int]:
+    """(heads, head_dim)."""
+    D = cfg.ssm.head_dim if cfg.ssm else cfg.head_dim
+    return cfg.d_model // D, D
+
+
+def init_rwkv_tmix(cfg: ModelConfig, dtype, device, generator,
+                   lead=()) -> Dict:
+    """The reference's layout and distributions (not its numbers)."""
+    d = cfg.d_model
+    H, D = dims(cfg)
+    lora = max(32, d // 64)
+    f32 = dict(dtype=torch.float32, device=device)
+    p = {"mu": torch.rand((*lead, 5, d), generator=generator, **f32)}
+    for name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
+        p[name] = dense_init((*lead, d, d), dtype, device, generator)
+    p.update(
+        decay_w0=torch.full((*lead, d), -6.0, **f32),
+        decay_A=dense_init((*lead, d, lora), torch.float32, device,
+                           generator),
+        decay_B=dense_init((*lead, lora, d), torch.float32, device,
+                           generator),
+        bonus_u=torch.zeros((*lead, H, D), **f32),
+        ln_scale=torch.ones((*lead, d), **f32))
+    return p
+
+
+def init_rwkv_cmix(cfg: ModelConfig, dtype, device, generator,
+                   lead=()) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu": torch.rand((*lead, 2, d), generator=generator,
+                         dtype=torch.float32, device=device),
+        "w_k": dense_init((*lead, d, f), dtype, device, generator),
+        "w_v": dense_init((*lead, f, d), dtype, device, generator),
+        "w_r": dense_init((*lead, d, d), dtype, device, generator),
+    }
+
+
+def _mix(x, prev, mu):
+    """Token shift: lerp between the current and the previous token (fp32
+    when ``mu`` is, as the reference promotes)."""
+    return x + (prev - x) * mu
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the reference's promotion: a wider ``x`` widens
+    ``w``."""
+    return x @ (w if w.dtype == x.dtype else w.to(x.dtype))
+
+
+def _decay(params: Dict, xw: torch.Tensor) -> torch.Tensor:
+    """Finch's data-dependent decay, (..., d) in (0, 1), fp32."""
+    lo = torch.tanh(xw.float() @ params["decay_A"]) @ params["decay_B"]
+    return torch.exp(-torch.exp(params["decay_w0"] + lo))
+
+
+def _group_norm_out(params: Dict, y: torch.Tensor, g: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """Per-head RMS norm of y (..., H, D), scale, gate, rounding to the
+    activations' dtype, output projection."""
+    y = y * torch.rsqrt(y.square().mean(dim=-1, keepdim=True) + 1e-6)
+    y = y.reshape(*y.shape[:-2], -1) * params["ln_scale"] * g
+    return y.to(dtype) @ params["w_o"]
+
+
+def _projections(params: Dict, x: torch.Tensor, prev: torch.Tensor, H: int,
+                 D: int):
+    """r, k, v (..., H, D) and the gate g (..., d) in fp32, and the decay
+    w (..., H, D), from x and its shifted copy ``prev``."""
+    mu = params["mu"]
+    lead = x.shape[:-1]
+    r, k, v = (_mm(_mix(x, prev, mu[i]), params[w]).reshape(*lead, H, D)
+               .float() for i, w in enumerate(("w_r", "w_k", "w_v")))
+    g = F.silu(_mm(_mix(x, prev, mu[4]), params["w_g"]).float())
+    w = _decay(params, _mix(x, prev, mu[3])).reshape(*lead, H, D)
+    return r, k, v, g, w
+
+
+def _wkv_step(S, r, k, v, w, u):
+    """One token of the recurrence: r / k / v / w (B, H, D), S (B, H, D, D)
+    -> (S', y (B, H, D))."""
+    kv = k[..., :, None] * v[..., None, :]
+    y = (r[..., None, :] @ (S + u[None, :, :, None] * kv))[..., 0, :]
+    return w[..., None] * S + kv, y
+
+
+def _tmix_step(params: Dict, cfg: ModelConfig, S: torch.Tensor,
+               prev_x: torch.Tensor, x_t: torch.Tensor):
+    """One time-mix token.  x_t (B, d).  Returns (S', y_t)."""
+    H, D = dims(cfg)
+    r, k, v, g, w = _projections(params, x_t, prev_x, H, D)
+    S, y = _wkv_step(S, r, k, v, w, params["bonus_u"])
+    return S, _group_norm_out(params, y, g, x_t.dtype)
+
+
+def tmix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 state: RwkvState
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence time-mix.  x (B, L, d).  The projections and the decay
+    run over the whole sequence, the wkv recurrence token by token (the
+    reference's ``chunk`` only groups those steps for rematerialization;
+    the values do not depend on it).  Returns (y, wkv state', last
+    token)."""
+    _, D = dims(cfg)
+    H = params["w_r"].shape[1] // D
+    shifted = torch.cat([state.shift_tmix.to(x.dtype)[:, None], x[:, :-1]],
+                        dim=1)
+    r, k, v, g, w = _projections(params, x, shifted, H, D)
+    S, u, ys = state.wkv, params["bonus_u"], []
+    for t in range(x.shape[1]):
+        S, y = _wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(y)
+    out = _group_norm_out(params, torch.stack(ys, dim=1), g, x.dtype)
+    return out, S, x[:, -1]
+
+
+def cmix_forward(params: Dict, x: torch.Tensor, prev_token: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Channel-mix over a sequence.  x (B, L, d); prev_token (B, d)."""
+    shifted = torch.cat([prev_token[:, None].to(x.dtype), x[:, :-1]], dim=1)
+    xk = _mix(x, shifted, params["mu"][0])
+    xr = _mix(x, shifted, params["mu"][1])
+    k = torch.square(F.relu(_mm(xk, params["w_k"]).float()))
+    v = k.to(x.dtype) @ params["w_v"]
+    r = torch.sigmoid(_mm(xr, params["w_r"]).float())
+    return (r * v.float()).to(x.dtype), x[:, -1]
+
+
+def rwkv_block_forward(tparams: Dict, cparams: Dict, cfg: ModelConfig,
+                       x: torch.Tensor, state: RwkvState,
+                       norms: Tuple[torch.Tensor, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, RwkvState]:
+    """One RWKV layer over a sequence (pre-norm residuals)."""
+    n1, n2 = norms
+    h = rms_norm(x, n1, cfg.rms_norm_eps)
+    y, S, prev_t = tmix_forward(tparams, cfg, h, state)
+    x = x + y
+    y2, prev_c = cmix_forward(cparams, rms_norm(x, n2, cfg.rms_norm_eps),
+                              state.shift_cmix)
+    return x + y2, RwkvState(wkv=S, shift_tmix=prev_t, shift_cmix=prev_c)
+
+
+def rwkv_block_decode(tparams: Dict, cparams: Dict, cfg: ModelConfig,
+                      x: torch.Tensor, state: RwkvState,
+                      norms: Tuple[torch.Tensor, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, RwkvState]:
+    """One-token decode through a layer.  x (B, 1, d)."""
+    n1, n2 = norms
+    h = rms_norm(x, n1, cfg.rms_norm_eps)[:, 0]
+    S, y = _tmix_step(tparams, cfg, state.wkv, state.shift_tmix, h)
+    x = x + y[:, None]
+    y2, prev_c = cmix_forward(cparams, rms_norm(x, n2, cfg.rms_norm_eps),
+                              state.shift_cmix)
+    return x + y2, RwkvState(wkv=S, shift_tmix=h, shift_cmix=prev_c)
+
+
+def init_rwkv_state(cfg: ModelConfig, batch: int, device,
+                    lead=()) -> RwkvState:
+    """Zero states stacked over ``lead`` layer axes: wkv in fp32, the
+    shifts in the config's dtype."""
+    H, D = dims(cfg)
+    dt = resolve_dtype(cfg.dtype)
+    return RwkvState(
+        wkv=torch.zeros((*lead, batch, H, D, D), dtype=torch.float32,
+                        device=device),
+        shift_tmix=torch.zeros((*lead, batch, cfg.d_model), dtype=dt,
+                               device=device),
+        shift_cmix=torch.zeros((*lead, batch, cfg.d_model), dtype=dt,
+                               device=device))

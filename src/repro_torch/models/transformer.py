@@ -5,16 +5,28 @@
   prefix runs first;
 * ``_build_local_global`` — gemma3: groups of ``local_global_pattern``
   sliding-window layers plus one global layer, then a remainder of local
-  layers; local layers keep a ``sliding_window``-slot ring cache.
+  layers; local layers keep a ``sliding_window``-slot ring cache;
+* ``_build_zamba`` — zamba2: groups of Mamba2 layers, each group followed
+  by the one shared attention + MLP block (its own KV cache per group);
+* ``_build_rwkv`` — rwkv6: time-mix and channel-mix layers over recurrent
+  states;
+* ``_build_encdec`` — whisper: a bidirectional encoder over frame
+  embeddings and a decoder with self- and cross-attention (the encoder's
+  K/V cached at prefill).
 
 Parameters are nested dicts with the reference's keys and layouts (weights
 ``(in, out)``, used as ``x @ w``; per-layer leaves stacked on leading layer
 axes), so :mod:`repro_torch.bridge` maps the reference's params one to one.
 The reference's ``lax.scan`` over stacked blocks is a loop over the layer
-axes here.  Caches are stacks ``(layers, batch, ...)`` (gemma3's local
-stack flattens its (group, layer) axes), so the executor writes a slot at
-batch axis 1 whatever the family.  The hybrid, SSM and encoder-decoder
-families are not ported.
+axes here.  The decoder families' caches are stacks ``(layers, batch,
+...)`` (gemma3's local stack flattens its (group, layer) axes); zamba2's
+Mamba states are ``(groups, layers, batch, ...)``: the executor finds each
+leaf's batch axis as the reference does.  The hybrid, SSM and
+encoder-decoder families prefill whole prompts into a dense cache, as in
+the reference (no chunked prefill, no paged cache, no shared batch axis).
+Every family without an MoE returns zero stats; the reference's
+local/global, hybrid, SSM and encoder-decoder ``decode_step`` return
+``None``, which its engine cannot read.
 """
 
 from __future__ import annotations
@@ -28,6 +40,8 @@ from repro_torch.core import moe_layer as eaas
 from repro_torch.core.moe_layer import MoERuntime, MoEStats
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_cache as kvc
+from repro_torch.models import mamba as mam
+from repro_torch.models import rwkv as rwk
 from repro_torch.models.common import (dense_init, embed_init, rms_norm,
                                        resolve_dtype)
 from repro_torch.models.mlp import init_mlp, mlp
@@ -56,8 +70,12 @@ class Model(NamedTuple):
 def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
                 device) -> Model:
     """Dispatch on the model family, as the reference does."""
-    if cfg.family in ("hybrid", "ssm", "audio"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+    if cfg.family == "hybrid":
+        return _build_zamba(cfg, device)
+    if cfg.family == "ssm":
+        return _build_rwkv(cfg, device)
+    if cfg.family == "audio":
+        return _build_encdec(cfg, device)
     if cfg.local_global_pattern:
         return _build_local_global(cfg, device)
     return _build_decoder(cfg, num_servers, redundant_table, device)
@@ -142,14 +160,18 @@ def _mrope_from_batch(cfg: ModelConfig, batch, tokens: torch.Tensor):
     return mp
 
 
+def _norms(d: int, lead, device, *names) -> Dict:
+    """RMS-norm scales (ones, fp32) stacked over ``lead``."""
+    return {n: torch.ones((*lead, d), device=device) for n in names}
+
+
 def _init_blocks(cfg: ModelConfig, lead, dt, device, gen,
                  moe=None) -> Dict:
     """Blocks stacked over ``lead`` layer axes: norms, attention and a
     dense FFN, or ``moe = (num_servers, redundant_table)``'s EAAS layer."""
     d = cfg.d_model
-    p = {"ln1": torch.ones((*lead, d), device=device),
-         "ln2": torch.ones((*lead, d), device=device),
-         "attn": attn.init_attention(cfg, dt, device, gen, lead)}
+    p = _norms(d, lead, device, "ln1", "ln2")
+    p["attn"] = attn.init_attention(cfg, dt, device, gen, lead)
     if moe is not None:
         p["moe"] = eaas.init_eaas_moe(cfg, *moe, dt, device, gen, lead)
     else:
@@ -350,6 +372,243 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         for p, c, _ in layers(params, cache):
             x = _block_decode(p, cfg, x, c, None, [])
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        return (_logits(params, cfg, x[:, 0]), cache,
+                _sum_stats([], cfg, token.device))
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+
+
+def _build_zamba(cfg: ModelConfig, device) -> Model:
+    """zamba2: ``num_layers / shared_block_every`` groups of Mamba2 layers,
+    each followed by the SHARED attention + MLP block: one set of params
+    for every group, a KV cache per application.  Params keep the
+    reference's keys (``mamba`` stacked (groups, layers), ``shared``).
+    The cache: ``mamba``, a :class:`~repro_torch.models.mamba.MambaState`
+    of (groups, layers, batch, ...), and ``shared``, a KV stack of
+    (groups, batch, ...); decode updates both in place."""
+    per = cfg.shared_block_every
+    n_groups = cfg.num_layers // per
+    if n_groups * per != cfg.num_layers:
+        raise ValueError(f"num_layers={cfg.num_layers} is not a multiple of "
+                         f"shared_block_every={per}")
+    dt = resolve_dtype(cfg.dtype)
+
+    def init_params(generator: Optional[torch.Generator]) -> Dict:
+        """Weights drawn on ``device`` with the reference's distributions
+        (not its numbers)."""
+        lead = (n_groups, per)
+        p = _init_embed(cfg, dt, device, generator)
+        p["mamba"] = dict(_norms(cfg.d_model, lead, device, "ln"),
+                          mamba=mam.init_mamba(cfg, dt, device, generator,
+                                               lead))
+        p["shared"] = _init_blocks(cfg, (), dt, device, generator)
+        p.update(_init_head(cfg, dt, device, generator))
+        return p
+
+    def init_cache(batch: int, max_slots: int) -> Dict:
+        return {"mamba": mam.init_mamba_state(cfg, batch, device,
+                                              (n_groups, per)),
+                "shared": kvc.init_kv_cache(batch, max_slots,
+                                            cfg.num_kv_heads, cfg.head_dim,
+                                            dt, device, layers=n_groups)}
+
+    def run(params, x: torch.Tensor, cache: Dict, mamba_step, block):
+        """The groups in order: each Mamba layer's state written back in
+        place, then the shared block over group ``g``'s KV cache."""
+        st = cache["mamba"]
+        for g in range(n_groups):
+            group = _layer(params["mamba"], g)
+            for j in range(per):
+                lp = _layer(group, j)
+                h = rms_norm(x, lp["ln"], cfg.rms_norm_eps)
+                y, new = mamba_step(lp["mamba"], cfg, h, mam.MambaState(
+                    st.ssm[g, j], st.conv[g, j]))
+                x = x + y
+                st.ssm[g, j] = new.ssm
+                st.conv[g, j] = new.conv
+            x = block(params["shared"], cache["shared"].layer(g), x)
+        return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+
+    def prefill(params, tokens: torch.Tensor, rt=None,
+                max_slots: Optional[int] = None, batch=None):
+        """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
+        zero stats)."""
+        B, S = tokens.shape
+        cache = init_cache(B, max_slots or S)
+        pos = torch.arange(S, device=tokens.device)
+        x = run(params, params["embed"][tokens], cache, mam.mamba_forward,
+                lambda p, c, x: _block_prefill(p, cfg, x, pos, c, None, []))
+        return (_logits(params, cfg, x[:, -1]), cache,
+                _sum_stats([], cfg, tokens.device))
+
+    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+        """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
+        stats; the reference returns None here)."""
+        x = run(params, params["embed"][token], cache, mam.mamba_decode,
+                lambda p, c, x: _block_decode(p, cfg, x, c, None, []))
+        return (_logits(params, cfg, x[:, 0]), cache,
+                _sum_stats([], cfg, token.device))
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+
+
+def _build_rwkv(cfg: ModelConfig, device) -> Model:
+    """rwkv6: ``num_layers`` time-mix + channel-mix layers.  Params keep
+    the reference's keys (``blocks``: ``ln1``, ``ln2``, ``tmix``,
+    ``cmix``); the cache is ``states``, an
+    :class:`~repro_torch.models.rwkv.RwkvState` of (layers, batch, ...)
+    updated in place.  The state is O(1) in the sequence: prefill ignores
+    ``max_slots``."""
+    L = cfg.num_layers
+    dt = resolve_dtype(cfg.dtype)
+
+    def init_params(generator: Optional[torch.Generator]) -> Dict:
+        """Weights drawn on ``device`` with the reference's distributions
+        (not its numbers)."""
+        p = _init_embed(cfg, dt, device, generator)
+        p["blocks"] = dict(
+            _norms(cfg.d_model, (L,), device, "ln1", "ln2"),
+            tmix=rwk.init_rwkv_tmix(cfg, dt, device, generator, (L,)),
+            cmix=rwk.init_rwkv_cmix(cfg, dt, device, generator, (L,)))
+        p.update(_init_head(cfg, dt, device, generator))
+        return p
+
+    def init_cache(batch: int, max_slots: int) -> Dict:
+        return {"states": rwk.init_rwkv_state(cfg, batch, device, (L,))}
+
+    def run(params, x: torch.Tensor, cache: Dict, block) -> torch.Tensor:
+        st = cache["states"]
+        for i in range(L):
+            p = _layer(params["blocks"], i)
+            x, new = block(p["tmix"], p["cmix"], cfg, x,
+                           rwk.RwkvState(*(a[i] for a in st)),
+                           (p["ln1"], p["ln2"]))
+            for a, b in zip(st, new):
+                a[i] = b
+        return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+
+    def prefill(params, tokens: torch.Tensor, rt=None,
+                max_slots: Optional[int] = None, batch=None):
+        """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
+        zero stats)."""
+        cache = init_cache(tokens.shape[0], 0)
+        x = run(params, params["embed"][tokens], cache,
+                rwk.rwkv_block_forward)
+        return (_logits(params, cfg, x[:, -1]), cache,
+                _sum_stats([], cfg, tokens.device))
+
+    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+        """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
+        stats; the reference returns None here)."""
+        x = run(params, params["embed"][token], cache, rwk.rwkv_block_decode)
+        return (_logits(params, cfg, x[:, 0]), cache,
+                _sum_stats([], cfg, token.device))
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+
+
+def _build_encdec(cfg: ModelConfig, device) -> Model:
+    """whisper-base's backbone: ``num_encoder_layers`` bidirectional blocks
+    over frame embeddings (B, encoder_seq_len, d_model) — the conv / mel
+    frontend is a stand-in, ``models/whisper.py`` — and ``num_layers``
+    decoder blocks of causal self-attention, cross-attention (``ln_x``,
+    ``cross``) and MLP.  The cache: ``self``, a KV stack, and the
+    encoder's K/V per decoder layer, ``cross_k`` / ``cross_v`` (layers,
+    batch, encoder_seq_len, KV, hd), written at prefill, read by decode."""
+    Le, Ld = cfg.num_encoder_layers, cfg.num_layers
+    dt = resolve_dtype(cfg.dtype)
+
+    def init_params(generator: Optional[torch.Generator]) -> Dict:
+        """Weights drawn on ``device`` with the reference's distributions
+        (not its numbers); the head is the tied embedding."""
+        p = _init_embed(cfg, dt, device, generator)
+        p["encoder"] = _init_blocks(cfg, (Le,), dt, device, generator)
+        p["decoder"] = dict(
+            _init_blocks(cfg, (Ld,), dt, device, generator),
+            **_norms(cfg.d_model, (Ld,), device, "ln_x"),
+            cross=attn.init_cross_attention(cfg, dt, device, generator,
+                                            (Ld,)))
+        p.update(_init_head(cfg, dt, device, generator))
+        return p
+
+    def encode(params, frames: torch.Tensor) -> torch.Tensor:
+        x = frames.to(dt)
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(Le):
+            p = _layer(params["encoder"], i)
+            h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+            x = x + attn.full_attention(p["attn"], cfg, h, pos, causal=False)
+            h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+            x = x + mlp(p["mlp"], h, cfg.activation)
+        return x
+
+    def init_cache(batch: int, max_slots: int) -> Dict:
+        shape = (Ld, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"self": kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
+                                          cfg.head_dim, dt, device,
+                                          layers=Ld),
+                "cross_k": torch.zeros(shape, dtype=dt, device=device),
+                "cross_v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def decoder(params, x: torch.Tensor, cache: Dict, self_attn,
+                cross_attn) -> torch.Tensor:
+        for i in range(Ld):
+            p = _layer(params["decoder"], i)
+            h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+            x = x + self_attn(p["attn"], h, cache["self"].layer(i))
+            h = rms_norm(x, p["ln_x"], cfg.rms_norm_eps)
+            x = x + cross_attn(p["cross"], h, i)
+            h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+            x = x + mlp(p["mlp"], h, cfg.activation)
+        return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+
+    def prefill(params, tokens: torch.Tensor, rt=None,
+                max_slots: Optional[int] = None, batch=None):
+        """Encode ``batch["frames"]`` (zeros when absent, as in the
+        reference: the engine passes none), cache each decoder layer's
+        cross K/V, prefill the decoder (cross-attention plain, as in the
+        reference).  tokens (B, S) -> (last-position logits (B, V) fp32,
+        cache, zero stats)."""
+        B, S = tokens.shape
+        frames = (batch or {}).get("frames")
+        if frames is None:
+            frames = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model),
+                                 dtype=dt, device=tokens.device)
+        enc = encode(params, frames)
+        cache = init_cache(B, max_slots or S)
+        pos = torch.arange(S, device=tokens.device)
+
+        def self_attn(p, h, c):
+            out, (k, v) = attn.full_attention(p, cfg, h, pos, return_kv=True)
+            kvc.write_prefill(c, k, v)
+            return out
+
+        def cross_attn(p, h, i):
+            k, v = attn.cross_kv(p, cfg, enc)
+            cache["cross_k"][i] = k
+            cache["cross_v"][i] = v
+            return attn.cross_attention_plain(p, cfg, h, k, v)
+
+        x = decoder(params, params["embed"][tokens], cache, self_attn,
+                    cross_attn)
+        return (_logits(params, cfg, x[:, -1]), cache,
+                _sum_stats([], cfg, tokens.device))
+
+    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+        """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
+        stats; the reference returns None here).  The cross-attention
+        runs ``ops.flash_decode`` over the cached encoder K/V with every
+        position valid: its lengths are the encoder length, not the self
+        cache's."""
+        enc_len = torch.full((token.shape[0],), cache["cross_k"].shape[2],
+                             dtype=torch.int32, device=token.device)
+        x = decoder(
+            params, params["embed"][token], cache,
+            lambda p, h, c: attn.decode_attention(p, cfg, h, c)[0],
+            lambda p, h, i: attn.cross_attention_cached(
+                p, cfg, h, cache["cross_k"][i], cache["cross_v"][i],
+                enc_len))
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats([], cfg, token.device))
 

@@ -4,7 +4,9 @@ The :class:`Executor` owns the params, the batched KV cache and the step
 variants:
 
 * ``prefill``       — whole-prompt prefill into a fresh batch-1 cache that
-  is then written into the slot;
+  is then written into the slot, leaf by leaf at each leaf's batch axis
+  (KV stacks, Mamba and RWKV states, whisper's cross K/V), as the
+  reference's ``_slot_write`` does;
 * ``prefill_chunk`` — chunked-prefill continuation against a batch-1
   staging cache, committed into the slot on the last chunk (dense mode);
 * ``decode``        — one token for the whole slot batch (idle slots
@@ -39,6 +41,7 @@ write, once.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -52,6 +55,37 @@ from repro_torch.models.transformer import Model
 
 
 DECODE_MODES = ("lockstep", "pipelined", "serialized")
+
+
+def _tensor_pairs(big, one):
+    """The tensor leaves of two caches of one structure (dicts, named
+    tuples, cache dataclasses), in pairs."""
+    if isinstance(big, torch.Tensor):
+        yield big, one
+    elif isinstance(big, dict):
+        for k in big:
+            yield from _tensor_pairs(big[k], one[k])
+    elif isinstance(big, tuple):
+        for a, b in zip(big, one):
+            yield from _tensor_pairs(a, b)
+    elif dataclasses.is_dataclass(big):
+        for f in dataclasses.fields(big):
+            yield from _tensor_pairs(getattr(big, f.name),
+                                     getattr(one, f.name))
+
+
+def _slot_write(big: torch.Tensor, one: torch.Tensor, slot: int) -> None:
+    """Write a batch-1 cache leaf into ``slot`` of the engine's leaf, in
+    place: the reference's ``_slot_write``.  The batch axis is the first
+    where ``one`` has 1 and ``big`` does not; equal shapes (max_batch 1)
+    replace the leaf whole; a leaf with neither is left as it is."""
+    if big.shape == one.shape:
+        big.copy_(one)
+        return
+    for axis, (db, do) in enumerate(zip(big.shape, one.shape)):
+        if db != do and do == 1:
+            big.narrow(axis, slot, 1).copy_(one)
+            return
 
 
 class Executor:
@@ -124,11 +158,10 @@ class Executor:
                                device=self.device)
 
     def _commit(self, slot: int, one: Dict) -> None:
-        """Write a batch-1 dense cache into ``slot`` of the batch cache."""
-        for name, big in self.cache.items():
-            big.k[:, slot] = one[name].k[:, 0]
-            big.v[:, slot] = one[name].v[:, 0]
-            big.length[:, slot] = one[name].length[:, 0]
+        """Write a batch-1 dense cache into ``slot`` of the batch cache,
+        leaf by leaf (KV stacks, recurrent states, cross K/V)."""
+        for big, small in _tensor_pairs(self.cache, one):
+            _slot_write(big, small, slot)
 
     @torch.inference_mode()
     def prefill(self, slot: int, prompt: np.ndarray) -> torch.Tensor:

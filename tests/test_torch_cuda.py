@@ -940,3 +940,30 @@ def test_grouped_gemm_arctic_shape(cuda, k, n, rng):
     torch.testing.assert_close(out.float(), exp.float(), rtol=2e-2,
                                atol=2e-2)
     assert torch.equal(out[40:], torch.zeros_like(out[40:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", ["zamba2 shared block", "whisper self",
+                                  "whisper cross"])
+def test_flash_decode_g1_shapes(cuda, case, dtype, tol, rng):
+    """G = 1 (one query head per KV head: one row of the m16 tile):
+    zamba2's shared block (32 heads over 32 KV heads of hd 80, 2048
+    slots), whisper's decoder self-attention (448 slots, hd 64) and its
+    cross-attention (1500 encoder positions, every one valid); hd 80 in
+    fp32 is the FMA body's 8-wide rows.  Against the plain version, and
+    run twice bitwise."""
+    b, h, hd, s, lens = {
+        "zamba2 shared block": (4, 32, 80, 2048, [256, 1056, 1, 2048]),
+        "whisper self": (4, 8, 64, 448, [16, 96, 65, 448]),
+        "whisper cross": (4, 8, 64, 1500, [1500] * 4)}[case]
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, h, hd)),
+                            device=cuda).to(dtype) for _ in range(2))
+    lengths = torch.as_tensor(lens, device=cuda)
+    out = ops.flash_decode(q, k, v, lengths, impl="cuda")
+    torch.testing.assert_close(
+        out.float(), ops.flash_decode(q, k, v, lengths, impl="torch").float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(out, ops.flash_decode(q, k, v, lengths, impl="cuda"))

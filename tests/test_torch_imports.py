@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.autoscale", "repro_torch.core.monolithic",
             "repro_torch.core.overlap", "repro_torch.serving.event_loop",
             "repro_torch.serving.frontend",
-            "repro_torch.serving.cluster"} <= set(_modules())
+            "repro_torch.serving.cluster", "repro_torch.models.mamba",
+            "repro_torch.models.rwkv", "repro_torch.models.whisper",
+            "repro_torch.launch.serve"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
