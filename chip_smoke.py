@@ -144,12 +144,35 @@ Phases, each of which raises on failure (exit code != 0):
    12 calls a decode step (the kernels phase checks hd 80 and G = 1 at
    these shapes).  Phases 16-20 each report TTFT / ITL, tok/s, launches
    per decode step, device busy and idle share, peak memory and the token
-   digest.
+   digest;
+21. training reference: reduced deepseek-r1 and granite in float32, the
+   card (the kernels and the grouped GEMM's backward kernels) against the
+   CPU (plain versions) on the same weights and batch: the loss (1e-5),
+   every gradient leaf (1e-4), one AdamW step (eps 1e-3), one with int8
+   compression (1 in 1000 entries may quantise a step apart: within
+   2 * lr) and one Adafactor step, params within 1e-5; then a reduced
+   bf16 run saved, restored and resumed on the card;
+22. training at full width: deepseek-r1 at its published widths, depth
+   cut to 1 dense + 1 MoE block (13.47 B params, bf16), 2 expert servers
+   of 128 experts, 8 Adafactor steps (lr 1e-4) on one repeated batch of
+   8 x 256 synthetic tokens: finite losses that fall, the grouped GEMM,
+   its dx / dw kernels and the combine's slot entry launched every step;
+   step wall p50, train tokens/s, the forward / backward / optimizer
+   split, device busy and idle share (profiled), launches per step, peak
+   memory;
+23. the train launcher, ``python -m repro_torch.launch.train --arch
+   granite-3-2b`` (full width and depth, 2.5 B params, AdamW), 10 steps.
+   The kernels phase (3) also holds the backward kernels
+   (``grouped_gemm_dx`` / ``_dw``) against their plain versions at the
+   full-width training shapes (bf16, 2e-2) and a float32 case (1e-5),
+   with edges (empty groups, one group holding every row, rows past the
+   sum, G = 130, accumulation), timed beside the per-group torch.matmul.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
 arctic|gemma3|zamba2|rwkv6|whisper`` builds the kernels and runs that one
-phase (14-20) alone, printing no summary.  Without a CUDA device, or without the
+phase (14-20) alone, printing no summary; ``--only train`` runs the
+backward kernels' checks and phases 21-23.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits 1 and prints no result.
 """
 
@@ -170,12 +193,20 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES = 3.35e12                                 # H100 SXM HBM3, B/s
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}    # dense, per second
 TOL = {"grouped_gemm": {"float32": 1e-5, "bfloat16": 2e-2},
+       "grouped_gemm_dx": {"float32": 1e-5, "bfloat16": 2e-2},
+       "grouped_gemm_dw": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
        "paged_flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
        "combine_weighted": {"float32": 1e-5, "bfloat16": 2e-2},
        "combine_slots": {"float32": 1e-5, "bfloat16": 2e-2}}
+RAGGED_VJP = ("no TPU kernel: the VJP of lax.ragged_dot, the reference "
+              "trainer's grouped GEMM (src/repro/kernels/ops.py:95)")
 SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
                             "src/repro/kernels/grouped_gemm.py:43"),
+           "grouped_gemm_dx": ("src/repro_torch/csrc/grouped_gemm_bwd.cu",
+                               RAGGED_VJP),
+           "grouped_gemm_dw": ("src/repro_torch/csrc/grouped_gemm_bwd.cu",
+                               RAGGED_VJP),
            "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                             "src/repro/kernels/decode_attention.py:74"),
            "paged_flash_decode": (
@@ -671,6 +702,121 @@ def kernels_phase(torch, cfg):
                                   graph=True)}
     log(f"kernels: launch floor (empty kernel) {json.dumps(floor)}")
     return cases, floor
+
+
+def backward_kernels_phase(torch, cfg, cases) -> None:
+    """The grouped GEMM's backward kernels against their plain versions:
+    one server of the full-width training run (bf16, G = 128, C = 10240
+    rows of which ~8192 live, gate/up and down shapes), a float32 case,
+    and the edges (empty groups, one group holding every row, rows past
+    the sum, G = 130, accumulation); timed as the other kernels, beside
+    the per-group torch.matmul over host offsets."""
+    from repro_torch.kernels import grouped_gemm as kgg
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    m = cfg.moe
+
+    def inputs(M, K, N, sizes, dtype):
+        x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+        dy = torch.randn(M, N, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(len(sizes), K, N, generator=gen, device=dev)
+             / K ** 0.5).to(dtype)
+        return x, dy, w, torch.as_tensor(sizes, device=dev)
+
+    def bwd_case(label, M, K, N, sizes, dtype, plain_reps=20):
+        x, dy, w, sz = inputs(M, K, N, sizes, dtype)
+        offs = [0] + torch.cumsum(sz.cpu(), 0).tolist()
+        G = len(sizes)
+        live = offs[-1]
+        live_g = sum(1 for g in range(G) if offs[g + 1] > offs[g])
+        es = x.element_size()
+
+        def lib_dx():
+            out = torch.zeros(M, K, dtype=dtype, device=dev)
+            for g in range(G):
+                if offs[g + 1] > offs[g]:
+                    out[offs[g]:offs[g + 1]] = dy[offs[g]:offs[g + 1]] @ w[g].T
+            return out
+
+        def lib_dw():
+            out = torch.zeros(G, K, N, dtype=dtype, device=dev)
+            for g in range(G):
+                if offs[g + 1] > offs[g]:
+                    out[g] = x[offs[g]:offs[g + 1]].T @ dy[offs[g]:offs[g + 1]]
+            return out
+        flops = 2.0 * live * K * N
+        dt = str(dtype)[6:]
+        cases["grouped_gemm_dx"].append(run_case(
+            torch, "grouped_gemm_dx", label, dt,
+            lambda: kgg.grouped_gemm_dx_cuda(dy, w, sz),
+            lambda: kgg.grouped_gemm_dx_torch(dy, w, sz), lib_dx,
+            (live * N + live_g * K * N + M * K) * es, flops,
+            twice=True, plain_reps=plain_reps))
+        cases["grouped_gemm_dw"].append(run_case(
+            torch, "grouped_gemm_dw", label, dt,
+            lambda: kgg.grouped_gemm_dw_cuda(x, dy, sz),
+            lambda: kgg.grouped_gemm_dw_torch(x, dy, sz), lib_dw,
+            (live * K + live * N + G * K * N) * es, flops,
+            twice=True, plain_reps=plain_reps))
+        del x, dy, w
+
+    # the full-width training run's server: 2048 tokens x top-8 over S = 2
+    # servers of 128 experts, capacity 10240
+    G, C = m.num_experts // 2, 10240
+    sizes = torch.bincount(torch.randint(
+        0, G, (8192,), generator=torch.Generator().manual_seed(2)),
+        minlength=G).tolist()
+    d, f = cfg.d_model, m.d_expert
+    bwd_case(f"training gate/up, G = {G}, 8192 live rows of {C}", C, d, f,
+             sizes, bf, plain_reps=3)
+    bwd_case(f"training down, G = {G}, 8192 live rows of {C}", C, f, d,
+             sizes, bf, plain_reps=3)
+    bwd_case("float32 small, 200 live rows of 256", 256, 64, 96,
+             [30, 0, 50, 20, 0, 60, 40, 0], torch.float32)
+    torch.cuda.empty_cache()
+
+    edges = {"empty groups, rows past the sum": (96, 64, 48, [0, 20, 0, 30]),
+             "one group holds every row": (200, 64, 128, [0, 0, 200, 0]),
+             "G = 1": (64, 32, 80, [64]),
+             "G = 130 > 66, 1000 of 1280 rows": (1280, 256, 72, "130"),
+             "M = 100, K = 72, N = 136": (100, 72, 136, [10, 0, 45, 40])}
+    sz_gen = torch.Generator().manual_seed(6)
+    for dtype in (bf, torch.float32):
+        dt = str(dtype)[6:]
+        for label, (M, K, N, sizes) in edges.items():
+            if sizes == "130":
+                sizes = torch.bincount(torch.randint(
+                    0, 130, (1000,), generator=sz_gen), minlength=130
+                    ).tolist()
+            x, dy, w, sz = inputs(M, K, N, sizes, dtype)
+            torch.empty(M * max(K, N) * 4, device=dev).fill_(float("nan"))
+            dx = kgg.grouped_gemm_dx_cuda(dy, w, sz)
+            e1 = check_case(torch, "grouped_gemm_dx", label, dt, dx,
+                            kgg.grouped_gemm_dx_torch(dy, w, sz))
+            live = int(sz.sum())
+            if not torch.equal(dx[live:], torch.zeros_like(dx[live:])):
+                raise AssertionError(f"grouped_gemm_dx[{label}]: rows past "
+                                     "the sum not zero")
+            dw = kgg.grouped_gemm_dw_cuda(x, dy, sz)
+            e2 = check_case(torch, "grouped_gemm_dw", label, dt, dw,
+                            kgg.grouped_gemm_dw_torch(x, dy, sz))
+            empty = sz == 0
+            if not torch.equal(dw[empty], torch.zeros_like(dw[empty])):
+                raise AssertionError(f"grouped_gemm_dw[{label}]: an empty "
+                                     "group's dw is not zero")
+            base = torch.randn(dw.shape, generator=gen, device=dev).to(dtype)
+            acc = kgg.grouped_gemm_dw_cuda(x, dy, sz, out=base.clone())
+            e3 = check_case(torch, "grouped_gemm_dw", label + ", accumulate",
+                            dt, acc, kgg.grouped_gemm_dw_torch(
+                                x, dy, sz, out=base.clone()))
+            if not torch.equal(acc[empty], base[empty]):
+                raise AssertionError(f"grouped_gemm_dw[{label}]: accumulate "
+                                     "touched an empty group")
+            log(f"kernels: grouped_gemm_dx / _dw edge [{label}, {dt}] max "
+                f"|err| {e1:.3g} / {e2:.3g} (accumulate {e3:.3g}), zero "
+                "tail rows and empty groups")
 
 
 def old_combine_stage(torch, responses, combine_slot, out_dtype, addend):
@@ -2621,6 +2767,314 @@ def whisper_phase(torch, get_config, smi) -> dict:
     return launches
 
 
+TRAIN_PATH = ("grouped_gemm", "grouped_gemm_dx", "grouped_gemm_dw",
+              "combine_slots")
+
+
+def _close_trees(torch, label, got, exp, tol, flips=0.0, bound=None):
+    """Every leaf of ``got`` (card) within ``tol`` of ``exp`` (CPU); with
+    ``flips``, that share of a leaf's entries (at least 2) may differ by up
+    to ``bound`` (int8 rounding flips under compression).  Returns the max
+    |err|."""
+    from repro_torch.training import tree
+
+    worst = 0.0
+    for path, a in tree.items(got):
+        b = tree.get(exp, path)
+        diff = (a.detach().float().cpu() - b.detach().float()).abs()
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        off = diff > tol
+        if int(off.sum()) > max(2, flips * off.numel()) or (off.any() and (
+                bound is None or float(diff[off].max()) > bound)):
+            raise AssertionError(f"{label}: {path} differs by "
+                                 f"{float(diff.max())} ({int(off.sum())} "
+                                 f"entries above {tol})")
+    return worst
+
+
+def train_reference_phase(torch, get_config) -> None:
+    """Reduced deepseek-r1 and granite in float32: the card (the kernels
+    and their backward kernels) against the CPU (plain versions) on the
+    same weights and batch — the loss, every gradient leaf, an AdamW step,
+    an AdamW step with int8 compression and an Adafactor step, each from
+    the same state; then save -> restore -> resume on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.moe_layer import default_runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import TrainCtx, build_model
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import tree
+    from repro_torch.training.data import synthetic_lm_batches
+    from repro_torch.training.train_loop import (TrainState,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    for arch in ("deepseek-r1", "granite-3-2b"):
+        cfg = get_config(arch).reduced().replace(dtype="float32")
+        S = 2 if cfg.moe else 1
+        batch = next(synthetic_lm_batches(cfg, 4, 32, seed=0))
+        params0 = None
+        models = {}
+        for dev in ("cpu", "cuda"):
+            model = build_model(cfg, S, np.zeros((S, 0), np.int32), dev)
+            if params0 is None:
+                params0 = model.init_params(torch.Generator().manual_seed(0))
+            rt = default_runtime(cfg, S, 128, dev) if cfg.moe else None
+            models[dev] = (model, TrainCtx(moe_runtime=rt, remat=True,
+                                           ce_chunk=16))
+
+        def fresh(dev):
+            return tree.map_params(
+                lambda p: p.detach().clone().to(dev).requires_grad_(),
+                params0)
+
+        # the loss and every gradient leaf
+        out = {}
+        for dev, (model, ctx) in models.items():
+            params = fresh(dev)
+            ops.reset_launches()
+            loss, _ = model.loss_fn(params, {k: v.to(dev) for k, v in
+                                             batch.items()}, ctx)
+            loss.backward()
+            out[dev] = (loss.item(), {k: p.grad for k, p in
+                                      tree.items(params)})
+            n = ops.launch_counts()
+            if dev == "cuda" and cfg.moe and any(n[k] <= 0
+                                                 for k in TRAIN_PATH):
+                raise AssertionError(f"train reference ({arch}): kernels "
+                                     f"not launched: {n}")
+        lerr = abs(out["cuda"][0] - out["cpu"][0])
+        gerr = _close_trees(torch, f"train reference ({arch}) gradients",
+                            out["cuda"][1], out["cpu"][1], 1e-4)
+        if not lerr <= 1e-5:
+            raise AssertionError(f"train reference ({arch}): loss differs "
+                                 f"by {lerr}")
+        # one step of each optimizer from the same state
+        lr = {"adamw": 3e-3, "adamw + int8": 3e-3, "adafactor": 3e-2}
+        errs = {}
+        for name, comp in (("adamw", False), ("adamw + int8", True),
+                           ("adafactor", False)):
+            res = {}
+            for dev, (model, ctx) in models.items():
+                opt = (topt.adafactor(lr=lr[name]) if name == "adafactor"
+                       else topt.adamw(lr=lr[name], eps=1e-3))
+                st = init_train_state(model, opt, None, compression=comp,
+                                      params=fresh(dev))
+                st, met = make_train_step(model, opt, ctx, compression=comp)(
+                    st, {k: v.to(dev) for k, v in batch.items()})
+                res[dev] = (st, met)
+            (sc, mc), (sp, mp) = res["cuda"], res["cpu"]
+            for k in ("loss", "grad_norm"):
+                if abs(float(mc[k]) - float(mp[k])) > 1e-5 * max(
+                        1.0, abs(float(mp[k]))):
+                    raise AssertionError(f"train reference ({arch}, {name}):"
+                                         f" {k} {float(mc[k])} vs "
+                                         f"{float(mp[k])}")
+            # AdamW at eps 1e-3 (its update Lipschitz in the gradient);
+            # under int8 compression an entry on a rounding boundary may
+            # quantise one step apart: 1 in 1000 within 2 * lr
+            errs[name] = _close_trees(
+                torch, f"train reference ({arch}, {name}) params",
+                sc.params, sp.params, 1e-5, flips=1e-3 if comp else 0.0,
+                bound=2 * lr[name])
+        log(f"train reference: reduced {arch} float32, card vs CPU: loss "
+            f"|err| {lerr:.2e}, max |grad err| {gerr:.2e} (tol 1e-4), one "
+            f"step each, max |param err| "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    # save -> restore -> resume on the card (reduced deepseek-r1, bf16)
+    cfg = get_config("deepseek-r1").reduced()
+    model = build_model(cfg, 2, np.zeros((2, 0), np.int32), "cuda")
+    ctx = TrainCtx(moe_runtime=default_runtime(cfg, 2, 128, "cuda"),
+                   remat=False, ce_chunk=32)
+    opt = topt.adafactor(lr=1e-2)
+    data = synthetic_lm_batches(cfg, 4, 32, seed=1, device="cuda")
+    batches = [next(data) for _ in range(4)]
+    step = make_train_step(model, opt, ctx)
+    st = init_train_state(model, opt,
+                          torch.Generator(device="cuda").manual_seed(0))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for b in batches[:2]:
+            st, _ = step(st, b)
+        ckpt.save_checkpoint(tmp, 2, st)
+        for b in batches[2:]:
+            st, m1 = step(st, b)
+        like = init_train_state(model, opt,
+                                torch.Generator(device="cuda").manual_seed(9))
+        st2, at = ckpt.restore_checkpoint(tmp, like)
+    if at != 2 or not isinstance(st2, TrainState) or int(st2.step) != 2:
+        raise AssertionError("train reference: restore lost the step")
+    for b in batches[2:]:
+        st2, m2 = step(st2, b)
+    same = all(torch.equal(a, b) for a, b in zip(tree.leaves(st.params),
+                                                 tree.leaves(st2.params)))
+    err = _close_trees(torch, "train reference: resume", st2.params,
+                       tree.map_params(lambda p: p.cpu(), st.params), 1e-6)
+    log(f"train reference: reduced deepseek-r1 bf16 on the card, 2 steps, "
+        f"save, 2 steps; restored and resumed: loss {float(m2['loss']):.6f}"
+        f" vs {float(m1['loss']):.6f}, params bitwise equal {same} (max "
+        f"|err| {err:.2e})")
+    if float(m1["loss"]) != float(m2["loss"]) and not same:
+        raise AssertionError("train reference: resume diverged")
+
+
+def _timed(torch, fn, acc: list):
+    """``fn`` whose device time to completion is appended to ``acc``."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        acc.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def train_phase(torch, get_config, smi) -> dict:
+    """deepseek-r1 at its full published widths, depth cut to 1 dense + 1
+    MoE block (13.47 B params, bf16), trained 8 steps with Adafactor on
+    one repeated batch of 8 x 256 synthetic tokens, S = 2 expert servers
+    of 128 experts (no replicas), no remat, CE in 256-position chunks:
+    finite losses that fall, the four training-path kernels launched
+    every step; the step wall p50, tokens/s, the forward / backward /
+    optimizer split, device busy and idle share (profiled), launches per
+    step and peak memory.  Returns the launches of the 8 steps."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.core.moe_layer import default_runtime
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import TrainCtx, build_model
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import tree
+    from repro_torch.training.data import synthetic_lm_batches
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    _free(torch)
+    base = get_config("deepseek-r1")
+    cfg = base.replace(num_layers=2,
+                       moe=dataclasses.replace(base.moe, first_k_dense=1))
+    S, B, L = 2, 8, 256
+    t0 = time.perf_counter()
+    model = build_model(cfg, S, np.zeros((S, 0), np.int32), "cuda")
+    rt = default_runtime(cfg, S, B * L, "cuda")
+    fwd, opt_ms = [], []
+    opt = topt.adafactor(lr=1e-4)
+    timed_model = model._replace(loss_fn=_timed(torch, model.loss_fn, fwd))
+    timed_opt = opt._replace(apply_=_timed(torch, opt.apply_, opt_ms))
+    state = init_train_state(model, opt,
+                             torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    log(f"train: deepseek-r1 d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} vocab={cfg.vocab_size} experts="
+        f"{cfg.moe.num_experts} top-{cfg.moe.top_k} d_expert="
+        f"{cfg.moe.d_expert} layers={cfg.num_layers} (1 dense + 1 MoE) "
+        f"{cfg.dtype}: {n_params / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; S = {S}, "
+        f"capacity {rt.capacity}, batch {B} x {L}, Adafactor lr 1e-4")
+    ctx = TrainCtx(moe_runtime=rt, remat=False, ce_chunk=256)
+    step = make_train_step(timed_model, timed_opt, ctx)
+    batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    losses, walls, per_step = [], [], []
+    for _ in range(8):
+        before = ops.launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        after = ops.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} do not fall")
+    missing = [(i, k) for i, n in enumerate(per_step) for k in TRAIN_PATH
+               if n[k] <= 0]
+    if missing:
+        raise AssertionError(f"train: kernels not launched in a step: "
+                             f"{missing}")
+    p50 = statistics.median(walls[1:])
+    f50, o50 = statistics.median(fwd[1:]), statistics.median(opt_ms[1:])
+    rises = sum(b > a for a, b in zip(losses, losses[1:]))
+    log(f"train: losses {[round(x, 4) for x in losses]} (one repeated "
+        f"batch; {rises} of 7 steps rose), grad_norm last {float(met['grad_norm']):.3f}, dropped "
+        f"{int(met['dropped'])}, miss {int(met['miss'])}")
+    log(f"train: step wall p50 {p50:.1f} ms over steps 1-7 (step 0 "
+        f"{walls[0]:.1f} ms), {B * L * 1e3 / p50:.1f} train tokens/s; "
+        f"forward {f50:.1f} ms, backward (with the gradient collection and "
+        f"clip) {p50 - f50 - o50:.1f} ms, optimizer {o50:.1f} ms; "
+        f"launches per step {json.dumps(per_step[-1])}; peak memory "
+        f"{peak:.2f} GiB ({smi})")
+    prof = _step_profile(torch, types.SimpleNamespace(
+        step=lambda: step(state, batch)), 1)
+    if prof is None:
+        log("train: the profiler saw no device time (not measured)")
+    else:
+        log(f"train: profiled step wall {prof['plain_ms']:.1f} ms, device "
+            f"busy {prof['busy_ms']:.1f} ms (union {prof['union_ms']:.1f} "
+            f"ms), idle share "
+            f"{max(0.0, 1 - prof['union_ms'] / prof['plain_ms']):.3f}; "
+            f"{prof['launches']:.0f} device launches and "
+            f"{prof['copies']:.0f} copies per step")
+        top = sorted(prof["rows"].items(), key=lambda kv: -kv[1][0])
+        for key, (ms, n) in top[:8]:
+            log(f"train: {ms:9.3f} ms/step {n:6.1f} calls/step  {key[:90]}")
+    del state, model, step, timed_model
+    _free(torch)
+    return launches
+
+
+def train_phases(torch, get_config, smi):
+    """Phases 21-23: the backward kernels' edges were checked in the
+    kernels phase; here the training reference, the full-width run and
+    the launcher.  Returns (the full-width run's launches, the
+    launcher's)."""
+    train_reference_phase(torch, get_config)
+    launches = train_phase(torch, get_config, smi)
+    return launches, train_launcher_phase(torch)
+
+
+def train_launcher_phase(torch) -> dict:
+    """The normal entry point, ``python -m repro_torch.launch.train --arch
+    granite-3-2b`` (its default arch) at full width and depth (40 layers,
+    2.5 B params, bf16, AdamW), 10 steps of the synthetic stream, no
+    checkpoint directory."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    _free(torch)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = launch_train.run(launch_train.parser().parse_args(
+        ["--arch", "granite-3-2b", "--steps", "10"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not hist or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"train launcher: {hist}")
+    log(f"train launcher: granite-3-2b full width and depth, 10 steps of "
+        f"8 x 64 tokens (AdamW, cosine warm-up 10): logged {hist}; "
+        f"{wall:.1f}s with init, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{json.dumps(ops.launch_counts())} (a dense model: no TPU kernel "
+        "on its path)")
+    _free(torch)
+    return ops.launch_counts()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2662,7 +3116,11 @@ def main() -> int:
              "gemma3": lambda: gemma3_phase(torch, get_config, smi),
              "zamba2": lambda: zamba2_phase(torch, get_config, smi),
              "rwkv6": lambda: rwkv6_phase(torch, get_config, smi),
-             "whisper": lambda: whisper_phase(torch, get_config, smi)}
+             "whisper": lambda: whisper_phase(torch, get_config, smi),
+             "train": lambda: (backward_kernels_phase(
+                 torch, get_config("deepseek-r1"),
+                 {"grouped_gemm_dx": [], "grouped_gemm_dw": []}),
+                 train_phases(torch, get_config, smi))}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -2686,6 +3144,7 @@ def main() -> int:
 
     cfg = get_config("deepseek-r1")
     cases, floor = kernels_phase(torch, cfg)
+    backward_kernels_phase(torch, cfg, cases)
     reference_phase(torch, get_config)
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
     paged_launches, paged_prompts = paged_serve_phase(torch, serve_cfg,
@@ -2711,13 +3170,15 @@ def main() -> int:
     zamba2_launches = zamba2_phase(torch, get_config, smi)
     rwkv6_launches = rwkv6_phase(torch, get_config, smi)
     whisper_launches = whisper_phase(torch, get_config, smi)
+    train_launches, launcher_launches = train_phases(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
         head = cs[0]                      # the decode shape: most launches
         src, replaces = SOURCES[name]
         # each kernel's count from the run of the path that carries it
-        main = paged_launches if name not in DENSE_PATH else launches
+        main = (train_launches if name.startswith("grouped_gemm_d") else
+                paged_launches if name not in DENSE_PATH else launches)
         return {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": main[name],
@@ -2734,7 +3195,10 @@ def main() -> int:
                                   "gemma3": gemma3_launches[name],
                                   "zamba2": zamba2_launches[name],
                                   "rwkv6": rwkv6_launches[name],
-                                  "whisper": whisper_launches[name]},
+                                  "whisper": whisper_launches[name],
+                                  "train": train_launches[name],
+                                  "train-launcher":
+                                      launcher_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -2744,7 +3208,8 @@ def main() -> int:
     # kernel 4 is one CUDA body with two entries: the slot entry carries
     # the serving path, the direct entry (the Pallas kernel's signature)
     # is listed under it
-    summary = [entry(n) for n in ("grouped_gemm", "flash_decode",
+    summary = [entry(n) for n in ("grouped_gemm", "grouped_gemm_dx",
+                                  "grouped_gemm_dw", "flash_decode",
                                   "paged_flash_decode", "combine_slots")]
     summary[-1].update(launch_floor=floor,
                        entries=[entry("combine_weighted")])

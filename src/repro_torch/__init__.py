@@ -2,7 +2,8 @@
 reference).
 
 The package mirrors the reference layout — ``configs``, ``kernels``,
-``models``, ``core``, ``serving`` — with the same module and function names,
+``models``, ``core``, ``serving``, ``training``, ``launch`` — with the same
+module and function names,
 so each function has an obvious counterpart.  It imports ``torch`` and
 ``numpy`` only: never ``jax`` and nothing of ``repro``.
 

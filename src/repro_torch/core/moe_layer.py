@@ -5,6 +5,13 @@ per-server buffer slots -> each of the S logical servers serves its slot
 (a loop: the reference's ``jax.vmap`` over servers) -> combine, plus the
 client's dense tier: the shared experts and, for Arctic, the dense FFN
 residual that runs beside the experts (``moe.dense_residual``).
+
+Differentiable end to end (training): the router's sorted top-k values and
+normalisation, the aux loss's ``probs.mean``, the index writes of
+``dispatch.pack`` and ``expert_server.serve``, the grouped GEMM and the
+combine (their autograd Functions, ``kernels/autograd.py``).  Each
+server's weights are a :func:`~repro_torch.kernels.autograd.stacked_view`:
+its dw goes straight into the stacked leaf's gradient.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from repro_torch.core import comm, dispatch, expert_server
 from repro_torch.core import mapping as emap
 from repro_torch.core import router
 from repro_torch.core.expert_server import ServerWeights
+from repro_torch.kernels.autograd import stacked_view
 from repro_torch.models.common import dense_init_
 from repro_torch.models.mlp import init_mlp, mlp
 
@@ -144,7 +152,8 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
     sw = params["servers"]
     outs, miss = [], 0
     for s in range(S):
-        w = ServerWeights(sw["w_gate"][s], sw["w_up"][s], sw["w_down"][s],
+        w = ServerWeights(*(stacked_view(sw[n], s)
+                            for n in ("w_gate", "w_up", "w_down")),
                           runtime.local_table[s])
         out, st = expert_server.serve(hid[s][None], eid[s][None],
                                       sc[s][None], cnt[s][None], w)

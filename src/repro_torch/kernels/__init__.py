@@ -5,7 +5,10 @@
 * :mod:`~repro_torch.kernels.decode_attention` — dense and paged
   flash-decode;
 * :mod:`~repro_torch.kernels.combine` — the top-k combine epilogue;
-* :mod:`~repro_torch.kernels.ops` — dispatch by device;
+* :mod:`~repro_torch.kernels.autograd` — the grouped GEMM's and the
+  combine's gradients (backward kernels in ``csrc/grouped_gemm_bwd.cu``)
+  and stacked views of parameters;
+* :mod:`~repro_torch.kernels.ops` — dispatch by device (and by grad mode);
 * :mod:`~repro_torch.kernels.build` — nvcc build + ctypes load, at first
   use only.
 """

@@ -29,7 +29,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "flash_decode": 0,
+LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "grouped_gemm_dx": 0,
+                            "grouped_gemm_dw": 0, "flash_decode": 0,
                             "paged_flash_decode": 0, "combine_weighted": 0,
                             "combine_slots": 0}
 
@@ -41,6 +42,12 @@ _SIGNATURES = {
     # x, w, out, group_sizes (int64), M, K, N, G, dtype, stream
     "grouped_gemm_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                             _vp],
+    # dy, w, dx, group_sizes (int64), M, K, N, G, dtype, stream
+    "grouped_gemm_dx_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                               _int, _vp],
+    # x, dy, dw, group_sizes (int64), M, K, N, G, accumulate, dtype, stream
+    "grouped_gemm_dw_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
+                               _int, _int, _vp],
     # q, k, v, lengths, out, partial, B, S, KV, G, hd, softcap, dtype,
     # stream
     "flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
@@ -160,6 +167,18 @@ def dtype_code(dtype) -> int:
     if dtype not in codes:
         raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
     return codes[dtype]
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A raw CUDA wrapper returns a tensor without a ``grad_fn``: called
+    where autograd would record it, it raises rather than drop the
+    gradient (``ops`` routes such calls through the autograd Functions)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the raw CUDA wrapper records no gradient; an input "
+            "requires grad — call it through repro_torch.kernels.ops (or "
+            "under torch.no_grad())")
 
 
 def require(cond: bool, msg: str) -> None:

@@ -65,6 +65,7 @@ def combine_slots_torch(responses: Responses, combine_slot: torch.Tensor,
 
 def combine_weighted_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no sync)."""
+    build.refuse_grad("combine_weighted", x, w)
     req = build.require
     req(x.is_cuda and w.device == x.device,
         "combine_weighted: x and w must be on one CUDA device")
@@ -92,7 +93,12 @@ def combine_slots_cuda(responses: Responses, combine_slot: torch.Tensor,
     """Launch the CUDA kernel on the current stream (no sync).
 
     ``responses``: one contiguous ``(S, C, d)`` tensor, or S contiguous
-    ``(C, d)`` buffers of one shape, dtype and device (read in place)."""
+    ``(C, d)`` buffers of one shape, dtype and device (read in place).
+    Its gradient is :class:`repro_torch.kernels.autograd.CombineSlots`;
+    called raw under grad with an input that requires grad, it raises."""
+    build.refuse_grad("combine_slots", combine_slot, addend,
+                      *([responses] if isinstance(responses, torch.Tensor)
+                        else responses))
     req = build.require
     if isinstance(responses, torch.Tensor):
         req(responses.dim() == 3 and responses.is_contiguous(),

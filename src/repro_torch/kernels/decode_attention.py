@@ -121,7 +121,9 @@ def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
 def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, lengths: torch.Tensor,
                       softcap: float = 0.0) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no sync)."""
+    """Launch the CUDA kernel on the current stream (no sync).  It has no
+    backward: under grad with an input that requires grad it raises."""
+    build.refuse_grad("flash_decode", q, k_cache, v_cache)
     B, H, hd, KV, G = _check_inputs("flash_decode", q, k_cache, v_cache,
                                     lengths)
     build.require(k_cache.shape[0] == B and lengths.shape == (B,),
@@ -164,7 +166,9 @@ def paged_flash_decode_cuda(q: torch.Tensor, k_pool: torch.Tensor,
 
     Table entries are not range-checked here (that would need a device
     sync); the engine's tables come from the host block pool, whose ids
-    are always below ``num_blocks``."""
+    are always below ``num_blocks``.  No backward: under grad with an
+    input that requires grad it raises."""
+    build.refuse_grad("paged_flash_decode", q, k_pool, v_pool)
     B, H, hd, KV, G = _check_inputs("paged_flash_decode", q, k_pool, v_pool,
                                     block_tables, lengths)
     build.require(

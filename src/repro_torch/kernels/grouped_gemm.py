@@ -18,6 +18,14 @@ ring of weight and token tiles under mbarriers; one warpgroup runs
 as the N side (swap-AB).  float32: scalar FMAs over 32x32 tiles with the
 same scan (the exact path of the tests).
 
+Its gradient (``csrc/grouped_gemm_bwd.cu``; the autograd Function is
+:class:`repro_torch.kernels.autograd.GroupedGemm`): :func:`grouped_gemm_dx_cuda`
+(``dx[i] = dy[i] @ w[g(i)]^T``, w read transposed in place) and
+:func:`grouped_gemm_dw_cuda` (``dw[g] = x_g^T @ dy_g``, every group
+written, zeros for an empty one, or added into a given buffer), each with
+its plain version beside it.  They are the VJP of the reference's
+``lax.ragged_dot`` path; no TPU kernel lies behind them.
+
 What bounds it on an H100: bytes.  At decode ~16 live rows touch ~15
 experts and the kernel reads each live expert's weights once (3.35 TB/s);
 at prefill ~16 rows per group still leave it bytes-bound.  Dead groups
@@ -50,9 +58,124 @@ def grouped_gemm_torch(x_sorted: torch.Tensor, w: torch.Tensor,
     return out.to(x_sorted.dtype)
 
 
+def _group_masks(group_sizes: torch.Tensor, M: int, device):
+    """(G, M) bool: row i lies in group g (rows past the sum in none)."""
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    starts = ends - group_sizes.to(torch.int64)
+    rows = torch.arange(M, device=device)
+    return (rows[None] >= starts[:, None]) & (rows[None] < ends[:, None])
+
+
+def grouped_gemm_dx_torch(dy: torch.Tensor, w: torch.Tensor,
+                          group_sizes: torch.Tensor) -> torch.Tensor:
+    """Plain version of dx: ``dy (M, N) @ w[g]^T`` per group over masked
+    rows, fp32 accumulation; rows past ``sum(group_sizes)`` are 0."""
+    return grouped_gemm_torch(dy, w.transpose(1, 2), group_sizes)
+
+
+def grouped_gemm_dw_torch(x_sorted: torch.Tensor, dy: torch.Tensor,
+                          group_sizes: torch.Tensor,
+                          out: torch.Tensor = None) -> torch.Tensor:
+    """Plain version of dw: ``x_g^T @ dy_g`` per group (G masked products,
+    fp32 accumulation, zeros for an empty group), in x's dtype; with
+    ``out`` (G, K, N), ``out[g] = round(float(out[g]) + dw[g])`` in place
+    for every group that holds rows."""
+    masks = _group_masks(group_sizes, x_sorted.shape[0], x_sorted.device)
+    G = group_sizes.shape[0]
+    xf, dyf = x_sorted.float(), dy.float()
+    dw = out if out is not None else torch.empty(
+        (G, x_sorted.shape[1], dy.shape[1]), dtype=x_sorted.dtype,
+        device=x_sorted.device)
+    for g in range(G):
+        acc = torch.where(masks[g][:, None], xf, 0.0).T @ dyf
+        if out is None:
+            dw[g] = acc.to(dw.dtype)
+        elif bool(masks[g].any()):
+            dw[g] = (dw[g].float() + acc).to(dw.dtype)
+    return dw
+
+
+def _check(name: str, a: torch.Tensor, b: torch.Tensor,
+           group_sizes: torch.Tensor, G: int) -> None:
+    """The wrappers' common checks: one CUDA device, one float dtype,
+    contiguous 2-D operands of one row count, integer sizes of G."""
+    req = build.require
+    req(a.is_cuda and b.device == a.device
+        and group_sizes.device == a.device,
+        f"{name}: operands and group_sizes must be on one CUDA device")
+    req(a.dtype == b.dtype and a.dtype in (torch.bfloat16, torch.float32),
+        f"{name}: dtype {a.dtype}/{b.dtype}")
+    req(not group_sizes.is_floating_point() and group_sizes.dim() == 1
+        and group_sizes.shape[0] == G,
+        f"{name}: group_sizes must be ({G},) integers, got "
+        f"{tuple(group_sizes.shape)} {group_sizes.dtype}")
+    req(a.is_contiguous() and b.is_contiguous(),
+        f"{name}: operands must be contiguous")
+    req(1 <= G <= MAX_GROUPS, f"{name}: needs 1 <= G <= {MAX_GROUPS}")
+
+
+def grouped_gemm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
+                         group_sizes: torch.Tensor) -> torch.Tensor:
+    """Launch the dx kernel on the current stream (no sync): dy (M, N),
+    w (G, K, N) -> dx (M, K)."""
+    build.refuse_grad("grouped_gemm_dx", dy, w)
+    build.require(dy.dim() == 2 and w.dim() == 3 and w.shape[2] == dy.shape[1],
+                  f"grouped_gemm_dx: shapes dy{tuple(dy.shape)} "
+                  f"w{tuple(w.shape)}")
+    _check("grouped_gemm_dx", dy, w, group_sizes, w.shape[0])
+    M, N = dy.shape
+    G, K, _ = w.shape
+    dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    if M == 0:
+        return dx
+    sizes = group_sizes.to(torch.int64).contiguous()
+    err = build.load_library().grouped_gemm_dx_launch(
+        dy.data_ptr(), w.data_ptr(), dx.data_ptr(), sizes.data_ptr(), M, K,
+        N, G, build.dtype_code(dy.dtype), build.stream_of(dy))
+    build.check(err, "grouped_gemm_dx")
+    build.count("grouped_gemm_dx")
+    return dx
+
+
+def grouped_gemm_dw_cuda(x_sorted: torch.Tensor, dy: torch.Tensor,
+                         group_sizes: torch.Tensor,
+                         out: torch.Tensor = None) -> torch.Tensor:
+    """Launch the dw kernel on the current stream (no sync): x (M, K),
+    dy (M, N) -> dw (G, K, N) with G = len(group_sizes); ``out`` (a
+    contiguous (G, K, N) buffer of x's dtype) is added into in place."""
+    build.refuse_grad("grouped_gemm_dw", x_sorted, dy)
+    G = group_sizes.shape[0]
+    build.require(x_sorted.dim() == 2 and dy.dim() == 2
+                  and dy.shape[0] == x_sorted.shape[0],
+                  f"grouped_gemm_dw: shapes x{tuple(x_sorted.shape)} "
+                  f"dy{tuple(dy.shape)}")
+    _check("grouped_gemm_dw", x_sorted, dy, group_sizes, G)
+    M, K = x_sorted.shape
+    N = dy.shape[1]
+    if out is not None:
+        build.require((out.shape, out.dtype, out.device)
+                      == ((G, K, N), x_sorted.dtype, x_sorted.device)
+                      and out.is_contiguous(),
+                      f"grouped_gemm_dw: out must be a contiguous ({G}, {K}, "
+                      f"{N}) {x_sorted.dtype} tensor on {x_sorted.device}")
+    dw = out if out is not None else torch.empty(
+        (G, K, N), dtype=x_sorted.dtype, device=x_sorted.device)
+    if M == 0:
+        return dw if out is not None else dw.zero_()
+    sizes = group_sizes.to(torch.int64).contiguous()
+    err = build.load_library().grouped_gemm_dw_launch(
+        x_sorted.data_ptr(), dy.data_ptr(), dw.data_ptr(), sizes.data_ptr(),
+        M, K, N, G, int(out is not None), build.dtype_code(x_sorted.dtype),
+        build.stream_of(x_sorted))
+    build.check(err, "grouped_gemm_dw")
+    build.count("grouped_gemm_dw")
+    return dw
+
+
 def grouped_gemm_cuda(x_sorted: torch.Tensor, w: torch.Tensor,
                       group_sizes: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no sync)."""
+    build.refuse_grad("grouped_gemm", x_sorted, w)
     req = build.require
     req(x_sorted.is_cuda and w.device == x_sorted.device
         and group_sizes.device == x_sorted.device,

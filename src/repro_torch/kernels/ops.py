@@ -8,6 +8,12 @@ Each op has two implementations:
 ``impl="auto"`` picks ``cuda`` for a CUDA tensor and ``torch`` for a CPU
 tensor; ``impl="cuda"`` on a CPU tensor raises.  Nothing falls back from the
 kernel to the plain version.
+
+Under grad mode with an input that requires grad, ``grouped_gemm`` and
+``combine_slots`` run through their autograd Functions
+(:mod:`repro_torch.kernels.autograd`: the backward kernels on the card,
+their plain versions on the CPU); the decode kernels have no backward and
+their CUDA wrappers raise there.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import autograd, build
 from repro_torch.kernels.combine import (combine_slots_cuda,
                                          combine_slots_torch,
                                          combine_weighted_cuda,
@@ -45,7 +51,12 @@ def grouped_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
                  group_sizes: torch.Tensor, *,
                  impl: str = "auto") -> torch.Tensor:
     """out[i] = x_sorted[i] @ w[g(i)]; rows past sum(group_sizes) are 0."""
-    if _resolve(impl, x_sorted) == "cuda":
+    impl = _resolve(impl, x_sorted)
+    if torch.is_grad_enabled() and (x_sorted.requires_grad
+                                    or w.requires_grad):
+        return autograd.GroupedGemm.apply(x_sorted, w, group_sizes, impl,
+                                          autograd.grad_target(w))
+    if impl == "cuda":
         return grouped_gemm_cuda(x_sorted, w, group_sizes)
     return grouped_gemm_torch(x_sorted, w, group_sizes)
 
@@ -88,9 +99,14 @@ def combine_slots(responses, combine_slot: torch.Tensor, *,
     buffers) combined per token: the rows that ``combine_slot (T, k)``
     names (flat ``s*C + c``, -1 = dropped) summed in fp32, cast to their
     dtype, plus ``addend (T, d)`` if given."""
-    data = (responses if isinstance(responses, torch.Tensor)
-            else responses[0])
-    if _resolve(impl, data) == "cuda":
+    bufs = ([responses] if isinstance(responses, torch.Tensor)
+            else list(responses))
+    impl = _resolve(impl, bufs[0])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (*bufs, addend)):
+        return autograd.CombineSlots.apply(impl, combine_slot, addend,
+                                           *bufs)
+    if impl == "cuda":
         return combine_slots_cuda(responses, combine_slot, addend)
     return combine_slots_torch(responses, combine_slot, addend)
 

@@ -27,17 +27,31 @@ the reference (no chunked prefill, no paged cache, no shared batch axis).
 Every family without an MoE returns zero stats; the reference's
 local/global, hybrid, SSM and encoder-decoder ``decode_step`` return
 ``None``, which its engine cannot read.
+
+Training: every builder's ``loss_fn(params, batch, ctx)`` is the
+reference's — full-sequence blocks without a cache, the cross entropy in
+sequence chunks of ``ctx.ce_chunk`` (each recomputed in the backward, as
+the reference's ``jax.checkpoint``), one checkpoint per block under
+``ctx.remat`` (where the reference remats), ``loss = ce + aux + z`` and
+the metrics ``ce`` (+ ``aux``, ``dropped``, ``miss``, ``expert_load`` for
+the uniform decoder).  Under grad mode ``_layer`` takes
+:func:`~repro_torch.kernels.autograd.stacked_view` slices, so a layer's
+gradient is added into its stacked leaf's ``.grad`` in place instead of
+through a zero tensor the size of the whole stack.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe_layer as eaas
 from repro_torch.core.moe_layer import MoERuntime, MoEStats
+from repro_torch.kernels.autograd import stacked_view
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import mamba as mam
@@ -65,6 +79,18 @@ class Model(NamedTuple):
     # the batch axis every cache stack shares (microbatch splits, masked
     # decode); None where the reference's cache layout has none
     cache_batch_axis: Optional[int] = None
+    # (params, batch, ctx: TrainCtx) -> (loss, metrics): the train forward
+    loss_fn: Optional[Callable] = None
+
+
+@dataclass(frozen=True)
+class TrainCtx:
+    """How a training forward runs: the reference's ``ParallelCtx`` less
+    its mesh fields (one device here), with its defaults."""
+
+    moe_runtime: Optional[MoERuntime] = None
+    remat: bool = True          # one checkpoint per block
+    ce_chunk: int = 512         # sequence positions per cross-entropy chunk
 
 
 def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
@@ -82,10 +108,57 @@ def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked params dict (views)."""
+    """Layer ``i`` of a stacked params dict (views; stacked views under
+    grad mode)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return stacked_view(tree, i)
+
+
+def _remat(fn: Callable, ctx: TrainCtx) -> Callable:
+    """``fn`` recomputed in the backward when ``ctx.remat`` (the
+    reference's ``_maybe_remat``)."""
+    if not ctx.remat:
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _block_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor, rt: Optional[MoERuntime], *,
+                 is_local: bool = False, mrope_positions=None):
+    """Full-sequence block without a cache (training).  Returns (x, the
+    MoE layer's stats or None)."""
+    h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+    x = x + attn.full_attention(p["attn"], cfg, h, positions,
+                                is_local=is_local,
+                                mrope_positions=mrope_positions)
+    h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+    stats = []
+    x = x + _ffn(p, cfg, h, rt, stats)
+    return x, (stats[0] if stats else None)
+
+
+def chunked_cross_entropy(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          labels: torch.Tensor, ctx: TrainCtx) -> torch.Tensor:
+    """Mean cross entropy without the (B, S, V) logits: chunks of
+    ``ctx.ce_chunk`` positions (halved until they divide S), each
+    recomputed in the backward; padded vocab masked to -1e30."""
+    B, S, _ = x.shape
+    chunk = min(ctx.ce_chunk, S)
+    while S % chunk:
+        chunk //= 2
+
+    def body(xi, li):
+        logits = _logits(params, cfg, xi)
+        gold = torch.gather(logits, -1, li[..., None])[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+    labels = labels.long()
+    tot = torch.zeros((), device=x.device)
+    for c in range(0, S, chunk):
+        tot = tot + checkpoint(body, x[:, c:c + chunk],
+                               labels[:, c:c + chunk], use_reentrant=False)
+    return tot / (B * S)
 
 
 def _sum_stats(stats, cfg: ModelConfig, device) -> MoEStats:
@@ -292,9 +365,31 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats(stats, cfg, token.device))
 
+    def loss_fn(params, batch: Dict, ctx: TrainCtx):
+        """batch {tokens, labels (B, S)[, mrope_positions]} -> (loss,
+        metrics)."""
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        mrope = _mrope_from_batch(cfg, batch, tokens)
+        block = _remat(lambda p, x: _block_train(
+            p, cfg, x, pos, ctx.moe_runtime, mrope_positions=mrope), ctx)
+        stats = []
+        for _, pname, n in groups:
+            for i in range(n):
+                x, st = block(_layer(params[pname], i), x)
+                if st is not None:
+                    stats.append(st)
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
+        st = _sum_stats(stats, cfg, tokens.device)
+        return ce + st.aux_loss + st.z_loss, {
+            "ce": ce, "aux": st.aux_loss, "dropped": st.dropped,
+            "miss": st.miss, "expert_load": st.expert_load}
+
     return Model(cfg, init_params, prefill, decode_step, init_cache,
                  num_servers, prefill_chunk, init_paged_cache,
-                 cache_batch_axis=1)
+                 cache_batch_axis=1, loss_fn=loss_fn)
 
 
 def _build_local_global(cfg: ModelConfig, device) -> Model:
@@ -375,7 +470,28 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats([], cfg, token.device))
 
-    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+    def loss_fn(params, batch: Dict, ctx: TrainCtx):
+        """batch {tokens, labels} -> (ce, {"ce"})."""
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        blocks = {local: _remat(lambda p, x, local=local: _block_train(
+            p, cfg, x, pos, None, is_local=local)[0], ctx)
+            for local in (False, True)}
+        g = params["groups"]
+        for i in range(n_groups):
+            loc = _layer(g["local"], i)
+            for j in range(pat):
+                x = blocks[True](_layer(loc, j), x)
+            x = blocks[False](_layer(g["global"], i), x)
+        for i in range(n_rem):
+            x = blocks[True](_layer(params["rem_local"], i), x)
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
+        return ce, {"ce": ce}
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
+                 loss_fn=loss_fn)
 
 
 def _build_zamba(cfg: ModelConfig, device) -> Model:
@@ -449,7 +565,30 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats([], cfg, token.device))
 
-    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+    def loss_fn(params, batch: Dict, ctx: TrainCtx):
+        """batch {tokens, labels} -> (ce, {"ce"}); every Mamba layer starts
+        from a zero state, as the reference's."""
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens]
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def mamba_layer(lp, x):
+            h = rms_norm(x, lp["ln"], cfg.rms_norm_eps)
+            return x + mam.mamba_forward(lp["mamba"], cfg, h)[0]
+        mamba_layer = _remat(mamba_layer, ctx)
+        shared = _remat(lambda p, x: _block_train(p, cfg, x, pos, None)[0],
+                        ctx)
+        for g in range(n_groups):
+            group = _layer(params["mamba"], g)
+            for j in range(per):
+                x = mamba_layer(_layer(group, j), x)
+            x = shared(params["shared"], x)
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
+        return ce, {"ce": ce}
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
+                 loss_fn=loss_fn)
 
 
 def _build_rwkv(cfg: ModelConfig, device) -> Model:
@@ -504,7 +643,22 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats([], cfg, token.device))
 
-    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+    def loss_fn(params, batch: Dict, ctx: TrainCtx):
+        """batch {tokens, labels} -> (ce, {"ce"}); zero states, no remat
+        (the reference remats no RWKV layer)."""
+        tokens = batch["tokens"].long()
+        x = params["embed"][tokens]
+        zero = rwk.init_rwkv_state(cfg, tokens.shape[0], tokens.device)
+        for i in range(L):
+            p = _layer(params["blocks"], i)
+            x, _ = rwk.rwkv_block_forward(p["tmix"], p["cmix"], cfg, x, zero,
+                                          (p["ln1"], p["ln2"]))
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
+        return ce, {"ce": ce}
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
+                 loss_fn=loss_fn)
 
 
 def _build_encdec(cfg: ModelConfig, device) -> Model:
@@ -612,4 +766,28 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats([], cfg, token.device))
 
-    return Model(cfg, init_params, prefill, decode_step, init_cache, 1)
+    def loss_fn(params, batch: Dict, ctx: TrainCtx):
+        """batch {tokens, labels, frames (B, encoder_seq_len, d)} -> (ce,
+        {"ce"}); decoder blocks under remat, the encoder not (as in the
+        reference)."""
+        enc = encode(params, batch["frames"])
+        tokens = batch["tokens"].long()
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+
+        def block(p, x, enc):
+            h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
+            x = x + attn.full_attention(p["attn"], cfg, h, pos)
+            h = rms_norm(x, p["ln_x"], cfg.rms_norm_eps)
+            x = x + attn.cross_attention(p["cross"], cfg, h, enc)
+            h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
+            return x + mlp(p["mlp"], h, cfg.activation)
+        block = _remat(block, ctx)
+        x = params["embed"][tokens]
+        for i in range(Ld):
+            x = block(_layer(params["decoder"], i), x, enc)
+        x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
+        ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
+        return ce, {"ce": ce}
+
+    return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
+                 loss_fn=loss_fn)

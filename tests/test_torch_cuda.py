@@ -967,3 +967,139 @@ def test_flash_decode_g1_shapes(cuda, case, dtype, tol, rng):
         out.float(), ops.flash_decode(q, k, v, lengths, impl="torch").float(),
         rtol=tol, atol=tol)
     assert torch.equal(out, ops.flash_decode(q, k, v, lengths, impl="cuda"))
+
+
+# ---- training: the grouped GEMM's backward kernels and the autograd path
+
+def _bwd_inputs(cuda, rng, m, k, n, sizes, dtype):
+    g = len(sizes)
+    x = torch.as_tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
+    dy = torch.as_tensor(rng.normal(size=(m, n)), device=cuda).to(dtype)
+    w = torch.as_tensor(rng.normal(size=(g, k, n)) * 0.1,
+                        device=cuda).to(dtype)
+    return x, dy, w, torch.as_tensor(sizes, device=cuda)
+
+
+BWD_CASES = {"empty groups, rows past the sum": (96, 64, 48, [0, 20, 0, 30]),
+             "G = 1": (64, 32, 80, [64]),
+             "one group holds every row": (128, 96, 64, [0, 0, 128, 0]),
+             "G = 130, ragged widths": (700, 72, 136, [5] * 130)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_grouped_gemm_backward_kernels_vs_plain(cuda, case, dtype, tol, rng):
+    from repro_torch.kernels import grouped_gemm as kgg
+    m, k, n, sizes = BWD_CASES[case]
+    x, dy, w, sz = _bwd_inputs(cuda, rng, m, k, n, sizes, dtype)
+    dx = kgg.grouped_gemm_dx_cuda(dy, w, sz)
+    torch.testing.assert_close(dx.float(),
+                               kgg.grouped_gemm_dx_torch(dy, w, sz).float(),
+                               rtol=tol, atol=tol)
+    live = int(sz.sum())
+    assert torch.equal(dx[live:], torch.zeros_like(dx[live:]))
+    dw = kgg.grouped_gemm_dw_cuda(x, dy, sz)
+    torch.testing.assert_close(dw.float(),
+                               kgg.grouped_gemm_dw_torch(x, dy, sz).float(),
+                               rtol=tol, atol=tol)
+    empty = sz == 0
+    assert torch.equal(dw[empty], torch.zeros_like(dw[empty]))
+    # accumulate: added into what the buffer holds, empty groups untouched
+    base = torch.as_tensor(rng.normal(size=dw.shape), device=cuda).to(dtype)
+    got = kgg.grouped_gemm_dw_cuda(x, dy, sz, out=base.clone())
+    exp = kgg.grouped_gemm_dw_torch(x, dy, sz, out=base.clone())
+    torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+    assert torch.equal(got[empty], base[empty])
+
+
+@pytest.mark.cuda
+def test_autograd_through_the_kernels_matches_the_cpu(cuda, rng):
+    """ops.grouped_gemm and ops.combine_slots under grad: the card's
+    backward kernels against the CPU's plain backward, float32."""
+    from repro_torch.kernels import build
+    m, k, n, sizes = BWD_CASES["empty groups, rows past the sum"]
+    x, dy, w, sz = _bwd_inputs(cuda, rng, m, k, n, sizes, torch.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        xs = x.to(dev).requires_grad_()
+        ws = w.to(dev).requires_grad_()
+        build.reset_launches()
+        out = ops.grouped_gemm(xs, ws, sz.to(dev))
+        resp = out.reshape(2, m // 2, n)
+        slot = torch.as_tensor([[0, 5, -1], [50, 95, 3]], device=dev)
+        add = torch.ones((2, n), device=dev, requires_grad=True)
+        y = ops.combine_slots(resp, slot, addend=add)
+        (out * dy.to(dev)).sum().add((y * y).sum()).backward()
+        grads[dev] = [t.grad.cpu() for t in (xs, ws, add)]
+        if dev == "cuda":
+            n_l = ops.launch_counts()
+            assert n_l["grouped_gemm_dx"] == 1 and n_l["grouped_gemm_dw"] == 1
+            assert n_l["grouped_gemm"] == 1 and n_l["combine_slots"] == 1
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_raw_wrappers_raise_under_grad(cuda):
+    from repro_torch.kernels import combine as kcb
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import grouped_gemm as kgg
+    x = torch.zeros(8, 16, device=cuda, requires_grad=True)
+    w = torch.zeros(2, 16, 16, device=cuda)
+    sz = torch.tensor([4, 4], device=cuda)
+    q = torch.zeros(1, 2, 16, device=cuda, requires_grad=True)
+    kv = torch.zeros(1, 4, 1, 16, device=cuda)
+    for call in (lambda: kgg.grouped_gemm_cuda(x, w, sz),
+                 lambda: kgg.grouped_gemm_dx_cuda(x, w, sz),
+                 lambda: kgg.grouped_gemm_dw_cuda(x, x, sz),
+                 lambda: kcb.combine_slots_cuda(x.reshape(1, 8, 16),
+                                                torch.zeros(2, 1, dtype=torch
+                                                            .int64,
+                                                            device=cuda)),
+                 lambda: kda.flash_decode_cuda(q, kv, kv, torch.tensor(
+                     [2], device=cuda))):
+        with pytest.raises(RuntimeError, match="records no gradient"):
+            call()
+    with torch.no_grad():
+        kgg.grouped_gemm_cuda(x, w, sz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-r1", "granite-3-2b"])
+def test_loss_and_gradients_card_vs_cpu(cuda, arch):
+    """A reduced model's loss_fn and every gradient leaf, float32: the card
+    (kernels and backward kernels) against the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import default_runtime
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import TrainCtx, build_model
+    from repro_torch.training import tree
+    from repro_torch.training.data import synthetic_lm_batches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    S = 2 if cfg.moe else 1
+    batch = next(synthetic_lm_batches(cfg, 2, 32, seed=0))
+    out, params0 = {}, None
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, S, np.zeros((S, 0), np.int32), dev)
+        if params0 is None:
+            params0 = model.init_params(torch.Generator().manual_seed(0))
+        params = tree.map_params(
+            lambda p: p.detach().clone().to(dev).requires_grad_(), params0)
+        rt = default_runtime(cfg, S, 64, dev) if cfg.moe else None
+        build.reset_launches()
+        loss, _ = model.loss_fn(params, {k: v.to(dev)
+                                         for k, v in batch.items()},
+                                TrainCtx(moe_runtime=rt, ce_chunk=16))
+        loss.backward()
+        out[dev] = (loss.item(), [p.grad.cpu() for p in tree.leaves(params)])
+        if dev == "cuda" and cfg.moe:
+            assert all(ops.launch_counts()[k] > 0 for k in (
+                "grouped_gemm", "grouped_gemm_dx", "grouped_gemm_dw",
+                "combine_slots"))
+    assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-5
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

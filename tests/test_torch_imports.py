@@ -43,8 +43,8 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(_modules()) >= 25
-    # the control plane's, the baselines' and the async tier's and the
-    # cluster's modules are among those imported
+    # the control plane's, the baselines', the async tier's, the
+    # cluster's and the training slice's modules are among those imported
     assert {"repro_torch.core.monitor", "repro_torch.core.elastic",
             "repro_torch.serving.rebalance",
             "repro_torch.serving.autoscale", "repro_torch.core.monolithic",
@@ -52,7 +52,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.serving.frontend",
             "repro_torch.serving.cluster", "repro_torch.models.mamba",
             "repro_torch.models.rwkv", "repro_torch.models.whisper",
-            "repro_torch.launch.serve"} <= set(_modules())
+            "repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.kernels.autograd",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.train_loop", "repro_torch.training.data",
+            "repro_torch.training.checkpoint"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
