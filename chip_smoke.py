@@ -164,9 +164,12 @@ Phases, each of which raises on failure (exit code != 0):
    granite-3-2b`` (full width and depth, 2.5 B params, AdamW), 10 steps.
    The kernels phase (3) also holds the backward kernels
    (``grouped_gemm_dx`` / ``_dw``) against their plain versions at the
-   full-width training shapes (bf16, 2e-2) and a float32 case (1e-5),
-   with edges (empty groups, one group holding every row, rows past the
-   sum, G = 130, accumulation), timed beside the per-group torch.matmul.
+   full-width training shapes (bf16, 2e-2; dw also accumulating, the
+   training path's mode) and a float32 case (1e-5), with edges (empty
+   groups, one group holding every row, rows past the sum, a group of 300
+   rows, sizes off the 16-row grid, G = 130 and 1024, accumulation),
+   timed beside the per-group torch.matmul; after phase 22 again on the
+   group sizes that run routed in its first step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -272,14 +275,19 @@ def check_case(torch, name, label, dtype, got, want) -> float:
 
 
 def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
-             ops, twice: bool = False, plain_reps: int = 20):
+             ops, twice: bool = False, plain_reps: int = 20, check=None):
     """Check kernel vs plain on one input (and, with ``twice``, run-to-run
     bitwise); time kernel, plain (``plain_reps`` single calls when it is
-    slow), library."""
-    got = kernel()
-    err = check_case(torch, name, label, dtype, got, plain())
-    if twice and not torch.equal(got, kernel()):
-        raise AssertionError(f"{name}[{label}]: two runs differ")
+    slow), library.  ``check``, for a kernel that alters its input (dw's
+    accumulate), makes its own comparison and returns the max |err|;
+    ``kernel`` and ``plain`` are then only timed."""
+    if check is not None:
+        err = check()
+    else:
+        got = kernel()
+        err = check_case(torch, name, label, dtype, got, plain())
+        if twice and not torch.equal(got, kernel()):
+            raise AssertionError(f"{name}[{label}]: two runs differ")
     b_ms, b_by = bound_ms(nbytes, ops, dtype)
     plain_ms = (time_ms(torch, plain) if plain_reps == 20 else
                 time_ms(torch, plain, reps=plain_reps, inner=1, warmup=1))
@@ -704,63 +712,108 @@ def kernels_phase(torch, cfg):
     return cases, floor
 
 
+def _bwd_inputs(torch, gen, M, K, N, sizes, dtype, scale=1.0):
+    dev = "cuda"
+    x = (torch.randn(M, K, generator=gen, device=dev) * scale).to(dtype)
+    dy = (torch.randn(M, N, generator=gen, device=dev) * scale).to(dtype)
+    w = (torch.randn(len(sizes), K, N, generator=gen, device=dev)
+         / K ** 0.5).to(dtype)
+    return x, dy, w, torch.as_tensor(sizes, device=dev)
+
+
+def bwd_case(torch, cases, gen, label, M, K, N, sizes, dtype,
+             plain_reps=20, accumulate=False):
+    """dx and dw on one input, checked and timed (run_case), beside the
+    per-group torch.matmul over host offsets; with ``accumulate`` also dw
+    added into a (G, K, N) buffer, the training path's mode, whose bound
+    counts that buffer's live groups read and written."""
+    from repro_torch.kernels import grouped_gemm as kgg
+
+    dev = "cuda"
+    x, dy, w, sz = _bwd_inputs(torch, gen, M, K, N, sizes, dtype)
+    offs = [0] + torch.cumsum(sz.cpu(), 0).tolist()
+    G = len(sizes)
+    live = offs[-1]
+    spans = [(g, offs[g], offs[g + 1]) for g in range(G)
+             if offs[g + 1] > offs[g]]
+    live_g = len(spans)
+    es = x.element_size()
+
+    def lib_dx():
+        out = torch.zeros(M, K, dtype=dtype, device=dev)
+        for g, a, b in spans:
+            out[a:b] = dy[a:b] @ w[g].T
+        return out
+
+    def lib_dw():
+        out = torch.zeros(G, K, N, dtype=dtype, device=dev)
+        for g, a, b in spans:
+            out[g] = x[a:b].T @ dy[a:b]
+        return out
+    flops = 2.0 * live * K * N
+    dt = str(dtype)[6:]
+    cases["grouped_gemm_dx"].append(run_case(
+        torch, "grouped_gemm_dx", label, dt,
+        lambda: kgg.grouped_gemm_dx_cuda(dy, w, sz),
+        lambda: kgg.grouped_gemm_dx_torch(dy, w, sz), lib_dx,
+        (live * N + live_g * K * N + M * K) * es, flops,
+        twice=True, plain_reps=plain_reps))
+    cases["grouped_gemm_dw"].append(run_case(
+        torch, "grouped_gemm_dw", label, dt,
+        lambda: kgg.grouped_gemm_dw_cuda(x, dy, sz),
+        lambda: kgg.grouped_gemm_dw_torch(x, dy, sz), lib_dw,
+        (live * K + live * N + G * K * N) * es, flops,
+        twice=True, plain_reps=plain_reps))
+    if not accumulate:
+        return
+    # a gradient buffer's magnitudes; `buf` takes the timed calls' sums
+    base = (torch.randn(G, K, N, generator=gen, device=dev) * 4).to(dtype)
+    buf = base.clone()
+    lab = label + ", accumulate"
+
+    def check_acc():
+        got = kgg.grouped_gemm_dw_cuda(x, dy, sz, out=base.clone())
+        err = check_case(torch, "grouped_gemm_dw", lab, dt, got,
+                         kgg.grouped_gemm_dw_torch(x, dy, sz,
+                                                   out=base.clone()))
+        if not torch.equal(got, kgg.grouped_gemm_dw_cuda(
+                x, dy, sz, out=base.clone())):
+            raise AssertionError(f"grouped_gemm_dw[{lab}]: two runs "
+                                 "differ")
+        empty = sz == 0
+        if not torch.equal(got[empty], base[empty]):
+            raise AssertionError(f"grouped_gemm_dw[{lab}]: an empty "
+                                 "group was touched")
+        return err
+
+    def lib_acc():
+        for g, a, b in spans:
+            buf[g].addmm_(x[a:b].T, dy[a:b])
+        return buf
+    cases["grouped_gemm_dw"].append(run_case(
+        torch, "grouped_gemm_dw", lab, dt,
+        lambda: kgg.grouped_gemm_dw_cuda(x, dy, sz, out=buf),
+        lambda: kgg.grouped_gemm_dw_torch(x, dy, sz, out=buf), lib_acc,
+        (live * K + live * N + 2 * live_g * K * N) * es, flops,
+        plain_reps=plain_reps, check=check_acc))
+
+
 def backward_kernels_phase(torch, cfg, cases) -> None:
     """The grouped GEMM's backward kernels against their plain versions:
     one server of the full-width training run (bf16, G = 128, C = 10240
-    rows of which ~8192 live, gate/up and down shapes), a float32 case,
-    and the edges (empty groups, one group holding every row, rows past
-    the sum, G = 130, accumulation); timed as the other kernels, beside
-    the per-group torch.matmul over host offsets."""
+    rows of which ~8192 live, gate/up and down shapes, dw also in the
+    accumulate mode that training runs), a float32 case, and the edges
+    (empty groups, one group holding every row, rows past the sum, a
+    group of 300 rows and sizes off the 16-row grid, G = 130 and G = 1024,
+    accumulation); timed as the other kernels, beside the per-group
+    torch.matmul over host offsets.  The run's own routed sizes are held
+    in ``captured_sizes_case`` after the training phase."""
     from repro_torch.kernels import grouped_gemm as kgg
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(7)
     bf = torch.bfloat16
     m = cfg.moe
-
-    def inputs(M, K, N, sizes, dtype):
-        x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
-        dy = torch.randn(M, N, generator=gen, device=dev).to(dtype)
-        w = (torch.randn(len(sizes), K, N, generator=gen, device=dev)
-             / K ** 0.5).to(dtype)
-        return x, dy, w, torch.as_tensor(sizes, device=dev)
-
-    def bwd_case(label, M, K, N, sizes, dtype, plain_reps=20):
-        x, dy, w, sz = inputs(M, K, N, sizes, dtype)
-        offs = [0] + torch.cumsum(sz.cpu(), 0).tolist()
-        G = len(sizes)
-        live = offs[-1]
-        live_g = sum(1 for g in range(G) if offs[g + 1] > offs[g])
-        es = x.element_size()
-
-        def lib_dx():
-            out = torch.zeros(M, K, dtype=dtype, device=dev)
-            for g in range(G):
-                if offs[g + 1] > offs[g]:
-                    out[offs[g]:offs[g + 1]] = dy[offs[g]:offs[g + 1]] @ w[g].T
-            return out
-
-        def lib_dw():
-            out = torch.zeros(G, K, N, dtype=dtype, device=dev)
-            for g in range(G):
-                if offs[g + 1] > offs[g]:
-                    out[g] = x[offs[g]:offs[g + 1]].T @ dy[offs[g]:offs[g + 1]]
-            return out
-        flops = 2.0 * live * K * N
-        dt = str(dtype)[6:]
-        cases["grouped_gemm_dx"].append(run_case(
-            torch, "grouped_gemm_dx", label, dt,
-            lambda: kgg.grouped_gemm_dx_cuda(dy, w, sz),
-            lambda: kgg.grouped_gemm_dx_torch(dy, w, sz), lib_dx,
-            (live * N + live_g * K * N + M * K) * es, flops,
-            twice=True, plain_reps=plain_reps))
-        cases["grouped_gemm_dw"].append(run_case(
-            torch, "grouped_gemm_dw", label, dt,
-            lambda: kgg.grouped_gemm_dw_cuda(x, dy, sz),
-            lambda: kgg.grouped_gemm_dw_torch(x, dy, sz), lib_dw,
-            (live * K + live * N + G * K * N) * es, flops,
-            twice=True, plain_reps=plain_reps))
-        del x, dy, w
 
     # the full-width training run's server: 2048 tokens x top-8 over S = 2
     # servers of 128 experts, capacity 10240
@@ -769,28 +822,36 @@ def backward_kernels_phase(torch, cfg, cases) -> None:
         0, G, (8192,), generator=torch.Generator().manual_seed(2)),
         minlength=G).tolist()
     d, f = cfg.d_model, m.d_expert
-    bwd_case(f"training gate/up, G = {G}, 8192 live rows of {C}", C, d, f,
-             sizes, bf, plain_reps=3)
-    bwd_case(f"training down, G = {G}, 8192 live rows of {C}", C, f, d,
-             sizes, bf, plain_reps=3)
-    bwd_case("float32 small, 200 live rows of 256", 256, 64, 96,
-             [30, 0, 50, 20, 0, 60, 40, 0], torch.float32)
-    torch.cuda.empty_cache()
+    for label, K, N in (("gate/up", d, f), ("down", f, d)):
+        bwd_case(torch, cases, gen, f"training {label}, G = {G}, 8192 live "
+                 f"rows of {C}", C, K, N, sizes, bf, plain_reps=3,
+                 accumulate=True)
+        torch.cuda.empty_cache()
+    bwd_case(torch, cases, gen, "float32 small, 200 live rows of 256", 256,
+             64, 96, [30, 0, 50, 20, 0, 60, 40, 0], torch.float32)
 
     edges = {"empty groups, rows past the sum": (96, 64, 48, [0, 20, 0, 30]),
              "one group holds every row": (200, 64, 128, [0, 0, 200, 0]),
              "G = 1": (64, 32, 80, [64]),
              "G = 130 > 66, 1000 of 1280 rows": (1280, 256, 72, "130"),
-             "M = 100, K = 72, N = 136": (100, 72, 136, [10, 0, 45, 40])}
+             "M = 100, K = 72, N = 136": (100, 72, 136, [10, 0, 45, 40]),
+             "a group of 300 rows, sizes off the 16-row grid":
+                 (640, 192, 136, [300, 13, 0, 77, 5, 129]),
+             "G = 1024, 1800 of 2048 rows": (2048, 64, 64, "1024")}
     sz_gen = torch.Generator().manual_seed(6)
     for dtype in (bf, torch.float32):
         dt = str(dtype)[6:]
         for label, (M, K, N, sizes) in edges.items():
-            if sizes == "130":
+            if sizes in ("130", "1024"):
+                G, live = (130, 1000) if sizes == "130" else (1024, 1800)
                 sizes = torch.bincount(torch.randint(
-                    0, 130, (1000,), generator=sz_gen), minlength=130
-                    ).tolist()
-            x, dy, w, sz = inputs(M, K, N, sizes, dtype)
+                    0, G, (live,), generator=sz_gen), minlength=G).tolist()
+            # a 300-row fp32 sum of unit products reaches ~50, where the
+            # summation order alone moves a value by ~1e-5: x and dy at 1/4
+            # keep its sums as small as the other edges'
+            scale = 0.25 if max(sizes) > 256 else 1.0
+            x, dy, w, sz = _bwd_inputs(torch, gen, M, K, N, sizes, dtype,
+                                       scale)
             torch.empty(M * max(K, N) * 4, device=dev).fill_(float("nan"))
             dx = kgg.grouped_gemm_dx_cuda(dy, w, sz)
             e1 = check_case(torch, "grouped_gemm_dx", label, dt, dx,
@@ -817,6 +878,26 @@ def backward_kernels_phase(torch, cfg, cases) -> None:
             log(f"kernels: grouped_gemm_dx / _dw edge [{label}, {dt}] max "
                 f"|err| {e1:.3g} / {e2:.3g} (accumulate {e3:.3g}), zero "
                 "tail rows and empty groups")
+
+
+def captured_sizes_case(torch, cfg, cases, routed) -> None:
+    """The backward kernels at the training shapes on the group sizes that
+    the full-width training run routed to one server in its first step
+    (``routed``), beside the uniform draw of backward_kernels_phase:
+    checked, run twice bitwise, timed, dw also accumulating."""
+    m = cfg.moe
+    C, G = 10240, len(routed)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    live, empty = sum(routed), sum(1 for n in routed if n == 0)
+    log(f"kernels: the training run's routed sizes (one server, step 0): "
+        f"{live} live rows of {C}, groups of {min(routed)}-{max(routed)} "
+        f"rows, {empty} empty of {G}")
+    for label, K, N in (("gate/up", cfg.d_model, m.d_expert),
+                        ("down", m.d_expert, cfg.d_model)):
+        bwd_case(torch, cases, gen, f"training {label}, routed sizes, "
+                 f"{live} live rows of {C}", C, K, N, routed, torch.bfloat16,
+                 plain_reps=1, accumulate=True)
+        torch.cuda.empty_cache()
 
 
 def old_combine_stage(torch, responses, combine_slot, out_dtype, addend):
@@ -2934,7 +3015,7 @@ def _timed(torch, fn, acc: list):
     return run
 
 
-def train_phase(torch, get_config, smi) -> dict:
+def train_phase(torch, get_config, smi):
     """deepseek-r1 at its full published widths, depth cut to 1 dense + 1
     MoE block (13.47 B params, bf16), trained 8 steps with Adafactor on
     one repeated batch of 8 x 256 synthetic tokens, S = 2 expert servers
@@ -2942,12 +3023,15 @@ def train_phase(torch, get_config, smi) -> dict:
     finite losses that fall, the four training-path kernels launched
     every step; the step wall p50, tokens/s, the forward / backward /
     optimizer split, device busy and idle share (profiled), launches per
-    step and peak memory.  Returns the launches of the 8 steps."""
+    step and peak memory.  Returns the launches of the 8 steps and the
+    group sizes of its first step's first dw launch (one server's: every
+    expert GEMM of a server shares them)."""
     import types
 
     import numpy as np
 
     from repro_torch.core.moe_layer import default_runtime
+    from repro_torch.kernels import autograd as kag
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import TrainCtx, build_model
     from repro_torch.training import optimizer as topt
@@ -2986,11 +3070,20 @@ def train_phase(torch, get_config, smi) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     losses, walls, per_step = [], [], []
-    for _ in range(8):
+    routed, dw_cuda = [], kag.grouped_gemm_dw_cuda
+
+    def seen(x, dy, sizes, out=None):
+        routed.append(sizes.clone())    # no sync: read after the step
+        return dw_cuda(x, dy, sizes, out=out)
+    for i in range(8):
         before = ops.launch_counts()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        state, met = step(state, batch)
+        kag.grouped_gemm_dw_cuda = seen if i == 0 else dw_cuda
+        try:
+            state, met = step(state, batch)
+        finally:
+            kag.grouped_gemm_dw_cuda = dw_cuda
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t1) * 1e3)
         losses.append(float(met["loss"]))
@@ -3033,16 +3126,17 @@ def train_phase(torch, get_config, smi) -> dict:
             log(f"train: {ms:9.3f} ms/step {n:6.1f} calls/step  {key[:90]}")
     del state, model, step, timed_model
     _free(torch)
-    return launches
+    return launches, routed[0].tolist()
 
 
-def train_phases(torch, get_config, smi):
+def train_phases(torch, get_config, smi, cases):
     """Phases 21-23: the backward kernels' edges were checked in the
-    kernels phase; here the training reference, the full-width run and
-    the launcher.  Returns (the full-width run's launches, the
-    launcher's)."""
+    kernels phase; here the training reference, the full-width run, the
+    backward kernels on the sizes that run routed, and the launcher.
+    Returns (the full-width run's launches, the launcher's)."""
     train_reference_phase(torch, get_config)
-    launches = train_phase(torch, get_config, smi)
+    launches, routed = train_phase(torch, get_config, smi)
+    captured_sizes_case(torch, get_config("deepseek-r1"), cases, routed)
     return launches, train_launcher_phase(torch)
 
 
@@ -3073,6 +3167,13 @@ def train_launcher_phase(torch) -> dict:
         "on its path)")
     _free(torch)
     return ops.launch_counts()
+
+
+def train_alone(torch, get_config, smi) -> None:
+    """``--only train``: the backward kernels' checks, then phases 21-23."""
+    cases = {"grouped_gemm_dx": [], "grouped_gemm_dw": []}
+    backward_kernels_phase(torch, get_config("deepseek-r1"), cases)
+    train_phases(torch, get_config, smi, cases)
 
 
 def _leaves(tree):
@@ -3117,10 +3218,7 @@ def main() -> int:
              "zamba2": lambda: zamba2_phase(torch, get_config, smi),
              "rwkv6": lambda: rwkv6_phase(torch, get_config, smi),
              "whisper": lambda: whisper_phase(torch, get_config, smi),
-             "train": lambda: (backward_kernels_phase(
-                 torch, get_config("deepseek-r1"),
-                 {"grouped_gemm_dx": [], "grouped_gemm_dw": []}),
-                 train_phases(torch, get_config, smi))}
+             "train": lambda: train_alone(torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -3170,7 +3268,8 @@ def main() -> int:
     zamba2_launches = zamba2_phase(torch, get_config, smi)
     rwkv6_launches = rwkv6_phase(torch, get_config, smi)
     whisper_launches = whisper_phase(torch, get_config, smi)
-    train_launches, launcher_launches = train_phases(torch, get_config, smi)
+    train_launches, launcher_launches = train_phases(torch, get_config, smi,
+                                                     cases)
 
     def entry(name):
         cs = cases[name]

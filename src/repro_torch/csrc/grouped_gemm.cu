@@ -32,18 +32,19 @@
 // float32 (the exact path of the tests): 32x32x32 tiles of scalar FMAs,
 // one block per (row tile, column tile) of the static bound M/32 + G, with
 // the same in-kernel scan.
-#include <cuda.h>
-
-#include <mutex>
-#include <vector>
-
-#include "common.cuh"
 #include "group_shrink.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using repro::RowTile;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::make_desc;
+using repro::smem_u32;
 
 // ---- bfloat16: TMA + wgmma, persistent ----------------------------------
 
@@ -59,148 +60,6 @@ constexpr int kCsLd = kBN + 8;                // bf16; rows stay 16-byte aligned
 constexpr int kSmemBytes =
     1024 + kStages * kStageBytes + kTM * kCsLd * 2 + 2 * kStages * 8 +
     (2 * repro::kMaxGroups + 2) * 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A phase that
-// never completes (a load that cannot land) traps after ~10 s of spinning
-// rather than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2) : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
-         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-// D (64 x NT, fp32) += A (64 x 16, weights, MN-major) * B (16 x NT, tokens,
-// K-major), both from shared memory.
-template <int NT>
-struct Wgmma;
-
-template <>
-struct Wgmma<8> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3 "
-        "}, %4, %5, p, 1, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<16> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7 "
-        "}, %8, %9, p, 1, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15 "
-        "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void mma(float* d, uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31 "
-        "}, %32, %33, p, 1, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
 
 __device__ __forceinline__ int token_width(int rows) {
   return rows <= 8 ? 8 : rows <= 16 ? 16 : rows <= 32 ? 32 : 64;
@@ -221,16 +80,15 @@ __device__ __forceinline__ void consume_item(unsigned char* ring,
   for (int kk = 0; kk < ksteps; ++kk) {
     mbar_wait(full + stage, phase);
     const uint32_t st = smem_u32(ring + stage * kStageBytes);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    repro::wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kBK / 16; ++k) {
-      // A: 16 K-rows of 128 bytes, 8-row groups 1024 bytes apart; B: the
-      // next 16 K of each 128-byte token row
-      Wgmma<NT>::mma(acc, make_desc(st + k * 2048, 8192, 1024),
-                     make_desc(st + kWBytes + k * 32, 16, 1024), 1);
+      // A (weights, MN-major): 16 K-rows of 128 bytes, 8-row groups 1024
+      // bytes apart; B (tokens, K-major): the next 16 K of each token row
+      repro::Wgmma<NT, 1, 0>::mma(acc, make_desc(st + k * 2048, 8192, 1024),
+                                  make_desc(st + kWBytes + k * 32, 16, 1024), 1);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    repro::wgmma_commit_wait();
     mbar_arrive(empty + stage);
     if (++stage == kStages) {
       stage = 0;
@@ -239,12 +97,10 @@ __device__ __forceinline__ void consume_item(unsigned char* ring,
   }
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 #pragma unroll
   for (int v = 0; v < NT / 2; ++v) {   // D fragment: row = column of out
-    const int n = 16 * warp + (lane >> 2) + 8 * ((v >> 1) & 1);
-    const int t = 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
+    const int n = repro::frag_row(tid, v), t = repro::frag_col(tid, v);
     cs[t * kCsLd + n] = __float2bfloat16(acc[v]);
   }
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
@@ -306,12 +162,12 @@ grouped_gemm_bf16_kernel(__grid_constant__ const CUtensorMap w_map,
         mbar_wait(empty + stage, phase ^ 1);
         unsigned char* st = ring + stage * kStageBytes;
         mbar_expect_tx(full + stage, bytes);
-        tma_load_3d(st, &w_map, full + stage, n0, kk * kBK, tl.g);
+        repro::tma_load_3d(st, &w_map, full + stage, n0, kk * kBK, tl.g);
         // 8-row boxes, each one 1024-byte swizzle atom; rows past M are
         // zero-filled, rows of the next group masked in the epilogue
         for (int r = 0; r < nt; r += 8)
-          tma_load_2d(st + kWBytes + r * 128, &x_map, full + stage, kk * kBK,
-                      tl.r0 + r);
+          repro::tma_load_2d(st + kWBytes + r * 128, &x_map, full + stage,
+                             kk * kBK, tl.r0 + r);
         if (++stage == kStages) {
           stage = 0;
           phase ^= 1;
@@ -426,104 +282,23 @@ grouped_gemm_f32_kernel(const float* __restrict__ x,
     }
 }
 
-// ---- host: tensor maps, cached by (pointer, shape) ----------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API symbol: fetched through the
-// runtime, so the library needs no -lcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of the weights (G, K, N) — dims (N, K, G), box
-// 64x64x1 — or, with d2 == 0, of the tokens (M, K) — dims (K, M), box 64x8.
-bool encode_map(const void* ptr, long long d0, long long d1, long long d2,
-                CUtensorMap* out) {
-  EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
-                              static_cast<cuuint64_t>(d1),
-                              static_cast<cuuint64_t>(d2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
-                                 static_cast<cuuint64_t>(d0 * d1) * 2};
-  const bool w = d2 > 0;
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(w ? kBN : kBK),
-                             static_cast<cuuint32_t>(w ? kBK : 8), 1};
-  const CUresult r = encode(
-      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w ? 3 : 2,
-      const_cast<void*>(ptr), dims, strides, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS;
-}
-
-struct WeightMap {
-  const void* ptr;
-  long long g, k, n;
-  CUtensorMap map;
-};
-
-// The weights' maps, encoded once each: a map depends only on its pointer
-// and shape, so an entry with the same key is always right.  The tokens'
-// map changes with every call's activations and is encoded per call.
-bool weight_map(const void* w, int G, int K, int N, CUtensorMap* out) {
-  static std::mutex mu;
-  static std::vector<WeightMap> cache;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const WeightMap& e : cache) {
-    if (e.ptr == w && e.g == G && e.k == K && e.n == N) {
-      *out = e.map;
-      return true;
-    }
-  }
-  WeightMap e{w, G, K, N, {}};
-  if (!encode_map(w, N, K, G, &e.map)) return false;
-  if (cache.size() >= 256) cache.clear();
-  cache.push_back(e);
-  *out = e.map;
-  return true;
-}
+// ---- host ----------------------------------------------------------------
 
 int launch_bf16(const void* x, const void* w, void* out,
                 const long long* sizes, int M, int K, int N, int G,
                 cudaStream_t s) {
-  static bool smem_set[64] = {};
+  static bool ready[64] = {};
   static int sms[64] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err);
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(grouped_gemm_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set[dev] = true;
-  }
+  const int err = repro::persistent_setup(
+      reinterpret_cast<const void*>(grouped_gemm_bf16_kernel), kSmemBytes,
+      ready, sms, &dev);
+  if (err != 0) return err;
+  // the weights' map (box 64 N x 64 K) is cached; the tokens' (64 K x 8
+  // rows) changes with every call's activations
   CUtensorMap w_map, x_map;
-  if (!weight_map(w, G, K, N, &w_map) || !encode_map(x, K, M, 0, &x_map))
+  if (!repro::cached_map(w, N, K, G, kBN, kBK, &w_map) ||
+      !repro::encode_map(x, K, M, 0, kBK, 8, &x_map))
     return static_cast<int>(cudaErrorInvalidValue);
   // more CTAs than the static bound on items would only idle
   const long long bound =

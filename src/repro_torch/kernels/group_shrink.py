@@ -16,6 +16,12 @@ tile-aligned buffer and back; the CUDA kernel reads a tile's row range
 straight from ``x_sorted`` and writes straight into ``out``.
 
 Everything stays on the device: no ``.item()``, no host sync.
+
+:func:`dx_items` and :func:`dw_items` state the grouped GEMM's backward
+kernels' walks over the same scan (``csrc/grouped_gemm_bwd.cu``): which
+(group, row range, output tile) each work item covers, in the order the
+persistent CTAs stride over them (``tests/test_torch_bwd_tiles.py``
+checks their coverage and a tiled emulation that follows them).
 """
 
 from __future__ import annotations
@@ -65,3 +71,48 @@ def build_tile_table(group_sizes: torch.Tensor, m: int, tm: int) -> TileTable:
         padded_offset=first_tile * tm, num_tiles=num_tiles,
         row_start=torch.where(valid, start, zero),
         row_end=torch.where(valid, end, zero))
+
+
+# ---- the backward kernels' walks (csrc/grouped_gemm_bwd.cu, bf16) ----------
+
+DX_ROWS, DX_COLS = 128, 128     # dx item: up to 128 rows x 128 dx columns
+DW_ROWS, DW_COLS = 128, 128     # dw item: 128 dw rows (K) x 128 columns (N)
+DW_STAGE = 64                   # group rows a dw stage reduces over
+
+
+def dx_items(group_sizes: torch.Tensor, m: int, k: int) -> torch.Tensor:
+    """The dx kernel's walk: one row per item, in the order a CTA strides
+    over them, of (group, r0, r1, k0).  Items are the live 128-row tiles
+    of :func:`build_tile_table` (an empty group owns none) times the
+    ``ceil(k / 128)`` column tiles, column tile fastest.  The kernel loads
+    dy rows ``[r0, r0 + 128)`` and stores only ``[r0, r1)``; rows past the
+    sum lie in no item and are zeroed apart."""
+    tt = build_tile_table(group_sizes, m, DX_ROWS)
+    live = tt.tile_valid.bool()
+    tiles = torch.stack([tt.tile_gid, tt.row_start, tt.row_end], 1)[live]
+    nkt = -(-k // DX_COLS)
+    k0 = torch.arange(nkt, dtype=torch.int64) * DX_COLS
+    t = tiles.to(torch.int64).repeat_interleave(nkt, 0)
+    return torch.cat([t, k0.repeat(tiles.shape[0])[:, None]], 1)
+
+
+def dw_items(group_sizes: torch.Tensor, m: int, k: int, n: int,
+             accumulate: bool) -> torch.Tensor:
+    """The dw kernel's walk: rows of (group, r0, r1, k0, n0), N tile
+    fastest, then K tile, then group.  Without ``accumulate`` every group
+    is walked (an empty one, r0 == r1, is written as zeros); with it only
+    the live ones (the scan at tm = m: one tile per live group), so an
+    empty group's gradient is left as it is.  Each item reduces over its
+    group's rows in :data:`DW_STAGE`-row stages; a stage's rows past r1
+    are zeroed in the x box before the product."""
+    end = torch.cumsum(group_sizes.to(torch.int64), 0).clamp(max=m)
+    start = torch.cat([end.new_zeros(1), end[:-1]])
+    g = torch.arange(group_sizes.shape[0], dtype=torch.int64)
+    if accumulate:
+        g = g[end > start]
+    nkt, nnt = -(-k // DW_ROWS), -(-n // DW_COLS)
+    per = nkt * nnt
+    gi = g.repeat_interleave(per)
+    rem = torch.arange(per, dtype=torch.int64).repeat(g.shape[0])
+    return torch.stack([gi, start[gi], end[gi], (rem // nnt) * DW_ROWS,
+                        (rem % nnt) * DW_COLS], 1)

@@ -24,7 +24,11 @@ Its gradient (``csrc/grouped_gemm_bwd.cu``; the autograd Function is
 :func:`grouped_gemm_dw_cuda` (``dw[g] = x_g^T @ dy_g``, every group
 written, zeros for an empty one, or added into a given buffer), each with
 its plain version beside it.  They are the VJP of the reference's
-``lax.ragged_dot`` path; no TPU kernel lies behind them.
+``lax.ragged_dot`` path; no TPU kernel lies behind them.  bfloat16: both
+persistent TMA + ``wgmma`` kernels like the forward (dx over (group,
+128-row tile, 128 columns), dw over (group, 128 x 128 output tile) with
+TMA stores; their walks are :func:`.group_shrink.dx_items` /
+:func:`.group_shrink.dw_items`); float32: scalar FMAs.
 
 What bounds it on an H100: bytes.  At decode ~16 live rows touch ~15
 experts and the kernel reads each live expert's weights once (3.35 TB/s);
@@ -114,6 +118,15 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor,
     req(1 <= G <= MAX_GROUPS, f"{name}: needs 1 <= G <= {MAX_GROUPS}")
 
 
+def _require_tma(name: str, K: int, N: int, *tensors) -> None:
+    """bf16 kernels load and store through TMA: 16-byte aligned bases and
+    row strides (nothing falls back to another kernel)."""
+    build.require(K % 8 == 0 and N % 8 == 0
+                  and all(t.data_ptr() % 16 == 0 for t in tensors),
+                  f"{name} bf16: K={K}, N={N} must be multiples of 8 and "
+                  "the operands 16-byte aligned")
+
+
 def grouped_gemm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
                          group_sizes: torch.Tensor) -> torch.Tensor:
     """Launch the dx kernel on the current stream (no sync): dy (M, N),
@@ -125,6 +138,8 @@ def grouped_gemm_dx_cuda(dy: torch.Tensor, w: torch.Tensor,
     _check("grouped_gemm_dx", dy, w, group_sizes, w.shape[0])
     M, N = dy.shape
     G, K, _ = w.shape
+    if dy.dtype == torch.bfloat16:
+        _require_tma("grouped_gemm_dx", K, N, dy, w)
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
     if M == 0:
         return dx
@@ -160,6 +175,8 @@ def grouped_gemm_dw_cuda(x_sorted: torch.Tensor, dy: torch.Tensor,
                       f"{N}) {x_sorted.dtype} tensor on {x_sorted.device}")
     dw = out if out is not None else torch.empty(
         (G, K, N), dtype=x_sorted.dtype, device=x_sorted.device)
+    if x_sorted.dtype == torch.bfloat16:
+        _require_tma("grouped_gemm_dw", K, N, x_sorted, dy, dw)
     if M == 0:
         return dw if out is not None else dw.zero_()
     sizes = group_sizes.to(torch.int64).contiguous()
@@ -199,11 +216,7 @@ def grouped_gemm_cuda(x_sorted: torch.Tensor, w: torch.Tensor,
         f"grouped_gemm: needs 1 <= G <= {MAX_GROUPS}, K, N >= 1 "
         f"(G={G}, K={K}, N={N})")
     if x_sorted.dtype == torch.bfloat16:
-        # TMA: 16-byte aligned bases and row strides
-        req(K % 8 == 0 and N % 8 == 0 and x_sorted.data_ptr() % 16 == 0
-            and w.data_ptr() % 16 == 0,
-            f"grouped_gemm bf16: K={K}, N={N} must be multiples of 8 and "
-            "x, w 16-byte aligned")
+        _require_tma("grouped_gemm", K, N, x_sorted, w)
     out = torch.empty((M, N), dtype=x_sorted.dtype, device=x_sorted.device)
     if M == 0:
         return out

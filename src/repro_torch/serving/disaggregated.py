@@ -26,6 +26,12 @@ product.  The grouped GEMM takes one dtype, so the server casts its batch
 to the weights' dtype before each GEMM (fp32 accumulation) on every device;
 float32 configs are unchanged, bf16 ones round the activations to bf16
 (ROADMAP Queue 3).
+
+A repair: a row of an expert the server does not host (a failed
+server's expert with no live replica falls back to server 0) is sorted
+last, past the hosted groups, and gets 0.  The reference sorts it first
+and so shifts every hosted row onto the wrong expert (ROADMAP Queue 3,
+``tests/test_torch_disaggregated.py::test_unhosted_*``).
 """
 
 from __future__ import annotations
@@ -119,13 +125,15 @@ class ExpertServerProc:
     def compute(self, x: torch.Tensor, eids: torch.Tensor,
                 scores: torch.Tensor) -> torch.Tensor:
         """One dynamic batch: reorganize by local expert (a stable sort,
-        unhosted rows first, as the reference's), three grouped GEMMs,
-        SiLU·up, un-sort, score weighting, unhosted rows zeroed -> (M, d)
-        fp32."""
-        slot = self.local_table[eids]
-        order = torch.argsort(slot, stable=True)
+        unhosted rows last as group L, the padding group, as
+        ``core/expert_server.py::serve`` sorts them), three grouped GEMMs
+        over the L hosted groups, SiLU·up, un-sort, score weighting,
+        unhosted rows zeroed -> (M, d) fp32 (module docstring)."""
         L = len(self.expert_ids)
-        sizes = torch.bincount(slot + 1, minlength=L + 1)[1:]
+        slot = self.local_table[eids]
+        slot = torch.where(slot >= 0, slot, L)
+        order = torch.argsort(slot, stable=True)
+        sizes = torch.bincount(slot, minlength=L + 1)[:L]
         wdt = self.w_gate.dtype
         xs = x[order].to(wdt)
         h1 = ops.grouped_gemm(xs, self.w_gate, sizes)
@@ -136,7 +144,7 @@ class ExpertServerProc:
                           device=x.device)
         out[order] = y.float()
         out *= scores[:, None]                                    # score-weight
-        return torch.where((slot >= 0)[:, None], out, 0.0)        # not hosted
+        return torch.where((slot < L)[:, None], out, 0.0)         # not hosted
 
 
 @dataclass

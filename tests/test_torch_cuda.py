@@ -971,10 +971,12 @@ def test_flash_decode_g1_shapes(cuda, case, dtype, tol, rng):
 
 # ---- training: the grouped GEMM's backward kernels and the autograd path
 
-def _bwd_inputs(cuda, rng, m, k, n, sizes, dtype):
+def _bwd_inputs(cuda, rng, m, k, n, sizes, dtype, scale=1.0):
     g = len(sizes)
-    x = torch.as_tensor(rng.normal(size=(m, k)), device=cuda).to(dtype)
-    dy = torch.as_tensor(rng.normal(size=(m, n)), device=cuda).to(dtype)
+    x = torch.as_tensor(rng.normal(size=(m, k)) * scale,
+                        device=cuda).to(dtype)
+    dy = torch.as_tensor(rng.normal(size=(m, n)) * scale,
+                         device=cuda).to(dtype)
     w = torch.as_tensor(rng.normal(size=(g, k, n)) * 0.1,
                         device=cuda).to(dtype)
     return x, dy, w, torch.as_tensor(sizes, device=cuda)
@@ -983,7 +985,18 @@ def _bwd_inputs(cuda, rng, m, k, n, sizes, dtype):
 BWD_CASES = {"empty groups, rows past the sum": (96, 64, 48, [0, 20, 0, 30]),
              "G = 1": (64, 32, 80, [64]),
              "one group holds every row": (128, 96, 64, [0, 0, 128, 0]),
-             "G = 130, ragged widths": (700, 72, 136, [5] * 130)}
+             "G = 130, ragged widths": (700, 72, 136, [5] * 130),
+             # x and dy at 1/4: a 300-row sum of unit products reaches
+             # ~50, where fp32's summation order alone moves a value by
+             # ~1e-5; scaled, it stays ~3 as the other cases' sums do
+             "a group of 300 rows, sizes off the 16-row grid":
+                 (640, 192, 136, [300, 13, 0, 77, 5, 129]),
+             "G = 1024": (2048, 64, 64, np.bincount(
+                 np.random.default_rng(3).integers(0, 1024, 1800),
+                 minlength=1024).tolist()),
+             "many items, G = 128 of ~64 rows": (10240, 256, 128, np.bincount(
+                 np.random.default_rng(4).integers(0, 128, 8192),
+                 minlength=128).tolist())}
 
 
 @pytest.mark.cuda
@@ -993,7 +1006,8 @@ BWD_CASES = {"empty groups, rows past the sum": (96, 64, 48, [0, 20, 0, 30]),
 def test_grouped_gemm_backward_kernels_vs_plain(cuda, case, dtype, tol, rng):
     from repro_torch.kernels import grouped_gemm as kgg
     m, k, n, sizes = BWD_CASES[case]
-    x, dy, w, sz = _bwd_inputs(cuda, rng, m, k, n, sizes, dtype)
+    scale = 0.25 if max(sizes) > 256 else 1.0
+    x, dy, w, sz = _bwd_inputs(cuda, rng, m, k, n, sizes, dtype, scale)
     dx = kgg.grouped_gemm_dx_cuda(dy, w, sz)
     torch.testing.assert_close(dx.float(),
                                kgg.grouped_gemm_dx_torch(dy, w, sz).float(),
@@ -1012,6 +1026,38 @@ def test_grouped_gemm_backward_kernels_vs_plain(cuda, case, dtype, tol, rng):
     exp = kgg.grouped_gemm_dw_torch(x, dy, sz, out=base.clone())
     torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
     assert torch.equal(got[empty], base[empty])
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_backward_kernels_run_twice_bitwise(cuda, rng):
+    """bf16: each output tile has one writer, no atomics: two runs of dx,
+    dw and dw accumulating agree bitwise."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    m, k, n, sizes = BWD_CASES["many items, G = 128 of ~64 rows"]
+    x, dy, w, sz = _bwd_inputs(cuda, rng, m, k, n, sizes, torch.bfloat16)
+    assert torch.equal(kgg.grouped_gemm_dx_cuda(dy, w, sz),
+                       kgg.grouped_gemm_dx_cuda(dy, w, sz))
+    assert torch.equal(kgg.grouped_gemm_dw_cuda(x, dy, sz),
+                       kgg.grouped_gemm_dw_cuda(x, dy, sz))
+    assert torch.equal(kgg.grouped_gemm_dw_cuda(x, dy, sz, out=w.clone()),
+                       kgg.grouped_gemm_dw_cuda(x, dy, sz, out=w.clone()))
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_backward_bf16_needs_tma_alignment(cuda, rng):
+    """The bf16 kernels load through TMA: an operand off the 16-byte grid
+    or a width off a multiple of 8 raises rather than falling back."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    m, k, n, sizes = BWD_CASES["empty groups, rows past the sum"]
+    x, dy, w, sz = _bwd_inputs(cuda, rng, m, k, n, sizes, torch.bfloat16)
+    off = torch.empty(m * n + 1, device=cuda,
+                      dtype=torch.bfloat16)[1:].view(m, n).copy_(dy)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kgg.grouped_gemm_dx_cuda(off, w, sz)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kgg.grouped_gemm_dw_cuda(x, off, sz)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        kgg.grouped_gemm_dw_cuda(x[:, :60].contiguous(), dy, sz)
 
 
 @pytest.mark.cuda

@@ -31,18 +31,18 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _both(dtype="float32", n_servers=3, n_redundant=3):
+def _both(dtype="float32", n_servers=3, n_redundant=3, n_clients=2):
     """The reference's cluster and the port's over the same bank and
     router."""
     cfg = jget_config("deepseek-r1").reduced().replace(dtype=dtype)
     tcfg = get_config("deepseek-r1").reduced().replace(dtype=dtype)
-    jc = jbuild_cluster(cfg, n_clients=2, n_servers=n_servers,
+    jc = jbuild_cluster(cfg, n_clients=n_clients, n_servers=n_servers,
                         n_redundant=n_redundant)
     bank = {k: tensor_from_numpy(np.asarray(v), "cpu")
             for k, v in jc[3].items()}
     router_w = tensor_from_numpy(np.asarray(jc[0][0].router_w), "cpu")
-    tc = build_cluster(tcfg, 2, n_servers, n_redundant, device="cpu",
-                       bank=bank, router_w=router_w)
+    tc = build_cluster(tcfg, n_clients, n_servers, n_redundant,
+                       device="cpu", bank=bank, router_w=router_w)
     return tcfg, jc, tc
 
 
@@ -243,3 +243,81 @@ def test_build_cluster_seeded():
     x = _x(np.random.default_rng(4), 5, cfg.d_model)
     assert torch.equal(a[0][0].moe_layer(x, _drive(a[1])),
                        b[0][0].moe_layer(x, _drive(b[1])))
+
+
+# ------------------------------- an unhosted row in a server's batch
+
+def _serve_batch(server, x, eids, scores):
+    """One batch through a server's own buffer protocol (either package):
+    a probe client writes it, the server ticks once, the result is read."""
+    buf = server.attach_client("probe")
+    buf.write_request(0, x, eids, scores)
+    server.tick()
+    out = buf.try_read_result()
+    del server.buffers["probe"]
+    return np.asarray(out)
+
+
+def test_unhosted_row_leaves_hosted_rows_unchanged():
+    """A batch holding a row of an expert the server does not host: the
+    port's hosted rows equal the same batch's without that row, and the
+    row itself is 0.  The reference sorts the unhosted row first but
+    hands ragged_dot only the hosted sizes, so its hosted rows meet the
+    wrong experts (src/repro/serving/disaggregated.py:106-109,121): they
+    move by more than the outputs' own size."""
+    tcfg, (_, js, _, _), (_, ts, _, _) = _both(n_servers=4, n_redundant=1)
+    hosted = ts[0].expert_ids
+    assert hosted == js[0].expert_ids
+    other = next(e for e in range(tcfg.moe.num_experts) if e not in hosted)
+    rng = np.random.default_rng(5)
+    x = _x(rng, 6, tcfg.d_model)
+    eids = np.array([hosted[i % len(hosted)] for i in range(6)], np.int32)
+    eids[2] = other
+    scores = rng.uniform(0.2, 1.0, 6).astype(np.float32)
+    keep = np.arange(6) != 2
+    outs = {}
+    for name, server in (("port", ts[0]), ("reference", js[0])):
+        with_row = _serve_batch(server, x, eids, scores)
+        without = _serve_batch(server, x[keep], eids[keep], scores[keep])
+        outs[name] = (with_row, without)
+    with_row, without = outs["port"]
+    np.testing.assert_allclose(with_row[keep], without, rtol=1e-6,
+                               atol=1e-6)
+    assert not with_row[2].any()
+    scale = np.abs(without).max()
+    jwith, jwithout = outs["reference"]
+    np.testing.assert_allclose(jwithout, without, rtol=1e-5, atol=1e-5)
+    assert np.abs(jwith[keep] - jwithout).max() > 0.5 * scale
+
+
+def test_unhosted_fallback_through_the_cluster():
+    """1 client, 4 servers, one redundant slot each, server 1 dead: an
+    expert that server 1 alone hosted falls back to server 0, which does
+    not host it, and its rows share server 0's batch with hosted ones.
+    Every token whose experts all have a live server gets the healthy
+    run's output in the port; the reference's move."""
+    tcfg, (jc, js, jm, _), (tc, ts, tm, _) = _both(
+        n_servers=4, n_redundant=1, n_clients=1)
+    x = _x(np.random.default_rng(6), 16, tcfg.d_model)
+    eids = tc[0]._route(torch.as_tensor(x)).expert_ids.numpy()
+    live = set()
+    for s in ts:
+        if s.rank != 1:
+            live.update(s.expert_ids)
+    whole = np.all(np.isin(eids, sorted(live)), axis=1)
+    assert whole.any() and not whole.all()
+    got = {}
+    for name, (clients, servers) in (("port", (tc, ts)),
+                                     ("reference", (jc, js))):
+        healthy = np.asarray(clients[0].moe_layer(x, _drive(servers)))
+        servers[1].alive = False
+        failed = np.asarray(clients[0].moe_layer(x, _drive(servers)))
+        got[name] = (healthy, failed)
+    healthy, failed = got["port"]
+    np.testing.assert_allclose(failed[whole], healthy[whole], rtol=1e-5,
+                               atol=1e-5)
+    jhealthy, jfailed = got["reference"]
+    np.testing.assert_allclose(jhealthy, healthy, rtol=1e-5, atol=1e-5)
+    assert tc[0].retries > 0 and jc[0].retries > 0
+    assert (np.abs(jfailed[whole] - jhealthy[whole]).max()
+            > 0.1 * np.abs(jhealthy).max())
