@@ -169,13 +169,35 @@ Phases, each of which raises on failure (exit code != 0):
    groups, one group holding every row, rows past the sum, a group of 300
    rows, sizes off the 16-row grid, G = 130 and 1024, accumulation),
    timed beside the per-group torch.matmul; after phase 22 again on the
-   group sizes that run routed in its first step.
+   group sizes that run routed in its first step.  It also holds
+   ``flash_decode_partial`` (the open softmax (acc, m, l) of a cache
+   shard, on flash decode's body) against its plain version at the
+   full-width decode shape (bf16, 1e-3) and in float32 (1e-5), with edges
+   (one split, an empty shard, lengths past the width), each run twice
+   bitwise, timed beside its bytes bound (no library call returns it);
+24. spmd: the multi-device expert tier on torch.distributed, on a 1 x 1
+   NCCL mesh (one card: NCCL refuses two ranks on one device).
+   deepseek-r1 at full width, depth 1 dense + 2 MoE, one rank the one
+   server of all 256 experts: 8 x 512 prompt tokens prefilled in a2a, 32
+   greedy decode steps in replicated mode over a 1024-slot cache
+   slot-sharded over the model axis, against the one-device path on the
+   same weights (prefill + 8 teacher-forced steps' logits within 3e-2,
+   both token digests and the count of equal tokens); the grouped GEMM,
+   the combine's slot entry and flash_decode_partial must launch; the
+   collectives a decode step makes (profiled), the step wall, peak
+   memory.  Then reduced deepseek-r1 in float32 (greedy tokens equal the
+   one-device path's), one rwkv6-7b layer at full width through its
+   tensor-parallel block (within 2e-2 of the one-device block), and 4
+   gloo ranks on the card (gloo takes CUDA tensors; NCCL refuses two
+   ranks on one device) running reduced deepseek-r1 on a (2, 2) mesh
+   against the one-process run (1e-5).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
 arctic|gemma3|zamba2|rwkv6|whisper`` builds the kernels and runs that one
 phase (14-20) alone, printing no summary; ``--only train`` runs the
-backward kernels' checks and phases 21-23.  Without a CUDA device, or without the
+backward kernels' checks and phases 21-23; ``--only spmd`` the partial
+kernel's checks and phase 24.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits 1 and prints no result.
 """
 
@@ -199,6 +221,7 @@ TOL = {"grouped_gemm": {"float32": 1e-5, "bfloat16": 2e-2},
        "grouped_gemm_dx": {"float32": 1e-5, "bfloat16": 2e-2},
        "grouped_gemm_dw": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
+       "flash_decode_partial": {"float32": 1e-5, "bfloat16": 1e-3},
        "paged_flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
        "combine_weighted": {"float32": 1e-5, "bfloat16": 2e-2},
        "combine_slots": {"float32": 1e-5, "bfloat16": 2e-2}}
@@ -212,6 +235,11 @@ SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
                                RAGGED_VJP),
            "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                             "src/repro/kernels/decode_attention.py:74"),
+           "flash_decode_partial": (
+               "src/repro_torch/csrc/flash_decode.cu",
+               "src/repro/models/attention.py:244 (decode_attention_partial"
+               ": jnp, no Pallas kernel; on flash_decode_pallas's body, "
+               "src/repro/kernels/decode_attention.py:74)"),
            "paged_flash_decode": (
                "src/repro_torch/csrc/paged_flash_decode.cu",
                "src/repro/kernels/decode_attention.py:124"),
@@ -923,7 +951,7 @@ def reference_phase(torch, get_config) -> None:
     engines on the card."""
     from repro_torch.core.elastic import ServerPool
     from repro_torch.models import kv_cache as kvc
-    from repro_torch.models.transformer import build_model
+    from repro_torch.models.transformer import ParallelCtx, build_model
 
     cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
     pool = ServerPool(cfg, 4, tokens_per_client=32, n_redundant=2)
@@ -938,16 +966,16 @@ def reference_phase(torch, get_config) -> None:
         if params_cpu is None:
             params_cpu = model.init_params(torch.Generator().manual_seed(0))
         params = _tree_to(params_cpu, dev)
-        rt = pool.runtime(dev)
+        ctx = ParallelCtx(moe_runtime=pool.runtime(dev))
         g = torch.Generator().manual_seed(3)
         prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=g)
         steps = torch.randint(0, cfg.vocab_size, (8, 2, 1), generator=g)
-        logits, cache, _ = model.prefill(params, prompt.to(dev), rt,
+        logits, cache, _ = model.prefill(params, prompt.to(dev), ctx,
                                          max_slots=64)
         seq = [logits]
         for t in range(8):
             lg, cache, _ = model.decode_step(params, steps[t].to(dev),
-                                             cache, rt)
+                                             cache, ctx)
             seq.append(lg)
         outs["dense"][dev] = torch.stack(seq).cpu()
 
@@ -963,12 +991,12 @@ def reference_phase(torch, get_config) -> None:
             for start in range(0, 24, 8):
                 lg, _, _ = model.prefill_chunk(
                     params, prompt[b:b + 1, start:start + 8].to(dev),
-                    view(tab[b:b + 1], [start]), start, rt)
+                    view(tab[b:b + 1], [start]), start, ctx)
             seq.append(lg)
         seq = [torch.cat(seq)]
         for t in range(8):
             lg, _, _ = model.decode_step(params, steps[t].to(dev),
-                                         view(tab, [24 + t] * 2), rt)
+                                         view(tab, [24 + t] * 2), ctx)
             seq.append(lg)
         outs["paged"][dev] = torch.stack(seq).cpu()
     for kind, what in (("dense", "prefill"),
@@ -2233,7 +2261,7 @@ def family_reference_phase(torch, get_config) -> None:
     23-token prompt: the chunked SSD at Q = 23), rwkv6 and whisper with
     seeded frames."""
     from repro_torch.core.elastic import ServerPool
-    from repro_torch.models.transformer import build_model
+    from repro_torch.models.transformer import ParallelCtx, build_model
     from repro_torch.models.vlm import image_mrope_positions
     from repro_torch.models.whisper import frame_embeddings
 
@@ -2259,7 +2287,8 @@ def family_reference_phase(torch, get_config) -> None:
                 params_cpu = model.init_params(
                     torch.Generator().manual_seed(0))
             params = _tree_to(params_cpu, dev)
-            rt = pool.runtime(dev) if pool else None
+            ctx = ParallelCtx(moe_runtime=pool.runtime(dev) if pool
+                              else None)
             batch = None
             if grid == "frames":
                 batch = {"frames": frame_embeddings(
@@ -2268,12 +2297,12 @@ def family_reference_phase(torch, get_config) -> None:
                 t0, gh, gw = grid
                 batch = {"mrope_positions": image_mrope_positions(
                     t0, gh, gw, plen - t0 - gh * gw, device=dev)}
-            logits, cache, _ = model.prefill(params, prompt.to(dev), rt,
+            logits, cache, _ = model.prefill(params, prompt.to(dev), ctx,
                                              max_slots=96, batch=batch)
             seq = [logits]
             for t in range(8):
                 lg, cache, _ = model.decode_step(params, steps[t].to(dev),
-                                                 cache, rt)
+                                                 cache, ctx)
                 seq.append(lg)
             outs[dev] = torch.stack(seq).cpu()
         err = (outs["cuda"] - outs["cpu"]).abs().max().item()
@@ -3176,6 +3205,536 @@ def train_alone(torch, get_config, smi) -> None:
     train_phases(torch, get_config, smi, cases)
 
 
+# ---- slice 12: the multi-device expert tier ------------------------------
+
+SPMD_PATH = ("grouped_gemm", "flash_decode_partial", "combine_slots")
+
+
+def partial_kernel_phase(torch, cfg, cases) -> None:
+    """``flash_decode_partial`` against its plain version: the open
+    softmax (acc, m, l) at the full-width deepseek-r1 decode shape (8
+    rows, 128 heads over 8 KV heads, hd 64, 1024 slots; bf16 at 1e-3:
+    both read the same bf16 inputs and sum in fp32, so only the order of
+    the sums differs) with the SPMD phase's lengths and the dense serve's,
+    one float32 case (1e-5), edges (one split: the chunk's partial is
+    written, not the output; an empty shard: acc = l = 0, m = -1e30;
+    lengths past the width); each run twice, bitwise.  Timed beside its bound (the K / V
+    bytes of the valid prefix); no PyTorch call returns (acc, m, l), so
+    the library column is none."""
+    from repro_torch.kernels import ops
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def fdp_case(label, B, H, KV, hd, S, lengths, dtype, timed=True):
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dtype)
+        lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        dt = str(dtype)[6:]
+
+        def kernel():
+            return ops.flash_decode_partial(q, k, v, lens, impl="cuda")
+
+        def plain():
+            return ops.flash_decode_partial(q, k, v, lens, impl="torch")
+
+        got, want = kernel(), plain()
+        errs = [check_case(torch, "flash_decode_partial", f"{label}: {n}",
+                           dt, g, w)
+                for n, g, w in zip(("acc", "m", "l"), got, want)]
+        if not all(torch.equal(a, b) for a, b in zip(got, kernel())):
+            raise AssertionError(f"flash_decode_partial[{label}]: two runs "
+                                 "differ")
+        dead = lens <= 0
+        if dead.any() and not (bool((got[0][dead] == 0).all())
+                               and bool((got[2][dead] == 0).all())
+                               and bool((got[1][dead] == -1e30).all())):
+            raise AssertionError(f"flash_decode_partial[{label}]: an empty "
+                                 "shard is not (0, -1e30, 0)")
+        if not timed:
+            log(f"kernels: flash_decode_partial edge [{label}, {dt}] max "
+                f"|err| {max(errs):.3g}, bitwise twice")
+            return
+        n_valid = int(lens.clamp(0, S).sum())
+        es = q.element_size()
+        nbytes = ((B * H * hd + 2 * n_valid * KV * hd) * es
+                  + (B * H * hd + 2 * B * H) * 4 + 4 * B)
+        case = run_case(torch, "flash_decode_partial", label, dt, kernel,
+                        plain, None, nbytes, 4.0 * n_valid * H * hd,
+                        check=lambda: max(errs))
+        case["library"] = "none: no PyTorch call returns (acc, m, l)"
+        cases["flash_decode_partial"].append(case)
+
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    fdp_case("SPMD decode, 8 rows, lengths 513-544 of 1024", 8, H, KV, hd,
+             1024, list(range(513, 545, 4)), torch.bfloat16)
+    rng_lens = torch.randint(64, 545, (8,), generator=torch.Generator()
+                             .manual_seed(2)).tolist()
+    fdp_case("decode, 8 rows, lengths 64-544 of 1024", 8, H, KV, hd, 1024,
+             rng_lens, torch.bfloat16)
+    fdp_case("float32, split-edge lengths", 8, 16, 2, 64, 320,
+             [1, 64, 65, 400, 128, 129, 257, 320], torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        fdp_case("one split (S = 64)", 4, 16, 2, 64, 64, [1, 33, 64, 70],
+                 dtype, timed=False)
+        fdp_case("an empty shard and lengths past the width", 4, H, KV, hd,
+                 256, [0, 300, 65, 0], dtype, timed=False)
+        fdp_case("hd 33, G 6", 4, 12, 2, 33, 200, [0, 65, 200, 129], dtype,
+                 timed=False)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spmd_ctx(tr, mesh, rt, mode):
+    """The dry-run cells' serving contexts: prefill in a2a, decode in
+    replicated, the cache slot-sharded over the model axis."""
+    return tr.ParallelCtx(mesh=mesh, moe_runtime=rt, moe_mode=mode,
+                          seq_shard_cache=True, seq_shard_axes=("model",))
+
+
+def _greedy(torch, model, params, prompt, pre, dec, steps: int,
+            slots: int, forced=None):
+    """Prefill ``prompt`` then ``steps`` decode steps: greedy, or fed
+    ``forced`` (steps, B) tokens.  Returns (the logits of every step,
+    the tokens fed)."""
+    logits, cache, _ = model.prefill(params, prompt, pre, max_slots=slots)
+    seq, fed = [logits], []
+    for i in range(steps):
+        tok = (logits.argmax(-1) if forced is None else forced[i])[:, None]
+        fed.append(tok)
+        logits, cache, _ = model.decode_step(params, tok, cache, dec)
+        seq.append(logits)
+    return torch.stack(seq), torch.cat(fed, dim=1)
+
+
+def _spmd_profile(torch, step, steps: int = 2) -> dict:
+    """``steps`` calls of ``step`` under torch.profiler: the collectives'
+    host calls and device ms per step beside the step's device busy ms
+    and wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = prof.key_averages()
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    nccl_dev = [e for e in dev if "nccl" in e.key.lower()]
+    host = [e for e in rows if e.device_type == DeviceType.CPU
+            and e.key.startswith("c10d::")]
+    return {"wall_ms": wall,
+            "host": {e.key: (e.self_cpu_time_total / 1e3 / steps,
+                             e.count / steps)
+                     for e in rows if e.device_type == DeviceType.CPU},
+            "launches": sum(e.count for e in dev) / steps,
+            "busy_ms": sum(e.self_device_time_total for e in dev) / 1e3
+            / steps,
+            "nccl_calls": sum(e.count for e in host) / steps,
+            "nccl_calls_by_op": {e.key: e.count / steps for e in host},
+            "nccl_device_ms": sum(e.self_device_time_total
+                                  for e in nccl_dev) / 1e3 / steps,
+            "nccl_kernels": sum(e.count for e in nccl_dev) / steps}
+
+
+def spmd_full_width(torch, get_config, smi, mesh) -> dict:
+    """(b) deepseek-r1 at its full published widths, depth 1 dense + 2
+    MoE, on the 1 x 1 NCCL mesh: one rank is the one expert server of all
+    256 experts (2 x 22.5 GB of bf16 banks).  8 x 512 prompt tokens
+    prefilled in a2a, 32 greedy decode steps in replicated mode over a
+    1024-slot cache slot-sharded over the model axis (the partial kernel
+    and one combine per layer) — against the one-device path on the same
+    weights and runtimes: prefill logits and 8 teacher-forced decode steps
+    within 3e-2, both greedy digests with the count of equal tokens.  The
+    grouped GEMM, the combine's slot entry and flash_decode_partial must
+    launch in the SPMD run.  Returns its launches."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed.sharding_rules import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import moe_runtime_for
+    from repro_torch.models import transformer as tr
+
+    _free(torch)
+    base = get_config("deepseek-r1")
+    cfg = base.replace(num_layers=3,
+                       moe=dataclasses.replace(base.moe, first_k_dense=1))
+    B, P, steps, slots = 8, 512, 32, 1024
+    t0 = time.perf_counter()
+    model = tr.build_model(cfg, 1, np.zeros((1, 0), np.int32), "cuda")
+    full = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = shard_params(full, mesh)        # views: 1 x 1 copies nothing
+    torch.cuda.synchronize()
+    rt_pre = moe_runtime_for(cfg, mesh, InputShape("prefill", P, B,
+                                                   "prefill"), "a2a")
+    rt_dec = moe_runtime_for(cfg, mesh, InputShape("decode", slots, B,
+                                                   "decode"), "replicated")
+    n_params = sum(t.numel() for t in _leaves(full))
+    log(f"spmd: deepseek-r1 d_model={cfg.d_model} heads={cfg.num_heads}/"
+        f"{cfg.num_kv_heads} experts={cfg.moe.num_experts} top-"
+        f"{cfg.moe.top_k} layers={cfg.num_layers} (1 dense + 2 MoE) "
+        f"{cfg.dtype}: {n_params / 1e9:.2f}B params on a 1 x 1 NCCL mesh "
+        f"(one server of all {cfg.moe.num_experts} experts), init "
+        f"{time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; capacity a2a "
+        f"{rt_pre.capacity}, replicated {rt_dec.capacity} ({smi})")
+    pre, dec = (_spmd_ctx(tr, mesh, rt_pre, "a2a"),
+                _spmd_ctx(tr, mesh, rt_dec, "replicated"))
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=torch
+                           .Generator().manual_seed(12)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        spmd, toks = _greedy(torch, model, params, prompt, pre, dec, steps,
+                             slots)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    zero = [k for k in SPMD_PATH if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"spmd: kernels never launched: {zero}")
+    if spmd.shape != (steps + 1, B, cfg.padded_vocab) or \
+            not torch.isfinite(spmd).all():
+        raise AssertionError(f"spmd: bad logits {tuple(spmd.shape)}")
+    # the one-device path on the same weights and runtimes
+    local = (tr.ParallelCtx(moe_runtime=rt_pre),
+             tr.ParallelCtx(moe_runtime=rt_dec))
+    with torch.no_grad():
+        ref, _ = _greedy(torch, model, full, prompt, *local, 8, slots,
+                         forced=toks.T)
+        own, ltoks = _greedy(torch, model, full, prompt, *local, steps,
+                             slots)
+    errs = (spmd[:9] - ref).abs().amax(dim=(1, 2)).tolist()
+    err = max(errs)
+    same = int((toks == ltoks).sum())
+    digest = lambda t: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()  # noqa: E731
+    log(f"spmd: prefill ({B} x {P} tokens, a2a) + 8 teacher-forced decode "
+        f"steps (replicated, slot-sharded cache) vs the one-device path: "
+        f"max |logit err| {err:.3e} (tol 3e-2; by step "
+        f"{[float(f'{e:.3g}') for e in errs]}), bitwise equal "
+        f"{torch.equal(spmd[:9], ref)}; greedy tokens sha1 spmd "
+        f"{digest(toks)}, one-device {digest(ltoks)}, {same}/{toks.numel()} "
+        f"equal")
+    if not err <= 3e-2:
+        raise AssertionError(f"spmd: SPMD and one-device logits differ "
+                             f"({err})")
+    log(f"spmd: prefill + {steps} decode steps {wall:.2f}s wall (card "
+        f"{smi}); peak memory {peak:.2f} GiB; launches "
+        f"{json.dumps(launches)}")
+    # where a decode step's time goes, what its collectives cost, and the
+    # one-device step beside it (rounds alternated: spmd, local, local,
+    # spmd)
+    tok = toks[:, :1]
+    steps_of = {}
+    with torch.no_grad():
+        for name, p, ctx_pre, ctx_dec in (("spmd", params, pre, dec),
+                                          ("one-device", full, *local)):
+            c = model.prefill(p, prompt, ctx_pre, max_slots=slots)[1]
+            steps_of[name] = (lambda p=p, c=c, d=ctx_dec:
+                              model.decode_step(p, tok, c, d))
+    walls = {name: [] for name in steps_of}
+    for name in ("spmd", "one-device", "one-device", "spmd"):
+        with torch.no_grad():
+            for _ in range(2):
+                steps_of[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                steps_of[name]()
+            torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3 / 8)
+    with torch.no_grad():
+        p = _spmd_profile(torch, steps_of["spmd"])
+        q = _spmd_profile(torch, steps_of["one-device"])
+    log(f"spmd: decode step (8 rows) wall {statistics.mean(walls['spmd']):.2f}"
+        f" ms (rounds {[round(w, 2) for w in walls['spmd']]}), one-device "
+        f"{statistics.mean(walls['one-device']):.2f} ms (rounds "
+        f"{[round(w, 2) for w in walls['one-device']]}); under the profiler "
+        f"{p['wall_ms']:.2f} vs {q['wall_ms']:.2f} ms, device busy "
+        f"{p['busy_ms']:.3f} vs {q['busy_ms']:.3f} ms; NCCL "
+        f"{p['nccl_calls']:.0f} calls a step "
+        f"{json.dumps(p['nccl_calls_by_op'])}, {p['nccl_kernels']:.0f} "
+        f"device kernels, {p['nccl_device_ms']:.4f} device ms a step "
+        f"(world of 1: what one card cannot show is the transfer time) "
+        f"({smi})")
+    # where the SPMD step's extra host time goes: the host rows (self CPU
+    # ms a step under the profiler, and a call) that grew most over the
+    # one-device step's
+    log(f"spmd: device operations a step {p['launches']:.0f} vs "
+        f"{q['launches']:.0f} one-device")
+    grew = sorted(((ms - q["host"].get(k, (0.0, 0.0))[0], k, ms, n)
+                   for k, (ms, n) in p["host"].items()), reverse=True)
+    for d, k, ms, n in grew[:10]:
+        n0 = q["host"].get(k, (0.0, 0.0))[1]
+        log(f"spmd: host +{d:.3f} ms/step ({ms:.3f} ms, {n:.1f} calls vs "
+            f"{n0:.1f} one-device, {1e3 * ms / max(n, 1):.1f} us a call)  "
+            f"{k[:80]}")
+    del full, params, model, steps_of
+    _free(torch)
+    return launches
+
+
+def spmd_reduced(torch, get_config, smi, mesh) -> None:
+    """(c) reduced deepseek-r1 in float32 on the 1 x 1 mesh: 2 prompts of
+    24 tokens, 16 greedy steps; the SPMD path's tokens equal the
+    one-device path's exactly."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed.sharding_rules import shard_params
+    from repro_torch.launch.dryrun import moe_runtime_for
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
+    model = tr.build_model(cfg, 1, np.zeros((1, 0), np.int32), "cuda")
+    full = _tree_to(tr.build_model(cfg, 1, np.zeros((1, 0), np.int32),
+                                   "cpu").init_params(
+        torch.Generator().manual_seed(0)), "cuda")
+    params = shard_params(full, mesh)
+    rt_pre = moe_runtime_for(cfg, mesh, InputShape("p", 24, 2, "prefill"),
+                             "a2a")
+    rt_dec = moe_runtime_for(cfg, mesh, InputShape("d", 64, 2, "decode"),
+                             "replicated")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch
+                           .Generator().manual_seed(3)).cuda()
+    with torch.no_grad():
+        spmd, toks = _greedy(torch, model, params, prompt,
+                             _spmd_ctx(tr, mesh, rt_pre, "a2a"),
+                             _spmd_ctx(tr, mesh, rt_dec, "replicated"), 16,
+                             64)
+        local, ltoks = _greedy(torch, model, full, prompt,
+                               tr.ParallelCtx(moe_runtime=rt_pre),
+                               tr.ParallelCtx(moe_runtime=rt_dec), 16, 64)
+    err = (spmd - local).abs().max().item()
+    log(f"spmd: reduced deepseek-r1 float32, 1 x 1 mesh, 16 greedy steps: "
+        f"tokens equal the one-device path's {torch.equal(toks, ltoks)}, "
+        f"max |logit err| {err:.3e} ({smi})")
+    if not torch.equal(toks, ltoks):
+        raise AssertionError("spmd (reduced): greedy tokens differ")
+
+
+def spmd_rwkv(torch, get_config, smi, mesh) -> None:
+    """(d) one rwkv6-7b layer at its full published widths (d_model 4096,
+    64 heads of 64, d_ff 14336, bf16) on the 1 x 1 mesh: the
+    tensor-parallel block over 8 x 128 tokens from a seeded state equals
+    the one-device block within 2e-2."""
+    from repro_torch.distributed.mesh_axes import axes_group
+    from repro_torch.distributed.sharding_rules import shard_params
+    from repro_torch.models import rwkv as rwk
+
+    cfg = get_config("rwkv6-7b")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dt = torch.bfloat16
+    layer = {"tmix": rwk.init_rwkv_tmix(cfg, dt, "cuda", g),
+             "cmix": rwk.init_rwkv_cmix(cfg, dt, "cuda", g)}
+    sh = shard_params(layer, mesh)
+    x = torch.randn(8, 128, cfg.d_model, generator=g, device="cuda").to(dt)
+    st = rwk.init_rwkv_state(cfg, 8, "cuda")
+    st = st._replace(wkv=0.1 * torch.randn(st.wkv.shape, generator=g,
+                                           device="cuda"))
+    norms = (torch.ones(cfg.d_model, device="cuda"),) * 2
+    group = axes_group(mesh, ("model",))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, new = rwk.rwkv_block_spmd(sh["tmix"], sh["cmix"], cfg, x, st,
+                                     norms, group)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        y0, new0 = rwk.rwkv_block_forward(layer["tmix"], layer["cmix"], cfg,
+                                          x, st, norms)
+    errs = [(a.float() - b.float()).abs().max().item()
+            for a, b in ((y, y0), (new.wkv, new0.wkv))]
+    log(f"spmd: rwkv6-7b layer at full width on the 1 x 1 mesh, 8 x 128 "
+        f"tokens: island vs one-device block max |err| output {errs[0]:.3e}"
+        f", wkv state {errs[1]:.3e} (tol 2e-2); island {wall:.1f} ms wall "
+        f"({smi})")
+    if not (all(e <= 2e-2 for e in errs) and torch.isfinite(y).all()):
+        raise AssertionError(f"spmd (rwkv6): island and block differ {errs}")
+
+
+def _spmd_rank(rank: int, world: int, init: str, forced, q) -> None:
+    """(e) one of 4 gloo ranks on the one card, mesh (2, 2): reduced
+    float32 deepseek-r1 prefilled in a2a and decoded in replicated mode
+    over a slot-sharded cache, teacher-forced with ``forced``; puts this
+    rank's logits (or the error) on ``q``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.distributed.sharding_rules import shard_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.dryrun import moe_runtime_for
+    from repro_torch.models import transformer as tr
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world)
+        mesh = meshlib.make_test_mesh(2, 2, device="cuda")
+        cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
+        model = tr.build_model(cfg, 2, np.zeros((2, 0), np.int32), "cuda")
+        full = _tree_to(tr.build_model(cfg, 2, np.zeros((2, 0), np.int32),
+                                       "cpu").init_params(
+            torch.Generator().manual_seed(0)), "cuda")
+        params = shard_params(full, mesh)
+        prompt = _spmd_prompt(torch, cfg)
+        d = mesh.get_coordinate()[0]
+        pre = _spmd_ctx(tr, mesh, moe_runtime_for(
+            cfg, mesh, InputShape("p", 16, 2, "prefill"), "a2a"), "a2a")
+        dec = _spmd_ctx(tr, mesh, moe_runtime_for(
+            cfg, mesh, InputShape("d", 32, 2, "decode"), "replicated"),
+            "replicated")
+        ops.reset_launches()
+        with torch.no_grad():
+            out, _ = _greedy(torch, model, params, prompt[d:d + 1].cuda(),
+                             pre, dec, 4, 32,
+                             forced=torch.as_tensor(forced)[:, d:d + 1]
+                             .cuda())
+        torch.cuda.synchronize()
+        q.put((rank, out.cpu().numpy(), ops.launch_counts()))
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        import traceback
+        q.put((rank, f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
+               None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spmd_prompt(torch, cfg):
+    return torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(4))
+
+
+def _run_ranks(target, world: int, args, timeout: float = 240.0) -> list:
+    """Start ``world`` spawned processes of ``target(rank, world, init,
+    *args, q)``, collect one result from each, and stop every one."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    procs = [ctx.Process(target=target, args=(r, world, init, *args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = [], time.time() + timeout
+    try:
+        while len(results) < world:
+            try:
+                results.append(q.get(timeout=max(1.0, deadline
+                                                 - time.time())))
+            except queue.Empty:
+                break
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if len(results) < world:
+        raise AssertionError(f"{target.__name__}: {len(results)} of {world} "
+                             f"ranks answered within {timeout:.0f}s")
+    return sorted(results, key=lambda r: r[0])
+
+
+def spmd_multirank(torch, get_config, smi) -> None:
+    """(e) Several ranks on the one card: 4 gloo processes (NCCL refuses
+    two ranks on one device; gloo takes CUDA tensors) on a (2, 2) mesh run
+    reduced float32 deepseek-r1 against the one-process one-device run on
+    the same weights, logits within 1e-5.  A rank that fails, or a gloo
+    that refuses CUDA tensors, fails the phase."""
+    import numpy as np
+
+    from repro_torch.core.moe_layer import default_runtime
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
+    model = tr.build_model(cfg, 2, np.zeros((2, 0), np.int32), "cuda")
+    full = _tree_to(tr.build_model(cfg, 2, np.zeros((2, 0), np.int32),
+                                   "cpu").init_params(
+        torch.Generator().manual_seed(0)), "cuda")
+    rt_pre = default_runtime(cfg, 2, 32, "cuda")._replace(capacity=64)
+    rt_dec = default_runtime(cfg, 2, 2, "cuda")._replace(capacity=8)
+    prompt = _spmd_prompt(torch, cfg).cuda()
+    with torch.no_grad():
+        ref, toks = _greedy(torch, model, full, prompt,
+                            tr.ParallelCtx(moe_runtime=rt_pre),
+                            tr.ParallelCtx(moe_runtime=rt_dec), 4, 32)
+    ranks = _run_ranks(_spmd_rank, 4, (toks.T.cpu().numpy(),), timeout=300)
+    bad = [r[1] for r in ranks if r[2] is None]
+    if bad:
+        raise AssertionError(f"spmd (4 ranks): a rank failed:\n{bad[0]}")
+    errs = []
+    for rank, out, launches in ranks:
+        d = rank // 2
+        errs.append(float(np.abs(out[:, 0] - ref[:, d].cpu().numpy()).max()))
+        zero = [k for k in SPMD_PATH if launches[k] <= 0]
+        if zero:
+            raise AssertionError(f"spmd (4 ranks): rank {rank} never "
+                                 f"launched {zero}")
+    log(f"spmd: 4 gloo ranks on one card, mesh (2, 2), reduced deepseek-r1 "
+        f"float32, prefill (a2a) + 4 teacher-forced decode steps "
+        f"(replicated, slot-sharded over model) vs the one-process "
+        f"one-device run: max |logit err| per rank {errs} (tol 1e-5) "
+        f"({smi})")
+    if not max(errs) <= 1e-5:
+        raise AssertionError(f"spmd (4 ranks): logits differ {errs}")
+
+
+def spmd_phase(torch, get_config, smi) -> dict:
+    """Phase 24: the multi-device expert tier on torch.distributed — (b)
+    deepseek-r1 at full width, (c) reduced float32 tokens, (d) rwkv6-7b's
+    tensor-parallel layer, each on a 1 x 1 NCCL mesh (one card: NCCL
+    refuses two ranks on one device); then (e) 4 gloo ranks on the card.
+    Returns (b)'s launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+
+    meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                             timeout_s=600)
+    try:
+        mesh = meshlib.make_test_mesh(1, 1)
+        launches = spmd_full_width(torch, get_config, smi, mesh)
+        spmd_reduced(torch, get_config, smi, mesh)
+        spmd_rwkv(torch, get_config, smi, mesh)
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    spmd_multirank(torch, get_config, smi)
+    return launches
+
+
+def spmd_alone(torch, get_config, smi) -> None:
+    """``--only spmd``: the partial kernel's checks, then phase 24."""
+    cases = {"flash_decode_partial": []}
+    partial_kernel_phase(torch, get_config("deepseek-r1"), cases)
+    spmd_phase(torch, get_config, smi)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3218,7 +3777,8 @@ def main() -> int:
              "zamba2": lambda: zamba2_phase(torch, get_config, smi),
              "rwkv6": lambda: rwkv6_phase(torch, get_config, smi),
              "whisper": lambda: whisper_phase(torch, get_config, smi),
-             "train": lambda: train_alone(torch, get_config, smi)}
+             "train": lambda: train_alone(torch, get_config, smi),
+             "spmd": lambda: spmd_alone(torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -3242,6 +3802,7 @@ def main() -> int:
 
     cfg = get_config("deepseek-r1")
     cases, floor = kernels_phase(torch, cfg)
+    partial_kernel_phase(torch, cfg, cases)
     backward_kernels_phase(torch, cfg, cases)
     reference_phase(torch, get_config)
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
@@ -3270,6 +3831,7 @@ def main() -> int:
     whisper_launches = whisper_phase(torch, get_config, smi)
     train_launches, launcher_launches = train_phases(torch, get_config, smi,
                                                      cases)
+    spmd_launches = spmd_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -3277,6 +3839,7 @@ def main() -> int:
         src, replaces = SOURCES[name]
         # each kernel's count from the run of the path that carries it
         main = (train_launches if name.startswith("grouped_gemm_d") else
+                spmd_launches if name == "flash_decode_partial" else
                 paged_launches if name not in DENSE_PATH else launches)
         return {
             "name": name, "route": "cuda", "source": src,
@@ -3297,7 +3860,8 @@ def main() -> int:
                                   "whisper": whisper_launches[name],
                                   "train": train_launches[name],
                                   "train-launcher":
-                                      launcher_launches[name]},
+                                      launcher_launches[name],
+                                  "spmd": spmd_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3309,6 +3873,7 @@ def main() -> int:
     # is listed under it
     summary = [entry(n) for n in ("grouped_gemm", "grouped_gemm_dx",
                                   "grouped_gemm_dw", "flash_decode",
+                                  "flash_decode_partial",
                                   "paged_flash_decode", "combine_slots")]
     summary[-1].update(launch_floor=floor,
                        entries=[entry("combine_weighted")])

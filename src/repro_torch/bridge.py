@@ -4,7 +4,9 @@ The port keeps the reference's parameter keys and layouts, so the bridge is
 a tree map from numpy leaves (the caller converts the JAX arrays with
 ``np.asarray``) to tensors.  With bridged params both packages compute the
 same function, which is what the parity tests rely on: ``jax.random``
-initialisation cannot be reproduced in torch.
+initialisation cannot be reproduced in torch.  On a mesh,
+:func:`shard_from_numpy` takes the whole numpy tree to one rank's shard
+(``distributed.sharding_rules.shard_params``) before anything is copied.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding_rules import shard_params
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
@@ -41,3 +44,10 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
         return tensor_from_numpy(np.asarray(node), device)
 
     return conv(tree)
+
+
+def shard_from_numpy(tree: Dict, cfg: ModelConfig, device, mesh,
+                     phase: str = "serve") -> Dict:
+    """This rank's shard of a whole params tree of numpy leaves on
+    ``mesh``, as tensors on ``device``."""
+    return params_from_numpy(shard_params(tree, mesh, phase), cfg, device)

@@ -1,10 +1,22 @@
-"""EaasMoELayer — the paper's contribution, local (single-device) mode.
+"""EaasMoELayer — the paper's contribution.
 
 router -> mapping lookup (replica choice, liveness) -> pack into
 per-server buffer slots -> each of the S logical servers serves its slot
-(a loop: the reference's ``jax.vmap`` over servers) -> combine, plus the
-client's dense tier: the shared experts and, for Arctic, the dense FFN
-residual that runs beside the experts (``moe.dense_residual``).
+-> combine, plus the client's dense tier: the shared experts and, for
+Arctic, the dense FFN residual that runs beside the experts
+(``moe.dense_residual``).  Three execution modes, as in the reference:
+
+* ``group=None`` — one process: the S servers are a loop (the
+  reference's ``jax.vmap`` over servers);
+* ``mode="a2a"`` — one rank of a mesh is one server and one client,
+  ``group`` the server axis's process group: tokens sharded over it, one
+  ``all_to_all`` each way (prefill);
+* ``mode="replicated"`` — the activations replicated over the server
+  axis: no request moves, each server serves its own slot, one
+  ``all_reduce`` combines (decode).
+
+On a mesh ``params["servers"]`` holds this rank's shard (leading dim 1)
+and ``runtime.local_table`` its row (1, E).
 
 Differentiable end to end (training): the router's sorted top-k values and
 normalisation, the aux loss's ``probs.mean``, the index writes of
@@ -129,8 +141,12 @@ def client_extras(params: Dict, x: torch.Tensor,
 
 def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
                    runtime: MoERuntime, *, activation: str = "swiglu",
-                   mode: str = "local") -> Tuple[torch.Tensor, MoEStats]:
-    """Apply the EAAS MoE layer to x (T, d) -> (T, d)."""
+                   mode: str = "local", group=None
+                   ) -> Tuple[torch.Tensor, MoEStats]:
+    """Apply the EAAS MoE layer to x (T, d) -> (T, d).  With ``group``
+    (the server axis's process group), this rank's server and its tokens
+    (the token salt of the replica choice is the rank-local index, as in
+    the reference); the stats are this rank's."""
     T, d = x.shape
     S, C = runtime.num_servers, runtime.capacity
     dev = x.device
@@ -146,6 +162,10 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
     # ---- client: pack buffer slots (paper §3.2) --------------------------
     buffers = dispatch.pack(x, r.expert_ids, r.scores, server_ids, S, C,
                             method=runtime.dispatch_method)
+
+    if group is not None:
+        return _apply_on_mesh(params, x, r, buffers, cfg_moe, runtime,
+                              activation, mode, group)
 
     # ---- transfer + stateless servers ------------------------------------
     hid, eid, sc, cnt = comm.send_to_servers(buffers, mode)
@@ -167,6 +187,39 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
 
     stats = MoEStats(aux_loss=r.aux_loss, z_loss=r.z_loss,
                      dropped=buffers.dropped, miss=miss,
+                     expert_load=router.expert_load(r.expert_ids,
+                                                    cfg_moe.num_experts))
+    return y, stats
+
+
+def _apply_on_mesh(params: Dict, x: torch.Tensor, r, buffers, cfg_moe,
+                   runtime: MoERuntime, activation: str, mode: str, group
+                   ) -> Tuple[torch.Tensor, MoEStats]:
+    """The SPMD branch: this rank is one server holding its shard
+    (leading dim 1); ``serve`` takes the (S_src, C, d) block it received
+    (a2a) or its own slot (replicated).  The combine casts to x's dtype
+    before the cross-server sum, and the client extras are added after it
+    (fused into the combine, replicated mode would add them S times)."""
+    sw = params["servers"]
+    if sw["w_gate"].shape[0] != 1 or runtime.local_table.shape[0] != 1:
+        raise ValueError("on a mesh the MoE layer takes this rank's server "
+                         "shard (leading dim 1) and local_table row")
+    w = ServerWeights(*(stacked_view(sw[n], 0)
+                        for n in ("w_gate", "w_up", "w_down")),
+                      runtime.local_table[0])
+    hid, eid, sc, cnt = comm.send_to_servers(buffers, mode, group)
+    out, st = expert_server.serve(hid, eid, sc, cnt, w)
+    result = comm.return_to_clients(out, mode, group)
+    slots = buffers.combine_slot
+    if mode == "replicated":             # result: this server's (1, C, d)
+        slots = comm.own_slots(slots, runtime.capacity, group)
+    y = dispatch.combine(result, slots, out_dtype=x.dtype)
+    y = comm.finalize_combine(y, mode, group)
+    extra = client_extras(params, x, activation)
+    if extra is not None:
+        y = y + extra
+    stats = MoEStats(aux_loss=r.aux_loss, z_loss=r.z_loss,
+                     dropped=buffers.dropped, miss=st.miss,
                      expert_load=router.expert_load(r.expert_ids,
                                                     cfg_moe.num_experts))
     return y, stats

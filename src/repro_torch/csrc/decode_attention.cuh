@@ -44,12 +44,20 @@
 //     decode_attention applies it; cap = 0 leaves the scores as they were.
 //   - With one split the block normalises and writes the output; else it
 //     writes the unnormalised partial (acc[G, hd], m[G], l[G]) in fp32.
+//     Called with out == nullptr (the partial entry, flash_decode_partial
+//     in flash_decode.cu) it writes the partial with one split too.
 // Pass 2 (decode_combine_kernel), grid (B*KV): merges the live partials of
 // each (b, h) in a fixed order — no atomics, so runs are bitwise
 // repeatable.  It is launched as a programmatic dependent of pass 1, so its
 // launch overlaps pass 1 and it waits only for pass 1's results.  A chunk
 // is live only if it holds a valid slot, so every live m is finite and no
-// exp(-inf - -inf) arises; a length of 0 gives a zero output.
+// exp(-inf - -inf) arises; a length of 0 gives a zero output.  Its PARTIAL
+// form (decode_partial_combine) writes the merged partial itself instead:
+// acc = sum_z exp(m_z - M) acc_z (unnormalised, fp32), m = M, l = sum_z
+// exp(m_z - M) l_z in natural-exp units, as a sequence-parallel shard's
+// contribution to a cross-shard softmax; a shard with no valid slot gives
+// acc = 0, l = 0 and m = -1e30, which weighs 0 in the cross-shard combine
+// (and never makes a NaN there).
 #pragma once
 
 #include <math.h>
@@ -181,7 +189,7 @@ __device__ __forceinline__ bool stage_chunk(
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   c0 = blockIdx.z * kSplit;
   if (c0 >= len) {                    // dead chunk
-    if (gridDim.z == 1) {             // len == 0: the output is zero
+    if (gridDim.z == 1 && out != nullptr) {   // len == 0: the output is 0
       for (int i = tid; i < G * hd; i += nthreads)
         out[q_base + i] = from_float<T>(0.f);
     }
@@ -444,7 +452,7 @@ __device__ __forceinline__ void decode_split_mma(
     for (int r = 0; r < 2; ++r) {
       const int g = mt * 16 + gq + 8 * r;
       if (g >= G) continue;
-      if (nsplit == 1) {
+      if (nsplit == 1 && out != nullptr) {
         const float inv = 1.f / fmaxf(l[mt][r], 1e-30f);
         __nv_bfloat16* orow = out + (bh * G + g) * hd;
 #pragma unroll
@@ -561,7 +569,7 @@ __device__ __forceinline__ void decode_split_fma(
   for (int j = 0; j < kMaxHeadsPerWarp; ++j) {
     if (j >= nh) break;
     const int g = warp + j * nwarps;
-    if (nsplit == 1) {
+    if (nsplit == 1 && out != nullptr) {
       const float inv = 1.f / fmaxf(l[j], 1e-30f);
 #pragma unroll
       for (int pp = 0; pp < kMaxDimPairs; ++pp)
@@ -655,10 +663,13 @@ constexpr int kCombineZ = 32;        // splits whose weights share memory
 // 1's own acc * (1 / l), bit for bit.  PER elements a thread: 8 up to G *
 // hd = 2048, 16 past it (hd 256): the hd <= 128 shapes keep the smaller
 // unrolled loop (16 everywhere slowed the deepseek-r1 decode shape).
-template <typename T, int PER>
+// PARTIAL: out is the fp32 acc (B, H, hd), m_out / l_out (B, H), and
+// nothing is normalised.
+template <typename T, int PER, bool PARTIAL>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ partial,
                       const int* __restrict__ lengths, T* __restrict__ out,
+                      float* __restrict__ m_out, float* __restrict__ l_out,
                       int B, int KV, int G, int hd, int nsplit, int cap) {
   __shared__ float sw[kCombineZ][32];
   __shared__ float smax[32], sinv[32];
@@ -687,6 +698,10 @@ decode_combine_kernel(const float* __restrict__ partial,
     if (lane == 0) {
       smax[g] = mx;
       sinv[g] = 1.f / fmaxf(ls, 1e-30f);
+      if constexpr (PARTIAL) {
+        m_out[static_cast<long long>(bh) * G + g] = nlive ? mx : -1e30f;
+        l_out[static_cast<long long>(bh) * G + g] = ls;   // 0 when dead
+      }
     }
   }
   float a[PER];
@@ -716,17 +731,21 @@ decode_combine_kernel(const float* __restrict__ partial,
   for (int j = 0; j < PER; ++j) {
     const int i = tid + j * kCombineThreads;
     if (i < G * hd) {
-      out[static_cast<long long>(bh) * G * hd + i] =
-          from_float<T>(nlive ? a[j] * sinv[i / hd] : 0.f);
+      const float val = PARTIAL ? a[j] : (nlive ? a[j] * sinv[i / hd] : 0.f);
+      out[static_cast<long long>(bh) * G * hd + i] = from_float<T>(val);
     }
   }
 }
 
-// Pass 2 on the stream of pass 1, as its programmatic dependent.
+// Pass 2 on the stream of pass 1, as its programmatic dependent: the
+// normalised output (out of T), or with m_out / l_out the merged partial
+// (out of fp32).
 template <typename T>
 inline cudaError_t launch_combine(const void* partial, const void* lengths,
                                   void* out, int B, int KV, int G, int hd,
-                                  int nsplit, int cap, cudaStream_t s) {
+                                  int nsplit, int cap, cudaStream_t s,
+                                  float* m_out = nullptr,
+                                  float* l_out = nullptr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * KV);
   cfg.blockDim = dim3(kCombineThreads);
@@ -736,12 +755,22 @@ inline cudaError_t launch_combine(const void* partial, const void* lengths,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  auto* kernel = G * hd <= 2048 ? decode_combine_kernel<T, 8>
-                                : decode_combine_kernel<T, 16>;
+  if (m_out != nullptr) {
+    auto* kernel = G * hd <= 2048 ? decode_combine_kernel<float, 8, true>
+                                  : decode_combine_kernel<float, 16, true>;
+    return cudaLaunchKernelEx(&cfg, kernel,
+                              static_cast<const float*>(partial),
+                              static_cast<const int*>(lengths),
+                              static_cast<float*>(out), m_out, l_out, B, KV,
+                              G, hd, nsplit, cap);
+  }
+  auto* kernel = G * hd <= 2048 ? decode_combine_kernel<T, 8, false>
+                                : decode_combine_kernel<T, 16, false>;
   return cudaLaunchKernelEx(&cfg, kernel,
                             static_cast<const float*>(partial),
                             static_cast<const int*>(lengths),
-                            static_cast<T*>(out), B, KV, G, hd, nsplit, cap);
+                            static_cast<T*>(out), m_out, l_out, B, KV, G, hd,
+                            nsplit, cap);
 }
 
 // Chunks of a cache view of `view` positions: the grid's third axis.

@@ -47,10 +47,13 @@ template <typename T>
 using Kernel = void (*)(const T*, const T*, const T*, const int*, T*, float*,
                         int, int, int, int, float, float);
 
+// out == nullptr with m / l: the partial entry (pass 1 always writes
+// partials; pass 2 merges them into acc = out_acc, m, l).
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* partial, int B, int S, int KV, int G, int hd,
-           float cap, cudaStream_t s) {
+           float cap, cudaStream_t s, void* acc = nullptr,
+           float* m = nullptr, float* l = nullptr) {
   const int threads = repro::decode_threads<T>(G, hd);
   Kernel<T> kernel;
   REPRO_PICK_DECODE_KERNEL(flash_decode_kernel, T, hd, G, kernel)
@@ -67,7 +70,10 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
       static_cast<T*>(out), static_cast<float*>(partial), S, KV, G, hd,
       scale, cap);
   err = cudaGetLastError();
-  if (err == cudaSuccess && nsplit > 1)
+  if (err == cudaSuccess && acc != nullptr)
+    err = repro::launch_combine<T>(partial, lengths, acc, B, KV, G, hd,
+                                   nsplit, S, s, m, l);
+  else if (err == cudaSuccess && nsplit > 1)
     err = repro::launch_combine<T>(partial, lengths, out, B, KV, G, hd,
                                    nsplit, S, s);
   return static_cast<int>(err);
@@ -86,4 +92,25 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                  hd, cap, s);
   return launch<float>(q, k, v, lengths, out, partial, B, S, KV, G, hd, cap,
                        s);
+}
+
+// The partial entry (sequence-parallel decode over a cache shard): acc
+// (B, H, hd) fp32, unnormalised; m, l (B, H) fp32 in natural-exp units
+// (see decode_attention.cuh).  `partial` holds B * KV * split_count(S) * G
+// * (hd + 2) floats, one split included.
+extern "C" int flash_decode_partial_launch(const void* q, const void* k,
+                                           const void* v,
+                                           const void* lengths, void* acc,
+                                           void* m, void* l, void* partial,
+                                           int B, int S, int KV, int G,
+                                           int hd, float cap, int dtype,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  if (dtype == repro::kBFloat16)
+    return launch<__nv_bfloat16>(q, k, v, lengths, nullptr, partial, B, S,
+                                 KV, G, hd, cap, s, acc, mf, lf);
+  return launch<float>(q, k, v, lengths, nullptr, partial, B, S, KV, G, hd,
+                       cap, s, acc, mf, lf);
 }

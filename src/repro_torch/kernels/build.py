@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "grouped_gemm_dx": 0,
                             "grouped_gemm_dw": 0, "flash_decode": 0,
+                            "flash_decode_partial": 0,
                             "paged_flash_decode": 0, "combine_weighted": 0,
                             "combine_slots": 0}
 
@@ -52,6 +53,11 @@ _SIGNATURES = {
     # stream
     "flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                             _int, _int, _float, _int, _vp],
+    # q, k, v, lengths, acc, m, l, partial, B, S, KV, G, hd, softcap,
+    # dtype, stream
+    "flash_decode_partial_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                    _int, _int, _int, _int, _int, _float,
+                                    _int, _vp],
     # q, k_pool, v_pool, tables, lengths, out, partial, B, max_blocks, bs,
     # KV, G, hd, softcap, dtype, stream
     "paged_flash_decode_launch": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,

@@ -10,7 +10,14 @@ online softmax, positions ``>= lengths[b]`` masked.  Two variants, as in
 * dense, replacing ``flash_decode_pallas``: ``k/v (B, S, KV, hd)``;
 * paged, replacing ``paged_flash_decode_pallas``: one shared pool
   ``k/v (num_blocks, bs, KV, hd)``; sequence ``b``'s position ``p`` lives
-  in pool block ``tables[b, p // bs]`` at offset ``p % bs``.
+  in pool block ``tables[b, p // bs]`` at offset ``p % bs``;
+* partial, the dense variant's body with its softmax left open, for
+  sequence-parallel decode over a cache shard (the reference computes that
+  partial in jnp, ``src/repro/models/attention.py:244``
+  ``decode_attention_partial``): ``(acc (B, H, hd), m (B, H), l (B, H))``
+  in fp32 and natural-exp units — ``acc`` the unnormalised sum of p v, so
+  shards combine as ``sum acc e^(m - M) / sum l e^(m - M)``.  A shard
+  with no valid slot gives acc = 0, l = 0 and m = -1e30.
 
 CUDA kernels (``csrc/flash_decode.cu``, ``csrc/paged_flash_decode.cu``,
 one body in ``csrc/decode_attention.cuh``): split-KV flash-decoding in two
@@ -37,7 +44,9 @@ cut in logical positions, so its output is bitwise the dense kernel's over
 the gathered view.  Lengths are clamped to the cache width — the engine
 decodes idle slots too, whose lengths grow past it.  The C entry points
 size the grid from the view width; :func:`split_plan` is the same count,
-which sizes the partials' scratch.
+which sizes the partials' scratch.  The partial entry runs the same two
+passes with the output left out: pass 1 writes partials even with one
+chunk, and pass 2 merges them into (acc, m, l) without normalising.
 
 What bounds it on an H100: the K/V bytes of the valid prefix (3.35 TB/s);
 the operations are ~1 per byte.  At the full-width deepseek-r1 decode shape
@@ -92,6 +101,29 @@ def flash_decode_torch(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def flash_decode_partial_torch(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, lengths: torch.Tensor,
+                               softcap: float = 0.0):
+    """Plain version of the partial: materialized scores in fp32; m the
+    max valid score, l and acc the sums of exp(s - m) and exp(s - m) v
+    (m = -1e30 and l = acc = 0 where no slot is valid)."""
+    B, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qf = q.reshape(B, KV, G, hd).float()
+    scores = torch.einsum("bkgh,bskh->bkgs", qf, k_cache.float())
+    scores = scores / math.sqrt(hd)
+    if softcap:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, -math.inf)
+    live = mask.any(dim=1)[:, None, None]
+    m = torch.where(live, scores.amax(dim=-1), -1e30)
+    p = torch.exp(scores - m[..., None])
+    acc = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    return acc.reshape(B, H, hd), m.reshape(B, H), p.sum(-1).reshape(B, H)
+
+
 def _check_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, *indices: torch.Tensor):
     """The checks both kernels share; returns (B, H, hd, KV, G)."""
@@ -142,6 +174,38 @@ def flash_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     build.check(err, "flash_decode")
     build.count("flash_decode")
     return out
+
+
+def flash_decode_partial_cuda(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, lengths: torch.Tensor,
+                              softcap: float = 0.0):
+    """Launch the partial entry on the current stream (no sync): (acc
+    (B, H, hd), m (B, H), l (B, H)) in fp32.  No backward: under grad
+    with an input that requires grad it raises."""
+    build.refuse_grad("flash_decode_partial", q, k_cache, v_cache)
+    B, H, hd, KV, G = _check_inputs("flash_decode_partial", q, k_cache,
+                                    v_cache, lengths)
+    build.require(k_cache.shape[0] == B and lengths.shape == (B,),
+                  f"flash_decode_partial: k{tuple(k_cache.shape)} and "
+                  f"lengths{tuple(lengths.shape)} need batch {B}")
+    S = k_cache.shape[1]
+    build.require(B * S < 2 ** 31,
+                  f"flash_decode_partial: B*S={B * S} >= 2**31")
+    lengths = lengths.to(torch.int32).contiguous()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((B, H, hd), **f32)
+    m = torch.empty((B, H), **f32)
+    l = torch.empty((B, H), **f32)
+    partial = torch.empty(B * KV * split_plan(S) * G * (hd + 2), **f32)
+    lib = build.load_library()
+    err = lib.flash_decode_partial_launch(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        partial.data_ptr(), B, S, KV, G, hd, float(softcap),
+        build.dtype_code(q.dtype), build.stream_of(q))
+    build.check(err, "flash_decode_partial")
+    build.count("flash_decode_partial")
+    return acc, m, l
 
 
 def paged_flash_decode_torch(q: torch.Tensor, k_pool: torch.Tensor,

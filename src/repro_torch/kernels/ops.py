@@ -28,8 +28,8 @@ from repro_torch.kernels.combine import (combine_slots_cuda,
                                          combine_weighted_cuda,
                                          combine_weighted_torch)
 from repro_torch.kernels.decode_attention import (
-    flash_decode_cuda, flash_decode_torch, paged_flash_decode_cuda,
-    paged_flash_decode_torch)
+    flash_decode_cuda, flash_decode_partial_cuda, flash_decode_partial_torch,
+    flash_decode_torch, paged_flash_decode_cuda, paged_flash_decode_torch)
 from repro_torch.kernels.grouped_gemm import (grouped_gemm_cuda,
                                               grouped_gemm_torch)
 
@@ -69,6 +69,17 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if _resolve(impl, q) == "cuda":
         return flash_decode_cuda(q, k_cache, v_cache, lengths, softcap)
     return flash_decode_torch(q, k_cache, v_cache, lengths, softcap)
+
+
+def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                         softcap: float = 0.0, impl: str = "auto"):
+    """The open softmax of one-token GQA attention over a dense cache
+    (shard): (acc (B, H, hd), m (B, H), l (B, H)) in fp32."""
+    if _resolve(impl, q) == "cuda":
+        return flash_decode_partial_cuda(q, k_cache, v_cache, lengths,
+                                         softcap)
+    return flash_decode_partial_torch(q, k_cache, v_cache, lengths, softcap)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,

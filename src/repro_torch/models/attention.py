@@ -11,6 +11,11 @@ reference applies it.  ``decode_attention`` computes its core through
 CPU; the softcap is the kernels' own argument.  Cross-attention against the cached encoder
 K/V is a one-token decode with every position valid: it runs through
 ``ops.flash_decode`` with lengths filled with the encoder length.
+
+Sequence-parallel decode (a cache sharded over slots on a mesh):
+:func:`decode_attention_partial` computes one shard's open softmax through
+``ops.flash_decode_partial``, and :func:`combine_partial_attention` merges
+the shards with one ``all_reduce`` MAX and two SUMs.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import math
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -199,6 +205,34 @@ def decode_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         out = ops.flash_decode(q[:, 0], cache.k, cache.v, cache.length,
                                softcap=cap)
     return out.reshape(b, 1, h * hd) @ params["wo"], cache
+
+
+def decode_attention_partial(params: Dict, cfg: ModelConfig,
+                             q: torch.Tensor, cache: kvc.KVCache):
+    """Flash-decode partial pass over a cache shard.  q (b, 1, H, hd)
+    already rotated; the shard's ``length`` counts its valid slots (a
+    prefix).  Returns (acc (b, 1, H, hd) unnormalised sum of p v, m
+    (b, 1, H, 1), l (b, 1, H, 1)), fp32, as the reference's."""
+    b, _, h, hd = q.shape
+    acc, m, l = ops.flash_decode_partial(q[:, 0], cache.k, cache.v,
+                                         cache.length)
+    return acc[:, None], m.reshape(b, 1, h, 1), l.reshape(b, 1, h, 1)
+
+
+def combine_partial_attention(acc: torch.Tensor, m: torch.Tensor,
+                              l: torch.Tensor, group) -> torch.Tensor:
+    """Combine flash-decode partials across the ranks of ``group``: the
+    global max (one ``all_reduce`` MAX), then the scaled sums of acc and l
+    (one SUM over both, side by side), normalised as the flash-decode
+    kernel normalises (times the reciprocal of the sum), so that one shard
+    gives the kernel's output bit for bit."""
+    g_m = m.clone()
+    dist.all_reduce(g_m, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.exp(m - g_m)
+    sums = torch.cat([acc * scale, l * scale], dim=-1)
+    dist.all_reduce(sums, group=group)
+    num, den = sums[..., :-1], sums[..., -1:]
+    return num * torch.reciprocal(torch.clamp(den, min=1e-30))
 
 
 # ------------------------------------------------------------- cross-attn

@@ -19,8 +19,11 @@ the channel-mix's k / r) products are fp32 products with the weights
 widened (``_mm``); the wkv state, the decay (``decay_A`` / ``decay_B``)
 and the group norm are fp32; the channel-mix rounds k to the activations'
 dtype before ``w_v``, and the time-mix its output before ``w_o``.
-``rwkv_block_spmd`` (the reference's tensor-parallel island) belongs to
-the multi-GPU tier and is not ported.
+
+:func:`rwkv_block_spmd` is the reference's tensor-parallel layer on a
+mesh: every projection column-sharded over the model axis (the wkv state's
+heads with them), ``w_o`` and the channel-mix ``w_v`` row-parallel with
+one ``all_reduce`` each (:data:`ISLAND_PLACEMENTS` is its layout).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -210,3 +214,46 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device,
                                device=device),
         shift_cmix=torch.zeros((*lead, batch, cfg.d_model), dtype=dt,
                                device=device))
+
+
+# The layout rwkv_block_spmd takes (the reference's in_specs, one layer's
+# leaves): projections column-sharded over the model axis, w_o and the
+# channel-mix w_v row-sharded, the per-channel decay, bonus and group-norm
+# scale with their heads; the shift mixes, the decay's LoRA
+# down-projection and the channel-mix gate whole.
+_COL, _ROW, _WHOLE = (None, "model"), ("model", None), (None, None)
+ISLAND_PLACEMENTS: Dict[str, Dict[str, tuple]] = {
+    "tmix": {"mu": _WHOLE, "w_r": _COL, "w_k": _COL, "w_v": _COL,
+             "w_g": _COL, "w_o": _ROW, "decay_w0": ("model",),
+             "decay_A": _WHOLE, "decay_B": _COL, "bonus_u": _ROW,
+             "ln_scale": ("model",)},
+    "cmix": {"mu": _WHOLE, "w_k": _COL, "w_v": _ROW, "w_r": _WHOLE},
+}
+
+
+def rwkv_block_spmd(tparams: Dict, cparams: Dict, cfg: ModelConfig,
+                    x: torch.Tensor, state: RwkvState,
+                    norms: Tuple[torch.Tensor, torch.Tensor], group
+                    ) -> Tuple[torch.Tensor, RwkvState]:
+    """One tensor-parallel RWKV layer over a sequence, on this rank's
+    slices (:data:`ISLAND_PLACEMENTS`; ``state.wkv`` holds this rank's
+    heads) of a layer: x (B, L, d) whole.  The wkv recurrence runs on the
+    local heads; ``w_o``'s and the channel-mix ``w_v``'s partial sums are
+    the two ``all_reduce``s over ``group`` (the model axis)."""
+    n1, n2 = norms
+    h = rms_norm(x, n1, cfg.rms_norm_eps)
+    y, S, prev_t = tmix_forward(tparams, cfg, h, state)
+    dist.all_reduce(y, group=group)                 # row-parallel w_o
+    x = x + y
+    h2 = rms_norm(x, n2, cfg.rms_norm_eps)
+    # channel-mix: w_k column-, w_v row-parallel; the gate r whole
+    shifted = torch.cat([state.shift_cmix[:, None].to(h2.dtype), h2[:, :-1]],
+                        dim=1)
+    xk = _mix(h2, shifted, cparams["mu"][0])
+    xr = _mix(h2, shifted, cparams["mu"][1])
+    kk = torch.square(F.relu(_mm(xk, cparams["w_k"]).float()))
+    v = kk.to(h2.dtype) @ cparams["w_v"]
+    dist.all_reduce(v, group=group)
+    rr = torch.sigmoid(_mm(xr, cparams["w_r"]).float())
+    x = x + (rr * v.float()).to(x.dtype)
+    return x, RwkvState(wkv=S, shift_tmix=prev_t, shift_cmix=h2[:, -1])

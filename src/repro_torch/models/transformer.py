@@ -38,19 +38,38 @@ the uniform decoder).  Under grad mode ``_layer`` takes
 :func:`~repro_torch.kernels.autograd.stacked_view` slices, so a layer's
 gradient is added into its stacked leaf's ``.grad`` in place instead of
 through a zero tensor the size of the whole stack.
+
+Serving: every family's ``prefill`` / ``decode_step`` (and the uniform
+decoder's ``prefill_chunk``) take a :class:`ParallelCtx` — its
+``moe_runtime`` for an MoE arch — or None (one device, no MoE), and every
+``init_cache`` is ``(batch, max_slots, ctx=None)``.  On a mesh
+(``ctx.mesh``; the reference's ``shard_map`` islands as SPMD ranks of
+``torch.distributed``) each rank holds its
+batch rows over the data axes, dense weights whole.  The EAAS MoE layer is
+:func:`_moe_apply`'s island — this rank one expert server holding its
+shard (``distributed.sharding_rules.shard_params``) — in ``a2a`` (tokens
+also split over the model axis, one ``all_to_all`` each way) or
+``replicated`` (one ``all_reduce`` combines); its stats are reduced over
+every axis.  With ``seq_shard_cache`` the uniform decoder's KV cache is
+split over slots (``seq_shard_axes``) and decode attention is
+:func:`_sp_decode_attention`: each rank's partial flash decode over its
+slots, one combine.  rwkv6 runs its tensor-parallel block
+(``rwkv.rwkv_block_spmd``).  The other families run on one device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import comm
 from repro_torch.core import moe_layer as eaas
 from repro_torch.core.moe_layer import MoERuntime, MoEStats
+from repro_torch.distributed import mesh_axes
 from repro_torch.kernels.autograd import stacked_view
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_cache as kvc
@@ -59,18 +78,20 @@ from repro_torch.models import rwkv as rwk
 from repro_torch.models.common import (dense_init, embed_init, rms_norm,
                                        resolve_dtype)
 from repro_torch.models.mlp import init_mlp, mlp
-from repro_torch.models.rope import text_mrope_positions
+from repro_torch.models.rope import apply_rope, text_mrope_positions
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     init_params: Callable      # (generator) -> params
-    # (params, tokens, rt, max_slots, batch) -> (logits, cache, stats)
+    # (params, tokens, ctx, max_slots, batch) -> (logits, cache, stats);
+    # ctx: a ParallelCtx (its moe_runtime for an MoE arch; a mesh for the
+    # uniform decoder and rwkv6) or None (one device, no MoE)
     prefill: Callable
-    decode_step: Callable      # (params, token, cache, rt) -> (logits, cache, stats)
-    init_cache: Callable       # (batch, max_slots) -> cache
+    decode_step: Callable      # (params, token, cache, ctx) -> (logits, cache, stats)
+    init_cache: Callable       # (batch, max_slots, ctx=None) -> cache
     num_servers: int
-    # (params, tokens, cache, start, rt) -> (logits, cache, stats); None
+    # (params, tokens, cache, start, ctx) -> (logits, cache, stats); None
     # for families without cache-resident prefill (whole-prompt only)
     prefill_chunk: Optional[Callable] = None
     # (num_blocks, block_size, batch, max_slots) -> paged cache; None for
@@ -91,6 +112,36 @@ class TrainCtx:
     moe_runtime: Optional[MoERuntime] = None
     remat: bool = True          # one checkpoint per block
     ce_chunk: int = 512         # sequence positions per cross-entropy chunk
+
+
+@dataclass(frozen=True)
+class ParallelCtx:
+    """How a serving step is distributed: the reference's ``ParallelCtx``
+    serving fields.  ``mesh=None`` is one device; with a mesh (a
+    ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) every rank calls the
+    model on its own rows and shards."""
+
+    mesh: Any = None
+    axis_data: Tuple[str, ...] = ("data",)      # batch axes (may incl. "pod")
+    axis_model: str = "model"
+    moe_runtime: Optional[MoERuntime] = None
+    moe_mode: str = "local"                     # local | a2a | replicated
+    seq_shard_cache: bool = False               # SP decode (slot-sharded)
+    seq_shard_axes: Tuple[str, ...] = ()        # slot axes (default: data)
+
+    @property
+    def slot_axes(self) -> Tuple[str, ...]:
+        return self.seq_shard_axes or self.axis_data
+
+
+def _slot_shard(ctx: Optional[ParallelCtx]) -> Optional[Tuple[int, int]]:
+    """(this rank's slot-shard index, the shard count) of a slot-sharded
+    cache, or None."""
+    if ctx is None or not (ctx.seq_shard_cache and ctx.mesh is not None):
+        return None
+    axes = ctx.slot_axes
+    return (mesh_axes.axes_index(ctx.mesh, axes),
+            mesh_axes.axes_size(ctx.mesh, axes))
 
 
 def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
@@ -134,7 +185,7 @@ def _block_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                 mrope_positions=mrope_positions)
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     stats = []
-    x = x + _ffn(p, cfg, h, rt, stats)
+    x = x + _ffn(p, cfg, h, ParallelCtx(moe_runtime=rt), stats)
     return x, (stats[0] if stats else None)
 
 
@@ -171,52 +222,154 @@ def _sum_stats(stats, cfg: ModelConfig, device) -> MoEStats:
     return MoEStats(*[sum(v) for v in zip(*stats)])
 
 
-def _ffn(p: Dict, cfg: ModelConfig, h: torch.Tensor, rt: MoERuntime,
-         stats: list) -> torch.Tensor:
+def _ffn(p: Dict, cfg: ModelConfig, h: torch.Tensor,
+         ctx: Optional[ParallelCtx], stats: list) -> torch.Tensor:
+    """The block's FFN: dense, or the EAAS layer under ``ctx``."""
     if "moe" not in p:
         return mlp(p["mlp"], h, cfg.activation)
     B, S, d = h.shape
-    y, st = eaas.eaas_moe_apply(p["moe"], h.reshape(B * S, d), cfg.moe, rt,
-                                activation=cfg.activation)
+    y, st = _moe_apply(p["moe"], h.reshape(B * S, d), cfg, ctx)
     stats.append(st)
     return y.reshape(B, S, d)
 
 
+def _moe_apply(params_moe: Dict, x2d: torch.Tensor, cfg: ModelConfig,
+               ctx: Optional[ParallelCtx]):
+    """The EAAS MoE layer on one device, or its island on a mesh.
+
+    On a mesh, x2d is this rank's rows (its data block, whole over the
+    model axis) and ``params_moe["servers"]`` its server's shard; the
+    runtime is whole and its ``local_table`` row is taken here.  a2a: the
+    rows split over the model axis (T must divide, else ValueError: no
+    silent padding), the island's output gathered back over it.  The stats
+    are summed over every axis and divided by the reference's denominators
+    (replicated mode counts each data block's tokens once per server).
+    The client extras (shared experts / dense residual) run after the
+    island on all of x2d."""
+    m, rt = cfg.moe, ctx.moe_runtime if ctx is not None else None
+    if rt is None:
+        raise ValueError("an MoE arch needs ctx.moe_runtime")
+    if ctx.mesh is None:
+        return eaas.eaas_moe_apply(params_moe, x2d, m, rt,
+                                   activation=cfg.activation)
+    mesh, mode, model_ax = ctx.mesh, ctx.moe_mode, ctx.axis_model
+    if mode not in ("a2a", "replicated"):
+        raise ValueError(f"moe_mode {mode!r} on a mesh: 'a2a' or "
+                         "'replicated'")
+    group = mesh_axes.axes_group(mesh, (model_ax,))
+    n_model = mesh_axes.axes_size(mesh, (model_ax,))
+    idx = mesh_axes.axes_index(mesh, (model_ax,))
+    n_data = mesh_axes.axes_size(mesh, ctx.axis_data)
+    x_in = x2d
+    if mode == "a2a":
+        T = x2d.shape[0]
+        if T % n_model:
+            raise ValueError(f"a2a needs the tokens to divide over the mesh: "
+                             f"{T} rows a data block over {n_model} servers")
+        x_in = x2d[idx * (T // n_model):(idx + 1) * (T // n_model)]
+    routed = {k: params_moe[k] for k in ("router", "servers")}
+    rt_local = rt._replace(local_table=rt.local_table[idx:idx + 1])
+    y, st = eaas.eaas_moe_apply(routed, x_in, m, rt_local,
+                                activation=cfg.activation, mode=mode,
+                                group=group)
+    # global stats: summed over every axis (two collectives), then the
+    # reference's denominators and integer divisions
+    world = mesh_axes.axes_group(mesh, (*ctx.axis_data, model_ax))
+    per = 1 if mode == "a2a" else n_model
+    shards = n_data * (n_model if mode == "a2a" else 1)
+    losses = torch.stack([st.aux_loss.float(), st.z_loss.float()])
+    counts = torch.cat([st.dropped.reshape(1), st.miss.reshape(1),
+                        st.expert_load]).long()
+    torch.distributed.all_reduce(losses, group=world)
+    torch.distributed.all_reduce(counts, group=world)
+    denom = shards if mode == "a2a" else shards * n_model
+    st = MoEStats(aux_loss=losses[0] / denom, z_loss=losses[1] / denom,
+                  dropped=counts[0] // per, miss=counts[1],
+                  expert_load=counts[2:] // per)
+    if mode == "a2a":
+        y = comm.all_gather_rows(y, group)
+    extra = eaas.client_extras(params_moe, x2d, cfg.activation)
+    return (y if extra is None else y + extra), st
+
+
 def _block_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, cache: kvc.KVCache,
-                   rt: MoERuntime, stats: list, *, is_local: bool = False,
+                   ctx, stats: list, *, is_local: bool = False,
                    mrope_positions=None) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     h, (k, v) = attn.full_attention(p["attn"], cfg, h, positions,
                                     is_local=is_local,
                                     mrope_positions=mrope_positions,
                                     return_kv=True)
-    kvc.write_prefill(cache, k, v)
+    shard = _slot_shard(ctx)
+    if shard is None:
+        kvc.write_prefill(cache, k, v)
+    else:                                # this rank's slots of the prompt
+        n = cache.k.shape[1]
+        lo = shard[0] * n
+        cache.k[:, :max(0, min(n, k.shape[1] - lo))] = k[:, lo:lo + n]
+        cache.v[:, :max(0, min(n, v.shape[1] - lo))] = v[:, lo:lo + n]
+        cache.length.fill_(k.shape[1])
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(p, cfg, h, rt, stats)
+    return x + _ffn(p, cfg, h, ctx, stats)
 
 
 def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                         start: int, cache, rt: MoERuntime,
-                         stats: list) -> torch.Tensor:
+                         start: int, cache, ctx, stats: list) -> torch.Tensor:
     """One block over a prompt chunk: attention against the cache (which
     holds every earlier chunk), the chunk's K/V written in."""
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     h, _ = attn.chunk_attention(p["attn"], cfg, h, cache, start)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(p, cfg, h, rt, stats)
+    return x + _ffn(p, cfg, h, ctx, stats)
 
 
 def _block_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  cache: kvc.KVCache, rt: Optional[MoERuntime],
-                  stats: list) -> torch.Tensor:
+                  cache: kvc.KVCache, ctx, stats: list) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-    h, _ = attn.decode_attention(p["attn"], cfg, h, cache)
+    if _slot_shard(ctx) is not None:
+        h, _ = _sp_decode_attention(p["attn"], cfg, h, cache, ctx)
+    else:
+        h, _ = attn.decode_attention(p["attn"], cfg, h, cache)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(p, cfg, h, rt, stats)
+    return x + _ffn(p, cfg, h, ctx, stats)
+
+
+def _sp_decode_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                         cache: kvc.KVCache, ctx: ParallelCtx):
+    """Flash decode with the KV cache split along slots over
+    ``ctx.slot_axes`` (the data axes unless ``seq_shard_axes`` names
+    others; decode uses ("model",), so the attention weights stay whole and
+    the cache never crosses a link).  ``cache`` is this rank's slots of its
+    rows (k / v (b, slots / shards, KV, hd)) with the global lengths.  Each
+    rank computes the one-token q / k / v, writes the new token's k / v
+    only if it owns the slot (a local write), runs the partial kernel over
+    its valid slots (a prefix: the cache fills in order) and one combine
+    merges the shards."""
+    ridx, _ = _slot_shard(ctx)
+    group = mesh_axes.axes_group(ctx.mesh, ctx.slot_axes)
+    b = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = cache.k.shape[1]
+    q = attn._split_heads(x @ params["wq"], h, hd)
+    k = attn._split_heads(x @ params["wk"], kvh, hd)
+    v = attn._split_heads(x @ params["wv"], kvh, hd)
+    cos, sin = attn._rope_for(cfg, cache.length[:, None])
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    local = cache.length.long() - ridx * n
+    ok = ((local >= 0) & (local < n))[:, None, None]
+    rows, li = torch.arange(b, device=x.device), local.clamp(0, n - 1)
+    cache.k[rows, li] = torch.where(ok, k[:, 0], cache.k[rows, li])
+    cache.v[rows, li] = torch.where(ok, v[:, 0], cache.v[rows, li])
+    n_valid = (local + 1).clamp(0, n).to(torch.int32)
+    acc, m, l = attn.decode_attention_partial(
+        params, cfg, q, kvc.KVCache(cache.k, cache.v, n_valid))
+    out = attn.combine_partial_attention(acc, m, l, group)
+    cache.length += 1
+    return out.reshape(b, 1, h * hd).to(x.dtype) @ params["wo"], cache
 
 
 def _mrope_from_batch(cfg: ModelConfig, batch, tokens: torch.Tensor):
@@ -298,7 +451,16 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def init_cache(batch: int, max_slots: int) -> Dict:
+    def init_cache(batch: int, max_slots: int,
+                   ctx: Optional[ParallelCtx] = None) -> Dict:
+        """Dense KV stacks; under a slot-sharded ``ctx``, this rank's
+        ``max_slots / shards`` slots."""
+        shard = _slot_shard(ctx)
+        if shard is not None:
+            if max_slots % shard[1]:
+                raise ValueError(f"max_slots={max_slots} does not split "
+                                 f"over {shard[1]} slot shards")
+            max_slots //= shard[1]
         return {name: kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
                                         cfg.head_dim, dt, device, layers=n)
                 for name, _, n in groups if n}
@@ -316,13 +478,16 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                     cfg.num_kv_heads, cfg.head_dim, dt, device, layers=n)
                 for name, _, n in groups if n}
 
-    def prefill(params, tokens: torch.Tensor, rt: MoERuntime,
+    def prefill(params, tokens: torch.Tensor,
+                ctx: Optional[ParallelCtx] = None,
                 max_slots: Optional[int] = None, batch=None):
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
         stats); ``batch["mrope_positions"]`` places an image grid (M-RoPE
-        configs)."""
+        configs).  On a mesh (``ctx.mesh``), tokens are this rank's rows,
+        and a slot-sharded ctx leaves this rank's slots in the cache
+        (decode's layout)."""
         B, S = tokens.shape
-        cache = init_cache(B, max_slots or S)
+        cache = init_cache(B, max_slots or S, ctx)
         x = params["embed"][tokens]
         pos = torch.arange(S, device=tokens.device)
         mrope = _mrope_from_batch(cfg, batch, tokens)
@@ -330,37 +495,43 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         for name, pname, n in groups:
             for i in range(n):
                 x = _block_prefill(_layer(params[pname], i), cfg, x, pos,
-                                   cache[name].layer(i), rt, stats,
+                                   cache[name].layer(i), ctx, stats,
                                    mrope_positions=mrope)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats(stats, cfg, tokens.device))
 
     def prefill_chunk(params, tokens: torch.Tensor, cache: Dict, start: int,
-                      rt: MoERuntime):
+                      ctx: Optional[ParallelCtx] = None):
         """Continue a prefill: prompt positions [start, start + C) against a
         cache (dense or paged) already holding [0, start); written in
-        place.  Returns (last-position logits (B, V) fp32, cache, stats)."""
+        place.  Returns (last-position logits (B, V) fp32, cache, stats).
+        A slot-sharded cache is refused (whole prompts only there)."""
+        if _slot_shard(ctx) is not None:
+            raise NotImplementedError("chunked prefill into a slot-sharded "
+                                      "cache")
         x = params["embed"][tokens]
         stats = []
         for name, pname, n in groups:
             for i in range(n):
                 x = _block_prefill_chunk(_layer(params[pname], i), cfg, x,
-                                         start, cache[name].layer(i), rt,
+                                         start, cache[name].layer(i), ctx,
                                          stats)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats(stats, cfg, tokens.device))
 
     def decode_step(params, token: torch.Tensor, cache: Dict,
-                    rt: MoERuntime):
-        """token (B, 1) -> (logits (B, V) fp32, cache (in place), stats)."""
+                    ctx: Optional[ParallelCtx] = None):
+        """token (B, 1) -> (logits (B, V) fp32, cache (in place), stats).
+        ``ctx`` as :func:`prefill`'s; a slot-sharded one runs sequence-
+        parallel attention over the cache ``prefill`` left."""
         x = params["embed"][token]
         stats = []
         for name, pname, n in groups:
             for i in range(n):
                 x = _block_decode(_layer(params[pname], i), cfg, x,
-                                  cache[name].layer(i), rt, stats)
+                                  cache[name].layer(i), ctx, stats)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats(stats, cfg, token.device))
@@ -419,7 +590,7 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def init_cache(batch: int, max_slots: int) -> Dict:
+    def init_cache(batch: int, max_slots: int, ctx=None) -> Dict:
         """Stacks ``local`` (group * pattern + layer), ``global`` and
         ``rem``; the local ones are rings of ``min(window, max_slots)``."""
         def stack(n, window=0):
@@ -444,7 +615,7 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         for i in range(n_rem):
             yield _layer(params["rem_local"], i), cache["rem"].layer(i), True
 
-    def prefill(params, tokens: torch.Tensor, rt=None,
+    def prefill(params, tokens: torch.Tensor, ctx=None,
                 max_slots: Optional[int] = None, batch=None):
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
         stats); a prompt longer than the window keeps its trailing window
@@ -459,7 +630,7 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats([], cfg, tokens.device))
 
-    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+    def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), stats).
         The stats are zero (no MoE); the reference returns None here, which
         its engine cannot read (ROADMAP Queue 3)."""
@@ -521,7 +692,7 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def init_cache(batch: int, max_slots: int) -> Dict:
+    def init_cache(batch: int, max_slots: int, ctx=None) -> Dict:
         return {"mamba": mam.init_mamba_state(cfg, batch, device,
                                               (n_groups, per)),
                 "shared": kvc.init_kv_cache(batch, max_slots,
@@ -545,7 +716,7 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
             x = block(params["shared"], cache["shared"].layer(g), x)
         return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
 
-    def prefill(params, tokens: torch.Tensor, rt=None,
+    def prefill(params, tokens: torch.Tensor, ctx=None,
                 max_slots: Optional[int] = None, batch=None):
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
         zero stats)."""
@@ -557,7 +728,7 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats([], cfg, tokens.device))
 
-    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+    def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
         stats; the reference returns None here)."""
         x = run(params, params["embed"][token], cache, mam.mamba_decode,
@@ -597,9 +768,24 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
     ``cmix``); the cache is ``states``, an
     :class:`~repro_torch.models.rwkv.RwkvState` of (layers, batch, ...)
     updated in place.  The state is O(1) in the sequence: prefill ignores
-    ``max_slots``."""
+    ``max_slots``.  On a mesh (a ParallelCtx with one) every layer is the
+    tensor-parallel ``rwkv_block_spmd`` on this rank's rows, params sliced
+    by ``shard_params``, the wkv state holding this rank's heads — decode
+    too, as a one-token sequence."""
     L = cfg.num_layers
     dt = resolve_dtype(cfg.dtype)
+
+    def spmd(ctx):
+        """On a mesh, the island's block function and the wkv heads a rank
+        holds; (None, None) on one device."""
+        if ctx is None or ctx.mesh is None:
+            return None, None
+        group = mesh_axes.axes_group(ctx.mesh, (ctx.axis_model,))
+        n = mesh_axes.axes_size(ctx.mesh, (ctx.axis_model,))
+
+        def block(tp, cp, cfg_, x, st, norms):
+            return rwk.rwkv_block_spmd(tp, cp, cfg_, x, st, norms, group)
+        return block, rwk.dims(cfg)[0] // n
 
     def init_params(generator: Optional[torch.Generator]) -> Dict:
         """Weights drawn on ``device`` with the reference's distributions
@@ -612,8 +798,13 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def init_cache(batch: int, max_slots: int) -> Dict:
-        return {"states": rwk.init_rwkv_state(cfg, batch, device, (L,))}
+    def init_cache(batch: int, max_slots: int,
+                   ctx: Optional[ParallelCtx] = None) -> Dict:
+        st = rwk.init_rwkv_state(cfg, batch, device, (L,))
+        _, heads = spmd(ctx)
+        if heads is not None:                # this rank's heads, zeros
+            st = st._replace(wkv=st.wkv[:, :, :heads].clone())
+        return {"states": st}
 
     def run(params, x: torch.Tensor, cache: Dict, block) -> torch.Tensor:
         st = cache["states"]
@@ -626,20 +817,23 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
                 a[i] = b
         return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
 
-    def prefill(params, tokens: torch.Tensor, rt=None,
+    def prefill(params, tokens: torch.Tensor, ctx=None,
                 max_slots: Optional[int] = None, batch=None):
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
         zero stats)."""
-        cache = init_cache(tokens.shape[0], 0)
+        block, _ = spmd(ctx)
+        cache = init_cache(tokens.shape[0], 0, ctx)
         x = run(params, params["embed"][tokens], cache,
-                rwk.rwkv_block_forward)
+                block or rwk.rwkv_block_forward)
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats([], cfg, tokens.device))
 
-    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+    def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
         stats; the reference returns None here)."""
-        x = run(params, params["embed"][token], cache, rwk.rwkv_block_decode)
+        block, _ = spmd(ctx)
+        x = run(params, params["embed"][token], cache,
+                block or rwk.rwkv_block_decode)
         return (_logits(params, cfg, x[:, 0]), cache,
                 _sum_stats([], cfg, token.device))
 
@@ -696,7 +890,7 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
             x = x + mlp(p["mlp"], h, cfg.activation)
         return x
 
-    def init_cache(batch: int, max_slots: int) -> Dict:
+    def init_cache(batch: int, max_slots: int, ctx=None) -> Dict:
         shape = (Ld, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
                  cfg.head_dim)
         return {"self": kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
@@ -717,7 +911,7 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
             x = x + mlp(p["mlp"], h, cfg.activation)
         return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
 
-    def prefill(params, tokens: torch.Tensor, rt=None,
+    def prefill(params, tokens: torch.Tensor, ctx=None,
                 max_slots: Optional[int] = None, batch=None):
         """Encode ``batch["frames"]`` (zeros when absent, as in the
         reference: the engine passes none), cache each decoder layer's
@@ -749,7 +943,7 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
         return (_logits(params, cfg, x[:, -1]), cache,
                 _sum_stats([], cfg, tokens.device))
 
-    def decode_step(params, token: torch.Tensor, cache: Dict, rt=None):
+    def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
         stats; the reference returns None here).  The cross-attention
         runs ``ops.flash_decode`` over the cached encoder K/V with every

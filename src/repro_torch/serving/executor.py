@@ -51,7 +51,7 @@ from repro_torch.core import expert_server
 from repro_torch.core.moe_layer import MoEStats
 from repro_torch.core.overlap import split_batch_decode
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models.transformer import Model
+from repro_torch.models.transformer import Model, ParallelCtx
 
 
 DECODE_MODES = ("lockstep", "pipelined", "serialized")
@@ -146,8 +146,11 @@ class Executor:
     def supports_chunked_prefill(self) -> bool:
         return self.model.prefill_chunk is not None
 
-    def _runtime(self):
-        return self.pool.runtime(self.device) if self.pool else None
+    def _ctx(self) -> ParallelCtx:
+        """The serving context of a step: one device, the pool's current
+        runtime (None without a pool)."""
+        return ParallelCtx(moe_runtime=self.pool.runtime(self.device)
+                           if self.pool else None)
 
     def _tally(self, stats: MoEStats) -> None:
         self.dropped += stats.dropped
@@ -168,7 +171,7 @@ class Executor:
         """Whole-prompt prefill straight into ``slot`` of the batch cache;
         returns the last position's logits (1, V) fp32."""
         logits, one, stats = self.model.prefill(
-            self.params, self._tokens(prompt)[None], self._runtime(),
+            self.params, self._tokens(prompt)[None], self._ctx(),
             max_slots=self.max_seq)
         self._commit(slot, one)
         self._tally(stats)
@@ -185,7 +188,7 @@ class Executor:
             self._staging[slot] = self.model.init_cache(1, self.max_seq)
         logits, staging, stats = self.model.prefill_chunk(
             self.params, self._tokens(chunk)[None], self._staging[slot],
-            start, self._runtime())
+            start, self._ctx())
         if is_last:
             self._commit(slot, self._staging.pop(slot))
         self._tally(stats)
@@ -196,13 +199,13 @@ class Executor:
                                                   torch.Tensor]:
         """One decode step over the whole slot batch -> (logits (B, V),
         per-expert token counts (E,)), in the executor's decode mode."""
-        tok, rt = self._tokens(tokens), self._runtime()
+        tok, ctx = self._tokens(tokens), self._ctx()
         if self.decode_mode == "lockstep":
             logits, self.cache, stats = self.model.decode_step(
-                self.params, tok, self.cache, rt)
+                self.params, tok, self.cache, ctx)
         else:
             logits, self.cache, stats = split_batch_decode(
-                lambda t, c: self.model.decode_step(self.params, t, c, rt),
+                lambda t, c: self.model.decode_step(self.params, t, c, ctx),
                 tok, self.cache, axis=1,
                 enabled=self.decode_mode == "pipelined",
                 stream=self._side_stream)
@@ -229,7 +232,7 @@ class Executor:
             at = (li, bi, c.length.clamp(max=slots - 1).long())
             saved[name] = (at, c.k[at], c.v[at], c.length.clone())
         logits, self.cache, stats = self.model.decode_step(
-            self.params, self._tokens(tokens), self.cache, self._runtime())
+            self.params, self._tokens(tokens), self.cache, self._ctx())
         for name, (at, k_old, v_old, len_old) in saved.items():
             c = self.cache[name]
             row = keep[None, :, None, None]
@@ -260,7 +263,7 @@ class Executor:
         view = self._with_tables(np.asarray(table_row)[None], [start])
         logits, _, stats = self.model.prefill_chunk(
             self.params, self._tokens(chunk)[None], view, start,
-            self._runtime())
+            self._ctx())
         self._tally(stats)
         return logits, stats.expert_load
 
@@ -271,7 +274,7 @@ class Executor:
         """One decode step with host-authoritative tables / lengths."""
         logits, _, stats = self.model.decode_step(
             self.params, self._tokens(tokens),
-            self._with_tables(tables, lengths), self._runtime())
+            self._with_tables(tables, lengths), self._ctx())
         self._tally(stats)
         return logits, stats.expert_load
 

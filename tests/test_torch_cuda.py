@@ -575,16 +575,17 @@ def test_monolithic_moe_on_card_equals_cpu(cuda, mode):
 
 def _card_decoder(cuda, batch=4):
     from repro_torch.core import moe_layer
-    from repro_torch.models.transformer import build_model
+    from repro_torch.models.transformer import ParallelCtx, build_model
 
     cfg = _reduced_bf16()
     model = build_model(cfg, 4, np.zeros((4, 0), np.int32), cuda)
     params = model.init_params(torch.Generator(device=cuda).manual_seed(0))
-    rt = moe_layer.default_runtime(cfg, 4, 4 * batch, cuda)
+    ctx = ParallelCtx(moe_runtime=moe_layer.default_runtime(
+        cfg, 4, 4 * batch, cuda))
     gen = torch.Generator().manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (batch, 6), generator=gen)
-    _, cache, _ = model.prefill(params, prompt.to(cuda), rt, max_slots=32)
-    return cfg, model, params, rt, cache, gen
+    _, cache, _ = model.prefill(params, prompt.to(cuda), ctx, max_slots=32)
+    return cfg, model, params, ctx, cache, gen
 
 
 def _clone_cache(cache):
@@ -599,7 +600,7 @@ def test_pipelined_two_streams_equal_serialized_bitwise(cuda):
     (one stream), step after step on a reduced decoder in bf16."""
     from repro_torch.core.overlap import split_batch_decode
 
-    cfg, model, params, rt, cache, gen = _card_decoder(cuda)
+    cfg, model, params, ctx, cache, gen = _card_decoder(cuda)
     caches = {True: cache, False: _clone_cache(cache)}
     side = torch.cuda.Stream(cuda)
     for _ in range(4):
@@ -608,7 +609,7 @@ def test_pipelined_two_streams_equal_serialized_bitwise(cuda):
         logits = {}
         for enabled, c in caches.items():
             logits[enabled], _, _ = split_batch_decode(
-                lambda t, c: model.decode_step(params, t, c, rt), tok, c,
+                lambda t, c: model.decode_step(params, t, c, ctx), tok, c,
                 axis=1, enabled=enabled, stream=side)
         torch.cuda.synchronize()
         assert torch.equal(logits[True], logits[False])
@@ -1149,3 +1150,128 @@ def test_loss_and_gradients_card_vs_cpu(cuda, arch):
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-5
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _partial_inputs(cuda, rng, b, h, kv, hd, s, dtype):
+    q = torch.as_tensor(rng.normal(size=(b, h, hd)), device=cuda).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(b, s, kv, hd)),
+                        device=cuda).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-3)])
+@pytest.mark.parametrize("b,h,kv,hd,s,lengths", [
+    (4, 8, 2, 32, 64, [1, 33, 64, 90]),            # one split
+    (4, 16, 2, 64, 320, [0, 65, 400, 128]),        # an empty shard, past S
+    (8, 128, 8, 64, 1024, [513, 520, 530, 544, 1, 0, 64, 65]),
+    (4, 12, 2, 33, 200, [0, 65, 200, 129])])       # hd off the grid
+def test_flash_decode_partial_cuda_vs_plain(cuda, b, h, kv, hd, s, lengths,
+                                            dtype, tol, rng):
+    """(acc, m, l) against the plain version; an empty shard is exactly
+    (0, -1e30, 0); a second run is bitwise the first.  bf16 is held at
+    1e-3: both read the same bf16 inputs and sum in fp32."""
+    q, k, v = _partial_inputs(cuda, rng, b, h, kv, hd, s, dtype)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=cuda)
+    got = ops.flash_decode_partial(q, k, v, lens, impl="cuda")
+    exp = ops.flash_decode_partial(q, k, v, lens, impl="torch")
+    for g, e in zip(got, exp):
+        torch.testing.assert_close(g, e, rtol=tol, atol=tol)
+    dead = lens == 0
+    assert (got[0][dead] == 0).all() and (got[2][dead] == 0).all()
+    assert (got[1][dead] == -1e30).all()
+    again = ops.flash_decode_partial(q, k, v, lens, impl="cuda")
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_decode_partial_shards_combine_to_flash_decode(cuda, dtype,
+                                                             tol, rng):
+    """A 1024-slot cache cut into 4 slot shards (one of them empty for a
+    row): the partials combined (max, scaled sums) equal flash decode over
+    the whole cache."""
+    b, h, kv, hd, s = 4, 128, 8, 64, 1024
+    q, k, v = _partial_inputs(cuda, rng, b, h, kv, hd, s, dtype)
+    lens = torch.as_tensor([700, 256, 1024, 5], dtype=torch.int32,
+                           device=cuda)
+    w = s // 4
+    parts = []
+    for i in range(4):
+        n = (lens - i * w).clamp(0, w).to(torch.int32)
+        parts.append(ops.flash_decode_partial(
+            q, k[:, i * w:(i + 1) * w].contiguous(),
+            v[:, i * w:(i + 1) * w].contiguous(), n, impl="cuda"))
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    num = sum(p[0] * torch.exp(p[1] - m)[..., None] for p in parts)
+    den = sum(p[2] * torch.exp(p[1] - m) for p in parts)
+    out = (num / den[..., None]).to(dtype)
+    exp = ops.flash_decode(q, k, v, lens, impl="cuda")
+    torch.testing.assert_close(out.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.fixture()
+def nccl_mesh(cuda):
+    """A 1 x 1 NCCL mesh in this process, torn down after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as meshlib
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{port}", timeout_s=120)
+    try:
+        yield meshlib.make_test_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_spmd_decoder_on_a_one_rank_nccl_mesh(nccl_mesh):
+    """Reduced deepseek-r1 in float32 on the card: prefill in a2a, 8
+    greedy decode steps in replicated mode over a slot-sharded cache
+    (grouped GEMM, combine and the partial kernel launched) give the
+    one-device path's tokens, logits within 1e-5."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.distributed.sharding_rules import shard_params
+    from repro_torch.launch.dryrun import moe_runtime_for
+    from repro_torch.models import transformer as tr
+
+    cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
+    model = tr.build_model(cfg, 1, np.zeros((1, 0), np.int32), "cuda")
+    full = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    params = shard_params(full, nccl_mesh)
+    rts = [moe_runtime_for(cfg, nccl_mesh, InputShape(n, s, 2, n), mode)
+           for n, s, mode in (("prefill", 24, "a2a"),
+                              ("decode", 64, "replicated"))]
+    prompt = torch.randint(0, cfg.vocab_size, (2, 24), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+
+    def run(p, pre, dec):
+        logits, cache, _ = model.prefill(p, prompt, pre, max_slots=64)
+        seq = [logits]
+        for _ in range(8):
+            logits, cache, _ = model.decode_step(
+                p, seq[-1].argmax(-1)[:, None], cache, dec)
+            seq.append(logits)
+        return torch.stack(seq)
+    ops.reset_launches()
+    with torch.no_grad():
+        spmd = run(params, *(tr.ParallelCtx(
+            mesh=nccl_mesh, moe_runtime=rt, moe_mode=mode,
+            seq_shard_cache=True, seq_shard_axes=("model",))
+            for rt, mode in zip(rts, ("a2a", "replicated"))))
+        n = ops.launch_counts()
+        local = run(full, *(tr.ParallelCtx(moe_runtime=rt) for rt in rts))
+    assert all(n[k] > 0 for k in ("grouped_gemm", "combine_slots",
+                                  "flash_decode_partial"))
+    torch.testing.assert_close(spmd, local, rtol=1e-5, atol=1e-5)
+    assert torch.equal(spmd.argmax(-1), local.argmax(-1))

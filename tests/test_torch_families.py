@@ -40,6 +40,7 @@ from repro_torch.core.monolithic import (monolithic_ep_apply,
                                          monolithic_runtime, tp_moe_apply)
 from repro_torch.models import attention, kv_cache, mlp, rope, vlm
 from repro_torch.models.common import activation_fn, softcap
+from repro_torch.models.transformer import ParallelCtx as TParallelCtx
 from repro_torch.models.transformer import build_model
 from repro_torch.serving import (EngineConfig, Request, SamplingParams,
                                  ServingEngine, VirtualClock)
@@ -339,7 +340,7 @@ def _decoder_pair(arch, **kw):
         tm = build_model(tcfg, S, tpool.redundant_table, "cpu")
         ctx = ParallelCtx(moe_runtime=jpool.runtime("xla_ragged"),
                           remat=False)
-        trt = tpool.runtime("cpu")
+        trt = TParallelCtx(moe_runtime=tpool.runtime("cpu"))
     else:
         jm, tm = jbuild(cfg, 1), build_model(tcfg, 1, None, "cpu")
         ctx, trt = ParallelCtx(remat=False), None

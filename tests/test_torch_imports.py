@@ -56,7 +56,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.autograd",
             "repro_torch.training.optimizer",
             "repro_torch.training.train_loop", "repro_torch.training.data",
-            "repro_torch.training.checkpoint"} <= set(_modules())
+            "repro_torch.training.checkpoint",
+            "repro_torch.configs.shapes", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun",
+            "repro_torch.distributed.sharding_rules",
+            "repro_torch.distributed.mesh_axes"} <= set(_modules())
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -86,8 +90,12 @@ def test_engine_without_device_needs_cuda():
                                    impl="cuda"),
     lambda: ops.combine_weighted(torch.zeros(2, 2, 8), torch.zeros(2, 2),
                                  impl="cuda"),
+    lambda: ops.flash_decode_partial(torch.zeros(1, 2, 8),
+                                     torch.zeros(1, 4, 1, 8),
+                                     torch.zeros(1, 4, 1, 8),
+                                     torch.tensor([2]), impl="cuda"),
 ], ids=["grouped_gemm", "flash_decode", "paged_flash_decode",
-        "combine_weighted"])
+        "combine_weighted", "flash_decode_partial"])
 def test_cuda_impl_on_cpu_tensors_raises(call):
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
         call()

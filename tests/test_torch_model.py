@@ -14,6 +14,7 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core.elastic import ServerPool
 from repro_torch.models import attention, kv_cache
+from repro_torch.models.transformer import ParallelCtx as TParallelCtx
 from repro_torch.models.transformer import build_model
 
 S_SERVERS, MAX_SLOTS = 4, 64
@@ -30,7 +31,7 @@ def _run_both(dtype: str):
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
                                 "cpu")
     ctx = ParallelCtx(moe_runtime=jpool.runtime("xla_ragged"), remat=False)
-    trt = tpool.runtime("cpu")
+    trt = TParallelCtx(moe_runtime=tpool.runtime("cpu"))
 
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, size=(2, 24)).astype(np.int32)

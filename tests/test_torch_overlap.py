@@ -23,7 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import moe_layer
 from repro_torch.core.overlap import (double_batch_overlap,
                                       microbatch_schedule, split_batch_decode)
-from repro_torch.models.transformer import build_model
+from repro_torch.models.transformer import ParallelCtx, build_model
 
 MODES = ("lockstep", "pipelined", "serialized")
 
@@ -129,11 +129,12 @@ def _decoder(max_batch=4, max_seq=32):
     model = build_model(cfg, 4, np.zeros((4, 0), np.int32), "cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     # capacity for every pick of the full batch: neither split drops
-    rt = moe_layer.default_runtime(cfg, 4, 4 * max_batch, "cpu")
+    ctx = ParallelCtx(moe_runtime=moe_layer.default_runtime(
+        cfg, 4, 4 * max_batch, "cpu"))
     g = torch.Generator().manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (max_batch, 6), generator=g)
-    _, cache, _ = model.prefill(params, prompt, rt, max_slots=max_seq)
-    return cfg, model, params, rt, cache, g
+    _, cache, _ = model.prefill(params, prompt, ctx, max_slots=max_seq)
+    return cfg, model, params, ctx, cache, g
 
 
 def _clone(cache):
@@ -147,15 +148,15 @@ def test_split_decode_step_matches_lockstep():
     at 1e-5 in logits and caches — not bitwise, since the CPU's BLAS
     rounds a row differently at another row count (M = 1 takes a
     matrix-vector path) — with the stats summed exactly."""
-    cfg, model, params, rt, cache, g = _decoder()
+    cfg, model, params, ctx, cache, g = _decoder()
     split = {True: _clone(cache), False: _clone(cache)}
     for _ in range(3):
         tok = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
-        l_full, cache, st_full = model.decode_step(params, tok, cache, rt)
+        l_full, cache, st_full = model.decode_step(params, tok, cache, ctx)
         out = {}
         for enabled, c in split.items():
             out[enabled] = split_batch_decode(
-                lambda t, c: model.decode_step(params, t, c, rt), tok, c,
+                lambda t, c: model.decode_step(params, t, c, ctx), tok, c,
                 axis=1, enabled=enabled)
         assert torch.equal(out[True][0], out[False][0])
         for enabled, (l_sp, c, st_sp) in out.items():

@@ -30,6 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.elastic import ServerPool
 from repro_torch.kernels import ops
 from repro_torch.models import kv_cache as kvc
+from repro_torch.models.transformer import ParallelCtx as TParallelCtx
 from repro_torch.models.transformer import build_model
 from repro_torch.serving import (EngineConfig, Scenario, ServingEngine,
                                  VirtualClock, kv_pool, scheduler)
@@ -210,7 +211,7 @@ def test_prefill_chunk_paged_then_decode_vs_jax():
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg,
                                 "cpu")
     ctx = ParallelCtx(moe_runtime=jpool.runtime("xla_ragged"), remat=False)
-    trt = tpool.runtime("cpu")
+    trt = TParallelCtx(moe_runtime=tpool.runtime("cpu"))
     jchunk = jax.jit(lambda p, t, c, s: jmodel.prefill_chunk(p, t, c, s, ctx))
     jdecode = jax.jit(lambda p, t, c: jmodel.decode_step(p, t, c, ctx))
     rng = np.random.default_rng(0)
