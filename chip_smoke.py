@@ -3735,6 +3735,505 @@ def spmd_alone(torch, get_config, smi) -> None:
     spmd_phase(torch, get_config, smi)
 
 
+# ------------------------------------------------- phase 25: the mesh cells
+
+MESH_PATH = TRAIN_PATH
+DIGEST_CHUNK = 1 << 26
+
+
+def _param_digest(torch, params) -> str:
+    """sha1 over every leaf's exact bits, folded on the card: per leaf the
+    wrapping int64 sum of its bit patterns times position weights, in
+    chunks (order-free, so the same on any reduction order)."""
+    from repro_torch.training import tree
+
+    h = hashlib.sha1()
+    for path, leaf in tree.items(params):
+        flat = leaf.detach().reshape(-1)
+        bits = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for i in range(0, bits.numel(), DIGEST_CHUNK):
+            c = bits[i:i + DIGEST_CHUNK].long()
+            w = (torch.arange(i, i + c.numel(), device=c.device)
+                 * 2654435761) % 2147483647
+            acc += (c * w).sum()
+        h.update(f"{'/'.join(path)}:{int(acc)};".encode())
+    return h.hexdigest()[:16]
+
+
+def _train_run(torch, label, step, state, batch, steps: int, smi):
+    """``steps`` steps of ``step`` from ``state`` on ``batch``: the first
+    step's loss, grad norm and updated params' digest, the later steps'
+    wall p50, one profiled step's idle share, peak memory."""
+    import types
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = {"loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"]),
+                     "dropped": int(met["dropped"]),
+                     "digest": _param_digest(torch, state.params)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = _step_profile(torch, types.SimpleNamespace(
+        step=lambda: step(state, batch)), 1)
+    idle = (None if prof is None
+            else max(0.0, 1 - prof["union_ms"] / prof["plain_ms"]))
+    out = dict(first, wall_ms=statistics.median(walls[1:] or walls),
+               first_ms=walls[0], peak_gib=peak, idle=idle)
+    log(f"mesh: {label}: step 1 loss {first['loss']!r} grad_norm "
+        f"{first['grad_norm']!r} dropped {first['dropped']} params digest "
+        f"{first['digest']}; step wall p50 {out['wall_ms']:.1f} ms over "
+        f"steps 2-{steps} (step 1 {walls[0]:.1f} ms), "
+        f"{batch['tokens'].numel() * 1e3 / out['wall_ms']:.1f} train "
+        f"tokens/s, peak memory {peak:.2f} GiB, idle share "
+        + ("not measured" if idle is None else f"{idle:.3f}")
+        + f" ({smi})")
+    return out
+
+
+def mesh_full_width(torch, get_config, smi) -> dict:
+    """(a) deepseek-r1 at its published widths, depth 1 dense + 1 MoE
+    (13.47 B params, bf16), one expert server of all 256 experts, the
+    training phase's batch of 8 x 256 synthetic tokens:
+    ``dryrun.build_cell``'s train step on a 1 x 1 NCCL mesh — phase
+    ``train`` (``train_phase_for(13.47e9, 1)``: ZeRO-3, the
+    sequence-parallel residual, remat, CE chunks of 512), Adafactor lr
+    1e-3 — then the one-device ``make_train_step`` on
+    weights rebuilt from the same seed (two states do not fit), same
+    runtime, remat and chunks.  Loss, grad norm and the updated params'
+    digest must be equal (else within 2e-2, reported); the four training
+    kernels must launch in the cell's steps.  Returns their launches."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.transformer import ParallelCtx, build_model
+    from repro_torch.training.data import synthetic_lm_batches
+    from repro_torch.training.optimizer import adafactor
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    import torch.distributed as dist
+
+    _free(torch)
+    base = get_config("deepseek-r1")
+    cfg = base.replace(num_layers=2,
+                       moe=dataclasses.replace(base.moe, first_k_dense=1))
+    B, L, steps = 8, 256, 3
+    batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
+    meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                             timeout_s=600)
+    try:
+        mesh = meshlib.make_test_mesh(1, 1)
+        t0 = time.perf_counter()
+        cell = dryrun.build_cell("deepseek-r1",
+                                 InputShape("train_8x256", L, B, "train"),
+                                 mesh, cfg=cfg)
+        ctx = cell.ctx
+        if cell.phase != "train" or not (ctx.sp_residual and ctx.remat):
+            raise AssertionError(f"mesh: phase {cell.phase}, ctx {ctx}")
+        state = dryrun.init_state(cell, cell.shard(cell.model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))))
+        log(f"mesh: deepseek-r1 {cfg.num_params() / 1e9:.2f}B params, "
+            f"phase {cell.phase} (sp_residual, remat, ce_chunk "
+            f"{ctx.ce_chunk}), capacity {ctx.moe_runtime.capacity}, built "
+            f"in {time.perf_counter() - t0:.1f}s")
+        ops.reset_launches()
+        got = _train_run(torch, "build_cell train step (1 x 1 NCCL mesh)",
+                         cell.step, state, batch, steps, smi)
+        launches = ops.launch_counts()
+        rt = ctx.moe_runtime
+        del state, cell
+    finally:
+        dist.destroy_process_group()
+    _free(torch)
+    zero = [k for k in MESH_PATH if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"mesh: the cell's step never launched {zero}")
+    model = build_model(cfg, 1, np.zeros((1, 0), np.int32), "cuda")
+    opt = adafactor(lr=1e-3)
+    state = init_train_state(model, opt,
+                             torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, opt, ParallelCtx(moe_runtime=rt,
+                                                   remat=True, ce_chunk=512))
+    ref = _train_run(torch, "one-device make_train_step", step, state,
+                     batch, steps, smi)
+    keys = ("loss", "grad_norm", "digest")
+    same = all(got[k] == ref[k] for k in keys)
+    if not same:       # does the one-device step repeat itself bitwise?
+        state = None
+        _free(torch)
+        again = _train_run(torch, "one-device make_train_step, again",
+                           step, init_train_state(
+                               model, opt, torch.Generator(
+                                   device="cuda").manual_seed(0)),
+                           batch, 1, smi)
+        equal = all(again[k] == ref[k] for k in keys)
+        log(f"mesh: the one-device step repeated from the same seed: "
+            f"{'bitwise equal' if equal else 'differs'} (grad_norm "
+            f"{again['grad_norm']!r} vs {ref['grad_norm']!r})")
+    del state, model, step
+    _free(torch)
+    err = max(abs(got[k] - ref[k]) for k in ("loss", "grad_norm"))
+    log(f"mesh: cell vs one-device: loss, grad_norm and params digest "
+        f"{'bitwise equal' if same else f'differ (max |err| {err:.3e})'}; "
+        f"step wall {got['wall_ms']:.1f} vs {ref['wall_ms']:.1f} ms, peak "
+        f"{got['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB; launches "
+        f"{json.dumps({k: launches[k] for k in MESH_PATH})} over {steps} "
+        f"steps ({smi})")
+    if not same and not err <= 2e-2:
+        raise AssertionError(f"mesh: cell {got} vs one-device {ref}")
+    return launches
+
+
+class _MeshShape:
+    """A (data, model) mesh's names and sizes, all ``moe_runtime_for``
+    reads of one."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, n_data, n_model):
+        self.shape = (n_data, n_model)
+
+    def get_coordinate(self):
+        return self.coord
+
+
+MESH_CELLS = (("train", "train"), ("train", "train_tp"),
+              ("prefill", "serve"), ("decode", "decode"))
+MESH_B, MESH_S, MESH_LEN = 8, 32, 20
+
+
+def _mesh_cfg(get_config, arch):
+    """The reduced float32 config of (b).  On a mesh the Switch aux loss is
+    the mean of each client's loss (the reference's), which one process
+    with one client cannot form; the comparison sets its coefficient to 0
+    on both sides (the CPU tests hold it against the reference's mesh)."""
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, router_aux_loss_coef=0.0))
+    return cfg
+
+
+def _mesh_inputs(torch, cfg, kind):
+    """A cell's inputs, whole: tokens (+ labels) from a seed; the decode
+    cell's cache holds MESH_LEN random tokens."""
+    g = torch.Generator().manual_seed(7)
+    tok = torch.randint(0, cfg.vocab_size, (MESH_B, 1 if kind == "decode"
+                                            else MESH_S), generator=g)
+    out = {"tokens": tok}
+    if kind == "train":
+        out["labels"] = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S),
+                                      generator=g)
+    return out
+
+
+def _mesh_cache(torch, model, cfg):
+    from repro_torch.models import kv_cache as kvc
+
+    cache = model.init_cache(MESH_B, MESH_S)
+    g = torch.Generator().manual_seed(8)
+    out = {}
+    for name, c in cache.items():
+        k = torch.randn(c.k.shape, generator=g).to(c.k)
+        v = torch.randn(c.v.shape, generator=g).to(c.v)
+        k[:, :, MESH_LEN:] = 0
+        v[:, :, MESH_LEN:] = 0
+        out[name] = kvc.KVCache(k, v, torch.full_like(c.length, MESH_LEN))
+    return out
+
+
+def _no_drop_runtime(dryrun, patch: bool):
+    """``moe_runtime_for`` with each client's capacity holding all its
+    routed tokens (no drops: the one-process run then computes the same
+    function with one client)."""
+    keep = dryrun.moe_runtime_for
+
+    def every_token(cfg, mesh, shape, mode, device=None):
+        rt = keep(cfg, mesh, shape, mode, device)
+        if rt is None:
+            return rt
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        per = (shape.global_batch * shape.seq_len if mode == "a2a"
+               else shape.global_batch) // sizes["data"]
+        if mode == "a2a":
+            per //= sizes["model"]
+        return rt._replace(capacity=max(per, 1) * cfg.moe.top_k)
+    if patch:
+        dryrun.moe_runtime_for = every_token
+    return keep, every_token
+
+
+def _mesh_rank(rank: int, world: int, init: str, q) -> None:
+    """(b) one of 4 gloo ranks on the one card, mesh (2, 2): for reduced
+    float32 deepseek-r1 and qwen2-vl-2b, ``dryrun.build_cell``'s train
+    step in phases train and train_tp, its prefill (serve) and serve step
+    (decode); puts this rank's outputs (or the error) on ``q``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.training import tree
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=init, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=120))  # a rank that fails
+        # fails its peers' collectives too, not after gloo's 30 minutes
+        mesh = meshlib.make_test_mesh(2, 2, device="cuda")
+        _no_drop_runtime(dryrun, True)
+        out, launches = {}, {}
+        keep_phase = dryrun.train_phase_for
+        for arch in ("deepseek-r1", "qwen2-vl-2b"):
+            cfg = _mesh_cfg(get_config, arch)
+            for kind, phase in MESH_CELLS:
+                key = f"{arch}/{phase}"
+                dryrun.train_phase_for = lambda *a, **k: phase  # noqa
+                cell = dryrun.build_cell(arch, InputShape(
+                    kind, MESH_S, MESH_B, kind), mesh, cfg=cfg)
+                dryrun.train_phase_for = keep_phase
+                if cell.phase != phase:
+                    raise AssertionError(f"{key}: phase {cell.phase}")
+                full = cell.model.init_params(
+                    torch.Generator(device="cuda").manual_seed(0))
+                params = tree.map_params(lambda p: p.clone(),
+                                         cell.shard(full))
+                del full
+                inp = {k: cell.rows(k, v).cuda() for k, v in
+                       _mesh_inputs(torch, cfg, kind).items()}
+                ops.reset_launches()
+                if kind == "train":
+                    st, met = cell.step(dryrun.init_state(cell, params), inp)
+                    out[key] = {"loss": float(met["loss"]),
+                                "grad_norm": float(met["grad_norm"]),
+                                "params": {"/".join(p): v.detach().cpu()
+                                           .numpy() for p, v in
+                                           tree.items(st.params)}}
+                elif kind == "prefill":
+                    with torch.no_grad():
+                        logits, cache = cell.step(params, inp["tokens"])
+                    out[key] = {"logits": logits.cpu().numpy(),
+                                "k": {n: c.k.cpu().numpy()
+                                      for n, c in cache.items()}}
+                else:
+                    cache = cell.cache_shard(_mesh_cache(
+                        torch, cell.model, cfg))
+                    cache = {n: type(c)(c.k.clone().cuda(),
+                                        c.v.clone().cuda(),
+                                        c.length.clone().cuda())
+                             for n, c in cache.items()}
+                    with torch.no_grad():
+                        logits = cell.model.decode_step(
+                            params, inp["tokens"],
+                            {n: type(c)(c.k.clone(), c.v.clone(),
+                                        c.length.clone())
+                             for n, c in cache.items()}, cell.ctx)[0]
+                        nxt, cache = cell.step(params, inp["tokens"],
+                                               cache)
+                    out[key] = {"logits": logits.cpu().numpy(),
+                                "next": nxt.cpu().numpy(),
+                                "k": {n: c.k.cpu().numpy()
+                                      for n, c in cache.items()}}
+                torch.cuda.synchronize()
+                launches[key] = ops.launch_counts()
+        q.put((rank, out, launches, mesh.get_coordinate()))
+    except Exception as e:  # noqa: BLE001 - reported to the parent
+        import traceback
+        q.put((rank, f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
+               None, None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_one_process(torch, arch, cfg, kind, phase) -> dict:
+    """The same cell's function in one process on one device: the whole
+    model, one client holding every token (no drops), the mesh's 2
+    servers' layout, mapping and local tables."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import ParallelCtx, build_model
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import adafactor
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+
+    n = 2 if cfg.moe else 1
+    model = build_model(cfg, n, np.zeros((n, 0), np.int32), "cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    shape = InputShape(kind, MESH_S, MESH_B, kind)
+    mode = "replicated" if kind == "decode" else "a2a"
+    rt = dryrun.moe_runtime_for(cfg, _MeshShape(1, 2), shape, mode,
+                                device="cuda")
+    if rt is not None:
+        rows = MESH_B if kind == "decode" else MESH_B * MESH_S
+        rt = rt._replace(capacity=rows * cfg.moe.top_k)
+    ctx = ParallelCtx(moe_runtime=rt, remat=True, ce_chunk=512)
+    inp = {k: v.cuda() for k, v in _mesh_inputs(torch, cfg, kind).items()}
+    if kind == "train":
+        opt = adafactor(lr=1e-3)
+        st, met = make_train_step(model, opt, ctx)(
+            init_train_state(model, opt, None, params=params), inp)
+        return {"loss": float(met["loss"]),
+                "grad_norm": float(met["grad_norm"]),
+                "params": tree.map_params(lambda p: p.detach().cpu().numpy(),
+                                          st.params)}
+    with torch.no_grad():
+        if kind == "prefill":
+            logits, cache, _ = model.prefill(params, inp["tokens"], ctx,
+                                             max_slots=MESH_S)
+            return {"logits": logits.cpu().numpy(),
+                    "k": {n: c.k.cpu().numpy() for n, c in cache.items()}}
+        logits, cache, _ = model.decode_step(
+            params, inp["tokens"], {n: type(c)(c.k.cuda(), c.v.cuda(),
+                                               c.length.cuda())
+                                    for n, c in _mesh_cache(
+                                        torch, model, cfg).items()}, ctx)
+    return {"logits": logits.cpu().numpy(),
+            "next": logits.argmax(-1, keepdim=True).int().cpu().numpy(),
+            "k": {n: c.k.cpu().numpy() for n, c in cache.items()}}
+
+
+def mesh_multirank(torch, get_config, smi) -> None:
+    """(b) 4 gloo ranks on the card, (2, 2): every cell of reduced
+    float32 deepseek-r1 (its aux loss off, ``_mesh_cfg``) and qwen2-vl-2b
+    against the one-process run, 1e-5: train (loss, grad norm, every updated shard, in phases train and
+    train_tp), prefill (logits and cache rows), decode (logits and next
+    token rows, the cache shard)."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding_rules as tsr
+
+    ranks = _run_ranks(_mesh_rank, 4, (), timeout=420)
+    bad = [r[1] for r in ranks if r[2] is None]
+    if bad:
+        raise AssertionError(f"mesh (4 ranks): a rank failed:\n{bad[0]}")
+    b, w, errs = MESH_B // 2, MESH_S // 2, {}
+    for arch in ("deepseek-r1", "qwen2-vl-2b"):
+        cfg = _mesh_cfg(get_config, arch)
+        for kind, phase in MESH_CELLS:
+            key = f"{arch}/{phase}"
+            ref = _mesh_one_process(torch, arch, cfg, kind, phase)
+            err = 0.0
+            for rank, out, launches, (d, m) in ranks:
+                got = out[key]
+                if kind == "train":
+                    err = max(err, abs(got["loss"] - ref["loss"]),
+                              abs(got["grad_norm"] - ref["grad_norm"]))
+                    mesh = _MeshShape(2, 2)
+                    mesh.coord = [d, m]
+                    want = tsr.shard_params(ref["params"], mesh, phase,
+                                            dense=True)
+                    for path, v in got["params"].items():
+                        node = want
+                        for part in path.split("/"):
+                            node = node[part]
+                        err = max(err, float(np.abs(v - node).max()))
+                    if cfg.moe and any(launches[key][k] <= 0
+                                       for k in MESH_PATH):
+                        raise AssertionError(f"mesh: {key} rank {rank} "
+                                             f"launches {launches[key]}")
+                else:
+                    rows = slice(d * b, (d + 1) * b)
+                    err = max(err, float(np.abs(
+                        got["logits"] - ref["logits"][rows]).max()))
+                    for n, k in got["k"].items():
+                        want = ref["k"][n][:, rows]
+                        if kind == "decode":
+                            want = want[:, :, m * w:(m + 1) * w]
+                        err = max(err, float(np.abs(k - want).max()))
+                    if kind == "decode" and not np.array_equal(
+                            got["next"], ref["next"][rows]):
+                        raise AssertionError(f"mesh: {key} next tokens")
+            errs[key] = err
+    log(f"mesh: 4 gloo ranks on one card, mesh (2, 2), reduced float32 "
+        f"cells vs the one-process run: max |err| "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(tol 1e-5) ({smi})")
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"mesh (4 ranks): cells differ {errs}")
+
+
+def _accounting_start():
+    """(c) the dry-run's accounting of deepseek-r1 train_4k on pod16x16,
+    on meta under the fake backend, in its own process (its fake world
+    must not meet this process's groups); runs beside the card work."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "deepseek-r1", "--shape", "train_4k", "--no-save", "--json"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def _accounting_report(proc) -> None:
+    try:
+        text, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    rows = [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+    if proc.returncode != 0 or not rows or rows[0]["status"] != "ok":
+        raise AssertionError(f"mesh: the dry-run accounting failed:\n"
+                             f"{text[-3000:]}")
+    r = rows[0]
+    mem = r["memory"]
+    log(f"mesh: dry-run accounting (meta, fake backend, no card) of "
+        f"deepseek-r1 train_4k on {r['mesh']} ({r['num_devices']} ranks, "
+        f"phase {r['phase']}, counted in {r['count_s']}s): per rank "
+        f"{r['flops_per_device']:.4e} FLOPs, argument bytes "
+        f"{json.dumps(mem['argument_bytes'])}, peak "
+        f"{mem['peak_bytes_per_device'] / 2**30:.2f} GiB (fits 80 GiB: "
+        f"{mem['fits_h100_80gib']}), collective bytes "
+        f"{json.dumps(r['collective_bytes_per_device'])}, counts "
+        f"{json.dumps(r['collective_counts'])}")
+
+
+def mesh_phase(torch, get_config, smi) -> dict:
+    """Phase 25: the dry-run's cells on torch.distributed — (a) the
+    full-width deepseek-r1 train cell on a 1 x 1 NCCL mesh against the
+    one-device step, (b) 4 gloo ranks on the card running reduced cells
+    against the one-process run, (c) the dry-run's per-rank accounting
+    (beside them, in its own process).  Returns (a)'s launches."""
+    acct = _accounting_start()
+    try:
+        launches = mesh_full_width(torch, get_config, smi)
+        mesh_multirank(torch, get_config, smi)
+        _accounting_report(acct)
+    finally:
+        if acct.poll() is None:
+            acct.kill()
+    return launches
+
+
+def mesh_alone(torch, get_config, smi) -> None:
+    """``--only mesh``: phase 25."""
+    mesh_phase(torch, get_config, smi)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3778,7 +4277,8 @@ def main() -> int:
              "rwkv6": lambda: rwkv6_phase(torch, get_config, smi),
              "whisper": lambda: whisper_phase(torch, get_config, smi),
              "train": lambda: train_alone(torch, get_config, smi),
-             "spmd": lambda: spmd_alone(torch, get_config, smi)}
+             "spmd": lambda: spmd_alone(torch, get_config, smi),
+             "mesh": lambda: mesh_alone(torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -3832,6 +4332,7 @@ def main() -> int:
     train_launches, launcher_launches = train_phases(torch, get_config, smi,
                                                      cases)
     spmd_launches = spmd_phase(torch, get_config, smi)
+    mesh_launches = mesh_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -3861,7 +4362,8 @@ def main() -> int:
                                   "train": train_launches[name],
                                   "train-launcher":
                                       launcher_launches[name],
-                                  "spmd": spmd_launches[name]},
+                                  "spmd": spmd_launches[name],
+                                  "mesh": mesh_launches[name]},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -33,9 +33,10 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
     """Map a params tree of numpy leaves onto ``device``.  ``cfg`` names
-    the architecture whose layout the tree must have."""
-    if "embed" not in tree or tree["embed"].shape != (cfg.padded_vocab,
-                                                      cfg.d_model):
+    the architecture whose layout the tree must have (None: a shard,
+    checked by the caller)."""
+    if cfg is not None and ("embed" not in tree or tree["embed"].shape != (
+            cfg.padded_vocab, cfg.d_model)):
         raise ValueError(f"not a {cfg.arch_id} params tree")
 
     def conv(node):
@@ -47,7 +48,14 @@ def params_from_numpy(tree: Dict, cfg: ModelConfig, device) -> Dict:
 
 
 def shard_from_numpy(tree: Dict, cfg: ModelConfig, device, mesh,
-                     phase: str = "serve") -> Dict:
+                     phase: str = "serve", dense: bool = False) -> Dict:
     """This rank's shard of a whole params tree of numpy leaves on
-    ``mesh``, as tensors on ``device``."""
+    ``mesh``, as tensors on ``device``: ``dense`` cuts every leaf as the
+    sharding table places it in ``phase`` (a dry-run cell's layout),
+    otherwise the serving layout (``sharding_rules.shard_params``)."""
+    if dense:
+        if tree["embed"].shape != (cfg.padded_vocab, cfg.d_model):
+            raise ValueError(f"not a {cfg.arch_id} params tree")
+        return params_from_numpy(shard_params(tree, mesh, phase, True),
+                                 None, device)
     return params_from_numpy(shard_params(tree, mesh, phase), cfg, device)

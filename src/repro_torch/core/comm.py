@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.types import DispatchBuffers
+from repro_torch.distributed import tensor_parallel as tpl
 
 MODES = ("local", "a2a", "replicated")
 
@@ -37,12 +38,32 @@ def _check(mode: str) -> None:
         raise ValueError(f"unknown comm mode {mode!r}; expected {MODES}")
 
 
-def _a2a(t: torch.Tensor, group) -> torch.Tensor:
-    """Block i of dim 0 to rank i of ``group``; block j of the result came
-    from rank j."""
+def _a2a_raw(t: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t.contiguous(), group=group)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """The transfer is a permutation of blocks: its backward is the same
+    ``all_to_all`` in reverse (block j of the gradient back to rank j)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _a2a_raw(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _a2a_raw(g, ctx.group), None
+
+
+def _a2a(t: torch.Tensor, group) -> torch.Tensor:
+    """Block i of dim 0 to rank i of ``group``; block j of the result came
+    from rank j.  Differentiable (integer buffers need no gradient)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllToAll.apply(t, group)
+    return _a2a_raw(t, group)
 
 
 def send_to_servers(buffers: DispatchBuffers, mode: str = "local",
@@ -89,16 +110,19 @@ def own_slots(combine_slot: torch.Tensor, capacity: int,
 
 def finalize_combine(y_partial: torch.Tensor, mode: str = "local",
                      group=None) -> torch.Tensor:
-    """Cross-server reduction of the combined output (replicated only)."""
+    """Cross-server reduction of the combined output (replicated only).
+    Its backward is the identity: the summed output is replicated over
+    the servers, each of which already holds its whole gradient."""
     _check(mode)
     if mode == "replicated" and group is not None:
-        dist.all_reduce(y_partial, group=group)
+        return tpl.reduce_from(y_partial, group)
     return y_partial
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' row blocks of ``group`` concatenated in rank order (the
-    a2a island's output back to every server of a data block)."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+    a2a island's output back to every server of a data block).  Its
+    backward takes this rank's rows of the gradient: what follows is
+    replicated over ``group``, so every rank holds the whole gradient
+    already, and a reduce-scatter would count it once per rank."""
+    return tpl.gather(x, 0, group)

@@ -5,7 +5,9 @@ Two packing algorithms produce identical buffers: ``sort`` (stable sort by
 destination server) and ``onehot`` (cumsum-of-onehot ranking).  At most
 ``capacity`` tokens per (client, server) slot; overflow is dropped and
 counted.  The reference drops out-of-range writes with ``mode="drop"``;
-here the writes are masked explicitly.
+here every entry is written at a fixed shape, the dropped ones onto a
+scratch row past the ``S*C`` slots that is cut off after: no boolean mask,
+so nothing syncs with the host and the pack runs on ``meta`` tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.router import count_ids
 from repro_torch.core.types import DispatchBuffers
 from repro_torch.kernels import ops
 
@@ -32,7 +35,7 @@ def pack(x: torch.Tensor, expert_ids: torch.Tensor, scores: torch.Tensor,
 
     if method == "sort":
         order = torch.argsort(flat_server, stable=True)
-        counts = torch.bincount(flat_server, minlength=S)
+        counts = count_ids(flat_server, S)
         starts = torch.cumsum(counts, 0) - counts
         slot_sorted = torch.arange(T * k, device=dev) - starts[
             flat_server[order]]
@@ -48,18 +51,18 @@ def pack(x: torch.Tensor, expert_ids: torch.Tensor, scores: torch.Tensor,
 
     valid = slot < C
     flat_idx = flat_server * C + slot
-    dest = flat_idx[valid]
-    hidden = torch.zeros((S * C, d), dtype=x.dtype, device=dev)
-    hidden[dest] = x[flat_token[valid]]
-    eid = torch.full((S * C,), -1, dtype=torch.int64, device=dev)
-    eid[dest] = expert_ids.reshape(-1)[valid]
-    sc = torch.zeros((S * C,), dtype=torch.float32, device=dev)
-    sc[dest] = scores.reshape(-1)[valid].float()
+    dest = torch.where(valid, flat_idx, S * C)           # S*C: scratch row
+    hidden = torch.zeros((S * C + 1, d), dtype=x.dtype, device=dev)
+    hidden[dest] = x[flat_token]
+    eid = torch.full((S * C + 1,), -1, dtype=torch.int64, device=dev)
+    eid[dest] = expert_ids.reshape(-1)
+    sc = torch.zeros((S * C + 1,), dtype=torch.float32, device=dev)
+    sc[dest] = scores.reshape(-1).float()
 
     return DispatchBuffers(
-        hidden=hidden.reshape(S, C, d),
-        expert_id=eid.reshape(S, C),
-        score=sc.reshape(S, C),
+        hidden=hidden[:S * C].reshape(S, C, d),
+        expert_id=eid[:S * C].reshape(S, C),
+        score=sc[:S * C].reshape(S, C),
         counts=counts.clamp(max=C),
         combine_slot=torch.where(valid, flat_idx, -1).reshape(T, k),
         dropped=(counts - C).clamp(min=0).sum())

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.router import count_ids
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init
 
@@ -220,7 +221,7 @@ def serve(tokens: torch.Tensor, expert_ids: torch.Tensor,
     # ---- reorganize tokens by local expert (paper Fig. 5) --------------
     order = torch.argsort(slot, stable=True)
     xs = x[order]
-    group_sizes = torch.bincount(slot, minlength=L + 1)[:L]
+    group_sizes = count_ids(slot, L)            # the padding group: none
 
     # ---- grouped GEMM over active groups only (group-shrink) -----------
     h_gate = ops.grouped_gemm(xs, weights.w_gate, group_sizes)

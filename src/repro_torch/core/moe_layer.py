@@ -126,15 +126,16 @@ def init_eaas_moe(cfg: ModelConfig, num_servers: int, redundant_table,
     return params
 
 
-def client_extras(params: Dict, x: torch.Tensor,
-                  activation: str) -> Optional[torch.Tensor]:
+def client_extras(params: Dict, x: torch.Tensor, activation: str,
+                  group=None) -> Optional[torch.Tensor]:
     """Shared experts + dense residual — the client-side dense FFN tier,
     summed in the reference's order (zeros + shared + residual, in x's
-    dtype); None when the layer has neither."""
+    dtype); None when the layer has neither.  ``group``: tensor-parallel
+    over the ``model`` axis (``mlp``)."""
     extra = None
     for name in ("shared", "residual"):
         if name in params:
-            y = mlp(params[name], x, activation)
+            y = mlp(params[name], x, activation, group)
             extra = y if extra is None else extra + y
     return extra
 

@@ -10,6 +10,17 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core.types import RouterOutput
 
 
+def count_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=n)[:n]`` for ids >= 0 (ids past
+    ``n - 1`` not counted) as an int64 ``scatter_add_`` into ``n + 1``
+    bins: exact counts, and defined on ``meta`` tensors (bincount is
+    not)."""
+    flat = ids.reshape(-1).long().clamp(max=n)
+    return torch.zeros(n + 1, dtype=torch.int64,
+                       device=ids.device).scatter_add_(
+        0, flat, torch.ones_like(flat))[:n]
+
+
 def init_router(d_model: int, num_experts: int, device, generator,
                 lead=()) -> Dict:
     w = torch.randn((*lead, d_model, num_experts), generator=generator,
@@ -46,7 +57,7 @@ def route(params: Dict, x: torch.Tensor, cfg: MoEConfig,
 
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     E = probs.shape[1]
-    f = torch.bincount(expert_ids[:, 0], minlength=E).float() / probs.shape[0]
+    f = count_ids(expert_ids[:, 0], E).float() / probs.shape[0]
     aux = E * torch.sum(f * probs.mean(dim=0)) * cfg.router_aux_loss_coef
     lse = torch.logsumexp(logits, dim=-1)
     z = lse.square().mean() * cfg.router_z_loss_coef
@@ -56,4 +67,4 @@ def route(params: Dict, x: torch.Tensor, cfg: MoEConfig,
 
 def expert_load(expert_ids: torch.Tensor, num_experts: int) -> torch.Tensor:
     """Token count per expert (the load balancer's statistic)."""
-    return torch.bincount(expert_ids.reshape(-1), minlength=num_experts)
+    return count_ids(expert_ids, num_experts)

@@ -39,8 +39,10 @@ def axes_index(mesh, axes: Sequence[str]) -> int:
 
 def axes_group(mesh, axes: Sequence[str]):
     """The process group of the ranks that differ only along ``axes``: one
-    axis's group, or every axis's (the world the mesh spans).  A group over
-    several but not all axes (a 3-D mesh's batch axes) is not built."""
+    axis's group, every axis's (the world the mesh spans), or several
+    axes' in the mesh's order (a 3-D mesh's batch axes ("pod", "data"):
+    the sub-mesh flattened, the first axis major; every rank must ask for
+    it, as for any new group)."""
     axes = tuple(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
@@ -48,5 +50,8 @@ def axes_group(mesh, axes: Sequence[str]):
         if mesh.size() != dist.get_world_size():
             raise ValueError("the mesh does not span the world")
         return dist.group.WORLD
-    raise NotImplementedError(f"a process group over the axes {axes} of a "
-                              f"mesh {mesh.mesh_dim_names}")
+    order = [a for a in mesh.mesh_dim_names if a in axes]
+    if tuple(order) != axes:
+        raise ValueError(f"axes {axes} out of the mesh's order "
+                         f"{mesh.mesh_dim_names}")
+    return mesh[axes]._flatten().get_group()

@@ -19,11 +19,13 @@ Mesh axes: ``("pod",) data, model``.  Phases:
   replicated over data.
 
 Placements are matched by parameter path suffix; stacked layer dims are
-padded with ``None``.  The table is the reference's, as data.  What the
-port EXECUTES sharded is narrower (:func:`shard_params`): the expert banks
-and ``local_table`` over ``model``, and the leaves of rwkv6's
-tensor-parallel island in its own layout; dense weights stay whole on
-every rank.
+padded with ``None``.  The table is the reference's, as data.
+:func:`shard_params` executes it: with ``dense=True`` every leaf as the
+table places it (the decoder family's dense tensor-parallel and ZeRO-3
+layouts, run by :mod:`repro_torch.distributed.tensor_parallel`); without,
+the serving path's narrower layout: the expert banks over ``model`` and
+the leaves of rwkv6's tensor-parallel island in its own layout, dense
+weights whole on every rank.
 """
 
 from __future__ import annotations
@@ -102,6 +104,13 @@ def _match(path: str, shape, phase: str, dp, mp: str) -> Placement:
             return (None,) * pad + tuple(_axes(a) if a is not None else None
                                          for a in specs[idx])
     return ()                                    # replicated
+
+
+def placement_of(path: str, shape, phase: str, dp, mp: str = "model"
+                 ) -> Placement:
+    """The table's placement of one leaf (its path, its shape) in
+    ``phase``; ``dp`` the data axes (a tuple, or one name)."""
+    return _match(path, tuple(shape), phase, _axes(dp), mp)
 
 
 def _map(fn, tree, path: str = ""):
@@ -211,11 +220,14 @@ def shard_leaf(leaf, placement: Placement, sizes: Mapping[str, int],
     return leaf[tuple(index)]
 
 
-def _executed(path: str, spec: Placement, ndim: int) -> Placement:
-    """The part of ``spec`` the port executes: the expert tier over the
-    model axis; rwkv6's island leaves in the island's own layout (its
-    time-mix ``w_v`` is column-parallel, not the table's row); every other
-    leaf whole."""
+def _executed(path: str, spec: Placement, ndim: int,
+              dense: bool = False) -> Placement:
+    """The part of ``spec`` the port executes: all of it with ``dense``;
+    else the expert tier over the model axis, rwkv6's island leaves in the
+    island's own layout (its time-mix ``w_v`` is column-parallel, not the
+    table's row) and every other leaf whole."""
+    if dense:
+        return spec
     if "/servers/" in f"/{path}":
         return tuple(a if a == "model" else None for a in spec)
     parts = path.split("/")
@@ -226,12 +238,13 @@ def _executed(path: str, spec: Placement, ndim: int) -> Placement:
     return ()
 
 
-def shard_params(full, mesh, phase: str = "serve"):
+def shard_params(full, mesh, phase: str = "serve", dense: bool = False):
     """This rank's slice of a whole params tree (tensors or numpy arrays)
     on ``mesh`` (anything with ``mesh_dim_names``, ``shape`` and
-    ``get_coordinate()``, as a ``DeviceMesh``).  Only what the port
-    executes sharded is sliced (see :func:`_executed`); slices are views,
-    so a 1 x 1 mesh copies nothing."""
+    ``get_coordinate()``, as a ``DeviceMesh``) in ``phase``: every leaf as
+    the table places it with ``dense``, else the serving layout (see
+    :func:`_executed`); slices are views, so a 1 x 1 mesh copies
+    nothing."""
     names = tuple(mesh.mesh_dim_names)
     sizes: Dict[str, int] = dict(zip(names, mesh.shape))
     coord = dict(zip(names, mesh.get_coordinate()))
@@ -239,7 +252,7 @@ def shard_params(full, mesh, phase: str = "serve"):
     placements = param_placements(full, phase, dp=dp)
 
     def one(path, leaf):
-        spec = _executed(path, _get(placements, path), leaf.ndim)
+        spec = _executed(path, _get(placements, path), leaf.ndim, dense)
         return shard_leaf(leaf, spec, sizes, coord)
     return _map(one, full)
 

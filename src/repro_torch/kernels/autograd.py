@@ -41,6 +41,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.combine import combine_slots_cuda, combine_slots_torch
 from repro_torch.kernels.grouped_gemm import (grouped_gemm_cuda,
                                               grouped_gemm_dw_cuda,
@@ -50,6 +51,17 @@ from repro_torch.kernels.grouped_gemm import (grouped_gemm_cuda,
                                               grouped_gemm_torch)
 
 _TARGET = "_stacked_grad_target"       # (leaf, index) on a stacked view
+
+def _gemm(impl: str):
+    """(forward, dx, dw) of the grouped GEMM for ``impl``, looked up at
+    each call (the smoke run wraps ``grouped_gemm_dw_cuda`` to read the
+    group sizes)."""
+    if impl == "cuda":
+        return grouped_gemm_cuda, grouped_gemm_dx_cuda, grouped_gemm_dw_cuda
+    if impl == "meta":
+        return (meta.grouped_gemm, meta.grouped_gemm_dx,
+                meta.grouped_gemm_dw_meta)
+    return grouped_gemm_torch, grouped_gemm_dx_torch, grouped_gemm_dw_torch
 
 
 def _grad_buffer(leaf: torch.Tensor) -> torch.Tensor:
@@ -97,7 +109,8 @@ def grad_target(t: torch.Tensor) -> Optional[Tuple[torch.Tensor, tuple]]:
 
 class GroupedGemm(torch.autograd.Function):
     """``out[i] = x[i] @ w[g(i)]`` with its gradient (module docstring).
-    ``impl``: "cuda" (the kernels) or "torch" (the plain versions);
+    ``impl``: "cuda" (the kernels), "torch" (the plain versions) or
+    "meta" (shapes and counts, :mod:`.meta`);
     ``target``: w's :func:`grad_target` — dw then goes into that slice of
     the leaf's ``.grad`` and w gets no gradient of its own."""
 
@@ -105,20 +118,17 @@ class GroupedGemm(torch.autograd.Function):
     def forward(ctx, x, w, group_sizes, impl, target):
         ctx.save_for_backward(x, w, group_sizes)
         ctx.impl, ctx.target = impl, target
-        fwd = grouped_gemm_cuda if impl == "cuda" else grouped_gemm_torch
-        return fwd(x, w, group_sizes)
+        return _gemm(impl)[0](x, w, group_sizes)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, sizes = ctx.saved_tensors
-        cuda = ctx.impl == "cuda"
+        _, dx_fn, dw_fn = _gemm(ctx.impl)
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = (grouped_gemm_dx_cuda if cuda else grouped_gemm_dx_torch)(
-                dy, w, sizes)
+            dx = dx_fn(dy, w, sizes)
         if ctx.needs_input_grad[1]:
-            dw_fn = grouped_gemm_dw_cuda if cuda else grouped_gemm_dw_torch
             if ctx.target is None:
                 dw = dw_fn(x, dy, sizes)
             else:
@@ -137,6 +147,8 @@ class CombineSlots(torch.autograd.Function):
         ctx.stacked = len(bufs) == 1 and bufs[0].dim() == 3
         ctx.shape = ((bufs[0].shape[0], bufs[0].shape[1]) if ctx.stacked
                      else (len(bufs), bufs[0].shape[0]))
+        if impl == "meta":
+            return meta.combine_slots(list(bufs), combine_slot, addend)
         fwd = combine_slots_cuda if impl == "cuda" else combine_slots_torch
         return fwd(bufs[0] if ctx.stacked else list(bufs), combine_slot,
                    addend)

@@ -7,7 +7,10 @@ Each op has two implementations:
 
 ``impl="auto"`` picks ``cuda`` for a CUDA tensor and ``torch`` for a CPU
 tensor; ``impl="cuda"`` on a CPU tensor raises.  Nothing falls back from the
-kernel to the plain version.
+kernel to the plain version.  On ``meta`` tensors (the dry-run's
+accounting) ``auto`` is the ``meta`` route (:mod:`repro_torch.kernels.meta`):
+an empty output of the kernel's shape, counted by the kernel's own work;
+the paged decode and ``combine_weighted`` have none and raise there.
 
 Under grad mode with an input that requires grad, ``grouped_gemm`` and
 ``combine_slots`` run through their autograd Functions
@@ -22,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import autograd, build
+from repro_torch.kernels import autograd, build, meta
 from repro_torch.kernels.combine import (combine_slots_cuda,
                                          combine_slots_torch,
                                          combine_weighted_cuda,
@@ -33,17 +36,26 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.grouped_gemm import (grouped_gemm_cuda,
                                               grouped_gemm_torch)
 
-IMPLS = ("auto", "cuda", "torch")
+IMPLS = ("auto", "cuda", "torch", "meta")
 
 
 def _resolve(impl: str, t: torch.Tensor) -> str:
     if impl not in IMPLS:
         raise ValueError(f"unknown kernel impl {impl!r}; expected {IMPLS}")
     if impl == "auto":
-        return "cuda" if t.is_cuda else "torch"
+        return "cuda" if t.is_cuda else "meta" if t.is_meta else "torch"
+    if impl == "meta" and not t.is_meta:
+        raise ValueError("impl='meta' needs meta tensors; got a tensor on "
+                         f"{t.device}")
     if impl == "cuda" and not t.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; got a tensor on "
                          f"{t.device}")
+    return impl
+
+
+def _no_meta(impl: str, name: str) -> str:
+    if impl == "meta":
+        raise NotImplementedError(f"{name} has no meta route")
     return impl
 
 
@@ -58,6 +70,8 @@ def grouped_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
                                           autograd.grad_target(w))
     if impl == "cuda":
         return grouped_gemm_cuda(x_sorted, w, group_sizes)
+    if impl == "meta":
+        return meta.grouped_gemm(x_sorted, w, group_sizes)
     return grouped_gemm_torch(x_sorted, w, group_sizes)
 
 
@@ -66,8 +80,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  softcap: float = 0.0, impl: str = "auto") -> torch.Tensor:
     """One-token GQA attention over a dense cache (B, S, KV, hd); a
     ``softcap > 0`` caps the scaled scores (0 = off)."""
-    if _resolve(impl, q) == "cuda":
+    impl = _resolve(impl, q)
+    if impl == "cuda":
         return flash_decode_cuda(q, k_cache, v_cache, lengths, softcap)
+    if impl == "meta":
+        return meta.flash_decode(q, k_cache, v_cache, lengths)
     return flash_decode_torch(q, k_cache, v_cache, lengths, softcap)
 
 
@@ -76,9 +93,12 @@ def flash_decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
                          softcap: float = 0.0, impl: str = "auto"):
     """The open softmax of one-token GQA attention over a dense cache
     (shard): (acc (B, H, hd), m (B, H), l (B, H)) in fp32."""
-    if _resolve(impl, q) == "cuda":
+    impl = _resolve(impl, q)
+    if impl == "cuda":
         return flash_decode_partial_cuda(q, k_cache, v_cache, lengths,
                                          softcap)
+    if impl == "meta":
+        return meta.flash_decode_partial(q, k_cache, v_cache, lengths)
     return flash_decode_partial_torch(q, k_cache, v_cache, lengths, softcap)
 
 
@@ -88,7 +108,8 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        impl: str = "auto") -> torch.Tensor:
     """One-token GQA attention over a block pool (num_blocks, bs, KV, hd)
     addressed through block tables (B, max_blocks)."""
-    if _resolve(impl, q) == "cuda":
+    impl = _no_meta(_resolve(impl, q), "paged_flash_decode")
+    if impl == "cuda":
         return paged_flash_decode_cuda(q, k_pool, v_pool, block_tables,
                                        lengths, softcap)
     return paged_flash_decode_torch(q, k_pool, v_pool, block_tables, lengths,
@@ -98,7 +119,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
 def combine_weighted(x: torch.Tensor, w: torch.Tensor, *,
                      impl: str = "auto") -> torch.Tensor:
     """out[t] = sum_k w[t, k] * x[t, k, :] in fp32, cast to x's dtype."""
-    if _resolve(impl, x) == "cuda":
+    if _no_meta(_resolve(impl, x), "combine_weighted") == "cuda":
         return combine_weighted_cuda(x, w)
     return combine_weighted_torch(x, w)
 
@@ -119,6 +140,8 @@ def combine_slots(responses, combine_slot: torch.Tensor, *,
                                            *bufs)
     if impl == "cuda":
         return combine_slots_cuda(responses, combine_slot, addend)
+    if impl == "meta":
+        return meta.combine_slots(bufs, combine_slot, addend)
     return combine_slots_torch(responses, combine_slot, addend)
 
 

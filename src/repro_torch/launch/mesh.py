@@ -18,6 +18,7 @@ store), rank and world size — nothing here reads a cluster's environment.
 from __future__ import annotations
 
 import datetime
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -26,7 +27,7 @@ import torch.distributed as dist
 from repro_torch.distributed.mesh_axes import data_axes  # noqa: F401
 
 # the reference's production meshes: 16 x 16 = 256 chips a pod, 2 pods =
-# 512.  Shapes only here: building one needs that many ranks.
+# 512.  Built only over a ``fake`` world (make_production_mesh).
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -60,6 +61,30 @@ def production_mesh_shape(*, multi_pod: bool = False
                           ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
     """(shape, axis names) of the reference's production mesh."""
     return PRODUCTION[multi_pod]
+
+
+def fake_world(world: int) -> None:
+    """A ``fake`` process group of ``world`` ranks, this process rank 0:
+    collectives return at once and move nothing (the dry-run's
+    accounting on ``meta`` tensors)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_world_size() == world and dist.get_backend() == "fake":
+            return
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """The production mesh (16 x 16, or 2 x 16 x 16) over a ``fake``
+    world, for the dry-run's accounting only: nothing runs on a device."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, names = production_mesh_shape(multi_pod=multi_pod)
+    fake_world(math.prod(shape))
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
 def make_test_mesh(n_data: int = 2, n_model: int = 4,

@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.kernels import ops
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.common import dense_init, softcap
@@ -114,20 +115,21 @@ def _chunked_core(cfg, q, k, v, positions, *, is_local: bool = False,
 def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, *, is_local: bool = False,
                    mrope_positions=None, causal: bool = True,
-                   return_kv: bool = False, q_blocks: int = 16):
+                   return_kv: bool = False, q_blocks: int = 16, tp=None):
     """Self-attention over the whole sequence (prefill).
 
     x (b, s, d); positions (b, s) or (s,) int.  ``is_local`` applies the
     config's sliding window (gemma3's local layers); ``mrope_positions (3,
     b, s)`` are an M-RoPE config's (t, h, w) ids (text positions if None);
     ``causal=False`` is the bidirectional encoder (whisper); ``return_kv``
-    also returns the rotated (k, v) for the cache fill.
+    also returns the rotated (k, v) of every head for the cache fill.
+    ``tp``: a :class:`~repro_torch.distributed.tensor_parallel.Layout`
+    whose phase cuts the projections (``att_col`` / ``att_row``) over
+    ``model``: this rank's columns of wq / wk / wv and rows of wo.
     """
     b, s, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(x @ params["wq"], h, hd)
-    k = _split_heads(x @ params["wk"], kvh, hd)
-    v = _split_heads(x @ params["wv"], kvh, hd)
+    hd = cfg.head_dim
+    q, k, v, heads = _project(params, cfg, x, tp)
     if positions.dim() == 1:
         positions = positions[None].expand(b, s)
     cos, sin = _rope_for(cfg, positions, mrope_positions)
@@ -138,8 +140,38 @@ def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _dense_core(cfg, q, k, v, positions, positions,
                           is_local=is_local, causal=causal)
-    out = out.reshape(b, s, h * hd).to(x.dtype) @ params["wo"]
+    out = out.reshape(b, s, q.shape[2] * hd).to(x.dtype)
+    if heads is None:
+        out = out @ params["wo"]
+    else:
+        if heads == "gathered":
+            out = tpl.split(out, -1, tp.model)
+        out = tpl.row_linear(out, params["wo"], tp.model)
+    if return_kv and heads == "local":      # the cache holds every head
+        k, v = tpl.gather(k, 2, tp.model), tpl.gather(v, 2, tp.model)
     return (out, (k, v)) if return_kv else out
+
+
+def _project(params: Dict, cfg: ModelConfig, x: torch.Tensor, tp):
+    """(q, k, v) split into heads, and how they are cut: None (whole
+    weights), "local" (this rank's heads of column-parallel projections)
+    or "gathered" (a rank's columns hold no whole head, as 2 KV heads over
+    4 ranks: the columns gathered to every head, attention computed whole
+    on every rank)."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if tp is None or not tp.attention_cut():
+        return (_split_heads(x @ params["wq"], h, hd),
+                _split_heads(x @ params["wk"], kvh, hd),
+                _split_heads(x @ params["wv"], kvh, hd), None)
+    xg = tpl.copy_to(x, tp.model)
+    q, k, v = (xg @ params[n] for n in ("wq", "wk", "wv"))
+    if tp.whole_heads(cfg):
+        n = tp.n_model
+        return (_split_heads(q, h // n, hd), _split_heads(k, kvh // n, hd),
+                _split_heads(v, kvh // n, hd), "local")
+    q, k, v = (tpl.gather(t, -1, tp.model) for t in (q, k, v))
+    return (_split_heads(q, h, hd), _split_heads(k, kvh, hd),
+            _split_heads(v, kvh, hd), "gathered")
 
 
 def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,

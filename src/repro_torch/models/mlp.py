@@ -7,6 +7,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.models.common import activation_fn, dense_init
 
 
@@ -26,8 +27,18 @@ def init_mlp(d_model: int, d_ff: int, activation: str, dtype, device,
     return p
 
 
-def mlp(params: Dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params: Dict, x: torch.Tensor, activation: str,
+        group=None) -> torch.Tensor:
+    """The FFN; with ``group`` (the ``model`` axis's) tensor-parallel: this
+    rank's columns of w_gate / w_up (``col``) and rows of w_down
+    (``row``), the outputs summed over the group."""
+    if group is not None:
+        x = tpl.copy_to(x, group)
     if activation == "swiglu":
         g = F.silu(x @ params["w_gate"])
-        return (g * (x @ params["w_up"])) @ params["w_down"]
-    return activation_fn(activation)(x @ params["w_up"]) @ params["w_down"]
+        h = g * (x @ params["w_up"])
+    else:
+        h = activation_fn(activation)(x @ params["w_up"])
+    if group is not None:
+        return tpl.row_linear(h, params["w_down"], group)
+    return h @ params["w_down"]

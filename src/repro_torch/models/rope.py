@@ -49,7 +49,8 @@ def mrope_cos_sin(positions_thw: torch.Tensor, head_dim: int, theta: float,
     ang = positions_thw.float()[..., None] * inv        # (3, ..., seq, hd/2)
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=positions_thw.device),
-        torch.as_tensor(sections, device=positions_thw.device))
+        torch.as_tensor(sections, device=positions_thw.device),
+        output_size=sum(sections))           # a host size: meta, no sync
     # each frequency slot takes its own stream's angle
     ang = torch.movedim(ang, 0, -1).gather(
         -1, sec_id.expand(*ang.shape[1:-1], -1)[..., None])[..., 0]

@@ -70,6 +70,7 @@ from repro_torch.core import comm
 from repro_torch.core import moe_layer as eaas
 from repro_torch.core.moe_layer import MoERuntime, MoEStats
 from repro_torch.distributed import mesh_axes
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.kernels.autograd import stacked_view
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_cache as kvc
@@ -100,26 +101,25 @@ class Model(NamedTuple):
     # the batch axis every cache stack shares (microbatch splits, masked
     # decode); None where the reference's cache layout has none
     cache_batch_axis: Optional[int] = None
-    # (params, batch, ctx: TrainCtx) -> (loss, metrics): the train forward
+    # (params, batch, ctx: ParallelCtx) -> (loss, metrics): the train forward
     loss_fn: Optional[Callable] = None
 
 
 @dataclass(frozen=True)
-class TrainCtx:
-    """How a training forward runs: the reference's ``ParallelCtx`` less
-    its mesh fields (one device here), with its defaults."""
-
-    moe_runtime: Optional[MoERuntime] = None
-    remat: bool = True          # one checkpoint per block
-    ce_chunk: int = 512         # sequence positions per cross-entropy chunk
-
-
-@dataclass(frozen=True)
 class ParallelCtx:
-    """How a serving step is distributed: the reference's ``ParallelCtx``
-    serving fields.  ``mesh=None`` is one device; with a mesh (a
-    ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) every rank calls the
-    model on its own rows and shards."""
+    """How a step is distributed: the reference's ``ParallelCtx``.
+    ``mesh=None`` is one device; with a mesh (a ``DeviceMesh``,
+    :mod:`repro_torch.launch.mesh`) every rank calls the model on its own
+    rows and shards.  ``dense_phase`` names the sharding table's phase
+    whose dense placements the step executes (``serve``, ``train``,
+    ``train_tp``, ``decode``: :mod:`repro_torch.distributed.tensor_parallel`;
+    the params are ``shard_params(..., dense=True)``'s); None keeps dense
+    weights whole on every rank (the serving path's layout).  Training
+    reads ``sp_residual`` (the residual stream cut over ``model`` between
+    blocks), ``remat`` (one checkpoint per block) and ``ce_chunk``
+    (sequence positions per cross-entropy chunk); the reference's
+    ``unroll_scans`` is XLA's and has no counterpart (layers are a loop
+    here)."""
 
     mesh: Any = None
     axis_data: Tuple[str, ...] = ("data",)      # batch axes (may incl. "pod")
@@ -128,10 +128,26 @@ class ParallelCtx:
     moe_mode: str = "local"                     # local | a2a | replicated
     seq_shard_cache: bool = False               # SP decode (slot-sharded)
     seq_shard_axes: Tuple[str, ...] = ()        # slot axes (default: data)
+    dense_phase: Optional[str] = None
+    sp_residual: bool = False
+    remat: bool = True
+    ce_chunk: int = 512
 
     @property
     def slot_axes(self) -> Tuple[str, ...]:
         return self.seq_shard_axes or self.axis_data
+
+
+# training takes the same context (one device: no mesh)
+TrainCtx = ParallelCtx
+
+
+def _tp(ctx: Optional[ParallelCtx]) -> Optional[tpl.Layout]:
+    """The dense layout ``ctx`` executes, or None (whole weights)."""
+    if ctx is None or ctx.mesh is None or ctx.dense_phase is None:
+        return None
+    return tpl.layout(ctx.mesh, ctx.dense_phase, ctx.axis_data,
+                      ctx.axis_model)
 
 
 def _slot_shard(ctx: Optional[ParallelCtx]) -> Optional[Tuple[int, int]]:
@@ -166,7 +182,7 @@ def _layer(tree, i: int):
     return stacked_view(tree, i)
 
 
-def _remat(fn: Callable, ctx: TrainCtx) -> Callable:
+def _remat(fn: Callable, ctx: ParallelCtx) -> Callable:
     """``fn`` recomputed in the backward when ``ctx.remat`` (the
     reference's ``_maybe_remat``)."""
     if not ctx.remat:
@@ -175,34 +191,57 @@ def _remat(fn: Callable, ctx: TrainCtx) -> Callable:
 
 
 def _block_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, rt: Optional[MoERuntime], *,
+                 positions: torch.Tensor, ctx: Optional[ParallelCtx], *,
                  is_local: bool = False, mrope_positions=None):
     """Full-sequence block without a cache (training).  Returns (x, the
-    MoE layer's stats or None)."""
+    MoE layer's stats or None).  Under a dense layout the block's
+    ZeRO-3 leaves are gathered here (again in the backward under remat),
+    and with ``sp_residual`` x arrives and leaves as this rank's
+    sequence positions."""
+    lay = _tp(ctx)
+    p = tpl.gather_params(p, lay)
+    sp = lay is not None and ctx.sp_residual
+    if sp:
+        x = tpl.gather(x, 1, lay.model)
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     x = x + attn.full_attention(p["attn"], cfg, h, positions,
                                 is_local=is_local,
-                                mrope_positions=mrope_positions)
+                                mrope_positions=mrope_positions, tp=lay)
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     stats = []
-    x = x + _ffn(p, cfg, h, ParallelCtx(moe_runtime=rt), stats)
+    x = x + _ffn(p, cfg, h, ctx, stats)
+    if sp:
+        x = tpl.split(x, 1, lay.model)
     return x, (stats[0] if stats else None)
 
 
 def chunked_cross_entropy(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                          labels: torch.Tensor, ctx: TrainCtx) -> torch.Tensor:
+                          labels: torch.Tensor, ctx: ParallelCtx
+                          ) -> torch.Tensor:
     """Mean cross entropy without the (B, S, V) logits: chunks of
     ``ctx.ce_chunk`` positions (halved until they divide S), each
-    recomputed in the backward; padded vocab masked to -1e30."""
+    recomputed in the backward; padded vocab masked to -1e30.  Under a
+    dense layout the head is cut over the vocabulary and each chunk's
+    loss is computed over the vocab shards (``vocab_parallel_ce_sum``)."""
     B, S, _ = x.shape
     chunk = min(ctx.ce_chunk, S)
     while S % chunk:
         chunk //= 2
+    lay = _tp(ctx)
+    if lay is not None and lay.n_model > 1:
+        head = _head(params, cfg, lay)
 
-    def body(xi, li):
-        logits = _logits(params, cfg, xi)
-        gold = torch.gather(logits, -1, li[..., None])[..., 0]
-        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+        def body(xi, li):
+            logits = _vocab_logits(head, cfg, xi, lay)
+            return tpl.vocab_parallel_ce_sum(logits, li, lay.model)
+    else:
+        if lay is not None:                    # ZeRO-3 gathers only
+            params = dict(params, **_gathered_head(params, cfg, lay))
+
+        def body(xi, li):
+            logits = _logits(params, cfg, xi)
+            gold = torch.gather(logits, -1, li[..., None])[..., 0]
+            return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
     labels = labels.long()
     tot = torch.zeros((), device=x.device)
@@ -210,6 +249,52 @@ def chunked_cross_entropy(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         tot = tot + checkpoint(body, x[:, c:c + chunk],
                                labels[:, c:c + chunk], use_reentrant=False)
     return tot / (B * S)
+
+
+def _gathered_head(params: Dict, cfg: ModelConfig, lay) -> Dict:
+    """The embedding (and head) with their ZeRO-3 dims gathered."""
+    keys = ("embed",) if cfg.tie_embeddings else ("head",)
+    return tpl.gather_params({k: params[k] for k in keys}, lay)
+
+
+def _head(params: Dict, cfg: ModelConfig, lay) -> torch.Tensor:
+    """This rank's vocab columns of the head (d, V / n): the head's
+    ``col`` block, or the tied embedding's rows transposed."""
+    g = _gathered_head(params, cfg, lay)
+    return g["embed"].T if cfg.tie_embeddings else g["head"]
+
+
+def _vocab_logits(head: torch.Tensor, cfg: ModelConfig, x: torch.Tensor,
+                  lay) -> torch.Tensor:
+    """fp32 logits of this rank's vocab block, padded columns -1e30."""
+    logits = tpl.col_linear(x, head, lay.model).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        n = logits.shape[-1]
+        cols = lay.model_index * n + torch.arange(n, device=x.device)
+        logits = logits.masked_fill(cols >= cfg.vocab_size, -1e30)
+    return logits
+
+
+def _embed(params: Dict, tokens: torch.Tensor,
+           lay: Optional[tpl.Layout]) -> torch.Tensor:
+    """The tokens' embeddings: a lookup, or under a dense layout the
+    vocab-parallel lookup of the (ZeRO-3-gathered) table's rows."""
+    if lay is None:
+        return params["embed"][tokens]
+    table = tpl.gather_params({"embed": params["embed"]}, lay)["embed"]
+    return tpl.embed_lookup(table, tokens, lay.model)
+
+
+def _serve_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  lay: Optional[tpl.Layout]) -> torch.Tensor:
+    """Serving's fp32 logits over the whole vocabulary (the vocab blocks
+    gathered under a dense layout)."""
+    if lay is None or lay.n_model == 1:
+        if lay is not None:
+            params = dict(params, **_gathered_head(params, cfg, lay))
+        return _logits(params, cfg, x)
+    logits = _vocab_logits(_head(params, cfg, lay), cfg, x, lay)
+    return tpl.gather(logits, -1, lay.model)
 
 
 def _sum_stats(stats, cfg: ModelConfig, device) -> MoEStats:
@@ -224,9 +309,12 @@ def _sum_stats(stats, cfg: ModelConfig, device) -> MoEStats:
 
 def _ffn(p: Dict, cfg: ModelConfig, h: torch.Tensor,
          ctx: Optional[ParallelCtx], stats: list) -> torch.Tensor:
-    """The block's FFN: dense, or the EAAS layer under ``ctx``."""
+    """The block's FFN: dense (tensor-parallel under a dense layout), or
+    the EAAS layer under ``ctx``."""
     if "moe" not in p:
-        return mlp(p["mlp"], h, cfg.activation)
+        lay = _tp(ctx)
+        return mlp(p["mlp"], h, cfg.activation,
+                   None if lay is None else lay.model)
     B, S, d = h.shape
     y, st = _moe_apply(p["moe"], h.reshape(B * S, d), cfg, ctx)
     stats.append(st)
@@ -261,13 +349,21 @@ def _moe_apply(params_moe: Dict, x2d: torch.Tensor, cfg: ModelConfig,
     idx = mesh_axes.axes_index(mesh, (model_ax,))
     n_data = mesh_axes.axes_size(mesh, ctx.axis_data)
     x_in = x2d
+    routed = {k: params_moe[k] for k in ("router", "servers")}
     if mode == "a2a":
         T = x2d.shape[0]
         if T % n_model:
             raise ValueError(f"a2a needs the tokens to divide over the mesh: "
                              f"{T} rows a data block over {n_model} servers")
-        x_in = x2d[idx * (T // n_model):(idx + 1) * (T // n_model)]
-    routed = {k: params_moe[k] for k in ("router", "servers")}
+        if n_model > 1:           # (one rank: x2d itself, not a view)
+            x_in = x2d[idx * (T // n_model):(idx + 1) * (T // n_model)]
+        if torch.is_grad_enabled() and n_model > 1:
+            # the backward gathers the rows' gradients; the router is
+            # replicated but routes this rank's rows only: its gradient
+            # is summed over the servers' ranks
+            x_in = tpl.split(x2d, 0, group)
+            routed["router"] = {k: tpl.copy_to(v, group)
+                                for k, v in params_moe["router"].items()}
     rt_local = rt._replace(local_table=rt.local_table[idx:idx + 1])
     y, st = eaas.eaas_moe_apply(routed, x_in, m, rt_local,
                                 activation=cfg.activation, mode=mode,
@@ -277,10 +373,10 @@ def _moe_apply(params_moe: Dict, x2d: torch.Tensor, cfg: ModelConfig,
     world = mesh_axes.axes_group(mesh, (*ctx.axis_data, model_ax))
     per = 1 if mode == "a2a" else n_model
     shards = n_data * (n_model if mode == "a2a" else 1)
-    losses = torch.stack([st.aux_loss.float(), st.z_loss.float()])
+    losses = tpl.reduce_from(torch.stack([st.aux_loss.float(),
+                                          st.z_loss.float()]), world)
     counts = torch.cat([st.dropped.reshape(1), st.miss.reshape(1),
                         st.expert_load]).long()
-    torch.distributed.all_reduce(losses, group=world)
     torch.distributed.all_reduce(counts, group=world)
     denom = shards if mode == "a2a" else shards * n_model
     st = MoEStats(aux_loss=losses[0] / denom, z_loss=losses[1] / denom,
@@ -288,7 +384,9 @@ def _moe_apply(params_moe: Dict, x2d: torch.Tensor, cfg: ModelConfig,
                   expert_load=counts[2:] // per)
     if mode == "a2a":
         y = comm.all_gather_rows(y, group)
-    extra = eaas.client_extras(params_moe, x2d, cfg.activation)
+    lay = _tp(ctx)
+    extra = eaas.client_extras(params_moe, x2d, cfg.activation,
+                               None if lay is None else lay.model)
     return (y if extra is None else y + extra), st
 
 
@@ -296,11 +394,13 @@ def _block_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, cache: kvc.KVCache,
                    ctx, stats: list, *, is_local: bool = False,
                    mrope_positions=None) -> torch.Tensor:
+    lay = _tp(ctx)
+    p = tpl.gather_params(p, lay)
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     h, (k, v) = attn.full_attention(p["attn"], cfg, h, positions,
                                     is_local=is_local,
                                     mrope_positions=mrope_positions,
-                                    return_kv=True)
+                                    return_kv=True, tp=lay)
     shard = _slot_shard(ctx)
     if shard is None:
         kvc.write_prefill(cache, k, v)
@@ -328,6 +428,10 @@ def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _block_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                   cache: kvc.KVCache, ctx, stats: list) -> torch.Tensor:
+    """One decode step of a block: attention with whole weights (over a
+    slot-sharded cache on a mesh), the FFN tensor-parallel under a dense
+    layout."""
+    p = tpl.gather_params(p, _tp(ctx))
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     if _slot_shard(ctx) is not None:
         h, _ = _sp_decode_attention(p["attn"], cfg, h, cache, ctx)
@@ -488,7 +592,8 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         (decode's layout)."""
         B, S = tokens.shape
         cache = init_cache(B, max_slots or S, ctx)
-        x = params["embed"][tokens]
+        lay = _tp(ctx)
+        x = _embed(params, tokens, lay)
         pos = torch.arange(S, device=tokens.device)
         mrope = _mrope_from_batch(cfg, batch, tokens)
         stats = []
@@ -498,7 +603,7 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                                    cache[name].layer(i), ctx, stats,
                                    mrope_positions=mrope)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-        return (_logits(params, cfg, x[:, -1]), cache,
+        return (_serve_logits(params, cfg, x[:, -1], lay), cache,
                 _sum_stats(stats, cfg, tokens.device))
 
     def prefill_chunk(params, tokens: torch.Tensor, cache: Dict, start: int,
@@ -507,9 +612,9 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         cache (dense or paged) already holding [0, start); written in
         place.  Returns (last-position logits (B, V) fp32, cache, stats).
         A slot-sharded cache is refused (whole prompts only there)."""
-        if _slot_shard(ctx) is not None:
+        if _slot_shard(ctx) is not None or _tp(ctx) is not None:
             raise NotImplementedError("chunked prefill into a slot-sharded "
-                                      "cache")
+                                      "cache or under a dense layout")
         x = params["embed"][tokens]
         stats = []
         for name, pname, n in groups:
@@ -526,36 +631,55 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), stats).
         ``ctx`` as :func:`prefill`'s; a slot-sharded one runs sequence-
         parallel attention over the cache ``prefill`` left."""
-        x = params["embed"][token]
+        lay = _tp(ctx)
+        x = _embed(params, token, lay)
         stats = []
         for name, pname, n in groups:
             for i in range(n):
                 x = _block_decode(_layer(params[pname], i), cfg, x,
                                   cache[name].layer(i), ctx, stats)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-        return (_logits(params, cfg, x[:, 0]), cache,
+        return (_serve_logits(params, cfg, x[:, 0], lay), cache,
                 _sum_stats(stats, cfg, token.device))
 
-    def loss_fn(params, batch: Dict, ctx: TrainCtx):
+    def loss_fn(params, batch: Dict, ctx: ParallelCtx):
         """batch {tokens, labels (B, S)[, mrope_positions]} -> (loss,
-        metrics)."""
+        metrics).  On a mesh the batch is this rank's rows and the loss
+        the global batch's (the reference's mean over every row): its
+        value is the global ``ce + aux + z``, its gradient the part of
+        this rank's rows, ``ce_rank / n_data + aux + z`` (the aux and z
+        losses are global already; the train step sums the gradients over
+        the data axes)."""
         tokens = batch["tokens"].long()
-        x = params["embed"][tokens]
+        lay = _tp(ctx)
+        x = _embed(params, tokens, lay)
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         mrope = _mrope_from_batch(cfg, batch, tokens)
         block = _remat(lambda p, x: _block_train(
-            p, cfg, x, pos, ctx.moe_runtime, mrope_positions=mrope), ctx)
+            p, cfg, x, pos, ctx, mrope_positions=mrope), ctx)
+        sp = lay is not None and ctx.sp_residual
+        if sp:
+            x = tpl.split(x, 1, lay.model)
         stats = []
         for _, pname, n in groups:
             for i in range(n):
                 x, st = block(_layer(params[pname], i), x)
                 if st is not None:
                     stats.append(st)
+        if sp:
+            x = tpl.gather(x, 1, lay.model)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
         st = _sum_stats(stats, cfg, tokens.device)
-        return ce + st.aux_loss + st.z_loss, {
-            "ce": ce, "aux": st.aux_loss, "dropped": st.dropped,
+        if lay is not None and lay.n_data > 1:
+            part = ce / lay.n_data
+            ce = tpl.all_sum(part, lay.data)
+            loss = part + st.aux_loss + st.z_loss
+            loss = loss + (ce - part).detach()
+        else:
+            loss = ce + st.aux_loss + st.z_loss
+        return loss, {
+            "ce": ce.detach(), "aux": st.aux_loss, "dropped": st.dropped,
             "miss": st.miss, "expert_load": st.expert_load}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache,

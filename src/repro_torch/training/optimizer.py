@@ -17,6 +17,13 @@ chunks sums its column statistic chunk by chunk); the RMS update clip is a
 mean over the whole leaf, so a chunked leaf takes a pass for it and a pass
 for the update.  At full width one expert leaf holds 3.76 G elements: one
 fp32 temporary of it would be 15 GB.
+
+On a mesh each rank updates its shards: given each leaf's
+``tensor_parallel.LeafShards``, a mean over a dim that is cut (the row and
+column statistics, ``mean(vr)``) and the update clip's RMS are summed over
+the axes that cut it and divided by the whole leaf's sizes, and the global
+norm counts each leaf once.  Without (``shards=None``) the update is the
+one-device one, unchanged.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.training import tree as T
 
 CHUNK = 1 << 26         # elements of a leaf Adafactor's temporaries hold
@@ -47,9 +55,21 @@ def _sq_sum(x: torch.Tensor) -> torch.Tensor:
                for i in range(0, flat.numel(), CHUNK))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves (the reference's order) of sum(x^2)."""
-    return torch.sqrt(sum(_sq_sum(x) for x in T.leaves(tree)))
+def _leaf_sq(x: torch.Tensor, sh) -> torch.Tensor:
+    """sum(x^2) of the whole leaf: this shard's, summed over the axes that
+    cut it (each leaf counted once)."""
+    s = _sq_sum(x)
+    return s if sh is None else tpl.all_sum(s, sh.all)
+
+
+def global_norm(tree, shards=None) -> torch.Tensor:
+    """sqrt of the sum over leaves (the reference's order) of sum(x^2).
+    ``shards``: a tree of ``tensor_parallel.LeafShards`` when ``tree``
+    holds this rank's shards."""
+    if shards is None:
+        return torch.sqrt(sum(_sq_sum(x) for x in T.leaves(tree)))
+    return torch.sqrt(sum(_leaf_sq(x, sh) for x, sh in
+                          zip(T.leaves(tree), T.leaves(shards))))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -64,10 +84,12 @@ def clip_by_global_norm(grads, max_norm: float):
                         grads), norm
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         shards=None) -> torch.Tensor:
     """:func:`clip_by_global_norm` in place (``g.mul_(scale)`` rounds as
-    the reference's fp32 product cast back); returns the norm."""
-    norm = global_norm(grads)
+    the reference's fp32 product cast back); returns the norm (of the
+    whole leaves, for shards with ``shards``)."""
+    norm = global_norm(grads, shards)
     scale = _clip_scale(norm, max_norm)
     for g in T.leaves(grads):
         g.mul_(scale)
@@ -97,33 +119,36 @@ def _t(step) -> torch.Tensor:
 
 
 def _bundle(init, leaf_update, name: str) -> OptimizerBundle:
-    """``leaf_update(g, leaf_state, p, step, emit) -> leaf_state``, where
-    ``emit(index, u)`` receives the update of ``p.view(-1, R, C)[index]``
-    (or of the whole leaf, index None) in p's dtype."""
-    def update(grads, state, params, step):
-        def one(g, f, p):
+    """``leaf_update(g, leaf_state, p, step, emit, shards) -> leaf_state``,
+    where ``emit(index, u)`` receives the update of ``p.view(-1, R,
+    C)[index]`` (or of the whole leaf, index None) in p's dtype and
+    ``shards`` is the leaf's ``LeafShards`` (None: a whole leaf)."""
+    def update(grads, state, params, step, shards=None):
+        def one(g, f, p, sh):
             u = torch.empty_like(p)
             view = _as3(u)
 
             def emit(index, chunk):
                 (u if index is None else view[index]).copy_(chunk)
-            f = leaf_update(g, f, p, step, emit)
+            f = leaf_update(g, f, p, step, emit, sh)
             return u, f
-        pairs = T.map_params(one, grads, state_of(state), params)
+        pairs = T.map_params(one, grads, state_of(state), params,
+                             _or_none(shards, params))
         return (T.map_params(lambda p, pr: pr[0], params, pairs),
                 wrap(params, T.map_params(lambda p, pr: pr[1], params,
                                           pairs)))
 
-    def apply_(grads, state, params, step):
-        def one(g, f, p):
+    def apply_(grads, state, params, step, shards=None):
+        def one(g, f, p, sh):
             view = _as3(p)
 
             def emit(index, chunk):
                 (p if index is None else view[index]).add_(chunk)
-            return leaf_update(g, f, p, step, emit)
+            return leaf_update(g, f, p, step, emit, sh)
         with torch.no_grad():
             return wrap(params, T.map_params(one, grads, state_of(state),
-                                             params))
+                                             params,
+                                             _or_none(shards, params)))
 
     def state_of(state):
         return state["f"] if name == "adafactor" else _zip_adam(state)
@@ -135,6 +160,20 @@ def _bundle(init, leaf_update, name: str) -> OptimizerBundle:
                 for k in ("mu", "nu")}
 
     return OptimizerBundle(init, update, name, apply_)
+
+
+def _or_none(shards, params):
+    """``shards``, or a tree of None beside ``params``."""
+    return shards if shards is not None else T.map_params(lambda p: None,
+                                                          params)
+
+
+def _mean(x: torch.Tensor, dim: int, group, n: int, keepdim=False):
+    """``x.mean(dim)``; over a dim cut on ``group``, the shards' sums
+    summed over the group, over the whole dim's ``n``."""
+    if group is None:
+        return x.mean(dim, keepdim=keepdim)
+    return tpl.all_sum(x.sum(dim, keepdim=keepdim), group) / n
 
 
 def _zip_adam(state):
@@ -162,7 +201,7 @@ def adamw(lr=1e-3, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"mu": T.map_params(zeros, params),
                 "nu": T.map_params(zeros, params)}
 
-    def leaf_update(g, s, p, step, emit):
+    def leaf_update(g, s, p, step, emit, sh):
         t = _t(step)
         lr_t = lr_fn(step)
         g = g.float()
@@ -211,20 +250,33 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
             return {"v": torch.zeros(p.shape, **z)}
         return {"f": T.map_params(factors, params)}
 
-    def leaf_update(g, f, p, step, emit):
+    def leaf_update(g, f, p, step, emit, sh):
         t = _t(step)
         beta = 1.0 - t ** (-decay)
         lr_t = lr_fn(step)
+        every = None if sh is None else sh.all
+
+        def rms_of(sq_sum, n_local):
+            if every is None:
+                return torch.sqrt(sq_sum / n_local + eps)
+            return torch.sqrt(tpl.all_sum(sq_sum, every)
+                              / math.prod(sh.whole) + eps)
         if p.dim() < 2:
             g = g.float()
             v = beta * f["v"] + (1 - beta) * (torch.square(g) + eps)
             u = g / torch.sqrt(v + eps)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            if every is None:
+                rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            else:
+                rms = rms_of(torch.square(u).sum(), u.numel())
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             emit(None, (-lr_t * u).to(p.dtype))
             return {"v": v}
         g3 = _as3(g)
         n, R, C = g3.shape
+        rows, cols = (None, None) if sh is None else (sh.rows, sh.cols)
+        R_all = R if sh is None else sh.whole[-2]
+        C_all = C if sh is None else sh.whole[-1]
         vr_old = f["vr"].reshape(n, R)
         vc_old = f["vc"].reshape(n, C)
         parts = list(_chunks(n, R, C, CHUNK))
@@ -234,15 +286,21 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
         col = {}
         for bs, rs in parts:
             g2 = torch.square(g3[bs, rs].float()) + eps
-            vr[bs, rs] = beta * vr_old[bs, rs] + (1 - beta) * g2.mean(-1)
+            vr[bs, rs] = beta * vr_old[bs, rs] + (1 - beta) * _mean(
+                g2, -1, cols, C_all)
             if rs.stop - rs.start == R:
-                vc[bs] = beta * vc_old[bs] + (1 - beta) * g2.mean(-2)
+                vc[bs] = beta * vc_old[bs] + (1 - beta) * _mean(
+                    g2, -2, rows, R_all)
             else:
                 b = bs.start
                 col[b] = col.get(b, 0) + g2.sum(-2)
                 if rs.stop == R:
-                    vc[bs] = beta * vc_old[bs] + (1 - beta) * (col.pop(b) / R)
-        denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)[..., None]
+                    tot = col.pop(b)
+                    if rows is not None:
+                        tot = tpl.all_sum(tot, rows)
+                    vc[bs] = beta * vc_old[bs] + (1 - beta) * (tot / R_all)
+        denom = torch.clamp(_mean(vr, -1, rows, R_all, keepdim=True),
+                            min=eps)[..., None]
 
         def u_of(bs, rs):
             v = vr[bs, rs, None] * vc[bs, None, :] / denom[bs]
@@ -250,10 +308,13 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
         # pass 2: the update's RMS over the whole leaf
         if len(parts) == 1:
             u = u_of(*parts[0])
-            rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            if every is None:
+                rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
+            else:
+                rms = rms_of(torch.square(u).sum(), u.numel())
         else:
             sq = sum(torch.square(u_of(bs, rs)).sum() for bs, rs in parts)
-            rms = torch.sqrt(sq / g.numel() + eps)
+            rms = rms_of(sq, g.numel())
         scale = torch.clamp(rms / clip_threshold, min=1.0)
         # pass 3: the update, chunk by chunk
         for bs, rs in parts:

@@ -3,7 +3,8 @@
     python tests/torch_spmd_ranks.py RANK WORLD STORE INPUTS OUT_DIR CASE...
 
 Joins a gloo world of WORLD ranks through the file store STORE, runs each
-CASE (``moe``, ``sp:<cases>``, ``rwkv:<meshes>``, ``rwkvm``, ``dec``) on
+CASE (``moe``, ``sp:<cases>``, ``rwkv:<meshes>``, ``rwkvm``, ``dec``,
+``cell:<cases>``, ``int8``) on
 the inputs (``INPUTS``, an ``.npz`` of numpy params and data written by
 the test; bfloat16 leaves as their uint16 bits, under a key ending in
 ``~bf16``) and writes what this rank computed to
@@ -19,16 +20,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.bridge import shard_from_numpy
+from repro_torch.bridge import params_from_numpy, shard_from_numpy
 from repro_torch.configs import InputShape, get_config
 from repro_torch.core.moe_layer import MoERuntime
 from repro_torch.distributed.mesh_axes import axes_group
 from repro_torch.distributed.sharding_rules import shard_leaf, shard_params
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.dryrun import moe_runtime_for
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models import rwkv as rwk
 from repro_torch.models import transformer as tr
+from repro_torch.training import tree as T
 
 
 def load(path):
@@ -209,6 +212,94 @@ def decoder_case(inp, out):
     out["dec/k"] = np_out(cache["blocks"].k)
 
 
+def _as_np(t):
+    return ({k: _as_np(v) for k, v in t.items()} if isinstance(t, dict)
+            else t.numpy())
+
+
+def cell_cases(inp, out, cases):
+    """Dry-run cells (``launch/dryrun.build_cell``) on a (2, 2) or (2, 4)
+    gloo mesh: each key ``cell/<case>`` names the arch, the kind, the
+    shape and the whole params (and the decode cell's whole cache); the
+    phase is the cell's own unless ``force`` names ZeRO-3's ``train``.
+    Saved: a train step's metrics and this rank's updated shards; a
+    prefill's rows of the logits and of the cache; a serve step's rows of
+    the next token and the logits and its shard of the cache."""
+    meshes = {}
+    for case in cases:
+        key = f"cell/{case}"
+        n_data, n_model = (int(v) for v in inp[key + "/mesh"])
+        if (n_data, n_model) not in meshes:
+            meshes[n_data, n_model] = meshlib.make_test_mesh(
+                n_data, n_model, device="cpu")
+        mesh = meshes[n_data, n_model]
+        cfg = cfg_of(inp, key)
+        kind = str(inp[key + "/kind"])
+        B, S = (int(v) for v in inp[key + "/shape"])
+        force = str(inp[key + "/force"])
+        keep = dryrun.train_phase_for
+        if force:
+            dryrun.train_phase_for = lambda *a, **k: force
+        try:
+            cell = dryrun.build_cell(cfg.arch_id, InputShape(case, S, B, kind),
+                                     mesh, cfg=cfg, device="cpu")
+        finally:
+            dryrun.train_phase_for = keep
+        out[key + "/phase"] = np.array(cell.phase)
+        params = params_from_numpy(
+            cell.shard(_as_np(tree(inp, key + "/params"))), None, "cpu")
+        rows = {k: cell.rows(k, inp[f"{key}/{k}"]).long()
+                for k in ("tokens", "labels", "mrope_positions")
+                if f"{key}/{k}" in inp}
+        if kind == "train":
+            state, met = cell.step(dryrun.init_state(cell, params), rows)
+            for k in ("loss", "grad_norm", "ce", "aux", "dropped"):
+                out[f"{key}/{k}"] = met[k].float().numpy()
+            for path, leaf in T.items(state.params):
+                out[f"{key}/p/" + "/".join(path)] = np_out(leaf)
+        elif kind == "prefill":
+            logits, cache = cell.step(params, rows["tokens"])
+            out[key + "/logits"] = np_out(logits)
+            for name, c in cache.items():
+                out[f"{key}/{name}/k"] = np_out(c.k)
+                out[f"{key}/{name}/v"] = np_out(c.v)
+        else:
+            whole = {name: kvc.KVCache(inp[f"{key}/cache/{name}/k"],
+                                       inp[f"{key}/cache/{name}/v"],
+                                       inp[f"{key}/cache/{name}/length"])
+                     for name in str(inp[key + "/stacks"]).split(",")}
+            cache = {n: kvc.KVCache(c.k.clone(), c.v.clone(),
+                                    c.length.clone())
+                     for n, c in cell.cache_shard(whole).items()}
+            logits = cell.model.decode_step(
+                params, rows["tokens"], {n: kvc.KVCache(
+                    c.k.clone(), c.v.clone(), c.length.clone())
+                    for n, c in cache.items()}, cell.ctx)[0]
+            nxt, cache = cell.step(params, rows["tokens"], cache)
+            out[key + "/logits"] = np_out(logits)
+            out[key + "/next"] = nxt.numpy()
+            for name, c in cache.items():
+                out[f"{key}/{name}/k"] = np_out(c.k)
+                out[f"{key}/{name}/v"] = np_out(c.v)
+                out[f"{key}/{name}/length"] = c.length.numpy()
+
+
+def int8_case(inp, out):
+    """The int8 compression of a leaf cut into row blocks over the world:
+    the scale is the whole leaf's (a max over every shard)."""
+    from repro_torch.distributed.tensor_parallel import LeafShards
+    from repro_torch.training.train_loop import compress_with_feedback
+
+    g = torch.randn(16, 8, generator=torch.Generator().manual_seed(3))
+    g[5, 2] = 40.0                       # the max lies in one shard
+    n, r = dist.get_world_size(), dist.get_rank()
+    mine = g[r * 16 // n:(r + 1) * 16 // n]
+    deq, res = compress_with_feedback(
+        mine, torch.zeros_like(mine),
+        LeafShards(whole=(16, 8), all=dist.group.WORLD))
+    out["int8/deq"], out["int8/res"] = deq.numpy(), res.numpy()
+
+
 def main() -> int:
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store, inputs, out_dir = sys.argv[3:6]
@@ -230,6 +321,10 @@ def main() -> int:
             rwkv_model_case(inp, out)
         elif kind == "dec":
             decoder_case(inp, out)
+        elif kind == "cell":
+            cell_cases(inp, out, arg.split(","))
+        elif kind == "int8":
+            int8_case(inp, out)
         else:
             raise ValueError(case)
     np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
