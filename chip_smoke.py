@@ -3275,6 +3275,21 @@ def partial_kernel_phase(torch, cfg, cases) -> None:
              rng_lens, torch.bfloat16)
     fdp_case("float32, split-edge lengths", 8, 16, 2, 64, 320,
              [1, 64, 65, 400, 128, 129, 257, 320], torch.float32)
+    # the four families' slot-sharded caches (phase 25's decode cells):
+    # gemma3-4b's globals (8 heads over 4 KV heads, G 2, hd 256),
+    # zamba2-2.7b's shared block (G 1, hd 80; also float32) and
+    # whisper-base's self cache (G 1, hd 64), 8 prompts of 1100-1800
+    # tokens in a 2048-slot shard (whisper: 448 slots, 20-400 tokens)
+    fam_lens = torch.randint(1100, 1801, (8,), generator=torch.Generator()
+                             .manual_seed(14)).tolist()
+    fdp_case("gemma3-4b globals, G 2, hd 256, 2048-slot shard", 8, 8, 4,
+             256, 2048, fam_lens, torch.bfloat16)
+    fdp_case("zamba2-2.7b shared block, G 1, hd 80, 2048-slot shard", 8, 32,
+             32, 80, 2048, fam_lens, torch.bfloat16)
+    fdp_case("zamba2-2.7b shared block, G 1, hd 80, float32", 8, 32, 32, 80,
+             2048, fam_lens, torch.float32)
+    fdp_case("whisper-base self cache, G 1, hd 64, 448 slots", 8, 8, 8, 64,
+             448, [20, 64, 65, 128, 200, 300, 399, 400], torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32):
         fdp_case("one split (S = 64)", 4, 16, 2, 64, 64, [1, 33, 64, 70],
                  dtype, timed=False)
@@ -3780,15 +3795,17 @@ def _train_run(torch, label, step, state, batch, steps: int, smi):
         if i == 0:
             first = {"loss": float(met["loss"]),
                      "grad_norm": float(met["grad_norm"]),
-                     "dropped": int(met["dropped"]),
+                     "dropped": int(met.get("dropped", 0)),
                      "digest": _param_digest(torch, state.params)}
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = _step_profile(torch, types.SimpleNamespace(
         step=lambda: step(state, batch)), 1)
     idle = (None if prof is None
             else max(0.0, 1 - prof["union_ms"] / prof["plain_ms"]))
+    top = (None if prof is None else
+           sorted(prof["rows"].items(), key=lambda kv: -kv[1][0])[:8])
     out = dict(first, wall_ms=statistics.median(walls[1:] or walls),
-               first_ms=walls[0], peak_gib=peak, idle=idle)
+               first_ms=walls[0], peak_gib=peak, idle=idle, top=top)
     log(f"mesh: {label}: step 1 loss {first['loss']!r} grad_norm "
         f"{first['grad_norm']!r} dropped {first['dropped']} params digest "
         f"{first['digest']}; step wall p50 {out['wall_ms']:.1f} ms over "
@@ -3896,6 +3913,234 @@ def mesh_full_width(torch, get_config, smi) -> dict:
     return launches
 
 
+def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
+    """(a) ``arch``'s train cell at its published widths and depth on a
+    1 x 1 NCCL mesh (its production phase ``train_tp``, remat, CE chunks
+    of 512, Adafactor lr 1e-3; whisper's frames from numpy) against the
+    one-device ``make_train_step`` on weights rebuilt from the same seed:
+    loss, grad norm and the updated params' digest must be bitwise equal
+    (else, where the one-device step does not repeat itself bitwise,
+    within 2e-2, as deepseek-r1's cell)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.transformer import ParallelCtx, build_model
+    from repro_torch.training.data import synthetic_lm_batches
+    from repro_torch.training.optimizer import adafactor
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    import torch.distributed as dist
+
+    _free(torch)
+    cfg = get_config(arch)
+    steps = 3
+    batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
+    meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                             timeout_s=600)
+    # the production cell's phase (``train_phase_for`` at 16 model ranks:
+    # under 17 B params), which one rank's budget alone would not pick
+    phase = dryrun.train_phase_for(cfg.num_params(), 16)
+    keep = dryrun.train_phase_for
+    dryrun.train_phase_for = lambda *a, **k: phase
+    try:
+        mesh = meshlib.make_test_mesh(1, 1)
+        cell = dryrun.build_cell(arch, InputShape(f"train_{B}x{L}", L, B,
+                                                  "train"), mesh, cfg=cfg)
+        dryrun.train_phase_for = keep
+        if cell.phase != "train_tp":
+            raise AssertionError(f"mesh: {arch} phase {cell.phase}")
+        state = dryrun.init_state(cell, cell.shard(cell.model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))))
+        log(f"mesh: {arch} {cfg.num_params() / 1e9:.3f}B params, "
+            f"{cfg.num_layers} layers, train cell on {B} x {L} tokens"
+            + (f" + {cfg.encoder_seq_len} numpy frames a row"
+               if cfg.is_encoder_decoder else "")
+            + f", phase {cell.phase}")
+        got = _train_run(torch, f"{arch} build_cell train step (1 x 1 "
+                         "NCCL mesh)", cell.step, state, batch, steps, smi)
+        del state, cell
+    finally:
+        dryrun.train_phase_for = keep
+        dist.destroy_process_group()
+    _free(torch)
+    model = build_model(cfg, 1, None, "cuda")
+    opt = adafactor(lr=1e-3)
+    state = init_train_state(model, opt,
+                             torch.Generator(device="cuda").manual_seed(0))
+    step = make_train_step(model, opt, ParallelCtx(remat=True, ce_chunk=512))
+    ref = _train_run(torch, f"{arch} one-device make_train_step", step,
+                     state, batch, steps, smi)
+    keys = ("loss", "grad_norm", "digest")
+    same = all(got[k] == ref[k] for k in keys)
+    repeats = True
+    if not same:       # does the one-device step repeat itself bitwise?
+        state = None
+        _free(torch)
+        again = _train_run(torch, f"{arch} one-device step, again", step,
+                           init_train_state(model, opt, torch.Generator(
+                               device="cuda").manual_seed(0)), batch, 1, smi)
+        repeats = all(again[k] == ref[k] for k in keys)
+    del state, model, step
+    _free(torch)
+    err = max(abs(got[k] - ref[k]) for k in ("loss", "grad_norm"))
+    verdict = ("bitwise equal" if same else
+               f"DIFFER (max |err| {err:.3e}); the one-device step repeats "
+               f"itself bitwise: {repeats}")
+    log(f"mesh: {arch} train cell vs one-device: loss, grad_norm and params "
+        f"digest {verdict}"
+        f"; step wall {got['wall_ms']:.1f} vs {ref['wall_ms']:.1f} ms, peak "
+        f"{got['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB, idle share "
+        f"{got['idle']} vs {ref['idle']} ({smi})")
+    if got["top"]:
+        log(f"mesh: {arch} train cell, the profiled step's device rows "
+            "(ms a step, calls): " + "; ".join(
+                f"{k[:60]} {ms:.1f} ({n:.0f})" for k, (ms, n) in got["top"]))
+    if not same and (repeats or not err <= 2e-2):
+        raise AssertionError(f"mesh: {arch} cell {got} vs one-device {ref}")
+    return got
+
+
+# (arch, prompt tokens (lo, hi): each row's length drawn in between,
+# slots, logits tolerance, tokens must be equal)
+FAMILY_DECODE = (("gemma3-4b", (1100, 1800), 2048, 3e-2, False),
+                 ("zamba2-2.7b", (1100, 1800), 2048, 3e-2, False),
+                 ("rwkv6-7b", (64, 64), 128, 2e-2, True),
+                 ("whisper-base", (64, 64), 448, 3e-2, False))
+FAMILY_STEPS = 16
+FAMILY_KERNELS = ("flash_decode", "flash_decode_partial")
+
+
+def _ragged_greedy(torch, model, params, prompts, ctx, steps: int,
+                   slots: int, forced=None):
+    """``_greedy`` over prompts of different lengths: each row prefilled
+    alone into its own cache, the caches joined along their batch dims
+    (found by role, ``sharding_rules.cache_placements``), then ``steps``
+    batched decode steps.  Returns (the logits of every step, the tokens
+    fed)."""
+    from repro_torch.distributed import sharding_rules as tsr
+    from repro_torch.training import tree
+
+    outs = [model.prefill(params, p[None], ctx, max_slots=slots)
+            for p in prompts]
+    cache = outs[0][1]
+    if len(outs) > 1:
+        rows = [dict(tree.paths(o[1])) for o in outs]
+        cache = tree.map_paths(lambda path, _, spec: torch.cat(
+            [r[path] for r in rows], dim=spec.index("data")), cache,
+            tsr.cache_placements(cache, 2, ("data",), (), -1))
+    logits = torch.cat([o[0] for o in outs])
+    seq, fed = [logits], []
+    for i in range(steps):
+        tok = (logits.argmax(-1) if forced is None else forced[i])[:, None]
+        fed.append(tok)
+        logits, cache, _ = model.decode_step(params, tok, cache, ctx)
+        seq.append(logits)
+    return torch.stack(seq), torch.cat(fed, dim=1)
+
+
+def _family_decode_cell(torch, get_config, smi, arch, P, slots, tol,
+                        equal_tokens) -> dict:
+    """(a) ``arch``'s decode cell at its published widths and depth on a
+    1 x 1 NCCL mesh (phase ``decode``: the linear caches slot-sharded,
+    gemma3's rings whole, rwkv6 through its island on a group of one):
+    8 prompts of ``P = (lo, hi)`` tokens (each row's length drawn in
+    between) prefilled into ``slots`` slots, then FAMILY_STEPS greedy
+    steps, against the one-device path on the same weights: the logits of
+    8 teacher-forced steps within ``tol``, both greedy digests (equal
+    tokens where ``equal_tokens``).  Returns the cell's flash-decode
+    launches."""
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    import torch.distributed as dist
+
+    _free(torch)
+    cfg = get_config(arch)
+    B = 8
+    g = torch.Generator().manual_seed(25)
+    lens = torch.randint(P[0], P[1] + 1, (B,), generator=g).tolist()
+    prompt = [torch.randint(0, cfg.vocab_size, (n,), generator=g).cuda()
+              for n in lens]
+    meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                             timeout_s=600)
+    try:
+        mesh = meshlib.make_test_mesh(1, 1)
+        cell = dryrun.build_cell(arch, InputShape("decode", slots, B,
+                                                  "decode"), mesh, cfg=cfg)
+        model, ctx = cell.model, cell.ctx
+        full = model.init_params(torch.Generator(device="cuda")
+                                 .manual_seed(0))
+        params = cell.shard(full)              # views on a 1 x 1 mesh
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            seq, toks = _ragged_greedy(torch, model, params, prompt, ctx,
+                                       FAMILY_STEPS, slots)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        dist.destroy_process_group()
+    if seq.shape != (FAMILY_STEPS + 1, B, cfg.padded_vocab) or \
+            not torch.isfinite(seq).all():
+        raise AssertionError(f"mesh: {arch} bad logits {tuple(seq.shape)}")
+    with torch.no_grad():
+        ref, _ = _ragged_greedy(torch, model, full, prompt, None, 8, slots,
+                                forced=toks.T)
+        _, ltoks = _ragged_greedy(torch, model, full, prompt, None,
+                                  FAMILY_STEPS, slots)
+    errs = (seq[:9] - ref).abs().amax(dim=(1, 2)).tolist()
+    err = max(errs)
+    same = int((toks == ltoks).sum())
+    digest = lambda t: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()  # noqa: E731
+    fd = {k: launches[k] for k in FAMILY_KERNELS}
+    log(f"mesh: {arch} decode cell (1 x 1 NCCL mesh, {cfg.num_layers} "
+        f"layers, {B} prompts of {min(lens)}-{max(lens)} tokens, {slots} "
+        f"slots, "
+        f"{FAMILY_STEPS} greedy steps): prefill + decode {wall:.2f}s wall, "
+        f"peak {peak:.2f} GiB; vs the one-device path: max |logit err| "
+        f"{err:.3e} (tol {tol}; by step {[float(f'{e:.3g}') for e in errs]})"
+        f", bitwise equal {torch.equal(seq[:9], ref)}; greedy tokens sha1 "
+        f"cell {digest(toks)}, one-device {digest(ltoks)}, {same}/"
+        f"{toks.numel()} equal; launches {json.dumps(fd)} ({smi})")
+    del full, params, model, cell
+    _free(torch)
+    if not err <= tol:
+        raise AssertionError(f"mesh: {arch} decode cell logits differ {err}")
+    if equal_tokens and same != toks.numel():
+        raise AssertionError(f"mesh: {arch} decode cell tokens differ")
+    return fd
+
+
+def mesh_families_full(torch, get_config, smi) -> dict:
+    """(a) the four families' cells at full width and depth on a 1 x 1
+    NCCL mesh: gemma3-4b's and whisper-base's train cells bitwise the
+    one-device step, and the decode cells of all four.  The partial flash
+    decode (SP decode over gemma3's globals, zamba2's shared block,
+    whisper's self cache) and flash decode (gemma3's rings, whisper's
+    cross attention) must launch where the cell runs them.  Returns the
+    launches by family."""
+    _family_train_cell(torch, get_config, smi, "gemma3-4b", 8, 2048)
+    _family_train_cell(torch, get_config, smi, "whisper-base", 8, 256)
+    out = {}
+    for arch, P, slots, tol, eq in FAMILY_DECODE:
+        out[arch] = _family_decode_cell(torch, get_config, smi, arch, P,
+                                        slots, tol, eq)
+    need = {"gemma3-4b": FAMILY_KERNELS,
+            "zamba2-2.7b": ("flash_decode_partial",),
+            "whisper-base": FAMILY_KERNELS}
+    zero = [(a, k) for a, ks in need.items() for k in ks if out[a][k] <= 0]
+    if zero:
+        raise AssertionError(f"mesh: the family cells never launched {zero}")
+    if any(out["rwkv6-7b"].values()):
+        raise AssertionError("mesh: rwkv6 launched an attention kernel")
+    return out
+
+
 class _MeshShape:
     """A (data, model) mesh's names and sizes, all ``moe_runtime_for``
     reads of one."""
@@ -3912,6 +4157,23 @@ class _MeshShape:
 MESH_CELLS = (("train", "train"), ("train", "train_tp"),
               ("prefill", "serve"), ("decode", "decode"))
 MESH_B, MESH_S, MESH_LEN = 8, 32, 20
+# the four families' reduced cells (4 gloo ranks): train in train_tp, as
+# their dry-run cells; 48 slots (whisper's encoder holds 32 frames), a
+# 16-slot gemma3 ring (one global group: 8 layers), whisper's 2 heads
+# (gathered over the model axis)
+FAMILY_CELLS = (("train", "train_tp"), ("prefill", "serve"),
+                ("decode", "decode"))
+FAMILY_OVERRIDES = {"gemma3-4b": {"num_layers": 8, "sliding_window": 16},
+                    "zamba2-2.7b": {}, "rwkv6-7b": {},
+                    "whisper-base": {"num_heads": 2, "num_kv_heads": 2}}
+FAMILY_S = 48
+
+
+def _cells_of(arch):
+    """(the cells, their sequence and slots) of an arch in (b)."""
+    if arch in FAMILY_OVERRIDES:
+        return FAMILY_CELLS, FAMILY_S
+    return MESH_CELLS, MESH_S
 
 
 def _mesh_cfg(get_config, arch):
@@ -3919,39 +4181,46 @@ def _mesh_cfg(get_config, arch):
     the mean of each client's loss (the reference's), which one process
     with one client cannot form; the comparison sets its coefficient to 0
     on both sides (the CPU tests hold it against the reference's mesh)."""
-    cfg = get_config(arch).reduced().replace(dtype="float32")
+    cfg = get_config(arch).reduced().replace(
+        dtype="float32", **FAMILY_OVERRIDES.get(arch, {}))
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, router_aux_loss_coef=0.0))
     return cfg
 
 
-def _mesh_inputs(torch, cfg, kind):
-    """A cell's inputs, whole: tokens (+ labels) from a seed; the decode
-    cell's cache holds MESH_LEN random tokens."""
+def _mesh_inputs(torch, cfg, kind, S=MESH_S):
+    """A cell's inputs, whole: tokens (+ labels, + whisper's frames) from a
+    seed; the decode cell's cache holds MESH_LEN random tokens."""
     g = torch.Generator().manual_seed(7)
     tok = torch.randint(0, cfg.vocab_size, (MESH_B, 1 if kind == "decode"
-                                            else MESH_S), generator=g)
+                                            else S), generator=g)
     out = {"tokens": tok}
     if kind == "train":
-        out["labels"] = torch.randint(0, cfg.vocab_size, (MESH_B, MESH_S),
+        out["labels"] = torch.randint(0, cfg.vocab_size, (MESH_B, S),
                                       generator=g)
+        if cfg.is_encoder_decoder:
+            out["frames"] = 0.1 * torch.randn(
+                (MESH_B, cfg.encoder_seq_len, cfg.d_model), generator=g)
     return out
 
 
-def _mesh_cache(torch, model, cfg):
-    from repro_torch.models import kv_cache as kvc
+def _mesh_cache(torch, model, cfg, S=MESH_S):
+    """A whole cache of MESH_B rows and S slots, random: each linear K/V
+    written up to MESH_LEN (a ring and the encoder's K/V everywhere),
+    lengths MESH_LEN, recurrent states random."""
+    from repro_torch.training import tree
 
-    cache = model.init_cache(MESH_B, MESH_S)
     g = torch.Generator().manual_seed(8)
-    out = {}
-    for name, c in cache.items():
-        k = torch.randn(c.k.shape, generator=g).to(c.k)
-        v = torch.randn(c.v.shape, generator=g).to(c.v)
-        k[:, :, MESH_LEN:] = 0
-        v[:, :, MESH_LEN:] = 0
-        out[name] = kvc.KVCache(k, v, torch.full_like(c.length, MESH_LEN))
-    return out
+
+    def fill(path, leaf):
+        if path[-1] == "length":
+            return torch.full_like(leaf, MESH_LEN)
+        out = torch.randn(leaf.shape, generator=g).to(leaf)
+        if path[-1] in ("k", "v") and leaf.shape[-3] == S:
+            out[..., MESH_LEN:, :, :] = 0
+        return out
+    return tree.map_paths(fill, model.init_cache(MESH_B, S))
 
 
 def _no_drop_runtime(dryrun, patch: bool):
@@ -3975,11 +4244,16 @@ def _no_drop_runtime(dryrun, patch: bool):
     return keep, every_token
 
 
+MESH_ARCHS = ("deepseek-r1", "qwen2-vl-2b", *FAMILY_OVERRIDES)
+
+
 def _mesh_rank(rank: int, world: int, init: str, q) -> None:
     """(b) one of 4 gloo ranks on the one card, mesh (2, 2): for reduced
     float32 deepseek-r1 and qwen2-vl-2b, ``dryrun.build_cell``'s train
     step in phases train and train_tp, its prefill (serve) and serve step
-    (decode); puts this rank's outputs (or the error) on ``q``."""
+    (decode); for gemma3, zamba2, rwkv6 and whisper their train
+    (train_tp), prefill and serve cells; puts this rank's outputs (or the
+    error) on ``q``."""
     sys.path.insert(0, str(ROOT / "src"))
     import datetime
 
@@ -4003,13 +4277,15 @@ def _mesh_rank(rank: int, world: int, init: str, q) -> None:
         _no_drop_runtime(dryrun, True)
         out, launches = {}, {}
         keep_phase = dryrun.train_phase_for
-        for arch in ("deepseek-r1", "qwen2-vl-2b"):
+        for arch in MESH_ARCHS:
             cfg = _mesh_cfg(get_config, arch)
-            for kind, phase in MESH_CELLS:
+            cells, S = _cells_of(arch)
+            for kind, phase in cells:
                 key = f"{arch}/{phase}"
-                dryrun.train_phase_for = lambda *a, **k: phase  # noqa
+                if arch not in FAMILY_OVERRIDES:
+                    dryrun.train_phase_for = lambda *a, **k: phase  # noqa
                 cell = dryrun.build_cell(arch, InputShape(
-                    kind, MESH_S, MESH_B, kind), mesh, cfg=cfg)
+                    kind, S, MESH_B, kind), mesh, cfg=cfg)
                 dryrun.train_phase_for = keep_phase
                 if cell.phase != phase:
                     raise AssertionError(f"{key}: phase {cell.phase}")
@@ -4019,7 +4295,7 @@ def _mesh_rank(rank: int, world: int, init: str, q) -> None:
                                          cell.shard(full))
                 del full
                 inp = {k: cell.rows(k, v).cuda() for k, v in
-                       _mesh_inputs(torch, cfg, kind).items()}
+                       _mesh_inputs(torch, cfg, kind, S).items()}
                 ops.reset_launches()
                 if kind == "train":
                     st, met = cell.step(dryrun.init_state(cell, params), inp)
@@ -4032,27 +4308,22 @@ def _mesh_rank(rank: int, world: int, init: str, q) -> None:
                     with torch.no_grad():
                         logits, cache = cell.step(params, inp["tokens"])
                     out[key] = {"logits": logits.cpu().numpy(),
-                                "k": {n: c.k.cpu().numpy()
-                                      for n, c in cache.items()}}
+                                "k": _numpy_leaves(tree, cache)}
                 else:
-                    cache = cell.cache_shard(_mesh_cache(
-                        torch, cell.model, cfg))
-                    cache = {n: type(c)(c.k.clone().cuda(),
-                                        c.v.clone().cuda(),
-                                        c.length.clone().cuda())
-                             for n, c in cache.items()}
+                    cache = tree.map_paths(
+                        lambda _, t: t.clone().cuda(),
+                        cell.cache_shard(_mesh_cache(torch, cell.model, cfg,
+                                                     S)))
                     with torch.no_grad():
                         logits = cell.model.decode_step(
                             params, inp["tokens"],
-                            {n: type(c)(c.k.clone(), c.v.clone(),
-                                        c.length.clone())
-                             for n, c in cache.items()}, cell.ctx)[0]
+                            tree.map_paths(lambda _, t: t.clone(), cache),
+                            cell.ctx)[0]
                         nxt, cache = cell.step(params, inp["tokens"],
                                                cache)
                     out[key] = {"logits": logits.cpu().numpy(),
                                 "next": nxt.cpu().numpy(),
-                                "k": {n: c.k.cpu().numpy()
-                                      for n, c in cache.items()}}
+                                "k": _numpy_leaves(tree, cache)}
                 torch.cuda.synchronize()
                 launches[key] = ops.launch_counts()
         q.put((rank, out, launches, mesh.get_coordinate()))
@@ -4063,6 +4334,11 @@ def _mesh_rank(rank: int, world: int, init: str, q) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _numpy_leaves(tree, cache) -> dict:
+    """{path: array} of a cache's leaves (``tree.paths``)."""
+    return {"/".join(p): c.cpu().numpy() for p, c in tree.paths(cache)}
 
 
 def _mesh_one_process(torch, arch, cfg, kind, phase) -> dict:
@@ -4080,17 +4356,19 @@ def _mesh_one_process(torch, arch, cfg, kind, phase) -> dict:
                                                  make_train_step)
 
     n = 2 if cfg.moe else 1
+    _, S = _cells_of(arch)
     model = build_model(cfg, n, np.zeros((n, 0), np.int32), "cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
-    shape = InputShape(kind, MESH_S, MESH_B, kind)
+    shape = InputShape(kind, S, MESH_B, kind)
     mode = "replicated" if kind == "decode" else "a2a"
     rt = dryrun.moe_runtime_for(cfg, _MeshShape(1, 2), shape, mode,
                                 device="cuda")
     if rt is not None:
-        rows = MESH_B if kind == "decode" else MESH_B * MESH_S
+        rows = MESH_B if kind == "decode" else MESH_B * S
         rt = rt._replace(capacity=rows * cfg.moe.top_k)
     ctx = ParallelCtx(moe_runtime=rt, remat=True, ce_chunk=512)
-    inp = {k: v.cuda() for k, v in _mesh_inputs(torch, cfg, kind).items()}
+    inp = {k: v.cuda() for k, v in _mesh_inputs(torch, cfg, kind,
+                                                 S).items()}
     if kind == "train":
         opt = adafactor(lr=1e-3)
         st, met = make_train_step(model, opt, ctx)(
@@ -4102,47 +4380,68 @@ def _mesh_one_process(torch, arch, cfg, kind, phase) -> dict:
     with torch.no_grad():
         if kind == "prefill":
             logits, cache, _ = model.prefill(params, inp["tokens"], ctx,
-                                             max_slots=MESH_S)
-            return {"logits": logits.cpu().numpy(),
-                    "k": {n: c.k.cpu().numpy() for n, c in cache.items()}}
+                                             max_slots=S)
+            return {"logits": logits.cpu().numpy(), "cache": cache,
+                    "k": _numpy_leaves(tree, cache)}
         logits, cache, _ = model.decode_step(
-            params, inp["tokens"], {n: type(c)(c.k.cuda(), c.v.cuda(),
-                                               c.length.cuda())
-                                    for n, c in _mesh_cache(
-                                        torch, model, cfg).items()}, ctx)
-    return {"logits": logits.cpu().numpy(),
+            params, inp["tokens"], tree.map_paths(
+                lambda _, t: t.cuda(), _mesh_cache(torch, model, cfg, S)),
+            ctx)
+    return {"logits": logits.cpu().numpy(), "cache": cache,
             "next": logits.argmax(-1, keepdim=True).int().cpu().numpy(),
-            "k": {n: c.k.cpu().numpy() for n, c in cache.items()}}
+            "k": _numpy_leaves(tree, cache)}
 
 
 def mesh_multirank(torch, get_config, smi) -> None:
     """(b) 4 gloo ranks on the card, (2, 2): every cell of reduced
-    float32 deepseek-r1 (its aux loss off, ``_mesh_cfg``) and qwen2-vl-2b
-    against the one-process run, 1e-5: train (loss, grad norm, every updated shard, in phases train and
-    train_tp), prefill (logits and cache rows), decode (logits and next
-    token rows, the cache shard)."""
+    float32 deepseek-r1 (its aux loss off, ``_mesh_cfg``) and qwen2-vl-2b,
+    and the train / prefill / decode cells of reduced float32 gemma3,
+    zamba2, rwkv6 and whisper, against the one-process run, 1e-5: train
+    (loss, grad norm, every updated shard), prefill (logits and cache
+    rows), decode (logits and next token rows, the cache shard).
+    deepseek-r1's and qwen2-vl-2b's errors are absolute; the four
+    families' loss and grad norm are held relatively (rwkv6's grad norm
+    runs to ~1e3), their logits and caches normwise (max |err| over the
+    largest magnitude, at least 1: recurrent states are sums over the
+    sequence), and zamba2 at 5e-4, its recorded amplification (the CPU
+    tests)."""
     import numpy as np
 
     from repro_torch.distributed import sharding_rules as tsr
+    from repro_torch.training import tree
 
-    ranks = _run_ranks(_mesh_rank, 4, (), timeout=420)
+    ranks = _run_ranks(_mesh_rank, 4, (), timeout=600)
     bad = [r[1] for r in ranks if r[2] is None]
     if bad:
         raise AssertionError(f"mesh (4 ranks): a rank failed:\n{bad[0]}")
-    b, w, errs = MESH_B // 2, MESH_S // 2, {}
-    for arch in ("deepseek-r1", "qwen2-vl-2b"):
+    b, errs, tols = MESH_B // 2, {}, {}
+    mesh = _MeshShape(2, 2)
+
+    def err_of(got, want, normwise: bool) -> float:
+        """max |got - want|, over max(1, max |want|) where ``normwise``."""
+        err = float(np.abs(got - want).max())
+        return err / max(1.0, float(np.abs(want).max())) if normwise else err
+
+    for arch in MESH_ARCHS:
         cfg = _mesh_cfg(get_config, arch)
-        for kind, phase in MESH_CELLS:
+        cells, S = _cells_of(arch)
+        rel = arch in FAMILY_OVERRIDES
+        for kind, phase in cells:
             key = f"{arch}/{phase}"
             ref = _mesh_one_process(torch, arch, cfg, kind, phase)
+            specs = None
+            if kind != "train":
+                placed = tsr.cache_placements(
+                    ref["cache"], MESH_B, ("data",),
+                    ("model",) if kind == "decode" else (), S)
+                specs = {"/".join(p): v for p, v in tree.paths(placed)}
             err = 0.0
             for rank, out, launches, (d, m) in ranks:
                 got = out[key]
+                mesh.coord = [d, m]
                 if kind == "train":
-                    err = max(err, abs(got["loss"] - ref["loss"]),
-                              abs(got["grad_norm"] - ref["grad_norm"]))
-                    mesh = _MeshShape(2, 2)
-                    mesh.coord = [d, m]
+                    err = max(err, *(err_of(got[k], ref[k], rel)
+                                     for k in ("loss", "grad_norm")))
                     want = tsr.shard_params(ref["params"], mesh, phase,
                                             dense=True)
                     for path, v in got["params"].items():
@@ -4154,25 +4453,27 @@ def mesh_multirank(torch, get_config, smi) -> None:
                                        for k in MESH_PATH):
                         raise AssertionError(f"mesh: {key} rank {rank} "
                                              f"launches {launches[key]}")
-                else:
-                    rows = slice(d * b, (d + 1) * b)
-                    err = max(err, float(np.abs(
-                        got["logits"] - ref["logits"][rows]).max()))
-                    for n, k in got["k"].items():
-                        want = ref["k"][n][:, rows]
-                        if kind == "decode":
-                            want = want[:, :, m * w:(m + 1) * w]
-                        err = max(err, float(np.abs(k - want).max()))
-                    if kind == "decode" and not np.array_equal(
-                            got["next"], ref["next"][rows]):
-                        raise AssertionError(f"mesh: {key} next tokens")
+                    continue
+                rows = slice(d * b, (d + 1) * b)
+                err = max(err, err_of(got["logits"], ref["logits"][rows],
+                                      rel))
+                sizes = {"data": 2, "model": 2}
+                for n, k in got["k"].items():
+                    want = tsr.shard_leaf(ref["k"][n], specs[n], sizes,
+                                          {"data": d, "model": m})
+                    err = max(err, err_of(k, want, rel))
+                if kind == "decode" and not np.array_equal(
+                        got["next"], ref["next"][rows]):
+                    raise AssertionError(f"mesh: {key} next tokens")
             errs[key] = err
+            tols[key] = 5e-4 if arch == "zamba2-2.7b" else 1e-5
     log(f"mesh: 4 gloo ranks on one card, mesh (2, 2), reduced float32 "
         f"cells vs the one-process run: max |err| "
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
-        f"(tol 1e-5) ({smi})")
-    if not max(errs.values()) <= 1e-5:
-        raise AssertionError(f"mesh (4 ranks): cells differ {errs}")
+        f"(tol 1e-5, zamba2 5e-4) ({smi})")
+    over = {k: v for k, v in errs.items() if not v <= tols[k]}
+    if over:
+        raise AssertionError(f"mesh (4 ranks): cells differ {over}")
 
 
 def _accounting_start():
@@ -4212,25 +4513,32 @@ def _accounting_report(proc) -> None:
         f"{json.dumps(r['collective_counts'])}")
 
 
-def mesh_phase(torch, get_config, smi) -> dict:
+def mesh_phase(torch, get_config, smi):
     """Phase 25: the dry-run's cells on torch.distributed — (a) the
     full-width deepseek-r1 train cell on a 1 x 1 NCCL mesh against the
-    one-device step, (b) 4 gloo ranks on the card running reduced cells
-    against the one-process run, (c) the dry-run's per-rank accounting
-    (beside them, in its own process).  Returns (a)'s launches."""
+    one-device step, then the full-width cells of gemma3-4b, zamba2-2.7b,
+    rwkv6-7b and whisper-base (``mesh_families_full``), (b) 4 gloo ranks
+    on the card running reduced cells against the one-process run, (c)
+    the dry-run's per-rank accounting (beside them, in its own process).
+    Returns (a)'s launches: deepseek-r1's, and the families' flash-decode
+    launches by family."""
     acct = _accounting_start()
     try:
         launches = mesh_full_width(torch, get_config, smi)
+        families = mesh_families_full(torch, get_config, smi)
         mesh_multirank(torch, get_config, smi)
         _accounting_report(acct)
     finally:
         if acct.poll() is None:
             acct.kill()
-    return launches
+    return launches, families
 
 
 def mesh_alone(torch, get_config, smi) -> None:
-    """``--only mesh``: phase 25."""
+    """``--only mesh``: the partial kernel's checks (the families' shapes
+    among them), then phase 25."""
+    cases = {"flash_decode_partial": []}
+    partial_kernel_phase(torch, get_config("deepseek-r1"), cases)
     mesh_phase(torch, get_config, smi)
 
 
@@ -4332,7 +4640,7 @@ def main() -> int:
     train_launches, launcher_launches = train_phases(torch, get_config, smi,
                                                      cases)
     spmd_launches = spmd_phase(torch, get_config, smi)
-    mesh_launches = mesh_phase(torch, get_config, smi)
+    mesh_launches, family_launches = mesh_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -4363,7 +4671,10 @@ def main() -> int:
                                   "train-launcher":
                                       launcher_launches[name],
                                   "spmd": spmd_launches[name],
-                                  "mesh": mesh_launches[name]},
+                                  "mesh": mesh_launches[name],
+                                  **{f"mesh ({a})": n[name]
+                                     for a, n in family_launches.items()
+                                     if name in n}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

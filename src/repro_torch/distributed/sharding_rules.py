@@ -21,8 +21,9 @@ Mesh axes: ``("pod",) data, model``.  Phases:
 Placements are matched by parameter path suffix; stacked layer dims are
 padded with ``None``.  The table is the reference's, as data.
 :func:`shard_params` executes it: with ``dense=True`` every leaf as the
-table places it (the decoder family's dense tensor-parallel and ZeRO-3
-layouts, run by :mod:`repro_torch.distributed.tensor_parallel`); without,
+table places it (every family's dense tensor-parallel and ZeRO-3
+layouts, run by :mod:`repro_torch.distributed.tensor_parallel`; rwkv6's
+time-mix ``w_v`` cut as its island takes it, :func:`placement_of`); without,
 the serving path's narrower layout: the expert banks over ``model`` and
 the leaves of rwkv6's tensor-parallel island in its own layout, dense
 weights whole on every rank.
@@ -30,10 +31,9 @@ weights whole on every rank.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Mapping, Tuple
 
-from repro_torch.models.rwkv import ISLAND_PLACEMENTS
+from repro_torch.training.tree import map_paths
 
 Placement = Tuple
 
@@ -106,30 +106,39 @@ def _match(path: str, shape, phase: str, dp, mp: str) -> Placement:
     return ()                                    # replicated
 
 
+# The layout of rwkv6's tensor-parallel island (``rwkv.rwkv_block_spmd``;
+# the reference's in_specs, one layer's leaves): projections
+# column-sharded over the model axis, w_o and the channel-mix w_v
+# row-sharded, the per-channel decay, bonus and group-norm scale with
+# their heads; the shift mixes, the decay's LoRA down-projection and the
+# channel-mix gate whole.
+_COL, _ROW, _WHOLE = (None, "model"), ("model", None), (None, None)
+ISLAND_PLACEMENTS: Dict[str, Dict[str, tuple]] = {
+    "tmix": {"mu": _WHOLE, "w_r": _COL, "w_k": _COL, "w_v": _COL,
+             "w_g": _COL, "w_o": _ROW, "decay_w0": ("model",),
+             "decay_A": _WHOLE, "decay_B": _COL, "bonus_u": _ROW,
+             "ln_scale": ("model",)},
+    "cmix": {"mu": _WHOLE, "w_k": _COL, "w_v": _ROW, "w_r": _WHOLE},
+}
+
+
+def _recut(path: str, spec: Placement) -> Placement:
+    """The table matches rwkv6's time-mix ``w_v`` as row-parallel (suffix
+    ``w_v``); the island takes it column-parallel.  The port cuts it so
+    when the params are sharded — its two trailing cuts swapped — where
+    the reference's GSPMD reshards it at every use."""
+    if path.endswith("tmix/w_v") and len(spec) >= 2:
+        return (*spec[:-2], spec[-1], spec[-2])
+    return spec
+
+
 def placement_of(path: str, shape, phase: str, dp, mp: str = "model"
                  ) -> Placement:
-    """The table's placement of one leaf (its path, its shape) in
-    ``phase``; ``dp`` the data axes (a tuple, or one name)."""
-    return _match(path, tuple(shape), phase, _axes(dp), mp)
-
-
-def _map(fn, tree, path: str = ""):
-    """``fn(path, leaf)`` over dicts, dataclasses (a KV cache) and named
-    tuples (a recurrent state); a leaf has a ``shape``, anything else (a
-    ring's window) is kept."""
-    join = lambda k: f"{path}/{k}" if path else str(k)   # noqa: E731
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, join(k)) for k, v in tree.items()}
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: _map(fn, getattr(tree, f.name), join(f.name))
-            for f in dataclasses.fields(tree)})
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(fn, v, join(k))
-                            for k, v in zip(tree._fields, tree)))
-    if hasattr(tree, "shape"):
-        return fn(path, tree)
-    return tree
+    """The placement the port executes for one leaf (its path, its shape)
+    in ``phase`` under the table's layouts: the table's, but rwkv6's
+    time-mix ``w_v`` cut as the island takes it (:func:`_recut`); ``dp``
+    the data axes (a tuple, or one name)."""
+    return _recut(path, _match(path, tuple(shape), phase, _axes(dp), mp))
 
 
 def param_placements(params, phase: str = "serve", dp="data",
@@ -137,8 +146,8 @@ def param_placements(params, phase: str = "serve", dp="data",
     """Placement tree matching ``params`` (anything with shapes).  ``dp``
     may be a tuple of axes (two pods: ("pod", "data") jointly)."""
     dp = _axes(dp)
-    return _map(lambda p, leaf: _match(p, tuple(leaf.shape), phase, dp, mp),
-                params)
+    return map_paths(lambda p, leaf: _match("/".join(p), tuple(leaf.shape),
+                                            phase, dp, mp), params)
 
 
 def adafactor_state_placements(params, placements):
@@ -163,36 +172,56 @@ def batch_placements(dp_axes: Tuple[str, ...]) -> Placement:
     return (_axes(dp_axes), None)
 
 
+# The roles of a cache's leaves, by the leaf's name: (batch dim, slot
+# dim, head dim), each counted from the end (stacked layer dims lead; None:
+# the leaf has no such dim).
+CACHE_ROLES: Dict[str, tuple] = {
+    # a KV cache's k / v (..., B, slots, KV, hd) and length (..., B)
+    "k": (-4, -3, None), "v": (-4, -3, None), "length": (-1, None, None),
+    # whisper's encoder K/V (..., B, S_enc, KV, hd): never slot-sharded
+    "cross_k": (-4, None, None), "cross_v": (-4, None, None),
+    # a Mamba state: ssm (..., B, H, P, N), conv (..., B, K - 1, d_inner)
+    "ssm": (-4, None, None), "conv": (-3, None, None),
+    # an RWKV state: wkv (..., B, H, D, D), its heads over the model axis
+    # (the island's: each rank holds its heads); shifts (..., B, d)
+    "wkv": (-4, None, -3), "shift_tmix": (-2, None, None),
+    "shift_cmix": (-2, None, None),
+}
+
+
 def cache_placements(cache, batch: int, dp: Tuple[str, ...],
-                     seq_axes: Tuple[str, ...], seq_len: int):
-    """Slots (the dim of size ``seq_len``) over ``seq_axes``, the batch dim
-    over the data axes (when batch > 1 and data isn't used for slots).
-    Leaves without either dim (ring windows, SSM states, cross-attention
-    K/V) stay batch-sharded or replicated."""
-    batch_ok = batch > 1 and not set(dp) & set(seq_axes or ())
+                     seq_axes: Tuple[str, ...], seq_len: int,
+                     mp: str = "model"):
+    """The reference's ``_cache_sharding_specs`` by role
+    (:data:`CACHE_ROLES`, from each leaf's name): a leaf's slots over
+    ``seq_axes`` where it holds ``seq_len`` slots (a sliding window's ring
+    never does), its batch over the data axes (when batch > 1, and, under
+    slot sharding, when the data axes cut no slots); every other leaf's
+    batch over the data axes.  On every cell of the assigned shapes the
+    roles give the reference's placements, where the port's gemma3 local
+    stack flattens the reference's (groups, pattern) axes into one."""
+    dp, seq = _axes(dp), _axes(seq_axes) if seq_axes else None
+    batch_ok = batch > 1 and not set(_names(dp)) & set(seq_axes or ())
 
-    def one(_, leaf):
-        shape = tuple(leaf.shape)
-        spec = [None] * len(shape)
-        start = 1 if len(shape) >= 3 else 0    # batch is never dim 0 there
-        if seq_axes:
-            for i, d in enumerate(shape):
-                if d == seq_len:
-                    spec[i] = _axes(seq_axes)
-                    if batch_ok:
-                        for j in range(start, len(shape)):
-                            if j != i and shape[j] == batch:
-                                spec[j] = _axes(dp)
-                                break
-                    return tuple(spec)
-        if batch > 1:
-            for i in range(start, len(shape)):
-                if shape[i] == batch:
-                    spec[i] = _axes(dp)
-                    return tuple(spec)
-        return tuple(spec)
+    def spec(path, leaf):
+        b, slots, heads = CACHE_ROLES[path[-1]]
+        out = [None] * leaf.ndim
+        nd = leaf.ndim
+        if slots is not None and seq and leaf.shape[nd + slots] == seq_len:
+            out[nd + slots] = seq
+            if batch_ok:
+                out[nd + b] = dp
+        elif batch > 1:
+            out[nd + b] = dp
+        if heads is not None:
+            out[nd + heads] = mp
+        return tuple(out)
 
-    return _map(one, cache)
+    return map_paths(spec, cache)
+
+
+def _names(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 # ----------------------------------------------------------- executing them
@@ -222,12 +251,12 @@ def shard_leaf(leaf, placement: Placement, sizes: Mapping[str, int],
 
 def _executed(path: str, spec: Placement, ndim: int,
               dense: bool = False) -> Placement:
-    """The part of ``spec`` the port executes: all of it with ``dense``;
-    else the expert tier over the model axis, rwkv6's island leaves in the
-    island's own layout (its time-mix ``w_v`` is column-parallel, not the
-    table's row) and every other leaf whole."""
+    """The part of the table's ``spec`` the port executes: all of it with
+    ``dense``, rwkv6's time-mix ``w_v`` re-cut (:func:`_recut`); else the
+    expert tier over the model axis, rwkv6's island leaves in the island's
+    own layout and every other leaf whole."""
     if dense:
-        return spec
+        return _recut(path, spec)
     if "/servers/" in f"/{path}":
         return tuple(a if a == "model" else None for a in spec)
     parts = path.split("/")
@@ -251,13 +280,7 @@ def shard_params(full, mesh, phase: str = "serve", dense: bool = False):
     dp = tuple(a for a in names if a != "model")
     placements = param_placements(full, phase, dp=dp)
 
-    def one(path, leaf):
-        spec = _executed(path, _get(placements, path), leaf.ndim, dense)
+    def one(path, leaf, spec):
+        spec = _executed("/".join(path), spec, leaf.ndim, dense)
         return shard_leaf(leaf, spec, sizes, coord)
-    return _map(one, full)
-
-
-def _get(tree, path: str):
-    for k in path.split("/"):
-        tree = tree[k]
-    return tree
+    return map_paths(one, full, placements)

@@ -15,6 +15,13 @@ empty output of the kernel's shape and dtype, and a formula registered with
 * ``flash_decode`` / ``flash_decode_partial``: ``4·B·H·S·hd`` (q·k and p·v
   over every slot of the cache given).
 
+rwkv6's wkv recurrence is no kernel (PyTorch on every device, as it is
+jnp in the reference), but its per-token loop would dispatch L steps a
+layer on ``meta`` (a 32,768-token prefill: a million steps).  There it is
+one op, :func:`wkv`, counted as the loop's matmuls (``2·B·L·H·D²``, the
+backward ``4·B·L·H·D²``) with the loop's memory modelled
+(``tests/test_torch_meta.py`` holds both to the loop's).
+
 The plain versions are not run there: ``grouped_gemm_torch`` makes G masked
 dense products, G times the kernel's work.  Calling these operators on any
 other device raises: the ``cuda`` and ``torch`` routes of :mod:`.ops` are
@@ -118,6 +125,65 @@ def _(q, k, v, lengths):
             torch.empty((B, H), **f))
 
 
+# ------------------------------------------- rwkv6's per-token recurrence
+
+@torch.library.custom_op(f"{NS}::wkv", mutates_args=())
+def wkv_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           w: torch.Tensor, u: torch.Tensor, S0: torch.Tensor,
+           saves: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    _refuse("wkv")
+
+
+@wkv_op.register_fake
+def _(r, k, v, w, u, S0, saves):
+    B, L, H, D = r.shape
+    work = 3 if L > 1 else 2
+    kept = 3 * L - 1 if saves else 0
+    return (torch.empty_like(r), torch.empty_like(S0),
+            S0.new_empty((work, B, H, D, D)),
+            S0.new_empty((kept, B, H, D, D)))
+
+
+@torch.library.custom_op(f"{NS}::wkv_bwd", mutates_args=())
+def wkv_bwd(dy: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+            S0: torch.Tensor, kept: torch.Tensor) -> List[torch.Tensor]:
+    _refuse("wkv_bwd")
+
+
+@wkv_bwd.register_fake
+def _(dy, r, k, v, w, u, S0, kept):
+    return [torch.empty_like(t) for t in (r, k, v, w, u, S0)]
+
+
+def _wkv_setup(ctx, inputs, output):
+    ctx.mark_non_differentiable(output[2], output[3])
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(*inputs[:6], output[3])
+
+
+def _wkv_backward(ctx, dy, dS, dwork, dkept):
+    return (*wkv_bwd(dy, *ctx.saved_tensors), None)
+
+
+wkv_op.register_autograd(_wkv_backward, setup_context=_wkv_setup)
+
+
+def wkv(r, k, v, w, u, S0):
+    """rwkv6's recurrence over a sequence on ``meta``: (y (B, L, H, D),
+    the last state), as ``models/rwkv.py``'s per-token loop returns them.
+    Its memory is the loop's, modelled: the loop's working set at a token
+    (kv, u·kv or w·S, and the new state: three (B, H, D, D) states, two
+    for one token) is an output dropped at once; under grad the states
+    the loop keeps for its backward (kv and the bracket per token, every
+    state but the last) are an output saved until the backward."""
+    saves = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, w, u, S0))
+    y, S, _, _ = wkv_op(r, k, v, w, u, S0, saves)
+    return y, S
+
+
 # ------------------------------------------------------ the kernels' work
 
 def gemm_flops(M: int, K: int, N: int) -> int:
@@ -166,6 +232,24 @@ def _(q_shape, k_shape, *a, **k) -> int:
 @register_flop_formula(torch.ops.repro_torch.flash_decode_partial)
 def _(q_shape, k_shape, *a, **k) -> int:
     return decode_flops(q_shape[0], q_shape[1], k_shape[1], q_shape[2])
+
+
+def wkv_flops(B: int, L: int, H: int, D: int, backward: bool) -> int:
+    """The per-token loop's matmuls: ``r_t · (S + u k_t v_tᵀ)`` per head
+    and token, ``2·D²`` (its backward: ``4·D²``, the gradients of r_t
+    and of the bracket); the loop's elementwise updates count nothing, as
+    ``FlopCounterMode`` counts them nothing there."""
+    return (4 if backward else 2) * B * L * H * D * D
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv)
+def _(r_shape, *a, **k) -> int:
+    return wkv_flops(*r_shape, backward=False)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv_bwd)
+def _(dy_shape, *a, **k) -> int:
+    return wkv_flops(*dy_shape, backward=True)
 
 
 def grouped_gemm_dw_meta(x, dy, sizes, out=None):

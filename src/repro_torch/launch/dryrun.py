@@ -14,10 +14,10 @@ device.
   builds them, cut to the rank's shards — under the ``fake`` process-group
   backend at the production world size (16 x 16 = 256 ranks, or 2 x 16 x
   16 = 512), with no card and no data.  It records per device: FLOPs
-  (``FlopCounterMode``; each kernel counted by its own work,
-  :mod:`repro_torch.kernels.meta`), the argument bytes (the shards of the
-  params and optimizer state, the batch, the cache shard; exact from
-  shapes), the peak live bytes (:class:`MetaMemory`), the collectives'
+  (``FlopCounterMode``; each kernel, and rwkv6's wkv recurrence, counted
+  by its own work, :mod:`repro_torch.kernels.meta`), the argument bytes
+  (the shards of the params and optimizer state, the batch, the cache
+  shard; exact from shapes), the peak live bytes (:class:`MetaMemory`), the collectives'
   bytes and counts by kind (:class:`CollectiveCounter`, over the ``c10d``
   ops) and whether the rank fits one H100's 80 GiB.  Eager execution
   counts every layer, so the reference's depth probes are not needed;
@@ -29,12 +29,6 @@ Not portable: the reference's ``parse_collective_bytes`` and
 which have no PyTorch counterpart; the counts here come from the ops the
 step dispatches instead.  ``unroll_scans`` is XLA's (the port's layers
 are a Python loop).
-
-Scope: the uniform decoder family (``_build_decoder``: deepseek-r1,
-kimi-k2, arctic, granite, minitron, phi3, qwen2-vl).  The cells of
-gemma3-4b (local / global rings), zamba2-2.7b, whisper-base and rwkv6-7b's
-whole model are not ported yet: :func:`run_cell` records them as
-``status: "not_ported"`` with the reason, never as passed.
 
 Results land in ``experiments/dryrun_torch/``.
 
@@ -73,6 +67,7 @@ from repro_torch.distributed.sharding_rules import (cache_placements,
                                                     train_phase_for)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import ParallelCtx, build_model
+from repro_torch.models.whisper import frame_spec
 from repro_torch.training import tree as T
 from repro_torch.training.optimizer import adafactor
 from repro_torch.training.train_loop import TrainState, make_train_step
@@ -80,21 +75,6 @@ from repro_torch.training.train_loop import TrainState, make_train_step
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun_torch")
 H100_BYTES = 80 * 2**30
-
-
-def not_ported(cfg: ModelConfig) -> Optional[str]:
-    """Why this family's cells are not ported yet, or None."""
-    if cfg.family == "hybrid":
-        return "zamba2's cells (Mamba2 groups + shared attention) are not " \
-               "ported to the mesh yet"
-    if cfg.family == "ssm":
-        return "rwkv6's whole model on a mesh is not ported yet (only its " \
-               "tensor-parallel block)"
-    if cfg.family == "audio":
-        return "whisper's encoder-decoder cells are not ported yet"
-    if cfg.local_global_pattern:
-        return "gemma3's local / global ring cells are not ported yet"
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +98,7 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Spec]:
     else:  # decode: ONE new token against a cache of S tokens
         specs = {"tokens": Spec((B, 1), torch.int32)}
     if cfg.is_encoder_decoder and shape.kind == "train":
-        specs["frames"] = Spec((B, cfg.encoder_seq_len, cfg.d_model),
-                               torch.bfloat16)
+        specs["frames"] = Spec(*frame_spec(cfg, B))
     if cfg.mrope_sections is not None and shape.kind == "train":
         specs["mrope_positions"] = Spec((3, B, S), torch.int32)
     return specs
@@ -185,12 +164,15 @@ class Cell(NamedTuple):
 
     def rows(self, name: str, a):
         """This rank's block of a batch input (``input_specs``' name):
-        rows over the data axes, or all of it when the batch is 1."""
+        rows over the data axes — (dp, None) for tokens and labels, (dp,
+        None, None) for whisper's frames, (None, dp, None) for M-RoPE
+        positions — or all of it when the batch is 1."""
         B = self.shape.global_batch
         if B == 1:
             return a
         dp = self.ctx.axis_data
-        spec = (None, dp, None) if name == "mrope_positions" else (dp,)
+        spec = {"mrope_positions": (None, dp, None),
+                "frames": (dp, None, None)}.get(name, (dp, None))
         return _shard(a, spec, self.mesh)
 
     def cache_shard(self, cache):
@@ -199,8 +181,9 @@ class Cell(NamedTuple):
         specs = cache_placements(cache, self.shape.global_batch,
                                  self.ctx.axis_data, self.seq_axes,
                                  self.shape.seq_len)
-        return _map2(lambda leaf, spec: _shard(leaf, spec, self.mesh),
-                     cache, specs)
+        return T.map_paths(lambda _, leaf, spec: _shard(leaf, spec,
+                                                        self.mesh),
+                           cache, specs)
 
     def init_cache(self):
         """This rank's empty cache of the decode cell."""
@@ -216,18 +199,6 @@ def _shard(a, spec, mesh):
     return shard_leaf(a, spec, sizes, coord)
 
 
-def _map2(fn, tree, specs):
-    if isinstance(tree, dict):
-        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return dataclasses.replace(tree, **{
-            f.name: _map2(fn, getattr(tree, f.name), getattr(specs, f.name))
-            for f in dataclasses.fields(tree)})
-    if hasattr(tree, "shape"):
-        return fn(tree, specs)
-    return tree
-
-
 def build_cell(arch: str, shape: InputShape, mesh, cfg=None,
                device: Optional[str] = None) -> Cell:
     """One dry-run cell's step on this rank of ``mesh`` (the reference's
@@ -235,9 +206,6 @@ def build_cell(arch: str, shape: InputShape, mesh, cfg=None,
     placements).  Its model lives on ``device`` (the mesh's device type
     by default; ``"meta"`` for the accounting)."""
     cfg = cfg or get_config(arch)
-    reason = not_ported(cfg)
-    if reason:
-        raise NotImplementedError(reason)
     device = device or mesh.device_type
     dp = data_axes(mesh)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -519,7 +487,7 @@ def run_probes(arch: str, shape: InputShape, mesh, cfg=None
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              save: bool = True, cfg=None, probes: bool = False) -> Dict:
     """The accounting of one cell (module docstring); ``status`` is
-    ``ok``, ``skip`` (not applicable), ``not_ported`` or ``error``."""
+    ``ok``, ``skip`` (not applicable) or ``error``."""
     shape = shape_by_name(shape_name)
     cfg = cfg or get_config(arch)
     ok, reason = applicable(cfg, shape)
@@ -527,13 +495,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "status": "skip", "reason": reason}
     if not ok:
-        _save(result, save)
-        return result
-    reason = not_ported(cfg)
-    if reason:
-        result.update(status="not_ported", reason=reason)
-        print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: NOT PORTED "
-              f"- {reason}")
         _save(result, save)
         return result
     mesh = make_production_mesh(multi_pod)

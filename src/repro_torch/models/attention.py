@@ -12,6 +12,12 @@ CPU; the softcap is the kernels' own argument.  Cross-attention against the cach
 K/V is a one-token decode with every position valid: it runs through
 ``ops.flash_decode`` with lengths filled with the encoder length.
 
+Under a tensor-parallel layout (``tp``) the self- and cross-attention's
+projections are this rank's columns of wq / wk / wv and rows of wo:
+attention runs on this rank's heads, or, where a rank's columns hold no
+whole head, on every head gathered (:func:`_route`), its output split
+back to this rank's columns for wo.
+
 Sequence-parallel decode (a cache sharded over slots on a mesh):
 :func:`decode_attention_partial` computes one shard's open softmax through
 ``ops.flash_decode_partial``, and :func:`combine_partial_attention` merges
@@ -140,38 +146,63 @@ def full_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = _dense_core(cfg, q, k, v, positions, positions,
                           is_local=is_local, causal=causal)
-    out = out.reshape(b, s, q.shape[2] * hd).to(x.dtype)
-    if heads is None:
-        out = out @ params["wo"]
-    else:
-        if heads == "gathered":
-            out = tpl.split(out, -1, tp.model)
-        out = tpl.row_linear(out, params["wo"], tp.model)
-    if return_kv and heads == "local":      # the cache holds every head
-        k, v = tpl.gather(k, 2, tp.model), tpl.gather(v, 2, tp.model)
-    return (out, (k, v)) if return_kv else out
+    out = _out_proj(out.reshape(b, s, q.shape[2] * hd).to(x.dtype),
+                    params, tp, heads)
+    if return_kv:
+        return out, _whole_heads(k, v, tp, heads)
+    return out
+
+
+def _route(cfg: ModelConfig, tp):
+    """How a layout cuts the attention projections: None (whole weights),
+    "local" (this rank's heads of column-parallel projections) or
+    "gathered" (a rank's columns hold no whole head, as 2 KV heads over 4
+    ranks: the columns gathered to every head, attention computed whole on
+    every rank)."""
+    if tp is None or not tp.attention_cut():
+        return None
+    return "local" if tp.whole_heads(cfg) else "gathered"
+
+
+def _heads(t: torch.Tensor, n: int, hd: int, tp, route) -> torch.Tensor:
+    """A projection's columns (this rank's block under a cut) split into
+    heads: this rank's ``n / n_model`` heads ("local") or all ``n``, the
+    blocks gathered ("gathered")."""
+    if route == "local":
+        n //= tp.n_model
+    elif route == "gathered":
+        t = tpl.gather(t, -1, tp.model)
+    return _split_heads(t, n, hd)
+
+
+def _out_proj(out: torch.Tensor, params: Dict, tp, route) -> torch.Tensor:
+    """``wo`` over the heads' outputs (b, s, heads·hd): whole, or
+    row-parallel over this rank's heads (every head's output split to this
+    rank's columns first under "gathered")."""
+    if route is None:
+        return out @ params["wo"]
+    if route == "gathered":
+        out = tpl.split(out, -1, tp.model)
+    return tpl.row_linear(out, params["wo"], tp.model)
+
+
+def _whole_heads(k: torch.Tensor, v: torch.Tensor, tp, route):
+    """(k, v) of every head, for a cache: this rank's heads gathered under
+    "local"."""
+    if route == "local":
+        return tpl.gather(k, 2, tp.model), tpl.gather(v, 2, tp.model)
+    return k, v
 
 
 def _project(params: Dict, cfg: ModelConfig, x: torch.Tensor, tp):
-    """(q, k, v) split into heads, and how they are cut: None (whole
-    weights), "local" (this rank's heads of column-parallel projections)
-    or "gathered" (a rank's columns hold no whole head, as 2 KV heads over
-    4 ranks: the columns gathered to every head, attention computed whole
-    on every rank)."""
+    """(q, k, v) split into heads, and how they are cut (:func:`_route`):
+    one ``copy_to`` of x for the three column-parallel projections."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if tp is None or not tp.attention_cut():
-        return (_split_heads(x @ params["wq"], h, hd),
-                _split_heads(x @ params["wk"], kvh, hd),
-                _split_heads(x @ params["wv"], kvh, hd), None)
-    xg = tpl.copy_to(x, tp.model)
-    q, k, v = (xg @ params[n] for n in ("wq", "wk", "wv"))
-    if tp.whole_heads(cfg):
-        n = tp.n_model
-        return (_split_heads(q, h // n, hd), _split_heads(k, kvh // n, hd),
-                _split_heads(v, kvh // n, hd), "local")
-    q, k, v = (tpl.gather(t, -1, tp.model) for t in (q, k, v))
-    return (_split_heads(q, h, hd), _split_heads(k, kvh, hd),
-            _split_heads(v, kvh, hd), "gathered")
+    route = _route(cfg, tp)
+    if route is not None:
+        x = tpl.copy_to(x, tp.model)
+    return (*(_heads(x @ params[w], n, hd, tp, route)
+              for w, n in (("wq", h), ("wk", kvh), ("wv", kvh))), route)
 
 
 def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -281,25 +312,47 @@ def cross_kv(params: Dict, cfg: ModelConfig, enc_out: torch.Tensor):
             _split_heads(enc_out @ params["wv"], kvh, hd))
 
 
+def _cross_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """Unmasked attention of q (b, s, H, hd) over k / v (b, S_enc, KV, hd)
+    in fp32, rounded to ``dtype``: (b, s, H·hd)."""
+    b, s, h, hd = q.shape
+    p = torch.softmax(_gqa_scores(q, k) / math.sqrt(hd), dim=-1)
+    return _gqa_out(p, v).to(dtype).reshape(b, s, h * hd)
+
+
 def cross_attention_plain(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                           k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unmasked attention of x's queries (b, s, d) over encoder K/V,
     materialized in fp32 (the reference's ``cross_attention_cached``)."""
-    b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
-    q = _split_heads(x @ params["wq"], h, hd)
-    p = torch.softmax(_gqa_scores(q, k) / math.sqrt(hd), dim=-1)
-    out = _gqa_out(p, v).to(x.dtype)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    q = _split_heads(x @ params["wq"], cfg.num_heads, cfg.head_dim)
+    return _cross_core(q, k, v, x.dtype) @ params["wo"]
 
 
 def cross_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    enc_out: torch.Tensor) -> torch.Tensor:
+                    enc_out: torch.Tensor, tp=None,
+                    return_kv: bool = False):
     """Decoder cross-attention over a prompt (whisper's prefill): queries
     from x (b, s, d), K/V from enc_out (b, S_enc, d); no RoPE, no mask.
-    Plain PyTorch, as in the reference."""
-    return cross_attention_plain(params, cfg, x, *cross_kv(params, cfg,
-                                                           enc_out))
+    Plain PyTorch, as in the reference.  ``tp``: a layout that cuts the
+    cross projections as the self-attention's (:func:`_route`: this
+    rank's heads, or every head gathered when its columns hold no whole
+    head); ``return_kv`` also returns the encoder's K/V of every head for
+    the cache."""
+    route = _route(cfg, tp)
+    if route is None:
+        k, v = cross_kv(params, cfg, enc_out)
+        out = cross_attention_plain(params, cfg, x, k, v)
+        return (out, (k, v)) if return_kv else out
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xg, eg = tpl.copy_to(x, tp.model), tpl.copy_to(enc_out, tp.model)
+    q = _heads(xg @ params["wq"], h, hd, tp, route)
+    k = _heads(eg @ params["wk"], kvh, hd, tp, route)
+    v = _heads(eg @ params["wv"], kvh, hd, tp, route)
+    out = _out_proj(_cross_core(q, k, v, x.dtype), params, tp, route)
+    if return_kv:
+        return out, _whole_heads(k, v, tp, route)
+    return out
 
 
 def cross_attention_cached(params: Dict, cfg: ModelConfig, x: torch.Tensor,

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.models.common import dense_init, resolve_dtype, rms_norm
 
 
@@ -152,25 +153,46 @@ def _ssd_scan_ref(u, logA, Bm, Cm, S0):
     return torch.stack(ys, dim=1), S
 
 
+def _in_proj(params: Dict, x: torch.Tensor, tp):
+    """The whole input projection and conv weight: ``x @ in_proj``, or
+    under a layout (``in_proj`` column-parallel, ``conv_w`` cut over its
+    channels; neither cut lines up with the [z, x, B, C, dt] segments)
+    this rank's columns gathered to every column, the mixer then run whole
+    on every rank (a gather's backward takes this rank's block)."""
+    if tp is None:
+        return x @ params["in_proj"], params["conv_w"]
+    proj = tpl.col_linear(x, params["in_proj"], tp.model)
+    return (tpl.gather(proj, -1, tp.model),
+            tpl.gather(params["conv_w"], -1, tp.model))
+
+
 def _gate_out(params: Dict, cfg: ModelConfig, y: torch.Tensor,
-              z: torch.Tensor, dtype) -> torch.Tensor:
+              z: torch.Tensor, dtype, tp=None) -> torch.Tensor:
     """y · silu(z) in fp32, rounded to the activations' dtype, gated RMS
-    norm, output projection."""
+    norm, output projection (row-parallel under a layout: this rank's
+    ``d_inner`` columns, whole heads, times its rows, summed)."""
     y = y * F.silu(z.float())
     y = rms_norm(y.to(dtype), params["norm_scale"], cfg.rms_norm_eps)
-    return y @ params["out_proj"]
+    if tp is None:
+        return y @ params["out_proj"]
+    return tpl.row_linear(tpl.split(y, -1, tp.model), params["out_proj"],
+                          tp.model)
 
 
 def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                   state: Optional[MambaState] = None, *, chunk: int = 64,
-                  use_ref_scan: bool = False
+                  use_ref_scan: bool = False, tp=None
                   ) -> Tuple[torch.Tensor, MambaState]:
     """Full-sequence forward (prefill).  x (B, L, d_model); ``state`` the
-    recurrence to continue (zeros if None).  Returns (out, new state)."""
+    recurrence to continue (zeros if None); ``tp`` a dense
+    :class:`~repro_torch.distributed.tensor_parallel.Layout` whose
+    ``in_proj`` / ``conv_w`` / ``out_proj`` are this rank's cuts.  Returns
+    (out, new state)."""
     Bsz, L, _ = x.shape
     d_inner, H, P, N = dims(cfg)
-    z, xs, Bm, Cm, dt = _split_proj(cfg, x @ params["in_proj"])
-    xs, conv_state = _conv(xs, params["conv_w"],
+    proj, conv_w = _in_proj(params, x, tp)
+    z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
+    xs, conv_state = _conv(xs, conv_w,
                            None if state is None else state.conv)
     dt = F.softplus(dt.float() + params["dt_bias"])          # (B, L, H)
     logA = dt * -torch.exp(params["A_log"])
@@ -183,17 +205,20 @@ def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         y, S = _ssd_chunked(u, logA, Bm.float(), Cm.float(), S0, chunk)
     y = y + params["D"][None, None, :, None] * xh
-    out = _gate_out(params, cfg, y.reshape(Bsz, L, d_inner), z, x.dtype)
+    out = _gate_out(params, cfg, y.reshape(Bsz, L, d_inner), z, x.dtype, tp)
     return out, MambaState(ssm=S, conv=conv_state)
 
 
 def mamba_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 state: MambaState) -> Tuple[torch.Tensor, MambaState]:
-    """One-token decode.  x (B, 1, d_model).  Returns (out, new state)."""
+                 state: MambaState, tp=None
+                 ) -> Tuple[torch.Tensor, MambaState]:
+    """One-token decode.  x (B, 1, d_model); ``tp`` as
+    :func:`mamba_forward`'s.  Returns (out, new state)."""
     Bsz = x.shape[0]
     d_inner, H, P, N = dims(cfg)
-    z, xs, Bm, Cm, dt = _split_proj(cfg, x @ params["in_proj"])
-    xs, conv_state = _conv(xs, params["conv_w"], state.conv)
+    proj, conv_w = _in_proj(params, x, tp)
+    z, xs, Bm, Cm, dt = _split_proj(cfg, proj)
+    xs, conv_state = _conv(xs, conv_w, state.conv)
     dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]   # (B, H)
     a = torch.exp(dt * -torch.exp(params["A_log"]))
     xh = xs.reshape(Bsz, H, P).float()
@@ -202,7 +227,7 @@ def mamba_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
          + torch.einsum("bhp,bn->bhpn", u, Bm[:, 0].float()))
     y = torch.einsum("bhpn,bn->bhp", S, Cm[:, 0].float())
     y = y + params["D"][None, :, None] * xh
-    out = _gate_out(params, cfg, y.reshape(Bsz, 1, d_inner), z, x.dtype)
+    out = _gate_out(params, cfg, y.reshape(Bsz, 1, d_inner), z, x.dtype, tp)
     return out, MambaState(ssm=S, conv=conv_state)
 
 

@@ -23,7 +23,11 @@ dtype before ``w_v``, and the time-mix its output before ``w_o``.
 :func:`rwkv_block_spmd` is the reference's tensor-parallel layer on a
 mesh: every projection column-sharded over the model axis (the wkv state's
 heads with them), ``w_o`` and the channel-mix ``w_v`` row-parallel with
-one ``all_reduce`` each (:data:`ISLAND_PLACEMENTS` is its layout).
+one ``all_reduce`` each (``sharding_rules.ISLAND_PLACEMENTS`` is its
+layout), and autograd-aware (training runs it).  The sharding table
+matches the time-mix ``w_v`` as row-parallel; the port cuts it as the
+island takes it, column-parallel, when the params are sharded
+(``sharding_rules.placement_of``).
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.kernels import meta
 from repro_torch.models.common import dense_init, resolve_dtype, rms_norm
 
 
@@ -146,18 +151,25 @@ def tmix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     """Full-sequence time-mix.  x (B, L, d).  The projections and the decay
     run over the whole sequence, the wkv recurrence token by token (the
     reference's ``chunk`` only groups those steps for rematerialization;
-    the values do not depend on it).  Returns (y, wkv state', last
+    the values do not depend on it).  On ``meta`` tensors (the dry-run's
+    accounting) the recurrence is one op, ``kernels/meta.py``'s ``wkv``,
+    counted as the loop's matmuls.  Returns (y, wkv state', last
     token)."""
     _, D = dims(cfg)
     H = params["w_r"].shape[1] // D
     shifted = torch.cat([state.shift_tmix.to(x.dtype)[:, None], x[:, :-1]],
                         dim=1)
     r, k, v, g, w = _projections(params, x, shifted, H, D)
-    S, u, ys = state.wkv, params["bonus_u"], []
-    for t in range(x.shape[1]):
-        S, y = _wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
-        ys.append(y)
-    out = _group_norm_out(params, torch.stack(ys, dim=1), g, x.dtype)
+    S, u = state.wkv, params["bonus_u"]
+    if x.device.type == "meta":        # the accounting: one op, no loop
+        y, S = meta.wkv(r, k, v, w, u, S)
+    else:
+        ys = []
+        for t in range(x.shape[1]):
+            S, y = _wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+            ys.append(y)
+        y = torch.stack(ys, dim=1)
+    out = _group_norm_out(params, y, g, x.dtype)
     return out, S, x[:, -1]
 
 
@@ -216,44 +228,38 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device,
                                device=device))
 
 
-# The layout rwkv_block_spmd takes (the reference's in_specs, one layer's
-# leaves): projections column-sharded over the model axis, w_o and the
-# channel-mix w_v row-sharded, the per-channel decay, bonus and group-norm
-# scale with their heads; the shift mixes, the decay's LoRA
-# down-projection and the channel-mix gate whole.
-_COL, _ROW, _WHOLE = (None, "model"), ("model", None), (None, None)
-ISLAND_PLACEMENTS: Dict[str, Dict[str, tuple]] = {
-    "tmix": {"mu": _WHOLE, "w_r": _COL, "w_k": _COL, "w_v": _COL,
-             "w_g": _COL, "w_o": _ROW, "decay_w0": ("model",),
-             "decay_A": _WHOLE, "decay_B": _COL, "bonus_u": _ROW,
-             "ln_scale": ("model",)},
-    "cmix": {"mu": _WHOLE, "w_k": _COL, "w_v": _ROW, "w_r": _WHOLE},
-}
-
-
 def rwkv_block_spmd(tparams: Dict, cparams: Dict, cfg: ModelConfig,
                     x: torch.Tensor, state: RwkvState,
                     norms: Tuple[torch.Tensor, torch.Tensor], group
                     ) -> Tuple[torch.Tensor, RwkvState]:
     """One tensor-parallel RWKV layer over a sequence, on this rank's
-    slices (:data:`ISLAND_PLACEMENTS`; ``state.wkv`` holds this rank's
-    heads) of a layer: x (B, L, d) whole.  The wkv recurrence runs on the
-    local heads; ``w_o``'s and the channel-mix ``w_v``'s partial sums are
-    the two ``all_reduce``s over ``group`` (the model axis)."""
+    slices (``sharding_rules.ISLAND_PLACEMENTS``; ``state.wkv`` holds this
+    rank's heads) of a layer: x (B, L, d) whole.  The wkv recurrence runs
+    on the local heads; ``w_o``'s and the channel-mix ``w_v``'s partial
+    sums are the two sums over ``group`` (the model axis).
+
+    Under grad the island keeps the Megatron conventions of
+    :mod:`repro_torch.distributed.tensor_parallel`: the sums' backward is
+    the identity (``reduce_from``), and the gradient of what feeds this
+    rank's columns only — the time-mix input, its shift mixes ``mu`` and
+    the decay's LoRA down-projection ``decay_A`` (whole leaves used on
+    this rank's columns), the channel-mix key input — is summed over
+    ``group`` (``copy_to``), as the transpose of the reference's
+    ``shard_map`` sums its replicated inputs."""
     n1, n2 = norms
-    h = rms_norm(x, n1, cfg.rms_norm_eps)
+    h = tpl.copy_to(rms_norm(x, n1, cfg.rms_norm_eps), group)
+    tparams = dict(tparams, mu=tpl.copy_to(tparams["mu"], group),
+                   decay_A=tpl.copy_to(tparams["decay_A"], group))
     y, S, prev_t = tmix_forward(tparams, cfg, h, state)
-    dist.all_reduce(y, group=group)                 # row-parallel w_o
-    x = x + y
+    x = x + tpl.reduce_from(y, group)               # row-parallel w_o
     h2 = rms_norm(x, n2, cfg.rms_norm_eps)
     # channel-mix: w_k column-, w_v row-parallel; the gate r whole
     shifted = torch.cat([state.shift_cmix[:, None].to(h2.dtype), h2[:, :-1]],
                         dim=1)
-    xk = _mix(h2, shifted, cparams["mu"][0])
+    xk = tpl.copy_to(_mix(h2, shifted, cparams["mu"][0]), group)
     xr = _mix(h2, shifted, cparams["mu"][1])
     kk = torch.square(F.relu(_mm(xk, cparams["w_k"]).float()))
-    v = kk.to(h2.dtype) @ cparams["w_v"]
-    dist.all_reduce(v, group=group)
+    v = tpl.reduce_from(kk.to(h2.dtype) @ cparams["w_v"], group)
     rr = torch.sigmoid(_mm(xr, cparams["w_r"]).float())
     x = x + (rr * v.float()).to(x.dtype)
     return x, RwkvState(wkv=S, shift_tmix=prev_t, shift_cmix=h2[:, -1])

@@ -50,11 +50,17 @@ batch rows over the data axes, dense weights whole.  The EAAS MoE layer is
 shard (``distributed.sharding_rules.shard_params``) — in ``a2a`` (tokens
 also split over the model axis, one ``all_to_all`` each way) or
 ``replicated`` (one ``all_reduce`` combines); its stats are reduced over
-every axis.  With ``seq_shard_cache`` the uniform decoder's KV cache is
-split over slots (``seq_shard_axes``) and decode attention is
+every axis.  With ``seq_shard_cache`` a linear KV cache is split over
+slots (``seq_shard_axes``) and decode attention is
 :func:`_sp_decode_attention`: each rank's partial flash decode over its
-slots, one combine.  rwkv6 runs its tensor-parallel block
-(``rwkv.rwkv_block_spmd``).  The other families run on one device.
+slots, one combine (gemma3's globals, zamba2's shared block, whisper's
+self cache; a sliding window's ring stays whole on every rank).  rwkv6
+runs its tensor-parallel block (``rwkv.rwkv_block_spmd``).  Under a
+``dense_phase`` every family executes the sharding table's layout
+(:mod:`repro_torch.distributed.tensor_parallel`): the embedding, head and
+cross entropy vocab-parallel, attention (whisper's cross-attention too)
+and MLPs column / row parallel, the Mamba layers' cuts gathered to run
+the mixer whole, rwkv6's island on the table's cuts.
 """
 
 from __future__ import annotations
@@ -86,8 +92,8 @@ class Model(NamedTuple):
     cfg: ModelConfig
     init_params: Callable      # (generator) -> params
     # (params, tokens, ctx, max_slots, batch) -> (logits, cache, stats);
-    # ctx: a ParallelCtx (its moe_runtime for an MoE arch; a mesh for the
-    # uniform decoder and rwkv6) or None (one device, no MoE)
+    # ctx: a ParallelCtx (its moe_runtime for an MoE arch; a mesh) or None
+    # (one device, no MoE)
     prefill: Callable
     decode_step: Callable      # (params, token, cache, ctx) -> (logits, cache, stats)
     init_cache: Callable       # (batch, max_slots, ctx=None) -> cache
@@ -158,6 +164,18 @@ def _slot_shard(ctx: Optional[ParallelCtx]) -> Optional[Tuple[int, int]]:
     axes = ctx.slot_axes
     return (mesh_axes.axes_index(ctx.mesh, axes),
             mesh_axes.axes_size(ctx.mesh, axes))
+
+
+def _slots_of(max_slots: int, ctx: Optional[ParallelCtx]) -> int:
+    """A linear KV cache's slots on this rank: ``max_slots``, or its
+    share under a slot-sharded ``ctx``."""
+    shard = _slot_shard(ctx)
+    if shard is None:
+        return max_slots
+    if max_slots % shard[1]:
+        raise ValueError(f"max_slots={max_slots} does not split over "
+                         f"{shard[1]} slot shards")
+    return max_slots // shard[1]
 
 
 def build_model(cfg: ModelConfig, num_servers: int, redundant_table,
@@ -249,6 +267,25 @@ def chunked_cross_entropy(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         tot = tot + checkpoint(body, x[:, c:c + chunk],
                                labels[:, c:c + chunk], use_reentrant=False)
     return tot / (B * S)
+
+
+def _data_parallel_loss(ce: torch.Tensor, lay: Optional[tpl.Layout],
+                        *extra):
+    """(loss, the global batch's ce) from this rank's rows' mean cross
+    entropy ``ce``.  On a mesh the loss's value is the global ``ce +
+    extra`` (the reference's mean over every row), its gradient the part
+    of this rank's rows, ``ce / n_data + extra`` (``extra``, the MoE
+    losses, is global already; the train step sums the gradients over the
+    data axes)."""
+    split = lay is not None and lay.n_data > 1
+    part = ce / lay.n_data if split else ce
+    loss = part
+    for e in extra:
+        loss = loss + e
+    if not split:
+        return loss, ce
+    whole = tpl.all_sum(part, lay.data)
+    return loss + (whole - part).detach(), whole
 
 
 def _gathered_head(params: Dict, cfg: ModelConfig, lay) -> Dict:
@@ -401,18 +438,26 @@ def _block_prefill(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                                     is_local=is_local,
                                     mrope_positions=mrope_positions,
                                     return_kv=True, tp=lay)
-    shard = _slot_shard(ctx)
-    if shard is None:
-        kvc.write_prefill(cache, k, v)
-    else:                                # this rank's slots of the prompt
-        n = cache.k.shape[1]
-        lo = shard[0] * n
-        cache.k[:, :max(0, min(n, k.shape[1] - lo))] = k[:, lo:lo + n]
-        cache.v[:, :max(0, min(n, v.shape[1] - lo))] = v[:, lo:lo + n]
-        cache.length.fill_(k.shape[1])
+    _write_prompt(cache, k, v, ctx)
     x = x + h
     h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
     return x + _ffn(p, cfg, h, ctx, stats)
+
+
+def _write_prompt(cache: kvc.KVCache, k: torch.Tensor, v: torch.Tensor,
+                  ctx) -> None:
+    """A prompt's K/V (b, S, KV, hd) into one layer's cache: all of it,
+    or under a slot-sharded ``ctx`` this rank's slots of it; a ring keeps
+    its trailing window whole (rings are never slot-sharded)."""
+    shard = _slot_shard(ctx)
+    if shard is None or cache.window:
+        kvc.write_prefill(cache, k, v)
+        return
+    n, S = cache.k.shape[1], k.shape[1]
+    lo = shard[0] * n
+    cache.k[:, :max(0, min(n, S - lo))] = k[:, lo:lo + n]
+    cache.v[:, :max(0, min(n, S - lo))] = v[:, lo:lo + n]
+    cache.length.fill_(S)
 
 
 def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -427,13 +472,15 @@ def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _block_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                  cache: kvc.KVCache, ctx, stats: list) -> torch.Tensor:
+                  cache: kvc.KVCache, ctx, stats: list, *,
+                  is_local: bool = False) -> torch.Tensor:
     """One decode step of a block: attention with whole weights (over a
-    slot-sharded cache on a mesh), the FFN tensor-parallel under a dense
+    slot-sharded cache on a mesh; a local layer's ring is whole on every
+    rank, so plain decode attention), the FFN tensor-parallel under a dense
     layout."""
     p = tpl.gather_params(p, _tp(ctx))
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-    if _slot_shard(ctx) is not None:
+    if _slot_shard(ctx) is not None and not is_local:
         h, _ = _sp_decode_attention(p["attn"], cfg, h, cache, ctx)
     else:
         h, _ = attn.decode_attention(p["attn"], cfg, h, cache)
@@ -559,12 +606,7 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
                    ctx: Optional[ParallelCtx] = None) -> Dict:
         """Dense KV stacks; under a slot-sharded ``ctx``, this rank's
         ``max_slots / shards`` slots."""
-        shard = _slot_shard(ctx)
-        if shard is not None:
-            if max_slots % shard[1]:
-                raise ValueError(f"max_slots={max_slots} does not split "
-                                 f"over {shard[1]} slot shards")
-            max_slots //= shard[1]
+        max_slots = _slots_of(max_slots, ctx)
         return {name: kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
                                         cfg.head_dim, dt, device, layers=n)
                 for name, _, n in groups if n}
@@ -671,13 +713,7 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
         st = _sum_stats(stats, cfg, tokens.device)
-        if lay is not None and lay.n_data > 1:
-            part = ce / lay.n_data
-            ce = tpl.all_sum(part, lay.data)
-            loss = part + st.aux_loss + st.z_loss
-            loss = loss + (ce - part).detach()
-        else:
-            loss = ce + st.aux_loss + st.z_loss
+        loss, ce = _data_parallel_loss(ce, lay, st.aux_loss, st.z_loss)
         return loss, {
             "ce": ce.detach(), "aux": st.aux_loss, "dropped": st.dropped,
             "miss": st.miss, "expert_load": st.expert_load}
@@ -694,7 +730,11 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
     (``groups/local`` stacked (groups, pattern), ``groups/global``,
     ``rem_local``).  Dense-only, whole-prompt prefill, as in the
     reference: no paged cache, no chunked prefill, no batch axis shared by
-    every cache (the reference's local stack has a leading group axis)."""
+    every cache (the reference's local stack has a leading group axis).
+    Under a ``ParallelCtx`` every block runs the context's dense layout;
+    a slot-sharded one cuts the global caches' slots, never a ring's (a
+    ring holds the window whole on every rank, and its layers decode with
+    plain decode attention, as the reference's)."""
     pat = cfg.local_global_pattern
     n_groups = cfg.num_layers // (pat + 1)
     n_rem = cfg.num_layers - n_groups * (pat + 1)
@@ -714,15 +754,19 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def init_cache(batch: int, max_slots: int, ctx=None) -> Dict:
+    def init_cache(batch: int, max_slots: int,
+                   ctx: Optional[ParallelCtx] = None) -> Dict:
         """Stacks ``local`` (group * pattern + layer), ``global`` and
-        ``rem``; the local ones are rings of ``min(window, max_slots)``."""
-        def stack(n, window=0):
-            return kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
+        ``rem``; the local ones are rings of ``min(window, max_slots)``,
+        the global one this rank's slots under a slot-sharded ``ctx``."""
+        def stack(n, window=0, slots=max_slots):
+            return kvc.init_kv_cache(batch, slots, cfg.num_kv_heads,
                                      cfg.head_dim, dt, device, layers=n,
                                      window=window)
         w = cfg.sliding_window
-        cache = {"local": stack(n_groups * pat, w), "global": stack(n_groups)}
+        cache = {"local": stack(n_groups * pat, w),
+                 "global": stack(n_groups,
+                                 slots=_slots_of(max_slots, ctx))}
         if n_rem:
             cache["rem"] = stack(n_rem, w)
         return cache
@@ -745,33 +789,37 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         stats); a prompt longer than the window keeps its trailing window
         in each local ring."""
         B, S = tokens.shape
-        cache = init_cache(B, max_slots or S)
-        x = params["embed"][tokens]
+        cache = init_cache(B, max_slots or S, ctx)
+        lay = _tp(ctx)
+        x = _embed(params, tokens, lay)
         pos = torch.arange(S, device=tokens.device)
         for p, c, local in layers(params, cache):
-            x = _block_prefill(p, cfg, x, pos, c, None, [], is_local=local)
+            x = _block_prefill(p, cfg, x, pos, c, ctx, [], is_local=local)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-        return (_logits(params, cfg, x[:, -1]), cache,
+        return (_serve_logits(params, cfg, x[:, -1], lay), cache,
                 _sum_stats([], cfg, tokens.device))
 
     def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), stats).
         The stats are zero (no MoE); the reference returns None here, which
         its engine cannot read (ROADMAP Queue 3)."""
-        x = params["embed"][token]
-        for p, c, _ in layers(params, cache):
-            x = _block_decode(p, cfg, x, c, None, [])
+        lay = _tp(ctx)
+        x = _embed(params, token, lay)
+        for p, c, local in layers(params, cache):
+            x = _block_decode(p, cfg, x, c, ctx, [], is_local=local)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
-        return (_logits(params, cfg, x[:, 0]), cache,
+        return (_serve_logits(params, cfg, x[:, 0], lay), cache,
                 _sum_stats([], cfg, token.device))
 
-    def loss_fn(params, batch: Dict, ctx: TrainCtx):
-        """batch {tokens, labels} -> (ce, {"ce"})."""
+    def loss_fn(params, batch: Dict, ctx: ParallelCtx):
+        """batch {tokens, labels} -> (loss, {"ce"}); on a mesh the data
+        axes' convention of :func:`_data_parallel_loss`."""
         tokens = batch["tokens"].long()
-        x = params["embed"][tokens]
+        lay = _tp(ctx)
+        x = _embed(params, tokens, lay)
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         blocks = {local: _remat(lambda p, x, local=local: _block_train(
-            p, cfg, x, pos, None, is_local=local)[0], ctx)
+            p, cfg, x, pos, ctx, is_local=local)[0], ctx)
             for local in (False, True)}
         g = params["groups"]
         for i in range(n_groups):
@@ -783,7 +831,8 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
             x = blocks[True](_layer(params["rem_local"], i), x)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
-        return ce, {"ce": ce}
+        loss, ce = _data_parallel_loss(ce, lay)
+        return loss, {"ce": ce.detach()}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
                  loss_fn=loss_fn)
@@ -796,7 +845,11 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
     reference's keys (``mamba`` stacked (groups, layers), ``shared``).
     The cache: ``mamba``, a :class:`~repro_torch.models.mamba.MambaState`
     of (groups, layers, batch, ...), and ``shared``, a KV stack of
-    (groups, batch, ...); decode updates both in place."""
+    (groups, batch, ...); decode updates both in place.  Under a
+    ``ParallelCtx`` the Mamba layers run the dense layout's cuts
+    (``mamba.mamba_forward``'s ``tp``: the input projection gathered, the
+    mixer whole on every rank), the shared block the layout's attention
+    and MLP; a slot-sharded ctx cuts the shared block's KV slots."""
     per = cfg.shared_block_every
     n_groups = cfg.num_layers // per
     if n_groups * per != cfg.num_layers:
@@ -816,24 +869,25 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def init_cache(batch: int, max_slots: int, ctx=None) -> Dict:
+    def init_cache(batch: int, max_slots: int,
+                   ctx: Optional[ParallelCtx] = None) -> Dict:
         return {"mamba": mam.init_mamba_state(cfg, batch, device,
                                               (n_groups, per)),
-                "shared": kvc.init_kv_cache(batch, max_slots,
+                "shared": kvc.init_kv_cache(batch, _slots_of(max_slots, ctx),
                                             cfg.num_kv_heads, cfg.head_dim,
                                             dt, device, layers=n_groups)}
 
-    def run(params, x: torch.Tensor, cache: Dict, mamba_step, block):
+    def run(params, x: torch.Tensor, cache: Dict, mamba_step, block, lay):
         """The groups in order: each Mamba layer's state written back in
         place, then the shared block over group ``g``'s KV cache."""
         st = cache["mamba"]
         for g in range(n_groups):
             group = _layer(params["mamba"], g)
             for j in range(per):
-                lp = _layer(group, j)
+                lp = tpl.gather_params(_layer(group, j), lay)
                 h = rms_norm(x, lp["ln"], cfg.rms_norm_eps)
                 y, new = mamba_step(lp["mamba"], cfg, h, mam.MambaState(
-                    st.ssm[g, j], st.conv[g, j]))
+                    st.ssm[g, j], st.conv[g, j]), tp=lay)
                 x = x + y
                 st.ssm[g, j] = new.ssm
                 st.conv[g, j] = new.conv
@@ -845,42 +899,50 @@ def _build_zamba(cfg: ModelConfig, device) -> Model:
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
         zero stats)."""
         B, S = tokens.shape
-        cache = init_cache(B, max_slots or S)
+        cache = init_cache(B, max_slots or S, ctx)
         pos = torch.arange(S, device=tokens.device)
-        x = run(params, params["embed"][tokens], cache, mam.mamba_forward,
-                lambda p, c, x: _block_prefill(p, cfg, x, pos, c, None, []))
-        return (_logits(params, cfg, x[:, -1]), cache,
+        lay = _tp(ctx)
+        x = run(params, _embed(params, tokens, lay), cache,
+                mam.mamba_forward,
+                lambda p, c, x: _block_prefill(p, cfg, x, pos, c, ctx, []),
+                lay)
+        return (_serve_logits(params, cfg, x[:, -1], lay), cache,
                 _sum_stats([], cfg, tokens.device))
 
     def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
         stats; the reference returns None here)."""
-        x = run(params, params["embed"][token], cache, mam.mamba_decode,
-                lambda p, c, x: _block_decode(p, cfg, x, c, None, []))
-        return (_logits(params, cfg, x[:, 0]), cache,
+        lay = _tp(ctx)
+        x = run(params, _embed(params, token, lay), cache, mam.mamba_decode,
+                lambda p, c, x: _block_decode(p, cfg, x, c, ctx, []), lay)
+        return (_serve_logits(params, cfg, x[:, 0], lay), cache,
                 _sum_stats([], cfg, token.device))
 
-    def loss_fn(params, batch: Dict, ctx: TrainCtx):
-        """batch {tokens, labels} -> (ce, {"ce"}); every Mamba layer starts
-        from a zero state, as the reference's."""
+    def loss_fn(params, batch: Dict, ctx: ParallelCtx):
+        """batch {tokens, labels} -> (loss, {"ce"}); every Mamba layer
+        starts from a zero state, as the reference's; on a mesh the data
+        axes' convention of :func:`_data_parallel_loss`."""
         tokens = batch["tokens"].long()
-        x = params["embed"][tokens]
+        lay = _tp(ctx)
+        x = _embed(params, tokens, lay)
         pos = torch.arange(tokens.shape[1], device=tokens.device)
 
-        def mamba_layer(lp, x):
+        def mamba_block(lp, x):
+            lp = tpl.gather_params(lp, lay)
             h = rms_norm(x, lp["ln"], cfg.rms_norm_eps)
-            return x + mam.mamba_forward(lp["mamba"], cfg, h)[0]
-        mamba_layer = _remat(mamba_layer, ctx)
-        shared = _remat(lambda p, x: _block_train(p, cfg, x, pos, None)[0],
+            return x + mam.mamba_forward(lp["mamba"], cfg, h, tp=lay)[0]
+        mamba_block = _remat(mamba_block, ctx)
+        shared = _remat(lambda p, x: _block_train(p, cfg, x, pos, ctx)[0],
                         ctx)
         for g in range(n_groups):
             group = _layer(params["mamba"], g)
             for j in range(per):
-                x = mamba_layer(_layer(group, j), x)
+                x = mamba_block(_layer(group, j), x)
             x = shared(params["shared"], x)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
-        return ce, {"ce": ce}
+        loss, ce = _data_parallel_loss(ce, lay)
+        return loss, {"ce": ce.detach()}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
                  loss_fn=loss_fn)
@@ -893,9 +955,13 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
     :class:`~repro_torch.models.rwkv.RwkvState` of (layers, batch, ...)
     updated in place.  The state is O(1) in the sequence: prefill ignores
     ``max_slots``.  On a mesh (a ParallelCtx with one) every layer is the
-    tensor-parallel ``rwkv_block_spmd`` on this rank's rows, params sliced
-    by ``shard_params``, the wkv state holding this rank's heads — decode
-    too, as a one-token sequence."""
+    tensor-parallel ``rwkv_block_spmd`` on this rank's rows, the wkv state
+    holding this rank's heads — training, and decode too, as a one-token
+    sequence (the reference decodes under GSPMD).  Its params are
+    ``shard_params``'s serving layout (the island's own), or under the
+    context's ``dense_phase`` the table's (its time-mix ``w_v`` cut as the
+    island takes it, ``sharding_rules.placement_of``), with the embedding
+    and head vocab-parallel."""
     L = cfg.num_layers
     dt = resolve_dtype(cfg.dtype)
 
@@ -930,10 +996,11 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
             st = st._replace(wkv=st.wkv[:, :, :heads].clone())
         return {"states": st}
 
-    def run(params, x: torch.Tensor, cache: Dict, block) -> torch.Tensor:
+    def run(params, x: torch.Tensor, cache: Dict, block, lay
+            ) -> torch.Tensor:
         st = cache["states"]
         for i in range(L):
-            p = _layer(params["blocks"], i)
+            p = tpl.gather_params(_layer(params["blocks"], i), lay)
             x, new = block(p["tmix"], p["cmix"], cfg, x,
                            rwk.RwkvState(*(a[i] for a in st)),
                            (p["ln1"], p["ln2"]))
@@ -946,34 +1013,43 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
         """tokens (B, S) -> (last-position logits (B, V) fp32, cache,
         zero stats)."""
         block, _ = spmd(ctx)
+        lay = _tp(ctx)
         cache = init_cache(tokens.shape[0], 0, ctx)
-        x = run(params, params["embed"][tokens], cache,
-                block or rwk.rwkv_block_forward)
-        return (_logits(params, cfg, x[:, -1]), cache,
+        x = run(params, _embed(params, tokens, lay), cache,
+                block or rwk.rwkv_block_forward, lay)
+        return (_serve_logits(params, cfg, x[:, -1], lay), cache,
                 _sum_stats([], cfg, tokens.device))
 
     def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
         """token (B, 1) -> (logits (B, V) fp32, cache (in place), zero
         stats; the reference returns None here)."""
         block, _ = spmd(ctx)
-        x = run(params, params["embed"][token], cache,
-                block or rwk.rwkv_block_decode)
-        return (_logits(params, cfg, x[:, 0]), cache,
+        lay = _tp(ctx)
+        x = run(params, _embed(params, token, lay), cache,
+                block or rwk.rwkv_block_decode, lay)
+        return (_serve_logits(params, cfg, x[:, 0], lay), cache,
                 _sum_stats([], cfg, token.device))
 
-    def loss_fn(params, batch: Dict, ctx: TrainCtx):
-        """batch {tokens, labels} -> (ce, {"ce"}); zero states, no remat
-        (the reference remats no RWKV layer)."""
+    def loss_fn(params, batch: Dict, ctx: ParallelCtx):
+        """batch {tokens, labels} -> (loss, {"ce"}); zero states, no remat
+        (the reference remats no RWKV layer); on a mesh the island on this
+        rank's heads and the data axes' convention of
+        :func:`_data_parallel_loss`."""
         tokens = batch["tokens"].long()
-        x = params["embed"][tokens]
+        lay = _tp(ctx)
+        block, heads = spmd(ctx)
+        x = _embed(params, tokens, lay)
         zero = rwk.init_rwkv_state(cfg, tokens.shape[0], tokens.device)
+        if heads is not None:
+            zero = zero._replace(wkv=zero.wkv[:, :heads])
         for i in range(L):
-            p = _layer(params["blocks"], i)
-            x, _ = rwk.rwkv_block_forward(p["tmix"], p["cmix"], cfg, x, zero,
-                                          (p["ln1"], p["ln2"]))
+            p = tpl.gather_params(_layer(params["blocks"], i), lay)
+            x, _ = (block or rwk.rwkv_block_forward)(
+                p["tmix"], p["cmix"], cfg, x, zero, (p["ln1"], p["ln2"]))
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
-        return ce, {"ce": ce}
+        loss, ce = _data_parallel_loss(ce, lay)
+        return loss, {"ce": ce.detach()}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
                  loss_fn=loss_fn)
@@ -986,7 +1062,12 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
     decoder blocks of causal self-attention, cross-attention (``ln_x``,
     ``cross``) and MLP.  The cache: ``self``, a KV stack, and the
     encoder's K/V per decoder layer, ``cross_k`` / ``cross_v`` (layers,
-    batch, encoder_seq_len, KV, hd), written at prefill, read by decode."""
+    batch, encoder_seq_len, KV, hd), written at prefill, read by decode.
+    Under a ``ParallelCtx`` the encoder, the self- and the
+    cross-attention and the MLPs run the dense layout (the cross
+    projections cut as the self-attention's, heads gathered where a rank's
+    columns hold none whole); a slot-sharded ctx cuts the self cache's
+    slots (decoded sequence-parallel), never the encoder's K/V."""
     Le, Ld = cfg.num_encoder_layers, cfg.num_layers
     dt = resolve_dtype(cfg.dtype)
 
@@ -1003,36 +1084,40 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
         p.update(_init_head(cfg, dt, device, generator))
         return p
 
-    def encode(params, frames: torch.Tensor) -> torch.Tensor:
+    def encode(params, frames: torch.Tensor, lay) -> torch.Tensor:
         x = frames.to(dt)
         pos = torch.arange(x.shape[1], device=x.device)
+        group = None if lay is None else lay.model
         for i in range(Le):
-            p = _layer(params["encoder"], i)
+            p = tpl.gather_params(_layer(params["encoder"], i), lay)
             h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-            x = x + attn.full_attention(p["attn"], cfg, h, pos, causal=False)
+            x = x + attn.full_attention(p["attn"], cfg, h, pos, causal=False,
+                                        tp=lay)
             h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-            x = x + mlp(p["mlp"], h, cfg.activation)
+            x = x + mlp(p["mlp"], h, cfg.activation, group)
         return x
 
-    def init_cache(batch: int, max_slots: int, ctx=None) -> Dict:
+    def init_cache(batch: int, max_slots: int,
+                   ctx: Optional[ParallelCtx] = None) -> Dict:
         shape = (Ld, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
                  cfg.head_dim)
-        return {"self": kvc.init_kv_cache(batch, max_slots, cfg.num_kv_heads,
-                                          cfg.head_dim, dt, device,
-                                          layers=Ld),
+        return {"self": kvc.init_kv_cache(batch, _slots_of(max_slots, ctx),
+                                          cfg.num_kv_heads, cfg.head_dim,
+                                          dt, device, layers=Ld),
                 "cross_k": torch.zeros(shape, dtype=dt, device=device),
                 "cross_v": torch.zeros(shape, dtype=dt, device=device)}
 
     def decoder(params, x: torch.Tensor, cache: Dict, self_attn,
-                cross_attn) -> torch.Tensor:
+                cross_attn, lay) -> torch.Tensor:
+        group = None if lay is None else lay.model
         for i in range(Ld):
-            p = _layer(params["decoder"], i)
+            p = tpl.gather_params(_layer(params["decoder"], i), lay)
             h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
             x = x + self_attn(p["attn"], h, cache["self"].layer(i))
             h = rms_norm(x, p["ln_x"], cfg.rms_norm_eps)
             x = x + cross_attn(p["cross"], h, i)
             h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-            x = x + mlp(p["mlp"], h, cfg.activation)
+            x = x + mlp(p["mlp"], h, cfg.activation, group)
         return rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
 
     def prefill(params, tokens: torch.Tensor, ctx=None,
@@ -1043,28 +1128,31 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
         reference).  tokens (B, S) -> (last-position logits (B, V) fp32,
         cache, zero stats)."""
         B, S = tokens.shape
+        lay = _tp(ctx)
         frames = (batch or {}).get("frames")
         if frames is None:
             frames = torch.zeros((B, cfg.encoder_seq_len, cfg.d_model),
                                  dtype=dt, device=tokens.device)
-        enc = encode(params, frames)
-        cache = init_cache(B, max_slots or S)
+        enc = encode(params, frames, lay)
+        cache = init_cache(B, max_slots or S, ctx)
         pos = torch.arange(S, device=tokens.device)
 
         def self_attn(p, h, c):
-            out, (k, v) = attn.full_attention(p, cfg, h, pos, return_kv=True)
-            kvc.write_prefill(c, k, v)
+            out, (k, v) = attn.full_attention(p, cfg, h, pos, return_kv=True,
+                                              tp=lay)
+            _write_prompt(c, k, v, ctx)
             return out
 
         def cross_attn(p, h, i):
-            k, v = attn.cross_kv(p, cfg, enc)
+            out, (k, v) = attn.cross_attention(p, cfg, h, enc, tp=lay,
+                                               return_kv=True)
             cache["cross_k"][i] = k
             cache["cross_v"][i] = v
-            return attn.cross_attention_plain(p, cfg, h, k, v)
+            return out
 
-        x = decoder(params, params["embed"][tokens], cache, self_attn,
-                    cross_attn)
-        return (_logits(params, cfg, x[:, -1]), cache,
+        x = decoder(params, _embed(params, tokens, lay), cache, self_attn,
+                    cross_attn, lay)
+        return (_serve_logits(params, cfg, x[:, -1], lay), cache,
                 _sum_stats([], cfg, tokens.device))
 
     def decode_step(params, token: torch.Tensor, cache: Dict, ctx=None):
@@ -1072,40 +1160,53 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
         stats; the reference returns None here).  The cross-attention
         runs ``ops.flash_decode`` over the cached encoder K/V with every
         position valid: its lengths are the encoder length, not the self
-        cache's."""
+        cache's.  A slot-sharded ``ctx`` decodes the self cache
+        sequence-parallel (``_sp_decode_attention``)."""
+        lay = _tp(ctx)
         enc_len = torch.full((token.shape[0],), cache["cross_k"].shape[2],
                              dtype=torch.int32, device=token.device)
+        sp = _slot_shard(ctx) is not None
+
+        def self_attn(p, h, c):
+            if sp:
+                return _sp_decode_attention(p, cfg, h, c, ctx)[0]
+            return attn.decode_attention(p, cfg, h, c)[0]
+
         x = decoder(
-            params, params["embed"][token], cache,
-            lambda p, h, c: attn.decode_attention(p, cfg, h, c)[0],
+            params, _embed(params, token, lay), cache, self_attn,
             lambda p, h, i: attn.cross_attention_cached(
                 p, cfg, h, cache["cross_k"][i], cache["cross_v"][i],
-                enc_len))
-        return (_logits(params, cfg, x[:, 0]), cache,
+                enc_len), lay)
+        return (_serve_logits(params, cfg, x[:, 0], lay), cache,
                 _sum_stats([], cfg, token.device))
 
-    def loss_fn(params, batch: Dict, ctx: TrainCtx):
-        """batch {tokens, labels, frames (B, encoder_seq_len, d)} -> (ce,
+    def loss_fn(params, batch: Dict, ctx: ParallelCtx):
+        """batch {tokens, labels, frames (B, encoder_seq_len, d)} -> (loss,
         {"ce"}); decoder blocks under remat, the encoder not (as in the
-        reference)."""
-        enc = encode(params, batch["frames"])
+        reference); on a mesh the data axes' convention of
+        :func:`_data_parallel_loss`."""
+        lay = _tp(ctx)
+        group = None if lay is None else lay.model
+        enc = encode(params, batch["frames"], lay)
         tokens = batch["tokens"].long()
         pos = torch.arange(tokens.shape[1], device=tokens.device)
 
         def block(p, x, enc):
+            p = tpl.gather_params(p, lay)
             h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
-            x = x + attn.full_attention(p["attn"], cfg, h, pos)
+            x = x + attn.full_attention(p["attn"], cfg, h, pos, tp=lay)
             h = rms_norm(x, p["ln_x"], cfg.rms_norm_eps)
-            x = x + attn.cross_attention(p["cross"], cfg, h, enc)
+            x = x + attn.cross_attention(p["cross"], cfg, h, enc, tp=lay)
             h = rms_norm(x, p["ln2"], cfg.rms_norm_eps)
-            return x + mlp(p["mlp"], h, cfg.activation)
+            return x + mlp(p["mlp"], h, cfg.activation, group)
         block = _remat(block, ctx)
-        x = params["embed"][tokens]
+        x = _embed(params, tokens, lay)
         for i in range(Ld):
             x = block(_layer(params["decoder"], i), x, enc)
         x = rms_norm(x, params["final_ln"], cfg.rms_norm_eps)
         ce = chunked_cross_entropy(params, cfg, x, batch["labels"], ctx)
-        return ce, {"ce": ce}
+        loss, ce = _data_parallel_loss(ce, lay)
+        return loss, {"ce": ce.detach()}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
                  loss_fn=loss_fn)

@@ -26,3 +26,9 @@ def frame_embeddings(cfg: ModelConfig, batch: int,
     shape = (batch, cfg.encoder_seq_len, cfg.d_model)
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=device).mul_(0.1)
+
+
+def frame_spec(cfg: ModelConfig, batch: int):
+    """The frames' (shape, dtype) as the dry-run's inputs give them:
+    (batch, encoder_seq_len, d_model) bf16."""
+    return (batch, cfg.encoder_seq_len, cfg.d_model), torch.bfloat16

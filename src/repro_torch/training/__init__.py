@@ -1,8 +1,4 @@
-"""Training (counterpart of ``src/repro/training``): optimizers, the train
-step and loop, int8 gradient compression, checkpoints in the reference's
-on-disk format, and the synthetic data streams."""
-
-from repro_torch.training.optimizer import (OptimizerBundle,  # noqa: F401
-                                            adafactor, adamw)
-from repro_torch.training.train_loop import (TrainState,  # noqa: F401
-                                             make_train_step)
+"""Training (counterpart of ``src/repro/training``): optimizers
+(``optimizer``), the train step and loop (``train_loop``), int8 gradient
+compression, checkpoints in the reference's on-disk format, the synthetic
+data streams, and the paths over params and cache trees (``tree``)."""

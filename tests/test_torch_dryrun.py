@@ -9,9 +9,12 @@
   count from the shapes (every matmul, the kernels by their own work).
 * The full-depth count equals the reference's probe extrapolation.
 * The collectives of a small decode cell equal a hand count, by kind.
-* ``run_cell`` at the production meshes: ``ok`` for the decoder family,
-  ``not_ported`` (never passed or skipped silently) for the other four
-  families, ``skip`` where the reference skips.
+* ``run_cell`` at the production meshes: ``ok`` for a cell of every
+  family, ``skip`` where the reference skips; no cell is ``not_ported``.
+* Every cell of gemma3, zamba2, rwkv6 and whisper (reduced) counts on a
+  (2, 4) mesh; one prefill cell per family equals a hand count; the
+  audio, hybrid and local-global probe plans extrapolate to the
+  full-depth count.
 
 The fake world lives in this process; the module fixture tears it down.
 """
@@ -192,16 +195,153 @@ def test_decode_collectives_equal_a_hand_count():
 
 def test_run_cell_at_production_scale():
     """The accounting at 16 x 16: ok for a decoder-family cell (per-rank
-    numbers present, the ZeRO-3 train cell's params a 256th of the
-    model's); not_ported for the four families outside this slice; the
-    reference's skip kept."""
+    numbers present) and for a cell of each of the other four families;
+    the reference's skip kept; no status ``not_ported`` left."""
     r = tdr.run_cell("granite-3-2b", "decode_32k", False, save=False)
     assert r["status"] == "ok", r.get("traceback")
     assert r["num_devices"] == 256 and r["flops_per_device"] > 0
     assert r["memory"]["fits_h100_80gib"] is True
     assert r["collective_counts"]["all-reduce"] > 0
-    for arch in ("gemma3-4b", "zamba2-2.7b", "whisper-base", "rwkv6-7b"):
-        r = tdr.run_cell(arch, "train_4k", False, save=False)
-        assert r["status"] == "not_ported" and r["reason"], arch
+    for arch, shape in (("gemma3-4b", "long_500k"),
+                        ("zamba2-2.7b", "decode_32k"),
+                        ("whisper-base", "decode_32k"),
+                        ("rwkv6-7b", "prefill_32k")):
+        r = tdr.run_cell(arch, shape, False, save=False)
+        assert r["status"] == "ok", (arch, r.get("traceback"))
+        assert r["flops_per_device"] > 0 and r["collective_counts"], arch
     r = tdr.run_cell("granite-3-2b", "long_500k", True, save=False)
     assert r["status"] == "skip"
+    assert not hasattr(tdr, "not_ported")
+
+
+# ------------------------------------------------ the other four families
+
+FAMILY_CFGS = {
+    # gemma3 with a global group and a ring shorter than the cells' 32
+    "gemma3-4b": dict(num_layers=8, sliding_window=16),
+    "zamba2-2.7b": {},
+    "rwkv6-7b": {},
+    # 2 heads: not whole over 4 model ranks (the heads gathered)
+    "whisper-base": dict(num_heads=2, num_kv_heads=2),
+}
+
+
+def _family_cfg(arch, **kw):
+    return get_config(arch).reduced().replace(**{**FAMILY_CFGS[arch], **kw})
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CFGS))
+def test_family_cells_count(arch):
+    """Each family's reduced train, prefill and decode cells count on a
+    (2, 4) mesh in their phases: FLOPs, peak and collectives."""
+    mesh = _mesh((2, 4))
+    cfg = _family_cfg(arch)
+    for kind, phase in (("train", "train_tp"), ("prefill", "serve"),
+                        ("decode", "decode")):
+        cell = tdr.build_cell(arch, InputShape(kind, 32, 8, kind), mesh,
+                              cfg=cfg, device="meta")
+        assert cell.phase == phase
+        c = tdr.count_cell(cell)
+        assert c["flops"] > 0 and c["peak_bytes"] > c["argument_total"]
+        assert c["collective_counts"].get("all-reduce", 0) > 0, kind
+
+
+def _attn_flops(cfg, b, Sq, Sk, n, gathered):
+    """One attention layer on a rank: q over Sq positions, k / v over Sk,
+    every score of the (Sq, Sk) block, whole heads when gathered."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    return (2 * b * Sq * d * H * hd // n + 2 * 2 * b * Sk * d * KV * hd // n
+            + 4 * b * H * Sq * Sk * hd // (1 if gathered else n)
+            + 2 * b * Sq * H * hd * d // n)
+
+
+def _mlp_flops(cfg, T, n):
+    mats = 3 if cfg.activation == "swiglu" else 2
+    return mats * 2 * T * cfg.d_model * cfg.d_ff // n
+
+
+def _ssd_flops(cfg, b, S):
+    """The Mamba mixer's counted matmuls (the chunked SSD's einsums), run
+    whole on every rank: counted on meta by ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models import mamba as mam
+
+    _, H, P, N = mam.dims(cfg)
+    m = lambda *s: torch.empty(s, device="meta")   # noqa: E731
+    with FlopCounterMode(display=False) as fl:
+        mam._ssd_chunked(m(b, S, H, P), m(b, S, H), m(b, S, N), m(b, S, N),
+                         m(b, H, P, N), 64)
+    return fl.get_total_flops()
+
+
+def _family_prefill_flops(arch, cfg, b, S, n):
+    """Hand count of one rank's prefill on a (2, n) mesh, phase serve."""
+    d, V = cfg.d_model, cfg.padded_vocab
+    T = b * S
+    gathered = bool(cfg.num_heads % n or cfg.num_kv_heads % n)
+    logits = 2 * b * d * V // n
+    if arch == "gemma3-4b":
+        return cfg.num_layers * (_attn_flops(cfg, b, S, S, n, gathered)
+                                 + _mlp_flops(cfg, T, n)) + logits
+    if arch == "whisper-base":
+        Se = cfg.encoder_seq_len
+        enc = cfg.num_encoder_layers * (
+            _attn_flops(cfg, b, Se, Se, n, gathered)
+            + _mlp_flops(cfg, b * Se, n))
+        dec = cfg.num_layers * (_attn_flops(cfg, b, S, S, n, gathered)
+                                + _attn_flops(cfg, b, S, Se, n, gathered)
+                                + _mlp_flops(cfg, T, n))
+        return enc + dec + logits
+    if arch == "zamba2-2.7b":
+        from repro_torch.models import mamba as mam
+        di, H, P, N = mam.dims(cfg)
+        mamba = (2 * T * d * (2 * di + 2 * N + H) // n     # in_proj
+                 + _ssd_flops(cfg, b, S)                   # mixer, whole
+                 + 2 * T * di * d // n)                    # out_proj
+        groups = cfg.num_layers // cfg.shared_block_every
+        return (cfg.num_layers * mamba
+                + groups * (_attn_flops(cfg, b, S, S, n, gathered)
+                            + _mlp_flops(cfg, T, n)) + logits)
+    # rwkv6: the island on this rank's heads and columns
+    from repro_torch.kernels.meta import wkv_flops
+    from repro_torch.models import rwkv as rwk
+    H, D = rwk.dims(cfg)
+    lora, f = max(32, d // 64), cfg.d_ff
+    tmix = (4 * 2 * T * d * d // n                 # r, k, v, g (columns)
+            + 2 * T * d * lora + 2 * T * lora * d // n     # the decay
+            + wkv_flops(b, S, H // n, D, backward=False)
+            + 2 * T * d * d // n)                  # w_o (rows)
+    cmix = 2 * 2 * T * d * f // n + 2 * T * d * d  # w_k, w_v; w_r whole
+    return cfg.num_layers * (tmix + cmix) + logits
+
+
+@pytest.mark.parametrize("arch", list(FAMILY_CFGS))
+def test_family_prefill_flops_equal_a_hand_count(arch):
+    mesh = _mesh((2, 4))
+    cfg = _family_cfg(arch)
+    cell = tdr.build_cell(arch, InputShape("p", 32, 8, "prefill"), mesh,
+                          cfg=cfg, device="meta")
+    got = tdr.count_cell(cell)["flops"]
+    assert got == pytest.approx(_family_prefill_flops(arch, cfg, 4, 32, 4),
+                                rel=1e-9)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("gemma3-4b", dict(num_layers=14)),         # 2 groups + 2 local
+    ("zamba2-2.7b", dict(num_layers=18)),       # 3 groups
+    ("whisper-base", dict(num_encoder_layers=4))])  # enc = dec depth
+def test_family_probes_equal_the_full_depth(arch, kw):
+    """The local-global, hybrid and audio branches of ``probe_plan``: the
+    reference's extrapolation from its depth probes equals the train
+    cell counted at full depth (FLOPs, every collective's bytes and
+    count)."""
+    mesh = _mesh((2, 4))
+    cfg = _family_cfg(arch, **kw)
+    shape = InputShape("t", 32, 8, "train")
+    full = tdr._linear_costs(tdr.count_cell(tdr.build_cell(
+        arch, shape, mesh, cfg=cfg, device="meta")))
+    probed = tdr.run_probes(arch, shape, mesh, cfg=cfg)
+    assert set(full) == set(probed) and len(full) > 4
+    for k, v in full.items():
+        assert probed[k] == pytest.approx(v, rel=1e-9), k

@@ -195,3 +195,51 @@ def test_moe_model_runs_on_meta():
     loss.backward()
     assert params["blocks"]["moe"]["servers"]["w_gate"].grad.is_meta
     assert not any(ops.launch_counts().values())
+
+
+# ------------------------------------------ rwkv6's recurrence on meta
+
+def _wkv_loop(r, k, v, w, u, S):
+    """``models/rwkv.py::tmix_forward``'s per-token loop, as the card and
+    the CPU run it."""
+    from repro_torch.models import rwkv as rwk
+    ys = []
+    for t in range(r.shape[1]):
+        S, y = rwk._wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(y)
+    return torch.stack(ys, dim=1), S
+
+
+def _wkv_count(fn, grad, B, L, H, D):
+    from repro_torch.launch.dryrun import MetaMemory
+    m = lambda *s: torch.empty(s, device="meta",        # noqa: E731
+                               requires_grad=grad)
+    args = [m(B, L, H, D) for _ in range(4)] + [m(H, D), m(B, H, D, D)]
+    fl, mem = FlopCounterMode(display=False), MetaMemory(args)
+    with fl, mem:
+        y, S = fn(*args)
+        assert y.shape == (B, L, H, D) and S.shape == (B, H, D, D)
+        if grad:
+            y.sum().backward()
+    return fl.get_total_flops(), mem.peak
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 3, 4), (2, 1, 3, 4),
+                                   (3, 7, 2, 16), (16, 64, 4, 64)])
+def test_wkv_meta_route_counts_as_the_loop(shape):
+    """The accounting's one-op route of the wkv recurrence
+    (``kernels/meta.py::wkv``) against the per-token loop on meta: FLOPs
+    equal, forward and backward; the peak equal without grad (prefill,
+    decode) and, under grad, within 1 % at (16, 64, 4, 64) (the loop's
+    backward keeps per-token temporaries the op does not model: within
+    25 % at the toy shapes)."""
+    from repro_torch.kernels import meta
+    for grad in (False, True):
+        f_loop, p_loop = _wkv_count(_wkv_loop, grad, *shape)
+        f_op, p_op = _wkv_count(meta.wkv, grad, *shape)
+        assert f_op == f_loop
+        if not grad:
+            assert p_op == p_loop
+        else:
+            tol = 0.01 if shape[1] >= 64 else 0.25
+            assert abs(p_op - p_loop) <= tol * p_loop, (p_op, p_loop)

@@ -136,6 +136,54 @@ def test_serve_outputs_and_stats(rng):
     assert int(tst.served) == int(jst.served)
 
 
+def test_serve_rows_past_the_local_slots(rng):
+    """Params holding fewer expert slots (L = 2: a 4-server bank) than the
+    local table names (a 2-server pool's: slots 0-3), as an engine built
+    on another pool size's params serves: the reference's ``serve`` and
+    the port's give equal outputs, zero on the rows routed past L, and
+    count no miss (``bincount(..., length=L + 1)[:L]`` drops those
+    slots)."""
+    E, d, f, C = 8, 16, 24, 12
+    none = np.zeros((4, 0), np.int32)
+    bank = {k: (rng.normal(size=shape) * 0.2).astype(np.float32)
+            for k, shape in (("w_gate", (E, d, f)), ("w_up", (E, d, f)),
+                             ("w_down", (E, f, d)))}
+    jw = jserver.build_server_weights(
+        {k: jnp.asarray(v) for k, v in bank.items()}, 4, none)
+    tw = expert_server.build_server_weights(
+        {k: _t(v) for k, v in bank.items()}, 4, none)
+    table = expert_server.make_local_table(E, 2, np.zeros((2, 0), np.int32))
+    s, L = 0, tw["w_gate"].shape[1]
+    assert L == 2 and table[s].max() == 3
+    tokens = rng.normal(size=(2, C, d)).astype(np.float32)
+    # every row routed to an expert the table hosts here (0-3): a miss
+    # would be a row of another server's
+    eids = rng.integers(0, E // 2, size=(2, C)).astype(np.int32)
+    scores = rng.random(size=(2, C)).astype(np.float32)
+    counts = np.array([C, C], np.int32)
+    exp, jst = jserver.serve(
+        jnp.asarray(tokens), jnp.asarray(eids), jnp.asarray(scores),
+        jnp.asarray(counts),
+        jserver.ServerWeights(jw["w_gate"][s], jw["w_up"][s],
+                              jw["w_down"][s], jnp.asarray(table[s])),
+        impl="xla_ragged")
+    got, tst = expert_server.serve(
+        _t(tokens), torch.as_tensor(eids).long(), _t(scores),
+        torch.as_tensor(counts).long(),
+        expert_server.ServerWeights(tw["w_gate"][s], tw["w_up"][s],
+                                    tw["w_down"][s],
+                                    torch.as_tensor(table[s]).long()))
+    _close(got, exp)
+    slot = table[s][eids]
+    past = slot >= L
+    assert past.any() and (~past).any() and (slot >= 0).all()
+    assert not np.asarray(exp)[past].any()
+    assert not got.numpy()[past].any()
+    assert np.abs(got.numpy()[~past]).max() > 0
+    assert int(tst.miss) == int(jst.miss) == 0
+    assert int(tst.served) == int(jst.served)
+
+
 def test_fill_redundant_matches_bank_layout(rng):
     E, S, d, f = 8, 4, 4, 6
     red = np.array([[3, 7], [0, -1], [5, 2], [-1, -1]], np.int32)

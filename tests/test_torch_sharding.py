@@ -29,6 +29,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.distributed import sharding_rules as tsr
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models.transformer import build_model
+from repro_torch.training import tree as T
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("serve", "train", "decode", "train_tp")
@@ -268,3 +269,89 @@ def test_shard_params_gives_the_reference_shards(reference_shards, arch):
                     mine = got[path] if tag == "kimi" else got[path][0]
                     np.testing.assert_array_equal(mine, exp)
     assert any(k.startswith(tag) for k in reference_shards)
+
+
+def _ref_leaves(tree):
+    """{path: leaf} of a JAX tree (dicts, dataclasses, named tuples)."""
+    out = {}
+    for kp, leaf in jax.tree_util.tree_flatten_with_path(
+            tree, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)
+    )[0]:
+        parts = []
+        for p in kp:
+            for attr in ("key", "name", "idx"):
+                if hasattr(p, attr):
+                    parts.append(str(getattr(p, attr)))
+                    break
+        out["/".join(parts)] = leaf
+    return out
+
+
+def _port_leaves(specs):
+    """{path: placement} of the port's placement tree."""
+    return {"/".join(p): v for p, v in T.paths(specs)}
+
+
+@pytest.mark.parametrize("phase", ["serve", "decode", "train_tp", "train"])
+def test_rwkv_time_mix_w_v_is_cut_as_the_island_takes_it(phase):
+    """The table places rwkv6's time-mix ``w_v`` as row-parallel (the
+    reference's placement, kept by ``param_placements``); the placement
+    the port executes swaps its two cuts, so under ``dense=True`` every
+    rank holds the island's columns — the block the serving layout gives
+    it — and a step reshards nothing."""
+    cfg = tconfigs.get_config("rwkv6-7b").reduced()
+    full = build_model(cfg, 1, None, "cpu").init_params(
+        torch.Generator().manual_seed(0))
+    path, leaf = "blocks/tmix/w_v", full["blocks"]["tmix"]["w_v"]
+    table = tsr.param_placements(full, phase)["blocks"]["tmix"]["w_v"]
+    got = tsr.placement_of(path, leaf.shape, phase, "data")
+    assert got == (None, table[2], table[1])
+    assert got[2] == "model"
+    if phase == "train":
+        return
+    for d in range(2):
+        for m in range(4):
+            dense = tsr.shard_params(full, _Coord(d, m), phase, dense=True)
+            island = tsr.shard_params(full, _Coord(d, m), phase)
+            assert torch.equal(dense["blocks"]["tmix"]["w_v"],
+                               island["blocks"]["tmix"]["w_v"])
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "zamba2-2.7b", "rwkv6-7b",
+                                  "whisper-base"])
+def test_family_cache_placements_by_role(arch):
+    """The four families' caches at their published widths, on every
+    applicable serving shape: the port's placements (by role) are the
+    reference's ``_cache_sharding_specs`` (by size), leaf by leaf.  The
+    two layouts differ where the port's cache does: gemma3's local rings
+    stack (groups * pattern) on one axis where the reference stacks
+    (groups, pattern) on two; rwkv6's wkv state holds this rank's heads
+    (the island's layout)."""
+    from repro_torch.configs import applicable as tapplicable
+    cfg, jcfg = tconfigs.get_config(arch), jget_config(arch)
+    tm = build_model(cfg, 1, None, "meta")
+    jm = jbuild_model(jcfg)
+    checked = 0
+    for shape in tconfigs.ALL_SHAPES:
+        if shape.kind == "train" or not tapplicable(cfg, shape)[0]:
+            continue
+        B, S = shape.global_batch, shape.seq_len
+        seq_axes = ()
+        if shape.kind == "decode":
+            seq_axes = ("data", "model") if B == 1 else ("model",)
+        want = _ref_leaves(_dry()._cache_sharding_specs(
+            jm.init_cache(B, S, abstract=True), B, ("data",), seq_axes, S))
+        got = _port_leaves(tsr.cache_placements(
+            tm.init_cache(B, S), B, ("data",), seq_axes, S))
+        assert set(got) == set(want), shape.name
+        for path, w in want.items():
+            w, g = tuple(w), got[path]
+            if path.startswith("local/"):    # (groups, pattern) -> one axis
+                assert w[:2] == (None, None), (shape.name, path)
+                w = w[1:]
+            if path == "states/wkv":
+                assert g == w[:2] + ("model",) + w[3:], (shape.name, path)
+            else:
+                assert g == w, (shape.name, path, g, w)
+            checked += 1
+    assert checked >= 6

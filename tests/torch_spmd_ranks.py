@@ -13,6 +13,7 @@ thread; every collective times out after 60 s, so a rank stuck in one
 fails instead of hanging the suite.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -66,8 +67,27 @@ def np_out(t):
 
 
 def cfg_of(inp, key):
+    """The case's reduced config in its dtype, with the case's overrides
+    (a JSON object under ``<key>/overrides``) when it has any."""
     name, dtype = str(inp[key + "/arch"]), str(inp[key + "/dtype"])
-    return get_config(name).reduced().replace(dtype=dtype)
+    cfg = get_config(name).reduced().replace(dtype=dtype)
+    if key + "/overrides" in inp:
+        cfg = cfg.replace(**json.loads(str(inp[key + "/overrides"])))
+    return cfg
+
+
+def fill_cache(cache, inp, prefix):
+    """A copy of ``cache`` whose every leaf is the input under
+    ``prefix/<path>`` (reshaped: the reference stacks gemma3's local rings
+    on two layer axes, the port on one)."""
+    return T.map_paths(lambda path, leaf: inp[
+        f"{prefix}/" + "/".join(path)].reshape(leaf.shape).to(
+            leaf.dtype).clone(), cache)
+
+
+def clone_cache(cache):
+    """A copy of ``cache`` whose leaves are clones."""
+    return T.map_paths(lambda _, leaf: leaf.clone(), cache)
 
 
 def runtime(inp, key):
@@ -220,11 +240,13 @@ def _as_np(t):
 def cell_cases(inp, out, cases):
     """Dry-run cells (``launch/dryrun.build_cell``) on a (2, 2) or (2, 4)
     gloo mesh: each key ``cell/<case>`` names the arch, the kind, the
-    shape and the whole params (and the decode cell's whole cache); the
-    phase is the cell's own unless ``force`` names ZeRO-3's ``train``.
-    Saved: a train step's metrics and this rank's updated shards; a
-    prefill's rows of the logits and of the cache; a serve step's rows of
-    the next token and the logits and its shard of the cache."""
+    shape, the config's overrides and the whole params (and the decode
+    cell's whole cache, every leaf under ``cache/<path>``; a train cell's
+    frames); the phase is the cell's own unless ``force`` names ZeRO-3's
+    ``train``.  Saved: a train step's metrics and this rank's updated
+    shards; a prefill's rows of the logits and its cache; a serve step's
+    rows of the next token and the logits and its shard of the cache,
+    each cache leaf under ``<path>``."""
     meshes = {}
     for case in cases:
         key = f"cell/{case}"
@@ -248,40 +270,35 @@ def cell_cases(inp, out, cases):
         out[key + "/phase"] = np.array(cell.phase)
         params = params_from_numpy(
             cell.shard(_as_np(tree(inp, key + "/params"))), None, "cpu")
-        rows = {k: cell.rows(k, inp[f"{key}/{k}"]).long()
-                for k in ("tokens", "labels", "mrope_positions")
+        rows = {k: cell.rows(k, inp[f"{key}/{k}"])
+                for k in ("tokens", "labels", "mrope_positions", "frames")
                 if f"{key}/{k}" in inp}
+        rows = {k: v if k == "frames" else v.long() for k, v in rows.items()}
         if kind == "train":
             state, met = cell.step(dryrun.init_state(cell, params), rows)
             for k in ("loss", "grad_norm", "ce", "aux", "dropped"):
-                out[f"{key}/{k}"] = met[k].float().numpy()
+                if k in met:
+                    out[f"{key}/{k}"] = met[k].float().numpy()
             for path, leaf in T.items(state.params):
                 out[f"{key}/p/" + "/".join(path)] = np_out(leaf)
         elif kind == "prefill":
             logits, cache = cell.step(params, rows["tokens"])
             out[key + "/logits"] = np_out(logits)
-            for name, c in cache.items():
-                out[f"{key}/{name}/k"] = np_out(c.k)
-                out[f"{key}/{name}/v"] = np_out(c.v)
+            for path, leaf in T.paths(cache):
+                out[f"{key}/" + "/".join(path)] = np_out(leaf)
         else:
-            whole = {name: kvc.KVCache(inp[f"{key}/cache/{name}/k"],
-                                       inp[f"{key}/cache/{name}/v"],
-                                       inp[f"{key}/cache/{name}/length"])
-                     for name in str(inp[key + "/stacks"]).split(",")}
-            cache = {n: kvc.KVCache(c.k.clone(), c.v.clone(),
-                                    c.length.clone())
-                     for n, c in cell.cache_shard(whole).items()}
-            logits = cell.model.decode_step(
-                params, rows["tokens"], {n: kvc.KVCache(
-                    c.k.clone(), c.v.clone(), c.length.clone())
-                    for n, c in cache.items()}, cell.ctx)[0]
+            whole = fill_cache(cell.model.init_cache(B, S), inp,
+                               key + "/cache")
+            cache = clone_cache(cell.cache_shard(whole))
+            logits = cell.model.decode_step(params, rows["tokens"],
+                                            clone_cache(cache), cell.ctx)[0]
             nxt, cache = cell.step(params, rows["tokens"], cache)
             out[key + "/logits"] = np_out(logits)
             out[key + "/next"] = nxt.numpy()
-            for name, c in cache.items():
-                out[f"{key}/{name}/k"] = np_out(c.k)
-                out[f"{key}/{name}/v"] = np_out(c.v)
-                out[f"{key}/{name}/length"] = c.length.numpy()
+            for path, leaf in T.paths(cache):
+                out[f"{key}/" + "/".join(path)] = (
+                    leaf.numpy() if leaf.dtype in (torch.int32, torch.int64)
+                    else np_out(leaf))
 
 
 def int8_case(inp, out):
