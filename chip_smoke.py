@@ -191,14 +191,29 @@ Phases, each of which raises on failure (exit code != 0):
    gloo ranks on the card (gloo takes CUDA tensors; NCCL refuses two
    ranks on one device) running reduced deepseek-r1 on a (2, 2) mesh
    against the one-process run (1e-5).
+25. mesh: the dry-run's cells on torch.distributed (``mesh_phase``): the
+   full-width train cells of deepseek-r1, gemma3-4b (its peak and step
+   wall printed beside the values measured without the attention's
+   q-block checkpoints) and whisper-base and the decode cells of four
+   families on a 1 x 1 NCCL mesh against the one-device path, 4 gloo
+   ranks on reduced cells, and the per-rank accounting on ``meta``;
+26. remat: one rwkv6-7b time-mix layer at its published widths (d_model
+   4096, 64 heads of 64, bf16), forward and backward over 2 x 4096
+   tokens, the wkv recurrence checkpointed a chunk of 64 tokens at a time
+   (the port's path) and as one per-token graph (the oracle, kept here):
+   output and every gradient bitwise equal (``bonus_u``'s within 1e-6
+   relative), the checkpointed peak below a quarter of the per-token
+   graph's; both peaks and walls printed.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
 arctic|gemma3|zamba2|rwkv6|whisper`` builds the kernels and runs that one
 phase (14-20) alone, printing no summary; ``--only train`` runs the
 backward kernels' checks and phases 21-23; ``--only spmd`` the partial
-kernel's checks and phase 24.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits 1 and prints no result.
+kernel's checks and phase 24; ``--only mesh`` the partial kernel's checks
+and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell.
+Without a CUDA device, or without the rest of the repository beside it,
+the script exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -3913,6 +3928,26 @@ def mesh_full_width(torch, get_config, smi) -> dict:
     return launches
 
 
+# a train cell's peak (GiB) and step wall p50 (ms) measured on this path
+# before the attention's q-block checkpoints (NVIDIA H100 80GB HBM3,
+# 700.00 W); the cell also runs its one-device step without them
+UNCHECKPOINTED = {"gemma3-4b": (27.76, 3312.0)}
+
+
+def _unchecked_core(torch, attention):
+    """``attention._chunked_core`` without its q-block checkpoints: every
+    block's fp32 scores and probabilities saved for the backward."""
+    def core(cfg, q, k, v, positions, *, is_local=False, causal=True,
+             q_blocks):
+        bq = q.shape[1] // q_blocks
+        outs = [attention._dense_core(
+            cfg, q[:, i * bq:(i + 1) * bq], k, v,
+            positions[:, i * bq:(i + 1) * bq], positions,
+            is_local=is_local, causal=causal) for i in range(q_blocks)]
+        return torch.cat(outs, dim=1)
+    return core
+
+
 def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
     """(a) ``arch``'s train cell at its published widths and depth on a
     1 x 1 NCCL mesh (its production phase ``train_tp``, remat, CE chunks
@@ -3980,6 +4015,21 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
                            init_train_state(model, opt, torch.Generator(
                                device="cuda").manual_seed(0)), batch, 1, smi)
         repeats = all(again[k] == ref[k] for k in keys)
+    plain = None
+    if arch in UNCHECKPOINTED:     # the same step, the q-blocks unchecked
+        from repro_torch.models import attention
+        state = None
+        _free(torch)
+        attention_core = attention._chunked_core
+        attention._chunked_core = _unchecked_core(torch, attention)
+        try:
+            plain = _train_run(torch, f"{arch} one-device step without the "
+                               "attention's q-block checkpoints", step,
+                               init_train_state(model, opt, torch.Generator(
+                                   device="cuda").manual_seed(0)), batch,
+                               steps, smi)
+        finally:
+            attention._chunked_core = attention_core
     del state, model, step
     _free(torch)
     err = max(abs(got[k] - ref[k]) for k in ("loss", "grad_norm"))
@@ -3991,6 +4041,21 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
         f"; step wall {got['wall_ms']:.1f} vs {ref['wall_ms']:.1f} ms, peak "
         f"{got['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB, idle share "
         f"{got['idle']} vs {ref['idle']} ({smi})")
+    if plain is not None:
+        gib, ms = UNCHECKPOINTED[arch]
+        plain_same = all(plain[k] == ref[k] for k in keys)
+        log(f"mesh: {arch} train cell with the attention's q-block "
+            f"checkpoints: peak {got['peak_gib']:.2f} GiB, step wall "
+            f"{got['wall_ms']:.1f} ms (one-device {ref['peak_gib']:.2f} GiB, "
+            f"{ref['wall_ms']:.1f} ms); the one-device step without them in "
+            f"this run {plain['peak_gib']:.2f} GiB, {plain['wall_ms']:.1f} ms"
+            f", loss, grad_norm and params digest "
+            f"{'bitwise equal' if plain_same else 'DIFFER'}; measured "
+            f"without them before: {gib:.2f} GiB, {ms:.1f} ms (NVIDIA H100 "
+            f"80GB HBM3, 700.00 W) ({smi})")
+        if not plain_same:
+            raise AssertionError(f"mesh: {arch} with and without the q-block"
+                                 f" checkpoints: {ref} vs {plain}")
     if got["top"]:
         log(f"mesh: {arch} train cell, the profiled step's device rows "
             "(ms a step, calls): " + "; ".join(
@@ -4542,6 +4607,115 @@ def mesh_alone(torch, get_config, smi) -> None:
     mesh_phase(torch, get_config, smi)
 
 
+def _tmix_per_token(torch, rwk, params, cfg, x, state):
+    """``rwkv.tmix_forward`` without its chunk checkpoints: one per-token
+    loop over the whole sequence, every token's three (B, H, D, D) states
+    saved for the backward (the oracle of phase 26)."""
+    _, D = rwk.dims(cfg)
+    H = params["w_r"].shape[1] // D
+    shifted = torch.cat([state.shift_tmix.to(x.dtype)[:, None], x[:, :-1]],
+                        dim=1)
+    r, k, v, g, w = rwk._projections(params, x, shifted, H, D)
+    S, u = state.wkv, params["bonus_u"]
+    ys = []
+    for t in range(x.shape[1]):
+        S, y = rwk._wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(y)
+    y = torch.stack(ys, dim=1)
+    return rwk._group_norm_out(params, y, g, x.dtype), S, x[:, -1]
+
+
+def remat_phase(torch, get_config, smi) -> None:
+    """Phase 26: one rwkv6-7b time-mix layer at its published widths, the
+    wkv recurrence under its chunk checkpoints against the per-token
+    graph, forward and backward over B = 2, L = 4096."""
+    from repro_torch.models import rwkv as rwk
+
+    _free(torch)
+    cfg = get_config("rwkv6-7b")
+    B, L = 2, 4096
+    g = torch.Generator(device="cuda").manual_seed(26)
+    base = rwk.init_rwkv_tmix(cfg, torch.bfloat16, "cuda", g)
+    base["bonus_u"] = 0.5 * torch.randn(base["bonus_u"].shape, generator=g,
+                                        device="cuda")
+    x0 = torch.randn(B, L, cfg.d_model, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    st0 = rwk.init_rwkv_state(cfg, B, "cuda")
+    st0 = st0._replace(wkv=0.1 * torch.randn(st0.wkv.shape, generator=g,
+                                             device="cuda"))
+    mix = torch.linspace(-1, 1, cfg.d_model, device="cuda")
+    variants = (("chunk-checkpointed", lambda *a: rwk.tmix_forward(
+        *a, chunk=64)), ("per-token graph", lambda *a: _tmix_per_token(
+            torch, rwk, *a)))
+    for _, fn in variants:                   # warm-up: 2 x 256 tokens
+        p = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+        y, S, _ = fn(p, cfg, x0[:, :256].clone().requires_grad_(True), st0)
+        ((y.float() * mix).sum() + S.square().sum()).backward()
+    runs = {}
+    for label, fn in variants:
+        p = {k: v.clone().requires_grad_(True) for k, v in base.items()}
+        x = x0.clone().requires_grad_(True)
+        st = st0._replace(wkv=st0.wkv.clone().requires_grad_(True))
+        _free(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, S, _ = fn(p, cfg, x, st)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ((y.float() * mix).sum() + S.square().sum()).backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[label] = {"out": (y.detach(), S.detach()),
+                       "grads": {"x": x.grad, "wkv": st.wkv.grad,
+                                 **{k: v.grad for k, v in p.items()}},
+                       "peak": peak, "fwd": (t1 - t0) * 1e3,
+                       "bwd": (t2 - t1) * 1e3}
+        del p, x, st, y, S
+        H, D = base["bonus_u"].shape
+        log(f"remat: rwkv6-7b time-mix layer (d_model {cfg.d_model}, {H} "
+            f"heads of {D}, bf16), {B} x {L} tokens, {label}: forward "
+            f"{runs[label]['fwd']:.1f} ms, backward "
+            f"{runs[label]['bwd']:.1f} ms (wall), peak {peak:.2f} GiB "
+            f"({smi})")
+    got, ref = runs["chunk-checkpointed"], runs["per-token graph"]
+    out_same = all(torch.equal(a, b) for a, b in zip(got["out"], ref["out"]))
+    diffs, same = {}, []
+    for k, e in ref["grads"].items():
+        a = got["grads"][k]
+        diffs[k] = (a.float() - e.float()).abs().max().item()
+        if torch.equal(a, e):
+            same.append(k)
+    u_rel = diffs["bonus_u"] / max(ref["grads"]["bonus_u"].abs().max().item(),
+                                   1e-30)
+    worst = max(diffs, key=diffs.get)
+    log(f"remat: chunk-checkpointed vs per-token graph: outputs "
+        f"{'bitwise equal' if out_same else 'DIFFER'}; gradients bitwise "
+        f"equal for {len(same)} of {len(diffs)} leaves; largest gradient "
+        f"difference {diffs[worst]:.3e} ({worst}), bonus_u relative "
+        f"{u_rel:.3e} (tol 1e-6); peak {got['peak']:.2f} vs "
+        f"{ref['peak']:.2f} GiB ({got['peak'] / ref['peak']:.3f}), wall "
+        f"{got['fwd'] + got['bwd']:.1f} vs {ref['fwd'] + ref['bwd']:.1f} ms "
+        f"({smi})")
+    finite = all(torch.isfinite(t).all() for t in got["grads"].values())
+    bad = [k for k in diffs if k not in same and k != "bonus_u"]
+    if not (out_same and not bad and u_rel <= 1e-6 and finite):
+        raise AssertionError(f"remat: checkpointed and per-token differ: "
+                             f"{diffs}")
+    if not got["peak"] < ref["peak"] / 4:
+        raise AssertionError(f"remat: checkpointed peak {got['peak']:.2f} "
+                             f"GiB not below a quarter of {ref['peak']:.2f}")
+    del runs, got, ref
+    _free(torch)
+
+
+def remat_alone(torch, get_config, smi) -> None:
+    """``--only remat``: phase 26, then gemma3-4b's train cell of phase
+    25 (its attention's q-block checkpoints)."""
+    remat_phase(torch, get_config, smi)
+    _family_train_cell(torch, get_config, smi, "gemma3-4b", 8, 2048)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4586,7 +4760,8 @@ def main() -> int:
              "whisper": lambda: whisper_phase(torch, get_config, smi),
              "train": lambda: train_alone(torch, get_config, smi),
              "spmd": lambda: spmd_alone(torch, get_config, smi),
-             "mesh": lambda: mesh_alone(torch, get_config, smi)}
+             "mesh": lambda: mesh_alone(torch, get_config, smi),
+             "remat": lambda: remat_alone(torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -4641,6 +4816,7 @@ def main() -> int:
                                                      cases)
     spmd_launches = spmd_phase(torch, get_config, smi)
     mesh_launches, family_launches = mesh_phase(torch, get_config, smi)
+    remat_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]

@@ -20,7 +20,9 @@ jnp in the reference), but its per-token loop would dispatch L steps a
 layer on ``meta`` (a 32,768-token prefill: a million steps).  There it is
 one op, :func:`wkv`, counted as the loop's matmuls (``2·B·L·H·D²``, the
 backward ``4·B·L·H·D²``) with the loop's memory modelled
-(``tests/test_torch_meta.py`` holds both to the loop's).
+(``tests/test_torch_meta.py`` holds both to the loop's).  Under autograd
+the time-mix calls it once a chunk, inside the chunk's checkpoint, so its
+counts model the chunked loop, the backward's recomputation included.
 
 The plain versions are not run there: ``grouped_gemm_torch`` makes G masked
 dense products, G times the kernel's work.  Calling these operators on any

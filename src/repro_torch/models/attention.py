@@ -36,7 +36,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.kernels import ops
 from repro_torch.models import kv_cache as kvc
-from repro_torch.models.common import dense_init, softcap
+from repro_torch.models.common import (dense_init, remat_if_recording,
+                                       softcap)
 from repro_torch.models.rope import (apply_rope, mrope_cos_sin, rope_cos_sin,
                                      text_mrope_positions)
 
@@ -108,12 +109,16 @@ def _dense_core(cfg, q, k, v, q_pos, k_pos, *, is_local: bool = False,
 
 def _chunked_core(cfg, q, k, v, positions, *, is_local: bool = False,
                   causal: bool = True, q_blocks: int):
-    """The reference's q-block scan: same math, one q block at a time."""
+    """The reference's q-block scan: same math, one q block at a time.
+    Under autograd each block is checkpointed, as the reference's
+    ``jax.checkpoint(body)``: its fp32 scores and probabilities are
+    recomputed in the backward, not kept between blocks (the
+    flash-attention memory profile).  Without grad, plain calls."""
     b, s = q.shape[:2]
     bq = s // q_blocks
-    outs = [_dense_core(cfg, q[:, i * bq:(i + 1) * bq], k, v,
-                        positions[:, i * bq:(i + 1) * bq], positions,
-                        is_local=is_local, causal=causal)
+    outs = [remat_if_recording(_dense_core, cfg, q[:, i * bq:(i + 1) * bq],
+                               k, v, positions[:, i * bq:(i + 1) * bq],
+                               positions, is_local=is_local, causal=causal)
             for i in range(q_blocks)]
     return torch.cat(outs, dim=1)
 

@@ -1,5 +1,6 @@
 """Shared building blocks: dtype policy, initializers, RMS norm,
-activations and the gemma-style logit softcap."""
+activations, the gemma-style logit softcap and the checkpoint inside a
+layer (:func:`remat_if_recording`)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -73,3 +75,24 @@ def activation_fn(name: str):
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-style logit soft-capping."""
     return cap * torch.tanh(logits / cap)
+
+
+def records(*args) -> bool:
+    """Whether autograd records an op on ``args``: grad enabled and a
+    tensor among them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+
+
+def remat_if_recording(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its intermediates recomputed in the
+    backward instead of saved (a non-reentrant checkpoint, the reference's
+    ``jax.checkpoint`` inside a layer) when autograd records it
+    (:func:`records`).  Otherwise a plain call, so serving and the no-grad
+    accounting take no checkpoint.  ``fn`` draws no random numbers (no RNG
+    state is kept) and issues no collective (the recomputation repeats
+    what it issues)."""
+    if records(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)

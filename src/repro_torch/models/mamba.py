@@ -14,12 +14,14 @@ conv on x only.
 
 The chunk is the reference's: ``Q = min(chunk, L)``, lowered until it
 divides L.  Q sets the fp32 summation order, so the port keeps the rule
-exactly; at a prime L it is 1, a per-token scan.  The reference's
-``jax.checkpoint`` of a chunk is a training memory device, dropped here.
-The SSD scan is PyTorch on every device: the reference computes it in jnp,
-not in a Pallas kernel.  fp32 islands as in the reference: ``dt``
-(softplus), ``u``, B/C, the state and the gate before the norm's input is
-rounded to the activations' dtype.
+exactly; at a prime L it is 1, a per-token scan.  The reference
+checkpoints each chunk's body; the port batches the chunks, so under
+autograd the whole chunked scan is one checkpoint: the batched
+intra-chunk tensors (the (B, nc, Q, Q, H) decay masks among them) are
+recomputed in the backward, not saved.  The SSD scan is PyTorch on every
+device: the reference computes it in jnp, not in a Pallas kernel.  fp32
+islands as in the reference: ``dt`` (softplus), ``u``, B/C, the state and
+the gate before the norm's input is rounded to the activations' dtype.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tpl
-from repro_torch.models.common import dense_init, resolve_dtype, rms_norm
+from repro_torch.models.common import (dense_init, remat_if_recording,
+                                       resolve_dtype, rms_norm)
 
 
 class MambaState(NamedTuple):
@@ -203,7 +206,8 @@ def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     if use_ref_scan:
         y, S = _ssd_scan_ref(u, logA, Bm.float(), Cm.float(), S0)
     else:
-        y, S = _ssd_chunked(u, logA, Bm.float(), Cm.float(), S0, chunk)
+        y, S = remat_if_recording(_ssd_chunked, u, logA, Bm.float(),
+                                  Cm.float(), S0, chunk)
     y = y + params["D"][None, None, :, None] * xh
     out = _gate_out(params, cfg, y.reshape(Bsz, L, d_inner), z, x.dtype, tp)
     return out, MambaState(ssm=S, conv=conv_state)

@@ -12,6 +12,10 @@ in the reference, prefill batches the r / k / v / g projections and the
 decay over the whole sequence and loops over tokens only for the wkv
 recurrence; the token-shift mixes are static.  The recurrence is PyTorch
 on every device: the reference computes it in jnp, not in a Pallas kernel.
+Under autograd it runs in chunks of Q tokens (the reference's ``chunk``
+and its rule, ``mamba.chunk_size``), each chunk checkpointed as the
+reference's ``jax.checkpoint(chunk_body)``: the backward keeps a chunk's
+incoming state, not three (B, H, D, D) states a token.
 
 Precision follows the reference's type promotion: the shift mixes ``mu``
 are fp32, so a mixed bf16 activation is fp32 and its r / k / v / g (and
@@ -40,7 +44,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.kernels import meta
-from repro_torch.models.common import dense_init, resolve_dtype, rms_norm
+from repro_torch.models.common import (dense_init, records,
+                                       remat_if_recording, resolve_dtype,
+                                       rms_norm)
+from repro_torch.models.mamba import chunk_size
 
 
 class RwkvState(NamedTuple):
@@ -145,15 +152,44 @@ def _tmix_step(params: Dict, cfg: ModelConfig, S: torch.Tensor,
     return S, _group_norm_out(params, y, g, x_t.dtype)
 
 
+def _wkv_loop(r, k, v, w, u, S):
+    """The recurrence token by token: r / k / v / w (B, T, H, D) from the
+    state S -> (y (B, T, H, D), the last state), as ``meta.wkv``."""
+    ys = []
+    for t in range(r.shape[1]):
+        S, y = _wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(y)
+    return torch.stack(ys, dim=1), S
+
+
+def _recurrence(loop, r, k, v, w, u, S, chunk: int):
+    """``loop`` (:func:`_wkv_loop`, or ``meta.wkv`` on ``meta``) over the
+    sequence: one pass where autograd does not record; under autograd
+    chunk by chunk, ``chunk_size(L, chunk)`` tokens each, every chunk
+    checkpointed.  Returns (y, the last state)."""
+    if not records(r, k, v, w, u, S):
+        return loop(r, k, v, w, u, S)
+    Q, ys = chunk_size(r.shape[1], chunk), []
+    for c in range(0, r.shape[1], Q):
+        sl = slice(c, c + Q)
+        y, S = remat_if_recording(loop, r[:, sl], k[:, sl], v[:, sl],
+                                  w[:, sl], u, S)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S
+
+
 def tmix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                 state: RwkvState
+                 state: RwkvState, *, chunk: int = 64
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence time-mix.  x (B, L, d).  The projections and the decay
-    run over the whole sequence, the wkv recurrence token by token (the
-    reference's ``chunk`` only groups those steps for rematerialization;
-    the values do not depend on it).  On ``meta`` tensors (the dry-run's
-    accounting) the recurrence is one op, ``kernels/meta.py``'s ``wkv``,
-    counted as the loop's matmuls.  Returns (y, wkv state', last
+    run over the whole sequence, the wkv recurrence token by token.  Under
+    autograd the recurrence runs chunk by chunk, Q = ``chunk_size(L,
+    chunk)`` tokens each, every chunk checkpointed (its incoming state and
+    its slices of r / k / v / w kept; its per-token states recomputed in
+    the backward); the values do not depend on Q.  Without grad one pass
+    over the sequence.  On ``meta`` tensors (the dry-run's accounting) the
+    recurrence of a pass or a chunk is one op, ``kernels/meta.py``'s
+    ``wkv``, counted as the loop's matmuls.  Returns (y, wkv state', last
     token)."""
     _, D = dims(cfg)
     H = params["w_r"].shape[1] // D
@@ -161,14 +197,8 @@ def tmix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                         dim=1)
     r, k, v, g, w = _projections(params, x, shifted, H, D)
     S, u = state.wkv, params["bonus_u"]
-    if x.device.type == "meta":        # the accounting: one op, no loop
-        y, S = meta.wkv(r, k, v, w, u, S)
-    else:
-        ys = []
-        for t in range(x.shape[1]):
-            S, y = _wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
-            ys.append(y)
-        y = torch.stack(ys, dim=1)
+    y, S = _recurrence(meta.wkv if x.device.type == "meta" else _wkv_loop,
+                       r, k, v, w, u, S, chunk)
     out = _group_norm_out(params, y, g, x.dtype)
     return out, S, x[:, -1]
 
@@ -187,12 +217,13 @@ def cmix_forward(params: Dict, x: torch.Tensor, prev_token: torch.Tensor
 
 def rwkv_block_forward(tparams: Dict, cparams: Dict, cfg: ModelConfig,
                        x: torch.Tensor, state: RwkvState,
-                       norms: Tuple[torch.Tensor, torch.Tensor]
-                       ) -> Tuple[torch.Tensor, RwkvState]:
-    """One RWKV layer over a sequence (pre-norm residuals)."""
+                       norms: Tuple[torch.Tensor, torch.Tensor], *,
+                       chunk: int = 64) -> Tuple[torch.Tensor, RwkvState]:
+    """One RWKV layer over a sequence (pre-norm residuals); ``chunk`` as
+    :func:`tmix_forward`'s."""
     n1, n2 = norms
     h = rms_norm(x, n1, cfg.rms_norm_eps)
-    y, S, prev_t = tmix_forward(tparams, cfg, h, state)
+    y, S, prev_t = tmix_forward(tparams, cfg, h, state, chunk=chunk)
     x = x + y
     y2, prev_c = cmix_forward(cparams, rms_norm(x, n2, cfg.rms_norm_eps),
                               state.shift_cmix)
@@ -235,8 +266,10 @@ def rwkv_block_spmd(tparams: Dict, cparams: Dict, cfg: ModelConfig,
     """One tensor-parallel RWKV layer over a sequence, on this rank's
     slices (``sharding_rules.ISLAND_PLACEMENTS``; ``state.wkv`` holds this
     rank's heads) of a layer: x (B, L, d) whole.  The wkv recurrence runs
-    on the local heads; ``w_o``'s and the channel-mix ``w_v``'s partial
-    sums are the two sums over ``group`` (the model axis).
+    on the local heads (chunk-checkpointed under grad, as
+    :func:`tmix_forward`'s, with no collective inside a chunk); ``w_o``'s
+    and the channel-mix ``w_v``'s partial sums are the two sums over
+    ``group`` (the model axis).
 
     Under grad the island keeps the Megatron conventions of
     :mod:`repro_torch.distributed.tensor_parallel`: the sums' backward is

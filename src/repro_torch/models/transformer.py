@@ -1031,10 +1031,12 @@ def _build_rwkv(cfg: ModelConfig, device) -> Model:
                 _sum_stats([], cfg, token.device))
 
     def loss_fn(params, batch: Dict, ctx: ParallelCtx):
-        """batch {tokens, labels} -> (loss, {"ce"}); zero states, no remat
-        (the reference remats no RWKV layer); on a mesh the island on this
-        rank's heads and the data axes' convention of
-        :func:`_data_parallel_loss`."""
+        """batch {tokens, labels} -> (loss, {"ce"}); zero states, no
+        per-layer remat (the reference remats no RWKV layer whole), the
+        wkv recurrence checkpointed chunk by chunk inside the time-mix (as
+        the reference's, ``rwkv.tmix_forward``; the island's too); on a
+        mesh the island on this rank's heads and the data axes' convention
+        of :func:`_data_parallel_loss`."""
         tokens = batch["tokens"].long()
         lay = _tp(ctx)
         block, heads = spmd(ctx)

@@ -2,7 +2,10 @@
 package's: the causal conv, the chunked SSD scan and its chunk rule (Q =
 64, a smaller divisor, a prime length's per-token scan), the forward from
 a nonzero state and the one-token decode.  fp32 at 1e-5 (rtol and atol,
-as ``tests/test_kernels.py``), same numpy inputs in both packages."""
+as ``tests/test_kernels.py``), same numpy inputs in both packages.  Under
+autograd the forward checkpoints the chunked scan: against the same
+forward without the checkpoint, outputs and gradients bitwise, and the
+batched (B, nc, Q, Q, H) decay masks are not saved for the backward."""
 
 import jax
 import jax.numpy as jnp
@@ -183,3 +186,51 @@ def test_bfloat16_forward_keeps_the_reference_roundings():
     ty, _ = mamba.mamba_forward(tp, tcfg, torch.as_tensor(x).bfloat16())
     assert ty.dtype == torch.bfloat16
     _close(ty, jy, tol=2e-2)
+
+
+def _plain(fn, *args, **kwargs):
+    """``common.remat_if_recording`` without the checkpoint: the scan as
+    the forward called it before."""
+    return fn(*args, **kwargs)
+
+
+@pytest.mark.parametrize("L", [128, 60, 67])
+def test_ssd_checkpoint_bitwise_the_unchecked_forward(L, monkeypatch):
+    """``mamba_forward`` from a nonzero state at L = 128 (Q = 64), 60 (one
+    chunk) and the prime 67 (Q = 1), with the chunked scan checkpointed
+    and without: output, new states and the gradients of x, the incoming
+    state and every leaf bitwise equal.  The checkpointed forward saves
+    no (B, nc, Q, Q, H) mask for the backward; without it, it does."""
+    cfg, tcfg = _cfgs()
+    _, tp = _params(cfg, seed=L)
+    rng = np.random.default_rng(L)
+    _, tst = _state(cfg, rng, 2)
+    # steps of dt ~0.1 (Mamba2's init range): where a chunk's decays sum
+    # past ~88, a masked entry of exp(Mlog) overflows and its zero
+    # gradient times inf is nan, in both graphs (the reference's too)
+    tp = dict(tp, dt_bias=tp["dt_bias"] - 2.5)
+    x0 = torch.as_tensor((rng.normal(size=(2, L, cfg.d_model))
+                          * 0.5).astype(np.float32))
+    H = mamba.dims(tcfg)[1]
+    Q = mamba.chunk_size(L, 64)
+    masks = (2, L // Q, Q, Q, H)
+    runs = []
+    for remat in (mamba.remat_if_recording, _plain):
+        monkeypatch.setattr(mamba, "remat_if_recording", remat)
+        p = {k: v.clone().requires_grad_(True) for k, v in tp.items()}
+        x = x0.clone().requires_grad_(True)
+        st = tst._replace(ssm=tst.ssm.clone().requires_grad_(True))
+        shapes = set()
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: shapes.add(tuple(t.shape)) or t, lambda t: t):
+            y, new = mamba.mamba_forward(p, tcfg, x, st)
+        (y.square().sum() + new.ssm.square().sum()).backward()
+        runs.append(((y, *new), {"x": x.grad, "ssm": st.ssm.grad,
+                                 **{k: v.grad for k, v in p.items()}},
+                     masks in shapes))
+    (out, grads, big), (out0, grads0, big0) = runs
+    for a, e in zip(out, out0):
+        assert torch.equal(a, e)
+    for k, e in grads0.items():
+        assert torch.isfinite(e).all() and torch.equal(grads[k], e), k
+    assert not big and big0

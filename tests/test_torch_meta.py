@@ -10,6 +10,9 @@
   tensors return empty outputs of the kernel's shapes, counted by
   ``FlopCounterMode`` at the kernel's own work (``kernels/meta.py``); the
   MoE layer runs forward and backward there.
+* rwkv6's wkv recurrence is one op there, counted as the per-token loop,
+  over a whole sequence and, under autograd, a chunk at a time under the
+  chunk's checkpoint, as the chunked loop.
 """
 
 import numpy as np
@@ -243,3 +246,52 @@ def test_wkv_meta_route_counts_as_the_loop(shape):
         else:
             tol = 0.01 if shape[1] >= 64 else 0.25
             assert abs(p_op - p_loop) <= tol * p_loop, (p_op, p_loop)
+
+
+@pytest.mark.parametrize("shape,chunk", [((2, 8, 3, 4), 4), ((3, 7, 2, 16), 3),
+                                         ((16, 128, 4, 64), 64)])
+def test_wkv_meta_route_counts_as_the_chunked_loop(shape, chunk):
+    """Under autograd ``rwkv._recurrence`` runs the recurrence a chunk at
+    a time, each chunk checkpointed: its ``meta`` route (``meta.wkv`` a
+    chunk) against the chunked per-token loop on meta, both recomputed in
+    the backward.  FLOPs equal; the peak equal without grad and within
+    the tolerances above under grad (1 % at chunks of 64 tokens, 25 % at
+    the toy chunks: 2 chunks of 4, 7 chunks of 1)."""
+    from repro_torch.kernels import meta
+    from repro_torch.models import rwkv as rwk
+    run = lambda loop: lambda *a: rwk._recurrence(    # noqa: E731
+        loop, *a, chunk=chunk)
+    Q = rwk.chunk_size(shape[1], chunk)
+    for grad in (False, True):
+        f_loop, p_loop = _wkv_count(run(_wkv_loop), grad, *shape)
+        f_op, p_op = _wkv_count(run(meta.wkv), grad, *shape)
+        assert f_op == f_loop
+        if not grad:
+            assert p_op == p_loop
+        else:
+            tol = 0.01 if Q >= 64 else 0.25
+            assert abs(p_op - p_loop) <= tol * p_loop, (p_op, p_loop)
+    # the backward recomputes each chunk's forward: 2 + 4 + 2 passes' work
+    B, L, H, D = shape
+    assert f_op == meta.wkv_flops(B, L, H, D, False) * 2 + \
+        meta.wkv_flops(B, L, H, D, True)
+
+
+def test_peak_holders_names_the_storages_live_at_the_peak():
+    """``tools/peak_holders.py``'s memory: the peak is ``MetaMemory``'s,
+    and the storages live there are grouped by the op that made them (a
+    freed storage's address, reused, is not taken for the old one)."""
+    from repro_torch.tools.peak_holders import HolderMemory
+    mem = HolderMemory()
+    mem.step = 1
+    with mem:
+        a = torch.empty(256, 1024, device="meta")         # 1 MiB
+        b = a.exp()
+        del a
+        c = b.repeat(4, 1)                                 # 4 MiB
+        del c
+        b.sum()
+    assert mem.peak == 5 * 2**20
+    assert dict(mem.groups()) == {
+        ("aten.exp.default", (256, 1024), "float32"): 2**20,
+        ("aten.repeat.default", (1024, 1024), "float32"): 4 * 2**20}

@@ -3,7 +3,10 @@ package's: the decay, one time-mix token, the sequence time-mix (at a prime
 length, where the reference's chunk falls to 1), the channel-mix, a layer's
 forward and decode, and decode after prefill equal to the longer prefill.
 fp32 at 1e-5 (rtol and atol, as ``tests/test_kernels.py``), same numpy
-inputs in both packages."""
+inputs in both packages.  Under autograd the time-mix checkpoints its
+recurrence chunk by chunk: against the per-token graph it replaced (kept
+here as the oracle), outputs and gradients bitwise, and the bytes saved
+for the backward hold a chunk's incoming state, not three a token."""
 
 import jax
 import jax.numpy as jnp
@@ -211,3 +214,106 @@ def test_init_state_matches_reference():
     for a, b in zip(ts, js):
         assert tuple(a.shape) == (4,) + b.shape
         assert str(a.dtype)[6:] == str(b.dtype)
+
+
+# ------------------------------------ the recurrence's chunk checkpoint
+
+def _tmix_per_token(params, cfg, x, state):
+    """``rwkv.tmix_forward`` before its chunk checkpoints: one per-token
+    loop over the whole sequence, every token's states saved for the
+    backward."""
+    _, D = rwkv.dims(cfg)
+    H = params["w_r"].shape[1] // D
+    shifted = torch.cat([state.shift_tmix.to(x.dtype)[:, None], x[:, :-1]],
+                        dim=1)
+    r, k, v, g, w = rwkv._projections(params, x, shifted, H, D)
+    S, u = state.wkv, params["bonus_u"]
+    ys = []
+    for t in range(x.shape[1]):
+        S, y = rwkv._wkv_step(S, r[:, t], k[:, t], v[:, t], w[:, t], u)
+        ys.append(y)
+    y = torch.stack(ys, dim=1)
+    return rwkv._group_norm_out(params, y, g, x.dtype), S, x[:, -1]
+
+
+class _SavedStates(torch.autograd.graph.saved_tensors_hooks):
+    """The distinct storages of the (B, H, D, D) states (any view of one:
+    a batched matmul saves its (B·H, D, D) operand) autograd saves for
+    the backward while it is entered (a checkpoint's inputs pass
+    through it; what it recomputes does not)."""
+
+    def __init__(self, state):
+        self.states = set()
+
+        def pack(t):
+            if t.numel() == state.numel():
+                self.states.add(t.untyped_storage().data_ptr())
+            return t
+
+        super().__init__(pack, lambda t: t)
+
+
+@pytest.mark.parametrize("L", [128, 60, 67])
+def test_chunk_checkpoint_bitwise_the_per_token_graph(L):
+    """L = 128 (two chunks of 64), 60 (one chunk of 60) and the prime 67
+    (Q = 1: a chunk a token): output, last state and the gradients of x,
+    the incoming state and every time-mix leaf bitwise the per-token
+    graph's, except ``bonus_u``'s, within 1e-6 relative: every token adds
+    to it, and the chunks may group that sum apart from the per-token
+    graph (as the reference's checkpointed scan groups it).  The
+    checkpointed graph saves at most L / Q + 1 (B, H, D, D) states (each
+    chunk's incoming state, and the last state, which the test's loss
+    squares); the per-token graph saves three a token (kv, the bracket
+    u·kv + S and the state before the step), at least 3 L."""
+    cfg, tcfg = _cfgs()
+    _, _, tt, _ = _params(cfg, seed=L)
+    rng = np.random.default_rng(L)
+    _, tst = _state(cfg, rng, 2)
+    x0 = torch.as_tensor(_x(cfg, rng, 2, L))
+    H, D = rwkv.dims(tcfg)
+    Q = rwkv.chunk_size(L, 64)
+    runs = []
+    for fn in (rwkv.tmix_forward, _tmix_per_token):
+        p = {k: v.clone().requires_grad_(True) for k, v in tt.items()}
+        x = x0.clone().requires_grad_(True)
+        st = tst._replace(wkv=tst.wkv.clone().requires_grad_(True))
+        saved = _SavedStates(st.wkv)
+        with saved:
+            y, S, last = fn(p, tcfg, x, st)
+        (y * torch.linspace(-1, 1, y.shape[-1])).sum().add(
+            S.square().sum()).backward()
+        runs.append(((y, S, last), {"x": x.grad, "wkv": st.wkv.grad,
+                                    **{k: v.grad for k, v in p.items()}},
+                     len(saved.states)))
+    (out, grads, n), (out0, grads0, n0) = runs
+    for a, e in zip(out, out0):
+        assert torch.equal(a, e)
+    for k, e in grads0.items():
+        if k == "bonus_u":
+            np.testing.assert_allclose(grads[k].numpy(), e.numpy(),
+                                       rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(grads[k], e), k
+    assert n <= L // Q + 1, (n, L, Q)
+    assert n0 >= 3 * L, n0
+
+
+def test_block_chunk_and_no_grad_take_one_pass():
+    """``rwkv_block_forward``'s ``chunk`` (the reference's keyword) moves
+    no value: under grad at chunk 64, 16 and 7 (Q = 64, 16, 4 at L = 128)
+    and without grad (one pass), the outputs and new states equal."""
+    cfg, tcfg = _cfgs()
+    _, _, tt, tc = _params(cfg, seed=8)
+    rng = np.random.default_rng(8)
+    _, tn = _norms(cfg, rng)
+    _, tst = _state(cfg, rng, 2)
+    x = torch.as_tensor(_x(cfg, rng, 2, 128))
+    with torch.no_grad():
+        want = rwkv.rwkv_block_forward(tt, tc, tcfg, x, tst, tn)
+    xg = x.clone().requires_grad_(True)
+    for chunk in (64, 16, 7):
+        got = rwkv.rwkv_block_forward(tt, tc, tcfg, xg, tst, tn,
+                                      chunk=chunk)
+        assert torch.equal(got[0], want[0])
+        for a, e in zip(got[1], want[1]):
+            assert torch.equal(a, e)
