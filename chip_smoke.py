@@ -203,7 +203,21 @@ Phases, each of which raises on failure (exit code != 0):
    (the port's path) and as one per-token graph (the oracle, kept here):
    output and every gradient bitwise equal (``bonus_u``'s within 1e-6
    relative), the checkpointed peak below a quarter of the per-token
-   graph's; both peaks and walls printed.
+   graph's; both peaks and walls printed;
+27. graphs: every executor's decode variants run as CUDA graphs, captured
+   once per key and replayed (``serving/step_graphs.py``; phases 5-26 run
+   so too, holding their digests and launch counts), here against
+   ``step_graphs.eager()`` on the same full-width deepseek-r1 weights,
+   each scenario graphs then eager: the dense serve's traffic through
+   server 1's failure in each of the three decode modes, the paged serve,
+   the 4-client async cluster, and 2 clients on their own weights through
+   a failure, a client's masked server, a page-out, new skew values, a
+   rebalance's migration and ``scale_to(2)``.  Tokens and kernel launches equal;
+   one capture per variant and executor (the last scenario one more
+   after ``scale_to``), none eager; each arm's decode step wall p50, the
+   profiled window's device busy, idle share, host calls that enqueue
+   work a step, and peak memory (allocated and reserved: a graph's pool
+   is reserved, a replay allocates nothing).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -211,7 +225,8 @@ arctic|gemma3|zamba2|rwkv6|whisper`` builds the kernels and runs that one
 phase (14-20) alone, printing no summary; ``--only train`` runs the
 backward kernels' checks and phases 21-23; ``--only spmd`` the partial
 kernel's checks and phase 24; ``--only mesh`` the partial kernel's checks
-and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell.
+and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
+``--only graphs`` phase 27.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -1300,25 +1315,37 @@ def paged_serve_phase(torch, cfg, params, rng):
     return launches, [r.prompt for r in reqs]
 
 
-def _mode_profile(torch, eng, cfg, rng, label: str, slots: int,
-                  steps: int = 8) -> None:
-    """``slots`` fresh 128-token requests, then ``steps`` decode steps
-    timed alone and ``steps`` under the profiler (``_step_profile``): wall,
-    device busy (summed over streams) and launches per step."""
+def _filled_profile(torch, eng, cfg, rng, label: str, slots: int,
+                    steps: int, fill: int = 4):
+    """``slots`` fresh 128-token requests, then ``_step_profile`` over
+    ``steps`` decode steps; the engine runs them out after.  ``fill``:
+    the steps beyond ``slots`` the prefills may take (and the tokens the
+    first request may decode meanwhile)."""
     from repro_torch.serving import Request, SamplingParams
 
     for i in range(slots):
         eng.submit(Request(200 + i, rng.integers(0, cfg.vocab_size, 128)
                            .astype("int32"),
-                           SamplingParams(max_new_tokens=2 * steps + 8)))
-    for _ in range(slots + 4):
+                           SamplingParams(max_new_tokens=2 * steps + 4
+                                          + fill)))
+    for _ in range(slots + fill):
         if len(eng.scheduler.decode_ready()) == slots:
             break
         eng.step()
     if len(eng.scheduler.decode_ready()) != slots:
-        raise AssertionError(f"modes ({label}): the batch never filled")
+        raise AssertionError(f"{label}: the batch never filled")
     p = _step_profile(torch, eng, steps)
     eng.run()
+    return p
+
+
+def _mode_profile(torch, eng, cfg, rng, label: str, slots: int,
+                  steps: int = 8) -> None:
+    """``slots`` fresh 128-token requests, then ``steps`` decode steps
+    timed alone and ``steps`` under the profiler (``_step_profile``): wall,
+    device busy (summed over streams) and launches per step."""
+    p = _filled_profile(torch, eng, cfg, rng, f"modes ({label})", slots,
+                        steps)
     if p is None:
         log(f"modes ({label}): the profiler saw no device time (not "
             "measured)")
@@ -2132,11 +2159,21 @@ def control_plane_phase(torch, cfg, smi) -> dict:
     return e_launch
 
 
+# the CUDA runtime and driver calls that put work on a stream: what the host
+# issues a step (a graph's replay is one launch)
+HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
+              "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+              "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+              "cudaMemcpy2DAsync", "cuMemcpyAsync", "cuMemsetD8Async",
+              "cuMemsetD32Async")
+
+
 def _step_profile(torch, eng, steps: int):
     """``steps`` decode steps timed on the host clock, then ``steps`` more
     under torch.profiler (so its overhead touches no reported latency):
-    wall ms, device busy ms, launches and copies per step, and the device
-    rows as {name: (ms per step, calls per step)}; None if the profiler
+    wall ms, device busy ms, launches and copies per step, the device rows
+    as {name: (ms per step, calls per step)}, and the host's calls that
+    put work on a stream per step (``HOST_CALLS``); None if the profiler
     saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2174,26 +2211,34 @@ def _step_profile(torch, eng, steps: int):
     for a, b in spans:
         union += max(0.0, b - max(a, end))
         end = max(end, b)
+    host = {e.key: e.count / steps for e in prof.key_averages()
+            if e.device_type != DeviceType.CUDA and e.key in HOST_CALLS}
     return {"plain_ms": plain_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
             "union_ms": union / 1e3 / steps,
             "launches": sum(n for _, n in rows.values()) - copies,
-            "copies": copies, "rows": rows}
+            "copies": copies, "rows": rows,
+            "host_calls": host, "host_launches": sum(host.values())}
 
 
 @contextlib.contextmanager
-def _old_combine(torch):
+def _old_combine(torch, eng):
     """Route the MoE layer's combine through the stage it ran before the
-    slot entry (``old_combine_stage``)."""
+    slot entry (``old_combine_stage``).  A captured decode graph replays
+    the code it was captured from, so ``eng``'s graphs are dropped on the
+    way in and out: its next decode steps run the warm-up, then capture
+    the route in force."""
     from repro_torch.core import dispatch
 
     fused = dispatch.combine
     dispatch.combine = (
         lambda responses, slot, out_dtype=None, addend=None:
         old_combine_stage(torch, responses, slot, out_dtype, addend))
+    eng.executor.graphs.reset()
     try:
         yield
     finally:
         dispatch.combine = fused
+        eng.executor.graphs.reset()
 
 
 def profile_decode(torch, eng, cfg, rng, label: str,
@@ -2210,7 +2255,7 @@ def profile_decode(torch, eng, cfg, rng, label: str,
     for i in range(8):
         eng.submit(Request(100 + i, rng.integers(0, cfg.vocab_size, 128)
                            .astype("int32"),
-                           SamplingParams(max_new_tokens=4 * steps + 40)))
+                           SamplingParams(max_new_tokens=4 * steps + 44)))
     # the 8 prefills (interleaved with decode steps under the fair policy)
     for _ in range(32):
         if len(eng.scheduler.decode_ready()) == 8:
@@ -2219,8 +2264,12 @@ def profile_decode(torch, eng, cfg, rng, label: str,
     if len(eng.scheduler.decode_ready()) != 8:
         raise AssertionError(f"profile ({label}): the batch never filled")
     now = _step_profile(torch, eng, steps)
-    with _old_combine(torch):
+    with _old_combine(torch, eng):
+        for _ in range(2):          # the warm-up step and the capture
+            eng.step()
         before = _step_profile(torch, eng, steps)
+    for _ in range(2):
+        eng.step()
     eng.run()
     if now is None or before is None:
         log(f"profile ({label}): the profiler saw no device time "
@@ -2581,17 +2630,33 @@ def _decode_shapes():
 
     from repro_torch.kernels import ops
 
+    from repro_torch.serving.step_graphs import StepGraphs
+
     shapes = collections.Counter()
-    real = ops.flash_decode_cuda
+    real, real_run = ops.flash_decode_cuda, StepGraphs.run
 
     def seen(q, k, v, lengths_, softcap=0.0):
         shapes[(k.shape[1], q.shape[-1])] += 1
         return real(q, k, v, lengths_, softcap)
+
+    def run(self, name, key, fn):
+        # a replay passes no wrapper: the calls its capture counted are
+        # kept on the variant and counted again at each later replay
+        before = shapes.copy()
+        n, c = self.replays.get(name, 0), self.captures.get(name, 0)
+        out = real_run(self, name, key, fn)
+        if self.captures.get(name, 0) > c:
+            self._variants[name].shapes = shapes - before
+        elif self.replays.get(name, 0) > n:
+            shapes.update(self._variants[name].shapes)
+        return out
     ops.flash_decode_cuda = seen
+    StepGraphs.run = run
     try:
         yield shapes
     finally:
         ops.flash_decode_cuda = real
+        StepGraphs.run = real_run
 
 
 def gemma3_phase(torch, get_config, smi) -> dict:
@@ -4716,6 +4781,350 @@ def remat_alone(torch, get_config, smi) -> None:
     _family_train_cell(torch, get_config, smi, "gemma3-4b", 8, 2048)
 
 
+# ---- slice 16: the decode variants as CUDA graphs -------------------------
+
+GRAPH_PROFILE_STEPS = 4
+# the dense serve's digest held since PR 14 (phase 5: the same weights,
+# traffic and failure in lockstep)
+HELD = {"lockstep": "c25b7025481d"}
+
+
+def _arm(graphs: bool):
+    """One arm's context: CUDA graphs (the default) or
+    ``step_graphs.eager()``, the reference's ``jax.disable_jit()``."""
+    from repro_torch.serving import step_graphs
+    return contextlib.nullcontext() if graphs else step_graphs.eager()
+
+
+def _memory(torch) -> dict:
+    return {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+
+
+def _paged_traffic(np, cfg, rng):
+    """Phase 6's shape of traffic: a warm-up, then 16 requests over two
+    shared 256-token prefixes (the last two bare: a COW fork)."""
+    from repro_torch.serving import Request, SamplingParams
+
+    warm = Request(-1, rng.integers(0, cfg.vocab_size, 300, np.int32),
+                   SamplingParams(max_new_tokens=2))
+    prefixes = [rng.integers(0, cfg.vocab_size, 256, np.int32)
+                for _ in range(2)]
+    suffixes = [0 if i >= 14 else int(rng.integers(64, 257))
+                for i in range(16)]
+    return warm, [Request(i, np.concatenate([
+        prefixes[i % 2], rng.integers(0, cfg.vocab_size, n)]).astype(
+            np.int32), SamplingParams(max_new_tokens=32))
+        for i, n in enumerate(suffixes)]
+
+
+def _graph_engine_arm(torch, cfg, params, ecfg, label, graphs, fail,
+                      traffic) -> dict:
+    """One engine on ``params``: its traffic served (``_serve``: a
+    warm-up, then the measured run, server 1 down at steps 10-20 when
+    ``fail``), then a profiled window of full-batch decode steps."""
+    import numpy as np
+
+    from repro_torch.serving import ServingEngine, WallClock
+
+    _free(torch)
+    with _arm(graphs):
+        eng = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
+        rng = np.random.default_rng(0)
+        warm, reqs = traffic(np, cfg, rng)
+        metrics, launches, steps = _serve(torch, eng, warm, reqs, fail=fail)
+        _check_completed(label, metrics, reqs, cfg)
+        prof = _filled_profile(torch, eng, cfg, rng, label, 8,
+                               GRAPH_PROFILE_STEPS, fill=24)
+        g = eng.executor.graphs
+        out = dict(digest=_digest(reqs), launches=launches,
+                   wall_ms=[t * 1e3 for t, _ in steps], prof=prof,
+                   captures=[dict(g.captures)],
+                   replays=sum(g.replays.values()),
+                   miss=int(eng.executor.miss), **_memory(torch))
+    del eng
+    return out
+
+
+def _graph_cluster_arm(torch, cfg, params, graphs) -> dict:
+    """Phase 10's 4 async clients (one shared tier, depth 2, VirtualClock)
+    on ``params``: the 16 requests, server 3 slowed 3x at cluster step
+    25, server 1 down at steps 60-100; each wave timed (its sampled
+    tokens come to the host inside it), then 24 profiled cluster steps
+    over 8 fresh requests."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, SamplingParams, VirtualClock
+
+    _free(torch)
+    with _arm(graphs):
+        cl = _cluster(cfg, params, 4, VirtualClock, off=DEAD,
+                      exec_mode="async", async_depth=2, queue_mode="expert")
+        _, make = _cluster_requests(np, cfg)
+        reqs = make()
+        for r in reqs:
+            cl.submit(r)
+        walls, waves = [], [0]
+        for eng in cl.clients:
+            def timed(plan, f=eng._async_decode):
+                t0 = time.perf_counter()
+                out = f(plan)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                return out
+            eng._async_decode = timed
+
+        def on_step(c):
+            nxt = c.step_idx + 1
+            if nxt == 25:
+                c.set_server_speed(3, 3.0)
+            elif nxt == 60:
+                c.inject_server_failure(DEAD)
+            elif nxt == 100:
+                c.recover_server(DEAD)
+        ops.reset_launches()
+        m = cl.run(on_step=on_step)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if m.completed != 16:
+            raise AssertionError(f"graphs (cluster): {m.completed}/16")
+        rng = np.random.default_rng(10)
+        for i in range(8):
+            cl.submit(Request(400 + i, rng.integers(0, cfg.vocab_size, 128)
+                              .astype("int32"),
+                              SamplingParams(max_new_tokens=32)))
+        for _ in range(200):
+            if not cl.ingress and all(not c.queue
+                                      and not c.scheduler._progress
+                                      for c in cl.clients):
+                break
+            cl.step()
+        for eng in cl.clients:
+            def counted(plan, f=eng._async_decode):
+                waves[0] += 1
+                return f(plan)
+            eng._async_decode = counted
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(24):
+                cl.step()
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3
+        cl.run()
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        host = sum(e.count for e in prof.key_averages()
+                   if e.device_type != DeviceType.CUDA
+                   and e.key in HOST_CALLS)
+        n = max(waves[0], 1)
+        busy = sum(t for _, _, t in rows) / 1e3
+        out = dict(digest=_digest(reqs), launches=launches, wall_ms=walls,
+                   captures=[dict(c.executor.graphs.captures)
+                             for c in cl.clients],
+                   replays=sum(sum(c.executor.graphs.replays.values())
+                               for c in cl.clients),
+                   prof=None if not rows else {
+                       "plain_ms": window / n, "busy_ms": busy / n,
+                       "host_launches": host / n,
+                       "launches": sum(k for key, k, _ in rows
+                                       if not key.startswith(
+                                           ("Memcpy", "Memset"))) / n,
+                       "waves": waves[0]},
+                   miss=int(sum(int(c.executor.miss) for c in cl.clients)),
+                   **_memory(torch))
+    del cl
+    return out
+
+
+def _graph_control_arm(torch, cfg, graphs) -> dict:
+    """2 lockstep clients on their own seeded weights under a Zipf(1.2)
+    router skew, the 16 requests (VirtualClock: which client steps next
+    must not hang on the host's speed, or the events below would land at
+    other points of each client's run): server 1 down at cluster step
+    24 and up at 28, client 0 masking server 2 at 32-36, a page-out of 4
+    replicated experts at 40, new skew values at 44, a one-shot
+    rebalance's migration at 48, ``scale_to(2)`` at 52; then a profiled
+    window on client 0 (2 servers)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (Cluster, ClusterConfig, EngineConfig,
+                                     VirtualClock, zipf_bias)
+
+    _free(torch)
+    with _arm(graphs):
+        cl = Cluster(cfg, ClusterConfig(clients=2, engine=EngineConfig(
+            **CLUSTER)), seed=0, clock_factory=VirtualClock)
+        E = cfg.moe.num_experts
+        cl.set_skew(zipf_bias(E, 1.2, scale=1.0))
+        _, make = _cluster_requests(np, cfg)
+        reqs = make()
+        for r in reqs:
+            cl.submit(r)
+        steps = _time_decodes(cl)
+        seen = {}
+
+        def on_step(c):
+            nxt = c.step_idx + 1
+            if nxt == 24:
+                c.inject_server_failure(DEAD)
+            elif nxt == 28:
+                c.recover_server(DEAD)
+            elif nxt == 32:
+                c.clients[0].pool.mask_server(2)
+            elif nxt == 36:
+                c.clients[0].pool.unmask_server(2)
+            elif nxt == 40:
+                red = c.pool.redundant_table
+                seen["paged"] = c.page_out_experts(
+                    sorted({int(e) for e in red[red >= 0]})[:4])
+            elif nxt == 44:
+                c.set_skew(zipf_bias(E, 1.2, scale=2.0))
+            elif nxt == 48:
+                c.rebalance()
+                seen["migrated"] = c.metrics.migrated_experts
+            elif nxt == 52:
+                seen["before"] = [dict(e.executor.graphs.captures)
+                                  for e in c.clients]
+                c.scale_to(2)
+        ops.reset_launches()
+        m = cl.run(on_step=on_step)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if m.completed != 16 or "before" not in seen:
+            raise AssertionError(f"graphs (control): {m.completed}/16, "
+                                 f"events {seen}")
+        prof = _filled_profile(torch, cl.clients[0], cfg,
+                               np.random.default_rng(5), "graphs (control)",
+                               8, GRAPH_PROFILE_STEPS)
+        out = dict(digest=_digest(reqs), launches=launches,
+                   wall_ms=[t * 1e3 for t, _ in steps], prof=prof,
+                   captures=[dict(e.executor.graphs.captures)
+                             for e in cl.clients],
+                   before=seen["before"], paged=seen.get("paged"),
+                   migrated=seen.get("migrated"),
+                   replays=sum(sum(e.executor.graphs.replays.values())
+                               for e in cl.clients),
+                   miss=int(sum(int(e.executor.miss) for e in cl.clients)),
+                   **_memory(torch))
+    del cl
+    return out
+
+
+def _graph_report(label, arm, r, smi) -> None:
+    p = r["prof"]
+    prof = "the profiler saw no device time (not measured)" if p is None \
+        else (f"{p['plain_ms']:.2f} ms a step in the profiled window, "
+              f"device busy {p['busy_ms']:.3f} ms, idle share "
+              f"{max(0.0, 1 - p['busy_ms'] / p['plain_ms']):.3f}, host "
+              f"calls that enqueue work {p['host_launches']:.1f} a step "
+              f"{json.dumps(p.get('host_calls', {}))}, device kernels "
+              f"{p['launches']:.1f} a step")
+    log(f"graphs ({label}, {arm}): tokens sha1 {r['digest']}; decode step "
+        f"wall p50 {_pct(r['wall_ms'], 50):.3f} ms p99 "
+        f"{_pct(r['wall_ms'], 99):.3f} ms over {len(r['wall_ms'])} steps; "
+        f"{prof}; captures {r['captures']}, replays {r['replays']}; miss "
+        f"{r['miss']}; peak memory {r['peak_gib']:.2f} GiB allocated, "
+        f"{r['reserved_gib']:.2f} GiB reserved; launches "
+        f"{json.dumps(r['launches'])} ({smi})")
+
+
+def graphs_phase(torch, get_config, smi) -> dict:
+    """Phase 27: the decode variants as CUDA graphs against
+    ``step_graphs.eager()`` at full width, each scenario graphs then eager
+    in this call: the dense serve (its traffic through server 1's
+    failure) in each of the three decode modes, the paged serve, the
+    4-client async cluster, and two clients through failure, masking,
+    page-out, skew changes, a rebalance and ``scale_to``.  Tokens and kernel launches must be equal; a graph
+    arm captures each variant once per executor (the last scenario once
+    more after ``scale_to``), an eager arm never.  Returns the graph arms'
+    launches by scenario."""
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    base = get_config("deepseek-r1")
+    cfg = base.replace(num_layers=3,
+                       moe=dataclasses.replace(base.moe, first_k_dense=1))
+    _free(torch)
+    params = ServingEngine(cfg, EngineConfig(**CLUSTER), seed=0,
+                           clock=WallClock()).params
+    def dense(np, cfg, rng):
+        warm, _, reqs = _dense_requests(np, cfg, rng)
+        return warm, reqs
+    scenarios = [(mode, "decode", dict(CLUSTER, decode_mode=mode), True,
+                  dense) for mode in ("lockstep", "pipelined",
+                                      "serialized")]
+    scenarios.append(("paged serve", "decode_paged", dict(
+        CLUSTER, kv_mode="paged", kv_block_size=16, kv_num_blocks=129,
+        prefill_chunk=256, policy="fair"), False, _paged_traffic))
+    runs, bad, took = {}, [], {}
+    for label, variant, ekw, fail, traffic in scenarios:
+        t0 = time.perf_counter()
+        for graphs in (True, False):
+            runs[label, graphs] = _graph_engine_arm(
+                torch, cfg, params, EngineConfig(**ekw), label, graphs, fail,
+                traffic)
+        took[label] = time.perf_counter() - t0
+        if runs[label, True]["captures"] != [{variant: 1}]:
+            bad.append(f"{label}: captures {runs[label, True]['captures']}")
+    t0 = time.perf_counter()
+    for graphs in (True, False):
+        runs["cluster", graphs] = _graph_cluster_arm(torch, cfg, params,
+                                                     graphs)
+    took["cluster"] = time.perf_counter() - t0
+    if runs["cluster", True]["captures"] != [{"decode_masked": 1}] * 4:
+        bad.append(f"cluster: captures {runs['cluster', True]['captures']}")
+    del params
+    t0 = time.perf_counter()
+    for graphs in (True, False):
+        runs["control", graphs] = _graph_control_arm(torch, cfg, graphs)
+    took["control"] = time.perf_counter() - t0
+    ctl = runs["control", True]
+    if ctl["before"] != [{"decode": 1}] * 2 or \
+            ctl["captures"] != [{"decode": 2}] * 2:
+        bad.append(f"control: captures {ctl['before']} -> "
+                   f"{ctl['captures']}")
+    if not ctl["paged"] or not ctl["migrated"]:
+        bad.append(f"control: paged {ctl['paged']}, migrated "
+                   f"{ctl['migrated']}")
+    labels = [s[0] for s in scenarios] + ["cluster", "control"]
+    for label in labels:
+        g, e = runs[label, True], runs[label, False]
+        for arm, r in (("graphs", g), ("eager", e)):
+            _graph_report(label, arm, r, smi)
+        held = HELD.get(label)
+        log(f"graphs ({label}): tokens equal {g['digest'] == e['digest']}"
+            + (f", held digest {held} {g['digest'] == held}" if held else "")
+            + f"; launches equal {g['launches'] == e['launches']}; decode "
+            f"step wall p50 {_pct(g['wall_ms'], 50):.3f} ms against "
+            f"{_pct(e['wall_ms'], 50):.3f} eager; peak "
+            f"{g['peak_gib']:.2f} / {e['peak_gib']:.2f} GiB allocated, "
+            f"{g['reserved_gib']:.2f} / {e['reserved_gib']:.2f} reserved; "
+            f"both arms {took[label]:.1f} s")
+        if g["digest"] != e["digest"] or g["launches"] != e["launches"]:
+            bad.append(f"{label}: graphs and eager differ")
+        if any(c for c in e["captures"]) or e["replays"] or not g["replays"]:
+            bad.append(f"{label}: eager captured or graphs never replayed")
+        zero = [k for k in ("grouped_gemm", "combine_slots")
+                if g["launches"][k] <= 0]
+        if zero:
+            bad.append(f"{label}: never launched {zero}")
+    c = runs["cluster", True], runs["cluster", False]
+    log(f"graphs (cluster): graph pools a client "
+        f"{(c[0]['reserved_gib'] - c[1]['reserved_gib']) / 4:.3f} GiB "
+        f"reserved ({c[0]['reserved_gib']:.2f} against "
+        f"{c[1]['reserved_gib']:.2f} GiB for 4 clients), "
+        f"{(c[0]['peak_gib'] - c[1]['peak_gib']) / 4:.3f} GiB allocated")
+    if bad:
+        raise AssertionError(f"graphs: {bad}")
+    return {label: runs[label, True]["launches"] for label in labels}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4761,7 +5170,8 @@ def main() -> int:
              "train": lambda: train_alone(torch, get_config, smi),
              "spmd": lambda: spmd_alone(torch, get_config, smi),
              "mesh": lambda: mesh_alone(torch, get_config, smi),
-             "remat": lambda: remat_alone(torch, get_config, smi)}
+             "remat": lambda: remat_alone(torch, get_config, smi),
+             "graphs": lambda: graphs_phase(torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -4817,6 +5227,7 @@ def main() -> int:
     spmd_launches = spmd_phase(torch, get_config, smi)
     mesh_launches, family_launches = mesh_phase(torch, get_config, smi)
     remat_phase(torch, get_config, smi)
+    graph_launches = graphs_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -4850,7 +5261,9 @@ def main() -> int:
                                   "mesh": mesh_launches[name],
                                   **{f"mesh ({a})": n[name]
                                      for a, n in family_launches.items()
-                                     if name in n}},
+                                     if name in n},
+                                  **{f"graphs ({a})": n[name]
+                                     for a, n in graph_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

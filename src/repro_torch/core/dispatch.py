@@ -31,7 +31,7 @@ def pack(x: torch.Tensor, expert_ids: torch.Tensor, scores: torch.Tensor,
     S, C = num_servers, capacity
     dev = x.device
     flat_server = server_ids.reshape(-1)
-    flat_token = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_token = torch.arange(T * k, device=dev) // k    # no host size
 
     if method == "sort":
         order = torch.argsort(flat_server, stable=True)

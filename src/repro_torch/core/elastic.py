@@ -2,15 +2,17 @@
 reference's ``core/elastic.py``.
 
 * :class:`ServerPool` — host-side pool state (liveness, replication,
-  router skew, paged-out experts, pool size) that emits fresh
-  :class:`~repro_torch.core.moe_layer.MoERuntime` tensors at every step, so
-  failover, rebalancing and resizing take effect at the next step.  The
+  router skew, paged-out experts, pool size) whose
+  :class:`~repro_torch.core.moe_layer.MoERuntime` a step reads as data
+  (``runtime_arrays``; the executor writes them into its static device
+  buffers), so failover, rebalancing and resizing take effect at the next
+  step.  The
   pool owns placement only; the weight paths are
   :mod:`repro_torch.core.expert_server`'s ``migrate_slots`` and
   ``reshard_server_weights``, applied by the executor.
 * :class:`PoolClient` — one attention client's view of a pool shared by a
   cluster: everything delegates to the pool, and its runtime's ``alive``
-  tensor also drops the servers this client masked out locally.
+  ``alive`` also drops the servers this client masked out locally.
 * :func:`provision` / :func:`resource_saving` — the traffic -> server-count
   policy of the weak-scaling benchmark (the paper's 37.5 % saving).
 """
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -229,26 +231,60 @@ class ServerPool:
         self.redundant_table = red
 
     # ------------------------------------------------------------ runtime
-    def runtime(self, device) -> MoERuntime:
-        table, alive = self.smap.device_arrays(device)
+    def runtime_arrays(self) -> "RuntimeArrays":
+        """The runtime as host arrays: what a step reads as data (the
+        executor writes them into its static device buffers, where they
+        changed) beside its static fields."""
         m = self.cfg.moe
         local = expert_server.make_local_table(
             m.num_experts, self.num_servers, self.redundant_table)
-        return MoERuntime(
-            mapping=table, alive=alive,
-            local_table=torch.as_tensor(local, dtype=torch.int64,
-                                        device=device),
+        return RuntimeArrays(
+            mapping=self.smap.table.astype(np.int64),
+            alive=self.smap.alive.copy(),
+            local_table=local.astype(np.int64),
             num_servers=self.num_servers,
             capacity=default_capacity(self.tokens_per_client, m.top_k,
                                       self.num_servers, m.capacity_factor),
             # an all-zero bias is the unbiased router: skip its upload and
             # add on the unskewed path
-            route_bias=(torch.as_tensor(self.route_bias, device=device)
-                        if self.route_bias.any() else None),
+            route_bias=(self.route_bias.copy() if self.route_bias.any()
+                        else None),
             replica_weights=(None if self.capacities is None
-                             else torch.as_tensor(self.capacities,
-                                                  dtype=torch.float32,
-                                                  device=device)))
+                             else np.asarray(self.capacities, np.float32)))
+
+    def runtime(self, device) -> MoERuntime:
+        """The runtime as fresh tensors on ``device``."""
+        return as_runtime(self.runtime_arrays(),
+                          lambda _, a: torch.as_tensor(a, device=device))
+
+
+class RuntimeArrays(NamedTuple):
+    """A pool's :class:`MoERuntime` on the host: (E, R) int64 mapping,
+    (S,) bool liveness, (S, E) int64 local table, (E,) fp32 router bias and
+    (S,) fp32 replica weights (each None where absent), and the static
+    server count and slot capacity."""
+
+    mapping: np.ndarray
+    alive: np.ndarray
+    local_table: np.ndarray
+    num_servers: int
+    capacity: int
+    route_bias: Optional[np.ndarray]
+    replica_weights: Optional[np.ndarray]
+
+
+def as_runtime(arrays: RuntimeArrays,
+               put: Callable[[str, np.ndarray], torch.Tensor]) -> MoERuntime:
+    """The :class:`MoERuntime` whose tensors are ``put(name, array)`` of
+    each array present (None stays None)."""
+    def tensor(name):
+        a = getattr(arrays, name)
+        return None if a is None else put(name, a)
+    return MoERuntime(
+        mapping=tensor("mapping"), alive=tensor("alive"),
+        local_table=tensor("local_table"), num_servers=arrays.num_servers,
+        capacity=arrays.capacity, route_bias=tensor("route_bias"),
+        replica_weights=tensor("replica_weights"))
 
 
 class PoolClient:
@@ -258,9 +294,9 @@ class PoolClient:
     client reads, so failures and migrations are seen consistently; a
     client may also mask out servers it observed misbehaving before the
     monitor confirms the failure pool-wide.  Everything but
-    :meth:`alive_mask` and :meth:`runtime` delegates to the pool;
-    ``runtime`` ANDs the client's mask into the ``alive`` tensor on the
-    engine's device."""
+    :meth:`alive_mask`, :meth:`runtime_arrays` and :meth:`runtime`
+    delegates to the pool; those two AND the client's mask into
+    ``alive``."""
 
     def __init__(self, pool: ServerPool, client_id: int = 0):
         self.pool = pool
@@ -286,12 +322,15 @@ class PoolClient:
                 mask[r] = False
         return mask
 
-    def runtime(self, device) -> MoERuntime:
-        rt = self.pool.runtime(device)
+    def runtime_arrays(self) -> RuntimeArrays:
+        rt = self.pool.runtime_arrays()
         if not self._masked:
             return rt                  # the shared view verbatim
-        return rt._replace(alive=torch.as_tensor(self.alive_mask(),
-                                                 device=device))
+        return rt._replace(alive=self.alive_mask())
+
+    def runtime(self, device) -> MoERuntime:
+        return as_runtime(self.runtime_arrays(),
+                          lambda _, a: torch.as_tensor(a, device=device))
 
     def __getattr__(self, name):
         return getattr(self.pool, name)

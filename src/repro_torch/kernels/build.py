@@ -9,10 +9,14 @@ so an edited source rebuilds and an unchanged one loads at once.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per
 kernel launch, nowhere else), so a run can show which kernels carried it.
+A CUDA graph's replay passes through no wrapper: :func:`recording` takes
+the counts of its capture, and :func:`add_launches` adds them at each
+replay, so :data:`LAUNCHES` stays the number of kernels the device ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -165,6 +169,25 @@ def check(err: int, name: str) -> None:
 
 def count(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording(counts: Dict[str, int]):
+    """Count the launches made inside the block into ``counts``, not into
+    :data:`LAUNCHES`: a CUDA graph's capture, whose kernels run only when
+    it is replayed (:func:`add_launches`)."""
+    before = dict(LAUNCHES)
+    try:
+        yield counts
+    finally:
+        counts.update({k: LAUNCHES[k] - before[k] for k in before})
+        LAUNCHES.update(before)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """One replay of a captured graph: its kernels' launches."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 def dtype_code(dtype) -> int:

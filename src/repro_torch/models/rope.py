@@ -47,10 +47,11 @@ def mrope_cos_sin(positions_thw: torch.Tensor, head_dim: int, theta: float,
                          f"head_dim // 2 = {head_dim // 2}")
     inv = rope_freqs(head_dim, theta, positions_thw.device)
     ang = positions_thw.float()[..., None] * inv        # (3, ..., seq, hd/2)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=positions_thw.device),
-        torch.as_tensor(sections, device=positions_thw.device),
-        output_size=sum(sections))           # a host size: meta, no sync
+    # filled on the device from host ints: no upload, no sync (a CUDA
+    # graph captures it; meta runs it)
+    sec_id = torch.cat([torch.full((n,), i, dtype=torch.int64,
+                                   device=positions_thw.device)
+                        for i, n in enumerate(sections)])
     # each frequency slot takes its own stream's angle
     ang = torch.movedim(ang, 0, -1).gather(
         -1, sec_id.expand(*ang.shape[1:-1], -1)[..., None])[..., 0]

@@ -59,6 +59,12 @@ micro-batches into the :class:`~repro_torch.serving.event_loop
 client runs prefill chunks and up to ``async_depth`` waves in flight.  The
 token streams are those of lockstep; only the (virtual) timing moves.
 
+On the card each decode variant is a CUDA graph captured once and
+replayed (:mod:`~repro_torch.serving.step_graphs`): the step's logits and
+expert load are the graph's static outputs, overwritten by the next
+replay, so every step reads both (to the host, or into new tensors) before
+the next; ``step_graphs.eager()`` runs the same engine eagerly.
+
 Under a :class:`~repro_torch.serving.cluster.Cluster` the engine is one
 attention client of N: the cluster injects the shared pool (a
 :class:`~repro_torch.core.elastic.PoolClient` view), the shared tier and
@@ -692,6 +698,8 @@ class ServingEngine:
         for b in active:
             tokens[b, 0] = sch.slots[b].output_tokens[-1]
         self.clk.start()
+        # on the card these are a graph's static outputs, which the next
+        # replay overwrites: both are read (to the host) within this step
         if self.kv_pool is not None:
             logits, expert_load = self.executor.decode_paged(
                 tokens, sch.block_tables, sch.cache_lengths())
@@ -854,6 +862,7 @@ class ServingEngine:
             reqs.append(r)
             steps.append(len(r.output_tokens) + len(pend))
         self.clk.start()
+        # a graph's static outputs (module docstring): read within the wave
         logits, expert_load = self.executor.decode_masked(tokens, mask)
         sampled = self._sample_on_device(logits[active], reqs, steps)
         host = torch.cat([sampled, expert_load.to(sampled.dtype)]

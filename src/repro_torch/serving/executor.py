@@ -24,54 +24,51 @@ variants:
 ``kv_mode="paged"`` swaps the dense per-slot cache for the block-pool
 cache: one shared pool per layer, addressed through block tables the
 host-side scheduler owns.  Tables and lengths are host-authoritative and
-uploaded at every step (the reference passes them as jit arguments); all
-paged prefill goes through the chunk path straight into the pool blocks
-(``prefill_chunk_paged``), and copy-on-write forks copy pool blocks on
-every layer (``copy_blocks``).  Paged decode is lockstep only, as in the
-reference: the pool is shared across the batch, so a microbatch split has
-no batch axis to cut.
+written into static device buffers at every step (the reference passes
+them as jit arguments); all paged prefill goes through the chunk path
+straight into the pool blocks (``prefill_chunk_paged``), and copy-on-write
+forks copy pool blocks on every layer (``copy_blocks``).  Paged decode is
+lockstep only, as in the reference: the pool is shared across the batch,
+so a microbatch split has no batch axis to cut.
 
-The reference's ``jax.jit`` has no counterpart: PyTorch runs eagerly.  The
-expert->server mapping, liveness mask and local table are read from the
-pool at every step, so failover, rebalancing and resizing take effect at
-the next step.  ``migrate_slots`` and ``resize`` write the expert weights
-in place: engines that share them (a cluster's clients) have one of them
-write, once.
+The reference's compiled step variants are CUDA graphs here
+(:mod:`repro_torch.serving.step_graphs`): ``decode`` in each mode,
+``decode_masked`` and ``decode_paged`` are captured once and replayed.
+What the reference passes as jit arguments — the tokens, the
+expert->server mapping, the liveness mask, the local table, the router
+bias, the replica weights, the block tables and lengths, the wave mask —
+is written into persistent device buffers before each replay, so
+failover, rebalancing, page-out and admission take effect at the next
+step without a new capture; only a change of structure (a resize, a
+router bias appearing, new weight or cache tensors) captures again.  The
+cache is written in place at the addresses the graph was captured with,
+and the drop / miss totals accumulate inside it.  A replay overwrites the
+previous step's logits and expert load: read them before the next step.
+Prefill, chunked prefill and ``copy_blocks`` run eagerly (their shapes
+follow the prompt; the reference compiles them per shape), reading the
+same runtime buffers.  On the CPU, and under ``step_graphs.eager()``, every
+variant runs eagerly over the same buffers.  ``migrate_slots`` and
+``resize`` write the expert weights in place: engines that share them (a
+cluster's clients) have one of them write, once.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import expert_server
+from repro_torch.core.elastic import as_runtime
 from repro_torch.core.moe_layer import MoEStats
 from repro_torch.core.overlap import split_batch_decode
 from repro_torch.models import kv_cache as kvc
 from repro_torch.models.transformer import Model, ParallelCtx
+from repro_torch.serving import step_graphs
 
 
 DECODE_MODES = ("lockstep", "pipelined", "serialized")
-
-
-def _tensor_pairs(big, one):
-    """The tensor leaves of two caches of one structure (dicts, named
-    tuples, cache dataclasses), in pairs."""
-    if isinstance(big, torch.Tensor):
-        yield big, one
-    elif isinstance(big, dict):
-        for k in big:
-            yield from _tensor_pairs(big[k], one[k])
-    elif isinstance(big, tuple):
-        for a, b in zip(big, one):
-            yield from _tensor_pairs(a, b)
-    elif dataclasses.is_dataclass(big):
-        for f in dataclasses.fields(big):
-            yield from _tensor_pairs(getattr(big, f.name),
-                                     getattr(one, f.name))
 
 
 def _slot_write(big: torch.Tensor, one: torch.Tensor, slot: int) -> None:
@@ -141,6 +138,9 @@ class Executor:
         # MoE drop / miss totals over every step, kept on the device
         self.dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         self.miss = torch.zeros((), dtype=torch.int64, device=self.device)
+        # the jit arguments' counterparts, and the captured decode variants
+        self.static = step_graphs.StaticInputs(self.device)
+        self.graphs = step_graphs.StepGraphs(self.device)
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -148,9 +148,23 @@ class Executor:
 
     def _ctx(self) -> ParallelCtx:
         """The serving context of a step: one device, the pool's current
-        runtime (None without a pool)."""
-        return ParallelCtx(moe_runtime=self.pool.runtime(self.device)
-                           if self.pool else None)
+        runtime (None without a pool) over the static buffers."""
+        if not self.pool:
+            return ParallelCtx()
+        return ParallelCtx(moe_runtime=as_runtime(self.pool.runtime_arrays(),
+                                                  self.static.put))
+
+    def _key(self, name: str, ctx: ParallelCtx, *static) -> tuple:
+        """What a captured variant bakes in: the variant and decode mode,
+        the runtime's static fields and which of its optional tensors are
+        present, and the address of every tensor the step touches (its
+        static inputs, the weights, the cache)."""
+        rt = ctx.moe_runtime
+        structure = None if rt is None else (
+            rt.num_servers, rt.capacity, rt.dispatch_method,
+            rt.route_bias is not None, rt.replica_weights is not None)
+        return (name, self.decode_mode, structure,
+                step_graphs.addresses(static, rt, self.params, self.cache))
 
     def _tally(self, stats: MoEStats) -> None:
         self.dropped += stats.dropped
@@ -163,7 +177,8 @@ class Executor:
     def _commit(self, slot: int, one: Dict) -> None:
         """Write a batch-1 dense cache into ``slot`` of the batch cache,
         leaf by leaf (KV stacks, recurrent states, cross K/V)."""
-        for big, small in _tensor_pairs(self.cache, one):
+        for big, small in zip(step_graphs.tensors(self.cache),
+                              step_graphs.tensors(one)):
             _slot_write(big, small, slot)
 
     @torch.inference_mode()
@@ -199,18 +214,24 @@ class Executor:
                                                   torch.Tensor]:
         """One decode step over the whole slot batch -> (logits (B, V),
         per-expert token counts (E,)), in the executor's decode mode."""
-        tok, ctx = self._tokens(tokens), self._ctx()
-        if self.decode_mode == "lockstep":
-            logits, self.cache, stats = self.model.decode_step(
-                self.params, tok, self.cache, ctx)
-        else:
-            logits, self.cache, stats = split_batch_decode(
-                lambda t, c: self.model.decode_step(self.params, t, c, ctx),
-                tok, self.cache, axis=1,
-                enabled=self.decode_mode == "pipelined",
-                stream=self._side_stream)
-        self._tally(stats)
-        return logits, stats.expert_load
+        tok, ctx = self.static.put("tokens", np.asarray(tokens, np.int64)), \
+            self._ctx()
+
+        def step():
+            if self.decode_mode == "lockstep":
+                logits, cache, stats = self.model.decode_step(
+                    self.params, tok, self.cache, ctx)
+            else:
+                logits, cache, stats = split_batch_decode(
+                    lambda t, c: self.model.decode_step(self.params, t, c,
+                                                        ctx),
+                    tok, self.cache, axis=1,
+                    enabled=self.decode_mode == "pipelined",
+                    stream=self._side_stream)
+            step_graphs.adopt(self.cache, cache)
+            self._tally(stats)
+            return logits, stats.expert_load
+        return self.graphs.run("decode", self._key("decode", ctx, tok), step)
 
     @torch.inference_mode()
     def decode_masked(self, tokens: np.ndarray, mask: np.ndarray
@@ -222,33 +243,44 @@ class Executor:
         bitwise those of :meth:`decode`'s lockstep step."""
         if self.kv_mode != "dense":
             raise ValueError("decode_masked needs the dense per-slot cache")
-        keep = torch.as_tensor(np.asarray(mask, bool), device=self.device)
-        # the slot each row's append is about to write, and its old values
-        saved = {}
-        for name, c in self.cache.items():
-            n_layers, B, slots = c.k.shape[:3]
-            li = torch.arange(n_layers, device=self.device)[:, None]
-            bi = torch.arange(B, device=self.device)[None, :]
-            at = (li, bi, c.length.clamp(max=slots - 1).long())
-            saved[name] = (at, c.k[at], c.v[at], c.length.clone())
-        logits, self.cache, stats = self.model.decode_step(
-            self.params, self._tokens(tokens), self.cache, self._ctx())
-        for name, (at, k_old, v_old, len_old) in saved.items():
-            c = self.cache[name]
-            row = keep[None, :, None, None]
-            c.k[at] = torch.where(row, c.k[at], k_old)
-            c.v[at] = torch.where(row, c.v[at], v_old)
-            c.length.copy_(torch.where(keep[None, :], c.length, len_old))
-        self._tally(stats)
-        return logits, stats.expert_load
+        tok = self.static.put("tokens", np.asarray(tokens, np.int64))
+        keep = self.static.put("mask", np.asarray(mask, bool))
+        ctx = self._ctx()
+
+        def step():
+            # the slot each row's append is about to write, and its old
+            # values
+            saved = {}
+            for name, c in self.cache.items():
+                n_layers, B, slots = c.k.shape[:3]
+                li = torch.arange(n_layers, device=self.device)[:, None]
+                bi = torch.arange(B, device=self.device)[None, :]
+                at = (li, bi, c.length.clamp(max=slots - 1).long())
+                saved[name] = (at, c.k[at], c.v[at], c.length.clone())
+            logits, cache, stats = self.model.decode_step(
+                self.params, tok, self.cache, ctx)
+            step_graphs.adopt(self.cache, cache)
+            for name, (at, k_old, v_old, len_old) in saved.items():
+                c = self.cache[name]
+                row = keep[None, :, None, None]
+                c.k[at] = torch.where(row, c.k[at], k_old)
+                c.v[at] = torch.where(row, c.v[at], v_old)
+                c.length.copy_(torch.where(keep[None, :], c.length, len_old))
+            self._tally(stats)
+            return logits, stats.expert_load
+        return self.graphs.run("decode_masked",
+                               self._key("decode_masked", ctx, tok, keep),
+                               step)
 
     # -------------------------------------------------------------- paged
-    def _with_tables(self, tables: np.ndarray, lengths: np.ndarray) -> Dict:
-        """The pools with host tables / lengths uploaded (shared by every
-        layer of both stacks)."""
-        t = torch.as_tensor(np.asarray(tables, np.int32), device=self.device)
-        n = torch.as_tensor(np.asarray(lengths, np.int32),
-                            device=self.device)
+    def _with_tables(self, tables: np.ndarray, lengths: np.ndarray,
+                     prefix: str) -> Dict:
+        """The pools with host tables / lengths written into the static
+        buffers ``prefix``-tables / -lengths (shared by every layer of both
+        stacks)."""
+        t = self.static.put(prefix + "-tables", np.asarray(tables, np.int32))
+        n = self.static.put(prefix + "-lengths",
+                            np.asarray(lengths, np.int32))
         return {name: kvc.PagedKVCache(c.k, c.v, t, n)
                 for name, c in self.cache.items()}
 
@@ -260,7 +292,8 @@ class Executor:
         into the pool blocks -> (logits, per-expert token counts).  A
         prefix-cache hit starts ``start`` past the cached prefix, and the
         chunk attends over blocks an earlier request wrote."""
-        view = self._with_tables(np.asarray(table_row)[None], [start])
+        view = self._with_tables(np.asarray(table_row)[None], [start],
+                                 "chunk")
         logits, _, stats = self.model.prefill_chunk(
             self.params, self._tokens(chunk)[None], view, start,
             self._ctx())
@@ -272,11 +305,18 @@ class Executor:
                      lengths: np.ndarray) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
         """One decode step with host-authoritative tables / lengths."""
-        logits, _, stats = self.model.decode_step(
-            self.params, self._tokens(tokens),
-            self._with_tables(tables, lengths), self._ctx())
-        self._tally(stats)
-        return logits, stats.expert_load
+        tok = self.static.put("tokens", np.asarray(tokens, np.int64))
+        view, ctx = self._with_tables(tables, lengths, "decode"), self._ctx()
+
+        def step():
+            # the returned lengths are dropped: the host's are the truth
+            logits, _, stats = self.model.decode_step(self.params, tok, view,
+                                                      ctx)
+            self._tally(stats)
+            return logits, stats.expert_load
+        return self.graphs.run("decode_paged",
+                               self._key("decode_paged", ctx, tok, view),
+                               step)
 
     @torch.inference_mode()
     def copy_blocks(self, pairs) -> None:
@@ -311,6 +351,7 @@ class Executor:
         and replication plan, one stacked tensor at a time.  The KV cache
         and staging caches are untouched — scaling drops no work."""
         self.pool = pool
+        self.graphs.reset()          # the reference rebuilds its jits here
         E = self.model.cfg.moe.num_experts
         for sw in self._server_weights():
             expert_server.reshard_server_weights(

@@ -7,6 +7,7 @@ Imports no JAX, so it also runs where only the port is installed:
 Without a CUDA card every test skips (the CUDA kernels have no CPU mode).
 """
 
+import contextlib
 import time
 
 import numpy as np
@@ -1275,3 +1276,146 @@ def test_spmd_decoder_on_a_one_rank_nccl_mesh(nccl_mesh):
                                   "flash_decode_partial"))
     torch.testing.assert_close(spmd, local, rtol=1e-5, atol=1e-5)
     assert torch.equal(spmd.argmax(-1), local.argmax(-1))
+
+
+# ---- the decode variants as CUDA graphs (serving/step_graphs.py) ----------
+
+GRAPH_VARIANTS = {"lockstep": ("lockstep", "dense"),
+                  "pipelined": ("pipelined", "dense"),
+                  "serialized": ("serialized", "dense"),
+                  "masked": ("lockstep", "dense"),
+                  "paged": ("lockstep", "paged")}
+
+
+def _graph_executor(cuda, mode, kv_mode, params=None):
+    """A reduced bf16 deepseek-r1 executor on the card: 4 slots of 64,
+    prefilled with 4 prompts (paged: through per-slot block tables of 8
+    blocks of 8)."""
+    from repro_torch.core.elastic import ServerPool
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.executor import Executor
+
+    cfg = _reduced_bf16()
+    pool = ServerPool(cfg, 4, tokens_per_client=16)
+    model = build_model(cfg, 4, pool.redundant_table, cuda)
+    if params is None:
+        params = model.init_params(
+            torch.Generator(device=cuda).manual_seed(0))
+    ex = Executor(model, params, pool, max_batch=4, max_seq=64, device=cuda,
+                  decode_mode=mode, kv_mode=kv_mode, kv_block_size=8,
+                  kv_num_blocks=33 if kv_mode == "paged" else 0)
+    rng = np.random.default_rng(2)
+    for b, n in enumerate((5, 9, 3, 12)):
+        prompt = rng.integers(0, cfg.vocab_size, n)
+        if kv_mode == "paged":
+            ex.prefill_chunk_paged(prompt, 0, _graph_tables()[b])
+        else:
+            ex.prefill(b, prompt)
+    return ex
+
+
+def _graph_tables():
+    return np.arange(1, 33, dtype=np.int32).reshape(4, 8)
+
+
+def _graph_step(ex, variant, tokens, step):
+    if variant == "masked":
+        return ex.decode_masked(tokens, np.array([True, False, True, True]))
+    if variant == "paged":
+        return ex.decode_paged(tokens, _graph_tables(),
+                               [n + step for n in (5, 9, 3, 12)])
+    return ex.decode(tokens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(GRAPH_VARIANTS))
+def test_graph_decode_equals_eager_bitwise(cuda, variant):
+    """Each decode variant captured once and replayed gives logits, expert
+    loads, caches and drop / miss totals bitwise those of the same steps
+    under ``step_graphs.eager()`` (the pipelined mode's two streams
+    included), through a server failure and a router bias's new values;
+    its kernel launches count as the eager steps' do."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import step_graphs
+
+    mode, kv_mode = GRAPH_VARIANTS[variant]
+    graphed = _graph_executor(cuda, mode, kv_mode)
+    plain = _graph_executor(cuda, mode, kv_mode, params=graphed.params)
+    plain.pool = graphed.pool
+    graphed.pool.set_route_bias(np.linspace(0.0, 1.0, 8))
+    rng = np.random.default_rng(3)
+    counts = {}
+    for step in range(6):
+        tokens = rng.integers(0, 512, (4, 1))
+        ops.reset_launches()
+        got = [t.clone() for t in _graph_step(graphed, variant, tokens,
+                                              step)]
+        counts.setdefault("graph", []).append(dict(build.LAUNCHES))
+        ops.reset_launches()
+        with step_graphs.eager():
+            want = _graph_step(plain, variant, tokens, step)
+        counts.setdefault("eager", []).append(dict(build.LAUNCHES))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (variant, step)
+        for a, b in zip(step_graphs.tensors(graphed.cache),
+                        step_graphs.tensors(plain.cache)):
+            assert torch.equal(a, b), (variant, step)
+        if step == 2:
+            graphed.pool.server_failed(1)
+        elif step == 3:
+            graphed.pool.set_route_bias(np.linspace(1.0, 0.0, 8))
+    assert torch.equal(graphed.dropped, plain.dropped)
+    assert torch.equal(graphed.miss, plain.miss)
+    name = {"masked": "decode_masked", "paged": "decode_paged"}.get(
+        variant, "decode")
+    g = graphed.graphs
+    assert len(g.keys[name]) == 1 and g.captures[name] == 1
+    assert g.replays[name] == 5
+    assert counts["graph"] == counts["eager"]
+    assert counts["graph"][-1][
+        "paged_flash_decode" if variant == "paged" else "flash_decode"] > 0
+
+
+@pytest.mark.cuda
+def test_one_capture_through_failure_and_migration(cuda):
+    """An engine on the card captures its decode step once through a
+    server failure, its recovery and a rebalance's migration (in place),
+    and once more after ``scale_to``; its tokens equal the same engine's
+    under ``step_graphs.eager()``."""
+    from repro_torch.serving import (EngineConfig, Request, SamplingParams,
+                                     ServingEngine, VirtualClock, zipf_bias)
+    from repro_torch.serving import step_graphs
+
+    cfg = _reduced_bf16()
+    runs = {}
+    for graphs in (True, False):
+        eng = ServingEngine(cfg, EngineConfig(max_batch=4, max_seq=64,
+                                              pool_tokens_per_client=64),
+                            seed=0, clock=VirtualClock(), device=cuda)
+        eng.set_skew(zipf_bias(cfg.moe.num_experts, 1.2, scale=2.0))
+        rng = np.random.default_rng(4)
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, 6)
+                        .astype(np.int32), SamplingParams(max_new_tokens=40))
+                for i in range(4)]
+        for r in reqs:
+            eng.submit(r)
+        with contextlib.nullcontext() if graphs else step_graphs.eager():
+            for i in range(48):
+                if i == 10:
+                    eng.inject_server_failure(1)
+                elif i == 16:
+                    eng.recover_server(1)
+                elif i == 20:
+                    eng.rebalance()
+                    assert eng.metrics.migrated_experts > 0
+                elif i == 24:
+                    captures = dict(eng.executor.graphs.captures)
+                    eng.scale_to(2)
+                eng.step()
+        runs[graphs] = ([r.output_tokens for r in reqs], captures,
+                        dict(eng.executor.graphs.captures))
+        del eng
+    (tokens, before, after), (eager_tokens, none, _) = runs[True], runs[False]
+    assert tokens == eager_tokens
+    assert before == {"decode": 1} and after == {"decode": 2}
+    assert none == {}
