@@ -212,12 +212,30 @@ Phases, each of which raises on failure (exit code != 0):
    server 1's failure in each of the three decode modes, the paged serve,
    the 4-client async cluster, and 2 clients on their own weights through
    a failure, a client's masked server, a page-out, new skew values, a
-   rebalance's migration and ``scale_to(2)``.  Tokens and kernel launches equal;
-   one capture per variant and executor (the last scenario one more
-   after ``scale_to``), none eager; each arm's decode step wall p50, the
+   rebalance's migration and ``scale_to(2)``.  Tokens and kernel
+   launches equal; one capture per decode variant and executor (the last
+   scenario one more after ``scale_to``), none eager; each arm's decode
+   step wall p50, the
    profiled window's device busy, idle share, host calls that enqueue
    work a step, and peak memory (allocated and reserved: a graph's pool
-   is reserved, a replay allocates nothing).
+   is reserved, a replay allocates nothing);
+28. prefill: the decoder family's prefill variants (whole prefill, dense
+   and paged prefill chunks, copy-on-write copies) run as CUDA graphs,
+   one per shape, with the chunk's start, the slot, the block-table row
+   and the copy pairs as data (phases 5-27 run so too); here against
+   ``step_graphs.eager()`` on one set of full-width deepseek-r1 weights,
+   each scenario an unreported eager pass (so that neither measured arm
+   meets a shape's cuBLAS setup first), then graphs, then eager: the
+   dense engine with 256-token chunks and 16 prompts of 256-768 tokens
+   (full chunks repeat), the paged serve's shared-prefix traffic (prefix
+   hits move ``start``), and the dense serve's eight whole prompts of
+   new lengths.  Tokens, kernel launches, dropped and miss equal; one
+   capture per (variant, shape) seen twice or more and none for a shape
+   seen once, a replay at every later sight, none eager; each arm's
+   TTFT p50 / p99, a repeated 256-token chunk's wall p50 and, profiled
+   over two 1024-token prompts' chunks, its device busy, idle share and
+   host calls that enqueue work; peak memory allocated and reserved, and
+   the reserved memory each capture added to the graph pool.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -226,7 +244,7 @@ phase (14-20) alone, printing no summary; ``--only train`` runs the
 backward kernels' checks and phases 21-23; ``--only spmd`` the partial
 kernel's checks and phase 24; ``--only mesh`` the partial kernel's checks
 and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
-``--only graphs`` phase 27.
+``--only graphs`` phase 27; ``--only prefill`` phase 28.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -2639,16 +2657,16 @@ def _decode_shapes():
         shapes[(k.shape[1], q.shape[-1])] += 1
         return real(q, k, v, lengths_, softcap)
 
-    def run(self, name, key, fn):
+    def run(self, name, key, fn, shape=()):
         # a replay passes no wrapper: the calls its capture counted are
-        # kept on the variant and counted again at each later replay
+        # kept on the graph and counted again at each later replay
         before = shapes.copy()
         n, c = self.replays.get(name, 0), self.captures.get(name, 0)
-        out = real_run(self, name, key, fn)
+        out = real_run(self, name, key, fn, shape)
         if self.captures.get(name, 0) > c:
-            self._variants[name].shapes = shapes - before
+            self._variants[name][shape].shapes = shapes - before
         elif self.replays.get(name, 0) > n:
-            shapes.update(self._variants[name].shapes)
+            shapes.update(self._variants[name][shape].shapes)
         return out
     ops.flash_decode_cuda = seen
     StepGraphs.run = run
@@ -4789,6 +4807,16 @@ GRAPH_PROFILE_STEPS = 4
 HELD = {"lockstep": "c25b7025481d"}
 
 
+PREFILL_VARIANTS = ("prefill", "prefill_chunk", "prefill_chunk_paged",
+                    "copy_blocks")
+
+
+def _decode_captures(caps: dict) -> dict:
+    """The decode variants' captures (the prefill variants are captured
+    once per shape: phase 28 holds them)."""
+    return {k: n for k, n in caps.items() if k not in PREFILL_VARIANTS}
+
+
 def _arm(graphs: bool):
     """One arm's context: CUDA graphs (the default) or
     ``step_graphs.eager()``, the reference's ``jax.disable_jit()``."""
@@ -5041,9 +5069,11 @@ def graphs_phase(torch, get_config, smi) -> dict:
     in this call: the dense serve (its traffic through server 1's
     failure) in each of the three decode modes, the paged serve, the
     4-client async cluster, and two clients through failure, masking,
-    page-out, skew changes, a rebalance and ``scale_to``.  Tokens and kernel launches must be equal; a graph
-    arm captures each variant once per executor (the last scenario once
-    more after ``scale_to``), an eager arm never.  Returns the graph arms'
+    page-out, skew changes, a rebalance and ``scale_to``.  Tokens and
+    kernel launches must be equal; a graph arm captures each decode
+    variant once per executor (the last scenario once more after
+    ``scale_to``; the prefill variants once per shape, phase 28), an
+    eager arm never.  Returns the graph arms'
     launches by scenario."""
     from repro_torch.serving import EngineConfig, ServingEngine, WallClock
 
@@ -5070,14 +5100,16 @@ def graphs_phase(torch, get_config, smi) -> dict:
                 torch, cfg, params, EngineConfig(**ekw), label, graphs, fail,
                 traffic)
         took[label] = time.perf_counter() - t0
-        if runs[label, True]["captures"] != [{variant: 1}]:
-            bad.append(f"{label}: captures {runs[label, True]['captures']}")
+        caps = runs[label, True]["captures"]
+        if [_decode_captures(c) for c in caps] != [{variant: 1}]:
+            bad.append(f"{label}: captures {caps}")
     t0 = time.perf_counter()
     for graphs in (True, False):
         runs["cluster", graphs] = _graph_cluster_arm(torch, cfg, params,
                                                      graphs)
     took["cluster"] = time.perf_counter() - t0
-    if runs["cluster", True]["captures"] != [{"decode_masked": 1}] * 4:
+    if [_decode_captures(c) for c in runs["cluster", True]["captures"]] \
+            != [{"decode_masked": 1}] * 4:
         bad.append(f"cluster: captures {runs['cluster', True]['captures']}")
     del params
     t0 = time.perf_counter()
@@ -5085,8 +5117,9 @@ def graphs_phase(torch, get_config, smi) -> dict:
         runs["control", graphs] = _graph_control_arm(torch, cfg, graphs)
     took["control"] = time.perf_counter() - t0
     ctl = runs["control", True]
-    if ctl["before"] != [{"decode": 1}] * 2 or \
-            ctl["captures"] != [{"decode": 2}] * 2:
+    if [_decode_captures(c) for c in ctl["before"]] != [{"decode": 1}] * 2 \
+            or [_decode_captures(c) for c in ctl["captures"]] \
+            != [{"decode": 2}] * 2:
         bad.append(f"control: captures {ctl['before']} -> "
                    f"{ctl['captures']}")
     if not ctl["paged"] or not ctl["migrated"]:
@@ -5123,6 +5156,266 @@ def graphs_phase(torch, get_config, smi) -> dict:
     if bad:
         raise AssertionError(f"graphs: {bad}")
     return {label: runs[label, True]["launches"] for label in labels}
+
+
+# ---- phase 28: the prefill variants as CUDA graphs, one per shape --------
+
+PREFILL_CHUNK = 256
+
+
+def _chunked_traffic(np, cfg, rng):
+    """A 300-token warm-up, then 16 prompts of 256-768 tokens and 32
+    greedy tokens: with 256-token chunks, full chunks repeat."""
+    from repro_torch.serving import Request, SamplingParams
+
+    warm = Request(-1, rng.integers(0, cfg.vocab_size, 300, np.int32),
+                   SamplingParams(max_new_tokens=2))
+    return warm, [Request(i, rng.integers(0, cfg.vocab_size,
+                                          int(rng.integers(256, 769)),
+                                          np.int32),
+                          SamplingParams(max_new_tokens=32))
+                  for i in range(16)]
+
+
+def _new_lengths_traffic(np, cfg, rng):
+    """The dense serve's traffic: 8 whole prompts of new lengths."""
+    warm, _, reqs = _dense_requests(np, cfg, rng)
+    return warm, reqs
+
+
+def _watch_prefill(torch, eng) -> dict:
+    """Count each prefill variant's calls by shape, time each call alone
+    (synchronized), and record the reserved and allocated memory each
+    capture adds."""
+    import collections
+
+    ex, g = eng.executor, eng.executor.graphs
+    seen = {"calls": collections.Counter(), "ms": collections.defaultdict(
+        list), "pool": []}
+
+    def watch(name, size):
+        real = getattr(ex, name)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            shape = (name, size(*a))
+            if shape[1]:                     # no copy pairs: nothing ran
+                seen["calls"][shape] += 1
+                seen["ms"][shape].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(ex, name, timed)
+    watch("prefill", lambda slot, prompt: len(prompt))
+    watch("prefill_chunk", lambda slot, chunk, *a: len(chunk))
+    watch("prefill_chunk_paged", lambda chunk, *a: len(chunk))
+    watch("copy_blocks", lambda pairs: len(pairs))
+    capture = g._capture
+
+    def counted(v, fn):
+        r, a = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        capture(v, fn)
+        seen["pool"].append(((torch.cuda.memory_reserved() - r) / 2**30,
+                             (torch.cuda.memory_allocated() - a) / 2**30))
+    g._capture = counted
+    return seen
+
+
+def _chunk_profile(torch, ex, cfg, rng, prompts: int = 2) -> dict:
+    """A repeated 256-token chunk: ``prompts`` 1024-token prompts in 4
+    chunks each into slot 0, each chunk timed alone (synchronized); then
+    as many under torch.profiler, back to back: device busy, host calls
+    that enqueue work (``HOST_CALLS``) and the window, per chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def run(timed):
+        walls = []
+        for _ in range(prompts):
+            p = rng.integers(0, cfg.vocab_size, 4 * PREFILL_CHUNK)
+            for lo in range(0, 4 * PREFILL_CHUNK, PREFILL_CHUNK):
+                if timed:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.prefill_chunk(0, p[lo:lo + PREFILL_CHUNK], lo,
+                                 is_first=lo == 0,
+                                 is_last=lo == 3 * PREFILL_CHUNK)
+                if timed:
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+    walls = run(True)
+    n = 4 * prompts
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(False)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3 / n
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    host = {e.key: e.count / n for e in avg
+            if e.device_type != DeviceType.CUDA and e.key in HOST_CALLS}
+    return {"wall_ms": walls, "window_ms": window, "busy_ms": busy,
+            "host_calls": host, "host_launches": sum(host.values())}
+
+
+def _prefill_arm(torch, cfg, params, ecfg, label, graphs, traffic,
+                 profile_chunks) -> dict:
+    """One engine on ``params``: its traffic served (``_serve``, no
+    failure) with every prefill call counted by shape and timed; then,
+    with ``profile_chunks``, the repeated chunk profiled."""
+    import numpy as np
+
+    from repro_torch.serving import ServingEngine, WallClock
+
+    _free(torch)
+    with _arm(graphs):
+        eng = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
+        rng = np.random.default_rng(0)
+        warm, reqs = traffic(np, cfg, rng)
+        seen = _watch_prefill(torch, eng)
+        metrics, launches, _ = _serve(torch, eng, warm, reqs, fail=False)
+        _check_completed(label, metrics, reqs, cfg)
+        g = eng.executor.graphs
+        out = dict(digest=_digest(reqs), launches=launches,
+                   ttft=metrics.summary()["ttft"],
+                   dropped=int(eng.executor.dropped),
+                   miss=int(eng.executor.miss), calls=dict(seen["calls"]),
+                   ms=dict(seen["ms"]), pool=list(seen["pool"]),
+                   per_shape={k: list(v) for k, v in g.per_shape.items()},
+                   keys={k: [s for _, s in v] for k, v in g.keys.items()},
+                   captures=dict(g.captures), replays=dict(g.replays),
+                   kv=metrics.summary().get("kv"))
+        if profile_chunks:
+            for name in PREFILL_VARIANTS:      # the class's methods again
+                eng.executor.__dict__.pop(name, None)
+            out["chunk"] = _chunk_profile(torch, eng.executor, cfg, rng)
+        out.update(_memory(torch))
+    del eng
+    return out
+
+
+def _prefill_checks(label, g, e) -> list:
+    """What phase 28 requires of one scenario's arms."""
+    bad = []
+    for k in ("digest", "launches", "dropped", "miss"):
+        if g[k] != e[k]:
+            bad.append(f"{label}: {k} differ ({g[k]} / {e[k]})")
+    if g["calls"] != e["calls"]:
+        bad.append(f"{label}: prefill calls differ")
+    if any(e["captures"].values()) or any(e["replays"].values()):
+        bad.append(f"{label}: the eager arm captured or replayed")
+    for (name, size), n in g["calls"].items():
+        want = [1, n - 1] if n >= 2 else None
+        got = g["per_shape"].get((name, (size,)))
+        if got != want:
+            bad.append(f"{label}: {name} at {size}, seen {n} times: "
+                       f"[captures, replays] {got}, expected {want}")
+    for name in PREFILL_VARIANTS:
+        sizes = [s for (v, s) in g["calls"] if v == name]
+        if sorted(g["keys"].get(name, [])) != sorted((s,) for s in sizes):
+            bad.append(f"{label}: {name} keys {g['keys'].get(name)} for "
+                       f"shapes {sizes}")
+    return bad
+
+
+def _prefill_report(label, arm, r, smi) -> None:
+    shapes = {f"{name}:{size}": (n, _pct(r["ms"][name, size], 50))
+              for (name, size), n in sorted(r["calls"].items())}
+    repeated = {k: f"{n} calls, p50 {ms:.3f} ms" for k, (n, ms)
+                in shapes.items() if n >= 3}
+    once = [ms for (name, size), n in r["calls"].items() if n == 1
+            for ms in r["ms"][name, size]]
+    log(f"prefill ({label}, {arm}): tokens sha1 {r['digest']}; TTFT p50 "
+        f"{r['ttft']['p50']} ms p99 {r['ttft']['p99']} ms; {len(shapes)} "
+        f"shapes, repeated: {json.dumps(repeated)}; {len(once)} calls of "
+        f"a shape seen once, {sum(once):.3f} ms in all; captures "
+        f"{r['captures']}, replays {r['replays']}; dropped {r['dropped']} "
+        f"miss {r['miss']}; peak memory {r['peak_gib']:.2f} GiB allocated, "
+        f"{r['reserved_gib']:.2f} GiB reserved; launches "
+        f"{json.dumps(r['launches'])} ({smi})")
+    c = r.get("chunk")
+    if c is not None:
+        log(f"prefill ({label}, {arm}): a repeated {PREFILL_CHUNK}-token "
+            f"chunk (slot 0, 1024-token prompts, 4 chunks each): wall p50 "
+            f"{_pct(c['wall_ms'], 50):.3f} ms over {len(c['wall_ms'])} "
+            f"(synchronized); profiled back to back {c['window_ms']:.3f} "
+            f"ms a chunk, device busy {c['busy_ms']:.3f} ms, idle share "
+            f"{max(0.0, 1 - c['busy_ms'] / c['window_ms']):.3f}, host "
+            f"calls that enqueue work {c['host_launches']:.1f} a chunk "
+            f"{json.dumps(c['host_calls'])} ({smi})")
+    if r["pool"]:
+        res = [round(x, 4) for x, _ in r["pool"]]
+        log(f"prefill ({label}, {arm}): graph pool: {len(res)} captures "
+            f"added {sum(res):.3f} GiB reserved (per capture, in order "
+            f"{res}), {sum(a for _, a in r['pool']):.3f} GiB allocated "
+            f"({smi})")
+
+
+def prefill_phase(torch, get_config, smi) -> dict:
+    """Phase 28: the decoder family's prefill variants as CUDA graphs, one
+    per shape, against ``step_graphs.eager()`` at full width on one set of
+    weights, each scenario an unreported eager pass, then graphs, then
+    eager: 16 chunked prompts (dense, 256-token chunks), the paged serve's
+    shared-prefix traffic, the dense serve's eight whole prompts of new
+    lengths.  Returns the graph arms' launches by scenario."""
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    base = get_config("deepseek-r1")
+    cfg = base.replace(num_layers=3,
+                       moe=dataclasses.replace(base.moe, first_k_dense=1))
+    _free(torch)
+    params = ServingEngine(cfg, EngineConfig(**CLUSTER), seed=0,
+                           clock=WallClock()).params
+    scenarios = [
+        ("chunked", dict(CLUSTER, prefill_chunk=PREFILL_CHUNK),
+         _chunked_traffic, True),
+        ("paged", dict(CLUSTER, kv_mode="paged", kv_block_size=16,
+                       kv_num_blocks=129, prefill_chunk=PREFILL_CHUNK,
+                       policy="fair"), _paged_traffic, False),
+        ("new lengths", dict(CLUSTER), _new_lengths_traffic, False)]
+    runs, bad = {}, []
+    for label, ekw, traffic, prof in scenarios:
+        t0 = time.perf_counter()
+        # an unreported eager pass first: whichever arm meets a new shape
+        # first pays cuBLAS's setup for it (a prompt's first sight took
+        # ~1.5x as long in the first arm of the same traffic)
+        _prefill_arm(torch, cfg, params, EngineConfig(**ekw), label, False,
+                     traffic, False)
+        for graphs in (True, False):
+            runs[label, graphs] = _prefill_arm(
+                torch, cfg, params, EngineConfig(**ekw), label, graphs,
+                traffic, prof)
+        took = time.perf_counter() - t0
+        g, e = runs[label, True], runs[label, False]
+        for arm, r in (("graphs", g), ("eager", e)):
+            _prefill_report(label, arm, r, smi)
+        bad += _prefill_checks(label, g, e)
+        log(f"prefill ({label}): tokens equal {g['digest'] == e['digest']}, "
+            f"launches equal {g['launches'] == e['launches']}; TTFT p50 "
+            f"{g['ttft']['p50']} against {e['ttft']['p50']} ms eager, p99 "
+            f"{g['ttft']['p99']} against {e['ttft']['p99']}; peak "
+            f"{g['peak_gib']:.2f} / {e['peak_gib']:.2f} GiB allocated, "
+            f"{g['reserved_gib']:.2f} / {e['reserved_gib']:.2f} reserved; "
+            f"three arms {took:.1f} s ({smi})")
+        zero = [k for k in ("grouped_gemm", "combine_slots")
+                if g["launches"][k] <= 0]
+        if zero:
+            bad.append(f"{label}: never launched {zero}")
+    g = runs["chunked", True]
+    if g["chunk"]["host_launches"] >= runs["chunked", False]["chunk"][
+            "host_launches"]:
+        bad.append("chunked: graphs enqueue no fewer host calls a chunk")
+    if not runs["paged", True]["kv"]["prefix_hit_blocks"]:
+        bad.append("paged: no prefix hit")
+    del params
+    if bad:
+        raise AssertionError(f"prefill: {bad}")
+    return {label: runs[label, True]["launches"] for label, *_ in scenarios}
 
 
 def _leaves(tree):
@@ -5171,7 +5464,8 @@ def main() -> int:
              "spmd": lambda: spmd_alone(torch, get_config, smi),
              "mesh": lambda: mesh_alone(torch, get_config, smi),
              "remat": lambda: remat_alone(torch, get_config, smi),
-             "graphs": lambda: graphs_phase(torch, get_config, smi)}
+             "graphs": lambda: graphs_phase(torch, get_config, smi),
+             "prefill": lambda: prefill_phase(torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -5228,6 +5522,7 @@ def main() -> int:
     mesh_launches, family_launches = mesh_phase(torch, get_config, smi)
     remat_phase(torch, get_config, smi)
     graph_launches = graphs_phase(torch, get_config, smi)
+    prefill_launches = prefill_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -5263,7 +5558,9 @@ def main() -> int:
                                      for a, n in family_launches.items()
                                      if name in n},
                                   **{f"graphs ({a})": n[name]
-                                     for a, n in graph_launches.items()}},
+                                     for a, n in graph_launches.items()},
+                                  **{f"prefill ({a})": n[name]
+                                     for a, n in prefill_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

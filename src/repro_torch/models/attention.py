@@ -211,12 +211,15 @@ def _project(params: Dict, cfg: ModelConfig, x: torch.Tensor, tp):
 
 
 def chunk_attention(params: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    cache, start: int):
+                    cache, start):
     """Prefill one prompt chunk against the cache (chunked prefill).
 
-    x (b, chunk, d) holds global positions ``start + arange(chunk)`` (the
-    reference passes those positions; a host int avoids a device sync;
-    an M-RoPE config rotates them as text, as the reference does).
+    x (b, chunk, d) holds global positions ``start + arange(chunk)``:
+    ``start`` is a 0-d int tensor on x's device, as the reference's traced
+    ``start`` (a CUDA graph reads it from a static buffer, so one capture
+    serves every start), or an int; the positions, the causal mask and
+    the rotation (an M-RoPE config's as text, as the reference does) are
+    computed from it on the device.
     The chunk's rotated K/V are written at ``start`` and its queries
     attend over every cached position ``<=`` their own, earlier chunks
     included.  A :class:`~repro_torch

@@ -97,8 +97,10 @@ def write_prefill(cache: KVCache, k: torch.Tensor,
 
 
 def write_chunk(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
-                start: int) -> KVCache:
-    """Write a prompt chunk (batch, chunk, kv_heads, hd) at ``start``.
+                start) -> KVCache:
+    """Write a prompt chunk (batch, chunk, kv_heads, hd) at ``start``: an
+    int or a 0-d int tensor on the cache's device (a CUDA graph's static
+    input, read on the device).
 
     The write offset clamps so the chunk fits, as the reference's
     ``dynamic_update_slice`` clamps it; the length is ``start + chunk``.
@@ -108,9 +110,10 @@ def write_chunk(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     if cache.window:
         raise ValueError("write_chunk needs a linear cache")
     seq, slots = k.shape[1], cache.k.shape[1]
-    at = max(0, min(start, slots - seq))
-    cache.k[:, at:at + seq] = k
-    cache.v[:, at:at + seq] = v
+    start = torch.as_tensor(start, device=cache.k.device)
+    at = start.clamp(0, slots - seq) + torch.arange(seq, device=k.device)
+    cache.k.index_copy_(1, at, k)
+    cache.v.index_copy_(1, at, v)
     cache.length.fill_(start + seq)
     return cache
 
@@ -196,18 +199,20 @@ def paged_append_decode(cache: PagedKVCache, k_new: torch.Tensor,
 
 
 def paged_write_chunk(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
-                      start: int) -> PagedKVCache:
+                      start) -> PagedKVCache:
     """Write a prompt chunk (batch, chunk, kv_heads, hd) at position
-    ``start`` through the block table."""
+    ``start`` (an int or a 0-d int tensor on the pool's device) through
+    the block table."""
     B, C = k.shape[:2]
     bs = cache.block_size
+    start = torch.as_tensor(start, device=cache.k.device)
     pos = start + torch.arange(C, device=k.device)
     blocks = _lookup_blocks(cache, pos[None].expand(B, C))
     off = (pos % bs)[None].expand(B, C)
     cache.k[blocks, off] = k
     cache.v[blocks, off] = v
     return PagedKVCache(cache.k, cache.v, cache.block_tables,
-                        torch.full_like(cache.length, start + C))
+                        torch.empty_like(cache.length).fill_(start + C))
 
 
 def gather_blocks(cache: PagedKVCache):

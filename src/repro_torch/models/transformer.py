@@ -461,9 +461,11 @@ def _write_prompt(cache: kvc.KVCache, k: torch.Tensor, v: torch.Tensor,
 
 
 def _block_prefill_chunk(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                         start: int, cache, ctx, stats: list) -> torch.Tensor:
-    """One block over a prompt chunk: attention against the cache (which
-    holds every earlier chunk), the chunk's K/V written in."""
+                         start: torch.Tensor, cache, ctx,
+                         stats: list) -> torch.Tensor:
+    """One block over a prompt chunk at ``start`` (a 0-d device tensor):
+    attention against the cache (which holds every earlier chunk), the
+    chunk's K/V written in."""
     h = rms_norm(x, p["ln1"], cfg.rms_norm_eps)
     h, _ = attn.chunk_attention(p["attn"], cfg, h, cache, start)
     x = x + h
@@ -648,15 +650,18 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
         return (_serve_logits(params, cfg, x[:, -1], lay), cache,
                 _sum_stats(stats, cfg, tokens.device))
 
-    def prefill_chunk(params, tokens: torch.Tensor, cache: Dict, start: int,
+    def prefill_chunk(params, tokens: torch.Tensor, cache: Dict, start,
                       ctx: Optional[ParallelCtx] = None):
         """Continue a prefill: prompt positions [start, start + C) against a
         cache (dense or paged) already holding [0, start); written in
-        place.  Returns (last-position logits (B, V) fp32, cache, stats).
-        A slot-sharded cache is refused (whole prompts only there)."""
+        place.  ``start``: an int, or a 0-d int tensor on the device (the
+        reference's traced ``start``; a CUDA graph's static input).
+        Returns (last-position logits (B, V) fp32, cache, stats).  A
+        slot-sharded cache is refused (whole prompts only there)."""
         if _slot_shard(ctx) is not None or _tp(ctx) is not None:
             raise NotImplementedError("chunked prefill into a slot-sharded "
                                       "cache or under a dense layout")
+        start = torch.as_tensor(start, device=tokens.device)
         x = params["embed"][tokens]
         stats = []
         for name, pname, n in groups:

@@ -59,11 +59,13 @@ micro-batches into the :class:`~repro_torch.serving.event_loop
 client runs prefill chunks and up to ``async_depth`` waves in flight.  The
 token streams are those of lockstep; only the (virtual) timing moves.
 
-On the card each decode variant is a CUDA graph captured once and
-replayed (:mod:`~repro_torch.serving.step_graphs`): the step's logits and
-expert load are the graph's static outputs, overwritten by the next
-replay, so every step reads both (to the host, or into new tensors) before
-the next; ``step_graphs.eager()`` runs the same engine eagerly.
+On the card each decode variant is a CUDA graph captured once, and the
+decoder family's prefill, prefill chunks and copy-on-write copies once
+per shape, and replayed (:mod:`~repro_torch.serving.step_graphs`): a
+step's or a prefill's logits and expert load are a graph's static
+outputs, overwritten by the next replay of any variant, so every step and
+every prefill reads both (samples, or copies to the host) before the
+next call; ``step_graphs.eager()`` runs the same engine eagerly.
 
 Under a :class:`~repro_torch.serving.cluster.Cluster` the engine is one
 attention client of N: the cluster injects the shared pool (a
@@ -433,7 +435,7 @@ class ServingEngine:
             if r is not None:
                 stranded.append(r)
                 self.scheduler.release(b)
-        self.executor._staging.clear()
+        self.executor.drop_staging()
         if self.ecfg.exec_mode == "async":
             self.tier.cancel_client(self.client_id)
             self.timeline.clear_pending()
@@ -655,6 +657,8 @@ class ServingEngine:
         req, b = plan.request, plan.slot
         self.clk.start()
         expert_load = None
+        # a graph's static outputs (module docstring): the load goes to the
+        # host and the first token is sampled before the next call
         if self.kv_pool is not None:
             # paged: every prefill runs the chunk path against the pool;
             # pending copy-on-write forks land first, on every layer
@@ -788,6 +792,7 @@ class ServingEngine:
         req, b = plan.request, plan.slot
         self.clk.start()
         expert_load = None
+        # a graph's static outputs (module docstring): read right here
         if plan.is_first and plan.is_last:
             logits = self.executor.prefill(b, plan.tokens)
         else:

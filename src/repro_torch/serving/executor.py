@@ -33,21 +33,26 @@ so a microbatch split has no batch axis to cut.
 
 The reference's compiled step variants are CUDA graphs here
 (:mod:`repro_torch.serving.step_graphs`): ``decode`` in each mode,
-``decode_masked`` and ``decode_paged`` are captured once and replayed.
-What the reference passes as jit arguments — the tokens, the
-expert->server mapping, the liveness mask, the local table, the router
-bias, the replica weights, the block tables and lengths, the wave mask —
-is written into persistent device buffers before each replay, so
-failover, rebalancing, page-out and admission take effect at the next
-step without a new capture; only a change of structure (a resize, a
-router bias appearing, new weight or cache tensors) captures again.  The
-cache is written in place at the addresses the graph was captured with,
-and the drop / miss totals accumulate inside it.  A replay overwrites the
-previous step's logits and expert load: read them before the next step.
-Prefill, chunked prefill and ``copy_blocks`` run eagerly (their shapes
-follow the prompt; the reference compiles them per shape), reading the
-same runtime buffers.  On the CPU, and under ``step_graphs.eager()``, every
-variant runs eagerly over the same buffers.  ``migrate_slots`` and
+``decode_masked`` and ``decode_paged`` are captured once, and the decoder
+family's ``prefill``, ``prefill_chunk``, ``prefill_chunk_paged`` and
+``copy_blocks`` once per shape (a prompt or chunk length, a number of
+copy pairs), as the reference compiles them, and replayed.  What the
+reference passes as jit arguments — the tokens, the expert->server
+mapping, the liveness mask, the local table, the router bias, the
+replica weights, the block tables and lengths, the wave mask, a chunk's
+``start``, the slot, the copy pairs — is written into persistent device
+buffers before each replay, so failover, rebalancing, page-out,
+admission, another slot, another request and a prefix-cache hit take
+effect at the next call without a new capture; only a new shape captures
+once more, and a change of structure (a resize, a router bias appearing,
+new weight or cache tensors) captures every variant again.  The caches
+are written in place at the addresses the graphs were captured with
+(dense chunked prefill stages in one static batch-1 cache, see
+:meth:`Executor.prefill_chunk`), and the drop / miss totals accumulate
+inside them.  A replay overwrites the previous call's logits and expert
+load: read them before the next call.  The other families' whole-prompt
+prefill runs eagerly.  On the CPU, and under ``step_graphs.eager()``,
+every variant runs eagerly over the same buffers.  ``migrate_slots`` and
 ``resize`` write the expert weights in place: engines that share them (a
 cluster's clients) have one of them write, once.
 """
@@ -71,17 +76,20 @@ from repro_torch.serving import step_graphs
 DECODE_MODES = ("lockstep", "pipelined", "serialized")
 
 
-def _slot_write(big: torch.Tensor, one: torch.Tensor, slot: int) -> None:
+def _slot_write(big: torch.Tensor, one: torch.Tensor, slot) -> None:
     """Write a batch-1 cache leaf into ``slot`` of the engine's leaf, in
-    place: the reference's ``_slot_write``.  The batch axis is the first
-    where ``one`` has 1 and ``big`` does not; equal shapes (max_batch 1)
-    replace the leaf whole; a leaf with neither is left as it is."""
+    place: the reference's ``_slot_write``.  ``slot``: an int or a (1,)
+    int64 tensor on the device (a graph's static input).  The batch axis
+    is the first where ``one`` has 1 and ``big`` does not; equal shapes
+    (max_batch 1) replace the leaf whole; a leaf with neither is left as
+    it is."""
     if big.shape == one.shape:
         big.copy_(one)
         return
     for axis, (db, do) in enumerate(zip(big.shape, one.shape)):
         if db != do and do == 1:
-            big.narrow(axis, slot, 1).copy_(one)
+            big.index_copy_(axis, torch.as_tensor(
+                slot, device=big.device).reshape(1), one)
             return
 
 
@@ -134,7 +142,11 @@ class Executor:
                                                 max_batch, max_seq)
         else:
             self.cache = model.init_cache(max_batch, max_seq)
-        self._staging: Dict[int, Dict] = {}      # slot -> batch-1 cache
+        # dense chunked prefill: the static batch-1 staging cache, the
+        # slot whose chunks it holds, and the other slots' parked copies
+        self._stage = None
+        self._stage_slot = None
+        self._parked: Dict[int, Dict] = {}
         # MoE drop / miss totals over every step, kept on the device
         self.dropped = torch.zeros((), dtype=torch.int64, device=self.device)
         self.miss = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -158,7 +170,7 @@ class Executor:
         """What a captured variant bakes in: the variant and decode mode,
         the runtime's static fields and which of its optional tensors are
         present, and the address of every tensor the step touches (its
-        static inputs, the weights, the cache)."""
+        static inputs, the weights, the caches)."""
         rt = ctx.moe_runtime
         structure = None if rt is None else (
             rt.num_servers, rt.capacity, rt.dispatch_method,
@@ -166,17 +178,31 @@ class Executor:
         return (name, self.decode_mode, structure,
                 step_graphs.addresses(static, rt, self.params, self.cache))
 
+    def _run(self, name: str, key: tuple, fn, shape: tuple):
+        """A prefill variant: graphed per shape for the decoder family;
+        the other families' prefill runs eagerly (their per-token and
+        per-chunk loops are not one graph per prompt length)."""
+        if self.supports_chunked_prefill:
+            return self.graphs.run(name, key, fn, shape)
+        return fn()
+
     def _tally(self, stats: MoEStats) -> None:
         self.dropped += stats.dropped
         self.miss += stats.miss
 
-    def _tokens(self, tokens: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(tokens, np.int64),
-                               device=self.device)
+    def _tokens(self, name: str, tokens: np.ndarray) -> torch.Tensor:
+        """A (1, n) prompt or chunk in its length's static buffer."""
+        a = np.asarray(tokens, np.int64)[None]
+        return self.static.put(f"{name}:{a.shape[1]}", a)
 
-    def _commit(self, slot: int, one: Dict) -> None:
-        """Write a batch-1 dense cache into ``slot`` of the batch cache,
-        leaf by leaf (KV stacks, recurrent states, cross K/V)."""
+    def _start(self, start: int) -> torch.Tensor:
+        """A chunk's ``start`` as a 0-d view of its static buffer."""
+        return self.static.put("start", np.array([start], np.int64))[0]
+
+    def _commit(self, slot, one: Dict) -> None:
+        """Write a batch-1 dense cache into ``slot`` (an int or a (1,)
+        device tensor) of the batch cache, leaf by leaf (KV stacks,
+        recurrent states, cross K/V)."""
         for big, small in zip(step_graphs.tensors(self.cache),
                               step_graphs.tensors(one)):
             _slot_write(big, small, slot)
@@ -184,30 +210,88 @@ class Executor:
     @torch.inference_mode()
     def prefill(self, slot: int, prompt: np.ndarray) -> torch.Tensor:
         """Whole-prompt prefill straight into ``slot`` of the batch cache;
-        returns the last position's logits (1, V) fp32."""
-        logits, one, stats = self.model.prefill(
-            self.params, self._tokens(prompt)[None], self._ctx(),
-            max_slots=self.max_seq)
-        self._commit(slot, one)
-        self._tally(stats)
-        return logits
+        returns the last position's logits (1, V) fp32.  The slot is data
+        (the prefilled batch-1 cache is written into it inside the step),
+        so one graph serves a prompt length whatever the slot; the
+        graph's outputs are the logits and the expert load."""
+        tok = self._tokens("prompt", prompt)
+        at = self.static.put("slot", np.array([slot], np.int64))
+        ctx = self._ctx()
+
+        def step():
+            logits, one, stats = self.model.prefill(
+                self.params, tok, ctx, max_slots=self.max_seq)
+            self._commit(at, one)
+            self._tally(stats)
+            return logits, stats.expert_load
+        return self._run("prefill", self._key("prefill", ctx, at), step,
+                         (tok.shape[1],))[0]
+
+    def _staged(self, slot: int, is_first: bool) -> Dict:
+        """The static staging cache, holding ``slot``'s chunks so far.
+
+        The reference stages each slot's chunks in a fresh batch-1 cache
+        of its own (``init_cache(1, max_seq)``,
+        ``src/repro/serving/executor.py:236-237``).  A graph reads and
+        writes fixed addresses, so here one batch-1 cache is the staging
+        of every chunk: a chunk length captures once whatever the slot or
+        request.  The slot it holds stays in it
+        between chunks (a prompt's chunks mostly run back to back); a
+        chunk of another slot first parks it in that slot's copy of its
+        own, then loads its own slot's copy, or at ``is_first`` zeroes
+        the staging (bitwise the reference's fresh cache).  Parking and
+        loading are copies outside the graph, so interleaved requests
+        keep their staging bitwise at the cost of one batch-1 cache per
+        slot whose prefill was interleaved."""
+        if self._stage is None:
+            self._stage = self.model.init_cache(1, self.max_seq)
+        held = self._stage_slot
+        if held != slot:
+            if held is not None:
+                if held not in self._parked:
+                    self._parked[held] = self.model.init_cache(1,
+                                                               self.max_seq)
+                step_graphs.adopt(self._parked[held], self._stage)
+            if not is_first:
+                step_graphs.adopt(self._stage, self._parked[slot])
+            self._stage_slot = slot
+        if is_first:
+            for t in step_graphs.tensors(self._stage):
+                t.zero_()
+        return self._stage
+
+    def drop_staging(self) -> None:
+        """Forget every partly prefilled slot (a client failure)."""
+        self._stage_slot = None
+        self._parked.clear()
 
     @torch.inference_mode()
     def prefill_chunk(self, slot: int, chunk: np.ndarray, start: int, *,
                       is_first: bool, is_last: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One chunked-prefill step for ``slot`` (dense mode) -> (logits,
-        per-expert token counts).  Chunks accumulate in a batch-1 staging
-        cache; the last chunk commits it into the slot."""
-        if is_first:
-            self._staging[slot] = self.model.init_cache(1, self.max_seq)
-        logits, staging, stats = self.model.prefill_chunk(
-            self.params, self._tokens(chunk)[None], self._staging[slot],
-            start, self._ctx())
+        per-expert token counts).  Chunks accumulate in the static staging
+        cache (:meth:`_staged`); the last chunk commits it into the slot.
+        ``start`` is data: one graph per chunk length."""
+        stage = self._staged(slot, is_first)
+        tok = self._tokens("chunk", chunk)
+        at = self._start(start)
+        ctx = self._ctx()
+
+        def step():
+            logits, _, stats = self.model.prefill_chunk(
+                self.params, tok, stage, at, ctx)
+            self._tally(stats)
+            return logits, stats.expert_load
+        out = self._run("prefill_chunk",
+                        self._key("prefill_chunk", ctx, at, stage), step,
+                        (tok.shape[1],))
         if is_last:
-            self._commit(slot, self._staging.pop(slot))
-        self._tally(stats)
-        return logits, stats.expert_load
+            self._commit(self.static.put("slot", np.array([slot], np.int64)),
+                         stage)
+            self._stage_slot = None
+            self._parked.pop(slot, None)
+        return out
 
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray) -> Tuple[torch.Tensor,
@@ -291,14 +375,22 @@ class Executor:
         """One prefill chunk through the slot's block-table row, straight
         into the pool blocks -> (logits, per-expert token counts).  A
         prefix-cache hit starts ``start`` past the cached prefix, and the
-        chunk attends over blocks an earlier request wrote."""
+        chunk attends over blocks an earlier request wrote.  The row, the
+        length and ``start`` are data: one graph per chunk length."""
         view = self._with_tables(np.asarray(table_row)[None], [start],
                                  "chunk")
-        logits, _, stats = self.model.prefill_chunk(
-            self.params, self._tokens(chunk)[None], view, start,
-            self._ctx())
-        self._tally(stats)
-        return logits, stats.expert_load
+        tok = self._tokens("chunk", chunk)
+        at = self._start(start)
+        ctx = self._ctx()
+
+        def step():
+            logits, _, stats = self.model.prefill_chunk(
+                self.params, tok, view, at, ctx)
+            self._tally(stats)
+            return logits, stats.expert_load
+        return self._run("prefill_chunk_paged",
+                         self._key("prefill_chunk_paged", ctx, view, at),
+                         step, (tok.shape[1],))
 
     @torch.inference_mode()
     def decode_paged(self, tokens: np.ndarray, tables: np.ndarray,
@@ -321,13 +413,21 @@ class Executor:
     @torch.inference_mode()
     def copy_blocks(self, pairs) -> None:
         """Apply copy-on-write forks: pool blocks src -> dst, every layer
-        of both stacks."""
+        of both stacks.  The pairs are data: one graph per number of
+        pairs."""
         if not pairs:
             return
-        src = torch.as_tensor([s for s, _ in pairs], device=self.device)
-        dst = torch.as_tensor([d for _, d in pairs], device=self.device)
-        for c in self.cache.values():
-            kvc.copy_blocks(c, src, dst, stacked=True)
+        n = len(pairs)
+        src = self.static.put(f"copy-src:{n}",
+                              np.array([s for s, _ in pairs], np.int64))
+        dst = self.static.put(f"copy-dst:{n}",
+                              np.array([d for _, d in pairs], np.int64))
+
+        def step():
+            for c in self.cache.values():
+                kvc.copy_blocks(c, src, dst, stacked=True)
+        self._run("copy_blocks", self._key("copy_blocks", ParallelCtx()),
+                  step, (n,))
 
     # ------------------------------------------------------ control plane
     def _server_weights(self):

@@ -2,35 +2,42 @@
 reference's compiled step functions (``Executor._build_jits``,
 ``src/repro/serving/executor.py``).
 
-The reference compiles each step variant once and passes what changes
-between steps as jit *arguments*: the tokens, the expert->server mapping,
-the liveness mask, the local table, the router bias, the replica weights,
-the paged block tables and lengths.  Failover, rebalancing, page-out and
-admission then never recompile; a pool resize does (``num_servers`` and
-``capacity`` are static).
+The reference compiles each step variant once per distinct input shape
+and passes what changes between calls as jit *arguments*: the tokens, the
+expert->server mapping, the liveness mask, the local table, the router
+bias, the replica weights, the paged block tables and lengths, a prefill
+chunk's ``start`` and the copy-on-write ``src`` / ``dst``.  Failover,
+rebalancing, page-out, admission, a new slot or a prefix-cache hit then
+never recompile; a new prompt or chunk length compiles once more, and a
+pool resize does (``num_servers`` and ``capacity`` are static).
 
-Here each decode variant is captured once as a ``torch.cuda.CUDAGraph``
-and replayed:
+Here each variant is captured once per shape as a
+``torch.cuda.CUDAGraph`` and replayed:
 
 * :class:`StaticInputs` — the persistent device buffers that take the
-  place of the jit arguments.  The executor writes each step's host
+  place of the jit arguments.  The executor writes each call's host
   arrays into them with ``copy_`` (only the ones that changed), so the
   captured kernels read the new data at the addresses they were captured
-  with.
-* :class:`StepGraphs` — per variant: its key (what the reference bakes in
-  as static: the variant and mode, ``num_servers`` and ``capacity``, which
-  optional inputs are present, the dispatch method, and the addresses of
-  every tensor the step reads or writes: the static inputs, the weights
-  and the cache), the captured graph, its static outputs and the kernel
-  launches it makes.  A new key drops the graph; the next call runs the
-  step eagerly (the real step: a warm-up would advance the cache), the
-  call after captures it and replays it.  One graph memory pool serves
-  every variant of one executor.
+  with.  A buffer whose shape follows the call (a prompt's tokens, the
+  copy pairs) is named by its shape, so each shape keeps its own.
+* :class:`StepGraphs` — per variant: its structure (what the reference
+  bakes in as static: the variant and mode, ``num_servers`` and
+  ``capacity``, which optional inputs are present, the dispatch method,
+  and the addresses of every tensor the step reads or writes: the static
+  inputs, the weights and the caches) and, side by side, one graph per
+  shape (a prompt or chunk length, a number of copy pairs), as the jit
+  cache keeps one executable per shape: its static outputs and the
+  kernel launches it makes.  The first call under a new shape runs the
+  step eagerly, as ``eager()`` does (the real step: a warm-up would
+  advance the cache), the next captures it and replays it, and later
+  ones replay.  A new shape leaves the other shapes' graphs alone; a new
+  structure drops every graph of the executor (:meth:`StepGraphs.reset`).
+  One graph memory pool serves every variant and shape of one executor.
 
-A resize reallocates the expert weights, so the key sees new addresses and
-the variant is captured again; an in-place migration chunk or page-out
-keeps them, and keeps the graph.  A failure to capture or replay raises:
-nothing runs the step eagerly in a graph's place.
+A resize reallocates the expert weights, so the structure sees new
+addresses and every variant is captured again; an in-place migration
+chunk or page-out keeps them, and keeps the graphs.  A failure to capture
+or replay raises: nothing runs the step eagerly in a graph's place.
 
 On the CPU (``device="cpu"``) and under :func:`eager` (the counterpart of
 ``jax.disable_jit()``) the same staging runs the step eagerly over the
@@ -41,7 +48,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +61,7 @@ _EAGER = [False]
 
 @contextlib.contextmanager
 def eager():
-    """Run every executor's decode variants eagerly inside the block (the
+    """Run every executor's step variants eagerly inside the block (the
     reference's ``jax.disable_jit()``): the same staging, no graph.  Graphs
     are the default on the card."""
     prev = _EAGER[0]
@@ -124,7 +131,6 @@ class StaticInputs:
 
 @dataclasses.dataclass
 class _Variant:
-    key: tuple
     warm: bool = False
     graph: Optional[torch.cuda.CUDAGraph] = None
     outputs: object = None
@@ -132,19 +138,23 @@ class _Variant:
 
 
 class StepGraphs:
-    """The captured decode variants of one executor.
+    """The captured step variants of one executor.
 
-    ``keys[name]`` lists every key variant ``name`` has had, in order (one
-    per structure it ran under); ``captures[name]`` counts its captures and
-    ``replays[name]`` its replays (both 0 off the card and under
-    :func:`eager`)."""
+    ``keys[name]`` lists every (structure, shape) key variant ``name`` has
+    run under, in order of first sight (a key seen again after a
+    :meth:`reset` is listed again); ``captures[name]`` and
+    ``replays[name]`` count the variant's captures and replays over all
+    its shapes, and ``per_shape[name, shape]`` is ``[captures, replays]``
+    of one shape (all 0 off the card and under :func:`eager`)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._variants: Dict[str, _Variant] = {}
+        self._structure: Dict[str, tuple] = {}
+        self._variants: Dict[str, Dict[tuple, _Variant]] = {}
         self.keys: Dict[str, List[tuple]] = {}
         self.captures: Dict[str, int] = {}
         self.replays: Dict[str, int] = {}
+        self.per_shape: Dict[Tuple[str, tuple], List[int]] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
 
@@ -153,57 +163,77 @@ class StepGraphs:
         return self.device.type == "cuda" and not _EAGER[0]
 
     def reset(self) -> None:
-        """Drop every graph (a pool resize): each variant is captured again
-        under its new key."""
+        """Drop every graph (a pool resize, a new structure): each variant
+        is captured again under its new key, into a new memory pool (the
+        dropped graphs' pool is freed with the allocator's cache)."""
         self._variants.clear()
+        self._structure.clear()
+        self._pool = None
 
-    def run(self, name: str, key: tuple, fn: Callable[[], object]):
-        """Run step variant ``name`` under ``key``: ``fn()`` reads only the
-        static inputs, the weights and the cache (their addresses are in
-        ``key``).  Returns its outputs; a replay's are the graph's static
-        outputs, overwritten by the next replay of ``name``."""
-        v = self._variants.get(name)
-        if v is None or v.key != key:
-            self._variants.pop(name, None)         # its graph's memory first
-            v = self._variants[name] = _Variant(key)
-            self.keys.setdefault(name, []).append(key)
+    def run(self, name: str, key: tuple, fn: Callable[[], object],
+            shape: tuple = ()):
+        """Run step variant ``name`` with structure ``key`` at ``shape``:
+        ``fn()`` reads only the static inputs, the weights and the caches
+        (their addresses are in ``key``; a buffer named by its shape has
+        one address per shape).  Returns its outputs; a replay's are the
+        graph's static outputs, overwritten by the next replay of any
+        variant of this executor (they share one memory pool)."""
+        if self._structure.setdefault(name, key) != key:
+            self.reset()                       # the graphs' memory first
+            self._structure[name] = key
+        shapes = self._variants.setdefault(name, {})
+        v = shapes.get(shape)
+        if v is None:
+            v = shapes[shape] = _Variant()
+            self.keys.setdefault(name, []).append((key, shape))
         if not self.enabled:
             return fn()
         if not v.warm:
             v.warm = True
-            return self._on_capture_stream(fn)
+            return fn()
+        count = self.per_shape.setdefault((name, shape), [0, 0])
         if v.graph is None:
-            self._capture(name, v, fn)
+            self._capture(v, fn)
+            self.captures[name] = self.captures.get(name, 0) + 1
+            count[0] += 1
         v.graph.replay()
         build.add_launches(v.counts)
         self.replays[name] = self.replays.get(name, 0) + 1
+        count[1] += 1
         return v.outputs
 
     def _capture_stream(self) -> torch.cuda.Stream:
+        """The stream every capture of this executor runs on.  Made at
+        the first capture, with a few small matmuls of each dtype run on
+        it first, so that cuBLAS sets itself up for the stream (its
+        workspace is per stream) outside any capture, as a warm-up on a
+        side stream does.  The steps themselves run their first calls on
+        the caller's stream, as :func:`eager` does."""
         if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(stream):
+                for dt in (torch.float32, torch.bfloat16):
+                    a = torch.ones(16, 16, dtype=dt, device=self.device)
+                    torch.addmm(a, a, a)
+                    torch.bmm(a[None], a[None])
+            stream.synchronize()
+            self._stream = stream
         return self._stream
 
-    def _on_capture_stream(self, fn):
-        """The first call under a key: the real step, eager, on the stream
-        the capture will use (so the lazy setup of cuBLAS and of the
-        kernels happens outside the capture), joined both ways to the
-        caller's stream."""
-        side = self._capture_stream()
-        main = torch.cuda.current_stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = fn()
-        main.wait_stream(side)
-        for t in tensors(out):
-            t.record_stream(main)
-        return out
-
-    def _capture(self, name: str, v: _Variant, fn) -> None:
+    def _capture(self, v: _Variant, fn) -> None:
+        """Capture ``fn`` into the executor's pool on the capture stream.
+        ``torch.cuda.graph`` would first synchronize, collect garbage and
+        empty the allocator's cache: with a capture per shape, the eager
+        calls after each capture would ``cudaMalloc`` their blocks
+        again."""
         graph, stream = torch.cuda.CUDAGraph(), self._capture_stream()
-        with build.recording(v.counts):
-            with torch.cuda.graph(graph, pool=self._pool, stream=stream):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with build.recording(v.counts), torch.cuda.stream(stream):
+            graph.capture_begin(self._pool)
+            try:
                 v.outputs = fn()
+            finally:
+                graph.capture_end()
         v.graph = graph
-        self.captures[name] = self.captures.get(name, 0) + 1

@@ -1287,10 +1287,10 @@ GRAPH_VARIANTS = {"lockstep": ("lockstep", "dense"),
                   "paged": ("lockstep", "paged")}
 
 
-def _graph_executor(cuda, mode, kv_mode, params=None):
+def _graph_executor(cuda, mode, kv_mode, params=None, prefill=True):
     """A reduced bf16 deepseek-r1 executor on the card: 4 slots of 64,
-    prefilled with 4 prompts (paged: through per-slot block tables of 8
-    blocks of 8)."""
+    prefilled with 4 prompts unless ``prefill`` is false (paged: through
+    per-slot block tables of 8 blocks of 8)."""
     from repro_torch.core.elastic import ServerPool
     from repro_torch.models.transformer import build_model
     from repro_torch.serving.executor import Executor
@@ -1305,7 +1305,7 @@ def _graph_executor(cuda, mode, kv_mode, params=None):
                   decode_mode=mode, kv_mode=kv_mode, kv_block_size=8,
                   kv_num_blocks=33 if kv_mode == "paged" else 0)
     rng = np.random.default_rng(2)
-    for b, n in enumerate((5, 9, 3, 12)):
+    for b, n in enumerate((5, 9, 3, 12) if prefill else ()):
         prompt = rng.integers(0, cfg.vocab_size, n)
         if kv_mode == "paged":
             ex.prefill_chunk_paged(prompt, 0, _graph_tables()[b])
@@ -1417,5 +1417,109 @@ def test_one_capture_through_failure_and_migration(cuda):
         del eng
     (tokens, before, after), (eager_tokens, none, _) = runs[True], runs[False]
     assert tokens == eager_tokens
-    assert before == {"decode": 1} and after == {"decode": 2}
+    # the four 6-token prompts: one prefill capture (the second of them)
+    assert before == {"decode": 1, "prefill": 1}
+    assert after == {"decode": 2, "prefill": 1}
     assert none == {}
+
+
+# ---- the prefill variants as CUDA graphs, one per shape --------------------
+
+def _prefill_calls(variant, rng, V):
+    """Each variant's calls: every shape at least three times, over other
+    slots, requests and starts (``(method, args, kwargs)``)."""
+    rows = _graph_tables()
+    if variant == "prefill":
+        return [("prefill", (b, rng.integers(0, V, n)), {})
+                for b, n in ((0, 12), (1, 12), (2, 7), (3, 12), (1, 7),
+                             (0, 7), (2, 12))]
+    if variant == "prefill_chunk":
+        calls = []
+        for slot, n in ((1, 20), (3, 20), (0, 12), (2, 20), (1, 12)):
+            p = rng.integers(0, V, n)
+            for lo in range(0, n, 8):
+                calls.append(("prefill_chunk",
+                              (slot, p[lo:lo + 8], lo),
+                              dict(is_first=lo == 0, is_last=lo + 8 >= n)))
+        # two requests interleaved
+        a, b = rng.integers(0, V, 16), rng.integers(0, V, 16)
+        for lo in (0, 8):
+            for slot, p in ((2, a), (3, b)):
+                calls.append(("prefill_chunk", (slot, p[lo:lo + 8], lo),
+                              dict(is_first=lo == 0, is_last=lo == 8)))
+        return calls
+    if variant == "prefill_chunk_paged":
+        # a shared first block: later rows start past it (prefix hits)
+        calls = []
+        for r, start, n in ((0, 0, 24), (1, 8, 20), (2, 8, 20), (3, 0, 12)):
+            row = rows[r].copy()
+            if start:
+                row[0] = rows[0][0]
+            p = rng.integers(0, V, n)
+            for lo in range(start, n, 8):
+                calls.append(("prefill_chunk_paged", (p[lo:lo + 8], lo, row),
+                              {}))
+        return calls
+    return [("copy_blocks", (pairs,), {})
+            for pairs in ([(1, 30)], [(9, 31)], [(2, 32), (3, 29)],
+                          [(17, 28)], [(10, 27), (11, 26)],
+                          [(4, 25), (5, 24)])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["prefill", "prefill_chunk",
+                                     "prefill_chunk_paged", "copy_blocks"])
+def test_graph_prefill_equals_eager_bitwise(cuda, variant):
+    """Each prefill variant captured once per shape and replayed gives
+    outputs, caches and drop / miss totals bitwise those of the same calls
+    under ``step_graphs.eager()``, and counts the eager calls' kernel
+    launches; the slots, requests, ``start`` values and copy pairs change
+    between the calls of a shape without a new capture; every shape seen
+    three times or more replays."""
+    import collections
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import step_graphs
+
+    kv_mode = "paged" if variant in ("prefill_chunk_paged",
+                                     "copy_blocks") else "dense"
+    # the copies copy prefilled blocks; the other variants start clean
+    filled = variant == "copy_blocks"
+    graphed = _graph_executor(cuda, "lockstep", kv_mode, prefill=filled)
+    plain = _graph_executor(cuda, "lockstep", kv_mode, params=graphed.params,
+                            prefill=filled)
+    plain.pool = graphed.pool
+    rng = np.random.default_rng(5)
+    calls = _prefill_calls(variant, rng, 512)
+    seen = collections.Counter()
+    for i, (method, args, kw) in enumerate(calls):
+        shape = (len(args[0]) if method == "copy_blocks" else
+                 len(args[1] if method in ("prefill", "prefill_chunk")
+                     else args[0]),)
+        seen[shape] += 1
+        ops.reset_launches()
+        out = getattr(graphed, method)(*args, **kw)
+        got = [t.clone() for t in step_graphs.tensors(out)]
+        launched = dict(build.LAUNCHES)
+        ops.reset_launches()
+        with step_graphs.eager():
+            want = list(step_graphs.tensors(getattr(plain, method)(*args,
+                                                                   **kw)))
+        assert launched == dict(build.LAUNCHES), (variant, i)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (variant, i)
+        for a, b in zip(step_graphs.tensors(graphed.cache),
+                        step_graphs.tensors(plain.cache)):
+            assert torch.equal(a, b), (variant, i)
+    assert torch.equal(graphed.dropped, plain.dropped)
+    assert torch.equal(graphed.miss, plain.miss)
+    g = graphed.graphs
+    assert [s for _, s in g.keys[variant]] == list(seen)
+    assert g.captures[variant] == sum(n >= 2 for n in seen.values())
+    for shape, n in seen.items():
+        assert g.per_shape.get((variant, shape), [0, 0]) == \
+            ([1, n - 1] if n >= 2 else [0, 0]), shape
+    assert min(seen.values()) >= 3
+    assert not plain.graphs.captures and not plain.graphs.replays
+    if variant != "copy_blocks":
+        assert build.LAUNCHES["grouped_gemm"] > 0

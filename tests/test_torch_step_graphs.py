@@ -250,7 +250,8 @@ FIG10 = {"lockstep": dict(decode_mode="lockstep"),
 def test_fig10_engine_matches_reference(variant):
     """The reference's Fig. 10 engine (VirtualClock, fp32) through two
     server failures: tokens, token times and fingerprint equal the JAX
-    engine's, and the decode variant keeps one key throughout."""
+    engine's, the decode variant keeps one key throughout and each prefill
+    variant one key per shape."""
     jcfg, tcfg = _cfg(jget_config), _cfg()
     kw = FIG10[variant]
     jeng = J.ServingEngine(jcfg, _fig10_ecfg(J, **kw), seed=0,
@@ -267,8 +268,14 @@ def test_fig10_engine_matches_reference(variant):
         assert t.token_times == j.token_times
     assert tres.metrics.fingerprint() == jres.metrics.fingerprint()
     name = "decode_paged" if variant == "paged" else "decode"
-    assert len(teng.executor.graphs.keys[name]) == 1
-    assert set(teng.executor.graphs.keys) == {name}
+    keys = teng.executor.graphs.keys
+    assert len(keys[name]) == 1
+    # the other variants are the prefill ones, one key per shape each
+    assert set(keys) - {name} <= {"prefill", "prefill_chunk",
+                                  "prefill_chunk_paged", "copy_blocks"}
+    for other in set(keys) - {name}:
+        shapes = [shape for _, shape in keys[other]]
+        assert len(shapes) == len(set(shapes)), other
 
 
 # ------------------------------------------------------------ the key stays
