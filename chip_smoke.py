@@ -235,7 +235,26 @@ Phases, each of which raises on failure (exit code != 0):
    TTFT p50 / p99, a repeated 256-token chunk's wall p50 and, profiled
    over two 1024-token prompts' chunks, its device busy, idle share and
    host calls that enqueue work; peak memory allocated and reserved, and
-   the reserved memory each capture added to the graph pool.
+   the reserved memory each capture added to the graph pool;
+29. family-prefill: every family's prefill compiled as the reference
+   compiles it (phases 19-22 run so too, holding their digests):
+   gemma3-4b's and whisper-base's whole prompts one CUDA graph per prompt
+   length, zamba2-2.7b's SSD carry and rwkv6-7b's wkv recurrence a scan
+   body of 64 steps and one of a step, captured once and replayed inside
+   the eager prefill; at full widths and depth through the dense engine,
+   each family an unreported eager pass, then graphs, then
+   ``step_graphs.eager()``, on one set of weights: gemma3 prompts of 600,
+   1300 (past the 1024-token window) and 2048 (the q-block path) tokens
+   twice each, whisper of 24 and 48 three times, zamba2 of 1021 (prime:
+   Q = 1) and 512 (Q = 64) twice, rwkv6 of 64-509.  Tokens, launches,
+   dropped and miss equal; gemma3 and whisper capture once per length
+   seen twice or more, never on a first sight or per slot; zamba2 and
+   rwkv6 capture exactly 2 scan bodies over the family, whatever the
+   layers and prompts; one full-width layer's scan bitwise ``eager()`` at
+   L = 1, 63, 64, 65 and 1021.  Each arm's TTFT p50 / p99, prefill wall
+   by prompt length (ms a token), a prompt profiled back to back (device
+   busy, idle share, host calls that enqueue work), and the memory each
+   capture added.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -244,7 +263,8 @@ phase (14-20) alone, printing no summary; ``--only train`` runs the
 backward kernels' checks and phases 21-23; ``--only spmd`` the partial
 kernel's checks and phase 24; ``--only mesh`` the partial kernel's checks
 and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
-``--only graphs`` phase 27; ``--only prefill`` phase 28.
+``--only graphs`` phase 27; ``--only prefill`` phase 28;
+``--only family-prefill`` phase 29.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -5418,6 +5438,296 @@ def prefill_phase(torch, get_config, smi) -> dict:
     return {label: runs[label, True]["launches"] for label, *_ in scenarios}
 
 
+# ---- phase 29: every family's prefill compiled ---------------------------
+
+# label, arch, engine config, prompt lengths (repeated lengths: a first
+# sight, a capture, then replays for the per-shape families; one length
+# seen once), the length profiled, the scan the family replays
+FAMILY_PREFILL = (
+    # above the 1024-token window (the rings keep its tail) and at 2048, a
+    # multiple of the 16 q blocks (the q-block attention path)
+    ("gemma3", "gemma3-4b", dict(max_batch=4, max_seq=2560),
+     (600, 1300, 2048) * 3 + (777,), 1300, None),
+    ("whisper", "whisper-base", dict(max_batch=4, max_seq=448),
+     (24, 48) * 4 + (37,), 48, None),
+    # 1021 is prime: the SSD chunk falls to Q = 1 (1021 chunks a layer,
+    # 15 x 64 + 61 steps of the scan); 512 runs Q = 64 (8 chunks).  The
+    # profiled lengths keep an eager prompt's ~10^4 launches (each held by
+    # the profiler, seconds to tally) few: 131 is prime (2 x 64 + 3
+    # steps), 130 is 2 x 64 + 2
+    ("zamba2", "zamba2-2.7b", dict(max_batch=4, max_seq=2048),
+     (1021, 512, 1021, 512), 131, "ssd_carry"),
+    # 509 is prime, 200 and 320 no multiple of 64, 64 a single body
+    ("rwkv6", "rwkv6-7b", dict(max_batch=4, max_seq=1024),
+     (64, 509, 200, 320, 509, 200), 130, "wkv"),
+)
+SCAN_LENGTHS = (1, 63, 64, 65, 1021)
+
+
+def _prompt_profile(torch, ex, cfg, rng, n: int, reps: int = 2) -> dict:
+    """``reps`` whole prompts of ``n`` tokens into slot 0, back to back
+    under torch.profiler: the window, device busy and host calls that
+    enqueue work (``HOST_CALLS``), per prompt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prompts = [rng.integers(0, cfg.vocab_size, n) for _ in range(reps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in prompts:
+            ex.prefill(0, p)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3 / reps
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    host = {e.key: e.count / reps for e in avg
+            if e.device_type != DeviceType.CUDA and e.key in HOST_CALLS}
+    return {"n": n, "window_ms": window, "busy_ms": busy,
+            "host_calls": host, "host_launches": sum(host.values())}
+
+
+def _family_prefill_arm(torch, cfg, params, ecfg, label, graphs, lengths,
+                        profiled, reps, measured=True) -> dict:
+    """One engine on ``params``: a warm-up, then one request per length
+    of ``lengths`` (32 greedy tokens each), every prefill call counted by
+    length and timed alone (``_watch_prefill``, which also records the
+    memory each step-graph capture adds); then ``reps`` prompts of
+    ``profiled`` tokens profiled (not ``measured``: one, unprofiled).
+    The scans' captures, replays and pool growth are read from
+    ``common.SCAN_STATS`` (reset by the caller, once a family)."""
+    import numpy as np
+
+    from repro_torch.models import common
+    from repro_torch.serving import (Request, SamplingParams, ServingEngine,
+                                     WallClock)
+
+    _free(torch)
+    with _arm(graphs):
+        eng = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
+        rng = np.random.default_rng(0)
+        warm = Request(-1, rng.integers(0, cfg.vocab_size, 16, np.int32),
+                       SamplingParams(max_new_tokens=2))
+        reqs = [Request(i, rng.integers(0, cfg.vocab_size, n, np.int32),
+                        SamplingParams(max_new_tokens=32))
+                for i, n in enumerate(lengths)]
+        seen = _watch_prefill(torch, eng)
+        metrics, launches, _ = _serve(torch, eng, warm, reqs, fail=False)
+        _check_completed(label, metrics, reqs, cfg)
+        g = eng.executor.graphs
+        out = dict(digest=_digest(reqs), launches=launches,
+                   ttft=metrics.summary()["ttft"],
+                   dropped=int(eng.executor.dropped),
+                   miss=int(eng.executor.miss), calls=dict(seen["calls"]),
+                   ms=dict(seen["ms"]), pool=list(seen["pool"]),
+                   per_shape={k: list(v) for k, v in g.per_shape.items()},
+                   keys={k: [s for _, s in v] for k, v in g.keys.items()},
+                   captures=dict(g.captures), replays=dict(g.replays))
+        eng.executor.__dict__.pop("prefill", None)   # the class's method
+        if measured:
+            out["prof"] = _prompt_profile(torch, eng.executor, cfg, rng,
+                                          profiled, reps)
+        else:
+            eng.executor.prefill(0, rng.integers(0, cfg.vocab_size,
+                                                 profiled))
+        out["scans"] = {k: dict(v, pool_bytes=list(v["pool_bytes"]))
+                        for k, v in common.SCAN_STATS.items()}
+        out.update(_memory(torch))
+    del eng
+    return out
+
+
+def _family_prefill_checks(label, g, e, scan) -> list:
+    """What phase 29 requires of one family's arms."""
+    bad = []
+    for k in ("digest", "launches", "dropped", "miss", "calls"):
+        if g[k] != e[k]:
+            bad.append(f"{label}: {k} differ ({g[k]} / {e[k]})")
+    if e["captures"] or e["replays"] or e["scans"] != g["scans"]:
+        bad.append(f"{label}: the eager arm captured or replayed")
+    if scan is None:
+        for (name, size), n in g["calls"].items():
+            want = [1, n - 1] if n >= 2 else None
+            if g["per_shape"].get((name, (size,))) != want:
+                bad.append(f"{label}: prefill at {size}, seen {n} times: "
+                           f"{g['per_shape'].get((name, (size,)))}, "
+                           f"expected {want}")
+        if sorted(g["keys"].get("prefill", [])) != sorted(
+                (s,) for _, s in g["calls"]):
+            bad.append(f"{label}: prefill keys {g['keys'].get('prefill')}")
+        if g["scans"]:
+            bad.append(f"{label}: scans replayed {g['scans']}")
+    else:
+        if any(name == "prefill" for name, _ in g["per_shape"]) \
+                or "prefill" in g["keys"]:
+            bad.append(f"{label}: the recurrent prefill became a step "
+                       f"graph {g['keys']}")
+        if list(g["scans"]) != [scan] or g["scans"][scan]["captures"] != 2:
+            bad.append(f"{label}: scan captures {g['scans']} (expected 2 "
+                       f"of {scan})")
+    return bad
+
+
+def _family_prefill_report(label, arm, r, smi) -> None:
+    by_len = {}
+    for (_, n), ms in sorted(r["ms"].items(), key=lambda kv: kv[0][1]):
+        # in order: a per-shape family's first sight, capture, replays
+        by_len[n] = (f"{[round(x, 1) for x in ms]} ms, p50 "
+                     f"{_pct(ms, 50) / n:.3f} ms/token")
+    p = r["prof"]
+    log(f"family-prefill ({label}, {arm}): tokens sha1 {r['digest']}; TTFT "
+        f"p50 {r['ttft']['p50']} ms p99 {r['ttft']['p99']} ms; prefill by "
+        f"prompt length (synchronized) {json.dumps(by_len)}; step-graph "
+        f"captures {r['captures']}, replays {r['replays']}; scans "
+        f"{json.dumps(r['scans'])}; dropped {r['dropped']} miss {r['miss']}"
+        f"; peak {r['peak_gib']:.2f} GiB allocated, {r['reserved_gib']:.2f} "
+        f"reserved ({smi})")
+    log(f"family-prefill ({label}, {arm}): {p['n']}-token prompts back to "
+        f"back, profiled: {p['window_ms']:.3f} ms a prompt, device busy "
+        f"{p['busy_ms']:.3f} ms, idle share "
+        f"{max(0.0, 1 - p['busy_ms'] / p['window_ms']):.3f}, host calls that "
+        f"enqueue work {p['host_launches']:.1f} a prompt "
+        f"{json.dumps(p['host_calls'])} ({smi})")
+    if r["pool"]:
+        res = [round(x, 4) for x, _ in r["pool"]]
+        log(f"family-prefill ({label}, {arm}): prefill graph pool: "
+            f"{len(res)} captures added {sum(res):.3f} GiB reserved (in "
+            f"order {res}), {sum(a for _, a in r['pool']):.3f} GiB "
+            f"allocated ({smi})")
+
+
+def _scan_checks(torch, label, cfg, smi) -> list:
+    """One layer's recurrence at the family's published widths (B = 1, as
+    the engine prefills): rwkv6's ``tmix_forward`` (bf16 activations,
+    fp32 state) or zamba2's ``_ssd_chunked`` (fp32), its scan replayed
+    against the same call under ``eager()`` at every length of
+    ``SCAN_LENGTHS``, bitwise; each timed alone (synchronized) in both."""
+    from repro_torch.models import mamba, rwkv
+    from repro_torch.serving import step_graphs
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    bad, times = [], {}
+    if label == "rwkv6":
+        tp = rwkv.init_rwkv_tmix(cfg, torch.bfloat16, "cuda", g)
+        tp["bonus_u"].normal_(generator=g)
+        st = rwkv.init_rwkv_state(cfg, 1, "cuda")
+        st.wkv.normal_(generator=g).mul_(0.2)
+    for L in SCAN_LENGTHS:
+        if label == "rwkv6":
+            x = (torch.randn(1, L, cfg.d_model, generator=g, device="cuda")
+                 * 0.5).bfloat16()
+
+            def call():
+                return rwkv.tmix_forward(tp, cfg, x, st)
+        else:
+            _, H, P, N = mamba.dims(cfg)
+            args = (torch.randn(1, L, H, P, generator=g, device="cuda")
+                    * 0.3,
+                    -torch.rand(1, L, H, generator=g, device="cuda") * 0.3,
+                    torch.randn(1, L, N, generator=g, device="cuda") * 0.5,
+                    torch.randn(1, L, N, generator=g, device="cuda") * 0.5,
+                    torch.randn(1, H, P, N, generator=g, device="cuda")
+                    * 0.3)
+
+            def call():
+                return mamba._ssd_chunked(*args, chunk=64)
+        arms = {}
+        for arm in ("graphs", "eager"):
+            with torch.inference_mode(), _arm(arm == "graphs"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                arms[arm] = call()
+                torch.cuda.synchronize()
+                times.setdefault(arm, {})[L] = round(
+                    (time.perf_counter() - t0) * 1e3, 3)
+        if not all(torch.equal(a, b) for a, b in zip(arms["graphs"],
+                                                     arms["eager"])):
+            bad.append(f"{label}: the scan at L = {L} differs from eager")
+    what = "tmix_forward" if label == "rwkv6" else "_ssd_chunked"
+    log(f"family-prefill ({label}): {what} at full width, scan replayed vs "
+        f"eager() bitwise at L = {list(SCAN_LENGTHS)}: {not bad}; ms by L "
+        f"(synchronized) graphs {json.dumps(times['graphs'])}, eager "
+        f"{json.dumps(times['eager'])} ({smi})")
+    return bad
+
+
+def family_prefill_phase(torch, get_config, smi) -> dict:
+    """Phase 29: every family's prefill compiled as the reference compiles
+    it, against ``step_graphs.eager()``: gemma3-4b, whisper-base,
+    zamba2-2.7b and rwkv6-7b at their full published widths and depth
+    through the dense engine, on one set of weights a family (seed 0, as
+    phases 19-22 draw them: drawing takes ~0.1 s, holding them through
+    phases 23-28 would take their memory), each family an unreported eager
+    pass, then graphs, then eager.  gemma3's and whisper's prefill is one
+    CUDA graph per prompt length; zamba2's and rwkv6's runs eagerly
+    around their scan's two bodies, captured once and replayed
+    (``models/common.py::compiled_scan``).  Tokens, launches, dropped and
+    miss equal; one step-graph capture per length seen twice or more
+    (gemma3, whisper), exactly 2 scan captures for the whole family
+    (zamba2, rwkv6, the direct checks included); then one layer's scan at
+    full width bitwise ``eager()`` at ``SCAN_LENGTHS``.  Returns the graph
+    arms' launches by family."""
+    from repro_torch.models import common
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    runs, bad = {}, []
+    for label, arch, ekw, lengths, profiled, scan in FAMILY_PREFILL:
+        t0 = time.perf_counter()
+        # an eager recurrent prompt is ~10^4 launches: one under the
+        # profiler
+        reps = 2 if scan is None else 1
+        cfg = get_config(arch)
+        _free(torch)
+        params = ServingEngine(cfg, EngineConfig(**ekw), seed=0,
+                               clock=WallClock()).params
+        common.reset_scans()
+        # an unreported eager pass first: whichever arm meets a prompt
+        # length first pays cuBLAS's setup for it
+        _family_prefill_arm(torch, cfg, params, EngineConfig(**ekw), label,
+                            False, lengths, profiled, reps, measured=False)
+        took = []
+        for graphs in (True, False):
+            t1 = time.perf_counter()
+            runs[label, graphs] = _family_prefill_arm(
+                torch, cfg, params, EngineConfig(**ekw), label, graphs,
+                lengths, profiled, reps)
+            took.append(round(time.perf_counter() - t1, 1))
+        g, e = runs[label, True], runs[label, False]
+        for arm, r in (("graphs", g), ("eager", e)):
+            _family_prefill_report(label, arm, r, smi)
+        bad += _family_prefill_checks(label, g, e, scan)
+        if scan is not None:
+            bad += _scan_checks(torch, label, cfg, smi)
+            stats = common.SCAN_STATS.get(scan, {})
+            if stats.get("captures") != 2:
+                bad.append(f"{label}: {stats} scan captures in the phase "
+                           f"(expected 2)")
+            pool = [round(b / 2**20, 2) for b in stats.get("pool_bytes", [])]
+            log(f"family-prefill ({label}): scan {scan}: "
+                f"{stats.get('captures')} captures, {stats.get('replays')} "
+                f"replays over the phase; reserved MiB each capture added "
+                f"{pool} ({smi})")
+        gp, ep = g["prof"], e["prof"]
+        log(f"family-prefill ({label}): tokens equal "
+            f"{g['digest'] == e['digest']}, launches equal "
+            f"{g['launches'] == e['launches']}; TTFT p50 {g['ttft']['p50']} "
+            f"against {e['ttft']['p50']} ms eager, p99 {g['ttft']['p99']} "
+            f"against {e['ttft']['p99']}; a {gp['n']}-token prompt "
+            f"{gp['window_ms']:.3f} / {ep['window_ms']:.3f} ms, busy "
+            f"{gp['busy_ms']:.3f} / {ep['busy_ms']:.3f}, host calls "
+            f"{gp['host_launches']:.1f} / {ep['host_launches']:.1f}; three "
+            f"arms and checks {time.perf_counter() - t0:.1f} s (graphs / "
+            f"eager arm {took[0]} / {took[1]} s) ({smi})")
+        del params
+        common.reset_scans()
+    if bad:
+        raise AssertionError(f"family-prefill: {bad}")
+    return {label: runs[label, True]["launches"]
+            for label, *_ in FAMILY_PREFILL}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5465,7 +5775,9 @@ def main() -> int:
              "mesh": lambda: mesh_alone(torch, get_config, smi),
              "remat": lambda: remat_alone(torch, get_config, smi),
              "graphs": lambda: graphs_phase(torch, get_config, smi),
-             "prefill": lambda: prefill_phase(torch, get_config, smi)}
+             "prefill": lambda: prefill_phase(torch, get_config, smi),
+             "family-prefill": lambda: family_prefill_phase(
+                 torch, get_config, smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -5523,6 +5835,7 @@ def main() -> int:
     remat_phase(torch, get_config, smi)
     graph_launches = graphs_phase(torch, get_config, smi)
     prefill_launches = prefill_phase(torch, get_config, smi)
+    fprefill_launches = family_prefill_phase(torch, get_config, smi)
 
     def entry(name):
         cs = cases[name]
@@ -5560,7 +5873,9 @@ def main() -> int:
                                   **{f"graphs ({a})": n[name]
                                      for a, n in graph_launches.items()},
                                   **{f"prefill ({a})": n[name]
-                                     for a, n in prefill_launches.items()}},
+                                     for a, n in prefill_launches.items()},
+                                  **{f"family-prefill ({a})": n[name]
+                                     for a, n in fprefill_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

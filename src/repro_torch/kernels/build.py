@@ -12,6 +12,12 @@ kernel launch, nowhere else), so a run can show which kernels carried it.
 A CUDA graph's replay passes through no wrapper: :func:`recording` takes
 the counts of its capture, and :func:`add_launches` adds them at each
 replay, so :data:`LAUNCHES` stays the number of kernels the device ran.
+
+What every CUDA graph of the port shares lives here too, below the models
+and the serving layer that capture them: the process-wide switch
+:func:`eager` (the counterpart of ``jax.disable_jit()``; the executor's
+step graphs and the models' scan bodies read it), the capture stream of a
+device (:func:`capture_stream`) and the capture itself (:func:`capture`).
 """
 
 from __future__ import annotations
@@ -188,6 +194,65 @@ def add_launches(counts: Dict[str, int]) -> None:
     """One replay of a captured graph: its kernels' launches."""
     for k, n in counts.items():
         LAUNCHES[k] += n
+
+
+# process-wide, as jax.disable_jit() is: set only through eager()
+EAGER = [False]
+
+
+@contextlib.contextmanager
+def eager():
+    """Run every CUDA graph's work eagerly inside the block (the
+    reference's ``jax.disable_jit()``): the executor's step variants and
+    the models' scan bodies, over the same staging, with no graph.  Graphs
+    are the default on the card."""
+    prev = EAGER[0]
+    EAGER[0] = True
+    try:
+        yield
+    finally:
+        EAGER[0] = prev
+
+
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device) -> "torch.cuda.Stream":
+    """The stream every capture on ``device`` runs on.  Made at the first
+    capture, with a few small matmuls of each dtype run on it first, so
+    that cuBLAS sets itself up for the stream (its workspace is per
+    stream) outside any capture, as a warm-up on a side stream does."""
+    device = torch.device(device)
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            for dt in (torch.float32, torch.bfloat16):
+                a = torch.ones(16, 16, dtype=dt, device=device)
+                torch.addmm(a, a, a)
+                torch.bmm(a[None], a[None])
+        stream.synchronize()
+        _CAPTURE_STREAMS[device] = stream
+    return stream
+
+
+def capture(fn, device, pool, counts: Dict[str, int]):
+    """Capture ``fn()`` into the graph memory pool ``pool`` on ``device``'s
+    capture stream -> (graph, its static outputs); the launches its
+    wrappers make go into ``counts`` (:func:`recording`).
+    ``torch.cuda.graph`` would first synchronize, collect garbage and
+    empty the allocator's cache: with a capture per shape, the eager calls
+    after each capture would ``cudaMalloc`` their blocks again.  A failure
+    raises: no caller runs the work eagerly in the graph's place."""
+    graph, stream = torch.cuda.CUDAGraph(), capture_stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with recording(counts), torch.cuda.stream(stream):
+        graph.capture_begin(pool)
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    return graph, out
 
 
 def dtype_code(dtype) -> int:

@@ -33,8 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tpl
-from repro_torch.models.common import (dense_init, remat_if_recording,
-                                       resolve_dtype, rms_norm)
+from repro_torch.models.common import (compiled_scan, dense_init,
+                                       remat_if_recording, resolve_dtype,
+                                       rms_norm)
 
 
 class MambaState(NamedTuple):
@@ -103,6 +104,17 @@ def chunk_size(L: int, chunk: int) -> int:
     return Q
 
 
+def _carry_loop(decay, dS, S):
+    """The SSD's carry over chunks: decay (B, nc, H, 1, 1), dS (B, nc, H,
+    P, N) from the state S (B, H, P, N) -> (each chunk's starting state
+    (B, nc, H, P, N), the last state)."""
+    starts = []
+    for c in range(decay.shape[1]):
+        starts.append(S)
+        S = decay[:, c] * S + dS[:, c]
+    return torch.stack(starts, dim=1), S
+
+
 def _ssd_chunked(u, logA, Bm, Cm, S0, chunk: int):
     """Exact chunked SSD scan.
 
@@ -114,7 +126,10 @@ def _ssd_chunked(u, logA, Bm, Cm, S0, chunk: int):
     state batched over the chunks: the quadratic form inside each chunk
     and each chunk's state increment.  Only the carry, S' = exp(cum_Q) S
     + dS, runs chunk by chunk (two operations, not a chunk body's ~25:
-    Q = 1 at a prime L makes a chunk of every token).
+    Q = 1 at a prime L makes a chunk of every token), through
+    ``compiled_scan`` where autograd does not record: on the card a body
+    of 64 chunks and one of a chunk, captured once and replayed, bitwise
+    the loop (:func:`_carry_loop`).
     """
     Bsz, L, H, P = u.shape
     N = Bm.shape[-1]
@@ -135,13 +150,11 @@ def _ssd_chunked(u, logA, Bm, Cm, S0, chunk: int):
     wj = torch.exp(cum[:, :, -1:, :] - cum)
     dS = torch.einsum("bcqh,bcqhp,bcqn->bchpn", wj, u, Bc)
     decay = torch.exp(cum[:, :, -1, :])[..., None, None]     # (B,c,H,1,1)
-    S, starts = S0.float(), []
-    for c in range(nc):
-        starts.append(S)
-        S = decay[:, c] * S + dS[:, c]
+    starts, S = compiled_scan("ssd_carry", _carry_loop, (decay, dS), (),
+                              S0.float())
     # inter-chunk: y_t += exp(cum_t) C_t · S (the chunk's starting state)
     y_inter = torch.einsum("bcqh,bcqn,bchpn->bcqhp", torch.exp(cum), Cc,
-                           torch.stack(starts, dim=1))
+                           starts)
     return (y_intra + y_inter).reshape(Bsz, L, H, P), S
 
 

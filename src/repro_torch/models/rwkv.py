@@ -12,6 +12,10 @@ in the reference, prefill batches the r / k / v / g projections and the
 decay over the whole sequence and loops over tokens only for the wkv
 recurrence; the token-shift mixes are static.  The recurrence is PyTorch
 on every device: the reference computes it in jnp, not in a Pallas kernel.
+Where autograd does not record, the reference's ``lax.scan`` body,
+compiled once, is a CUDA graph of 64 tokens of the loop (and one of a
+token, for the rest), captured once and replayed
+(``common.compiled_scan``).
 Under autograd it runs in chunks of Q tokens (the reference's ``chunk``
 and its rule, ``mamba.chunk_size``), each chunk checkpointed as the
 reference's ``jax.checkpoint(chunk_body)``: the backward keeps a chunk's
@@ -44,7 +48,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.kernels import meta
-from repro_torch.models.common import (dense_init, records,
+from repro_torch.models.common import (compiled_scan, dense_init, records,
                                        remat_if_recording, resolve_dtype,
                                        rms_norm)
 from repro_torch.models.mamba import chunk_size
@@ -164,11 +168,15 @@ def _wkv_loop(r, k, v, w, u, S):
 
 def _recurrence(loop, r, k, v, w, u, S, chunk: int):
     """``loop`` (:func:`_wkv_loop`, or ``meta.wkv`` on ``meta``) over the
-    sequence: one pass where autograd does not record; under autograd
-    chunk by chunk, ``chunk_size(L, chunk)`` tokens each, every chunk
-    checkpointed.  Returns (y, the last state)."""
+    sequence: where autograd does not record, one pass through
+    ``compiled_scan`` (the reference's ``lax.scan`` of its compiled
+    ``chunk_body``: on the card a 64-token and a 1-token body captured
+    once and replayed, bitwise the loop; the plain loop on ``meta`` and
+    under ``eager()``); under autograd chunk by chunk,
+    ``chunk_size(L, chunk)`` tokens each, every chunk checkpointed.
+    Returns (y, the last state)."""
     if not records(r, k, v, w, u, S):
-        return loop(r, k, v, w, u, S)
+        return compiled_scan("wkv", loop, (r, k, v, w), (u,), S)
     Q, ys = chunk_size(r.shape[1], chunk), []
     for c in range(0, r.shape[1], Q):
         sl = slice(c, c + Q)
@@ -182,7 +190,9 @@ def tmix_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                  state: RwkvState, *, chunk: int = 64
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence time-mix.  x (B, L, d).  The projections and the decay
-    run over the whole sequence, the wkv recurrence token by token.  Under
+    run over the whole sequence, the wkv recurrence token by token (without
+    grad, its body replayed from a CUDA graph on the card:
+    :func:`_recurrence`).  Under
     autograd the recurrence runs chunk by chunk, Q = ``chunk_size(L,
     chunk)`` tokens each, every chunk checkpointed (its incoming state and
     its slices of r / k / v / w kept; its per-token states recomputed in

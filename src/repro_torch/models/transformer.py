@@ -109,6 +109,11 @@ class Model(NamedTuple):
     cache_batch_axis: Optional[int] = None
     # (params, batch, ctx: ParallelCtx) -> (loss, metrics): the train forward
     loss_fn: Optional[Callable] = None
+    # whether a prompt's prefill is one fixed sequence of kernels for each
+    # prompt length (the executor keeps a CUDA graph per length); False
+    # where it loops over tokens or chunks (a recurrent family's scan body
+    # is captured inside the eager prefill instead: common.compiled_scan)
+    prefill_per_shape: bool = False
 
 
 @dataclass(frozen=True)
@@ -725,7 +730,8 @@ def _build_decoder(cfg: ModelConfig, num_servers: int, redundant_table,
 
     return Model(cfg, init_params, prefill, decode_step, init_cache,
                  num_servers, prefill_chunk, init_paged_cache,
-                 cache_batch_axis=1, loss_fn=loss_fn)
+                 cache_batch_axis=1, loss_fn=loss_fn,
+                 prefill_per_shape=True)
 
 
 def _build_local_global(cfg: ModelConfig, device) -> Model:
@@ -840,7 +846,7 @@ def _build_local_global(cfg: ModelConfig, device) -> Model:
         return loss, {"ce": ce.detach()}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
-                 loss_fn=loss_fn)
+                 loss_fn=loss_fn, prefill_per_shape=True)
 
 
 def _build_zamba(cfg: ModelConfig, device) -> Model:
@@ -1216,4 +1222,4 @@ def _build_encdec(cfg: ModelConfig, device) -> Model:
         return loss, {"ce": ce.detach()}
 
     return Model(cfg, init_params, prefill, decode_step, init_cache, 1,
-                 loss_fn=loss_fn)
+                 loss_fn=loss_fn, prefill_per_shape=True)

@@ -35,8 +35,9 @@ The reference's compiled step variants are CUDA graphs here
 (:mod:`repro_torch.serving.step_graphs`): ``decode`` in each mode,
 ``decode_masked`` and ``decode_paged`` are captured once, and the decoder
 family's ``prefill``, ``prefill_chunk``, ``prefill_chunk_paged`` and
-``copy_blocks`` once per shape (a prompt or chunk length, a number of
-copy pairs), as the reference compiles them, and replayed.  What the
+``copy_blocks``, and gemma3's and whisper's whole-prompt ``prefill``, once
+per shape (a prompt or chunk length, a number of copy pairs), as the
+reference compiles them, and replayed.  What the
 reference passes as jit arguments — the tokens, the expert->server
 mapping, the liveness mask, the local table, the router bias, the
 replica weights, the block tables and lengths, the wave mask, a chunk's
@@ -50,8 +51,12 @@ are written in place at the addresses the graphs were captured with
 (dense chunked prefill stages in one static batch-1 cache, see
 :meth:`Executor.prefill_chunk`), and the drop / miss totals accumulate
 inside them.  A replay overwrites the previous call's logits and expert
-load: read them before the next call.  The other families' whole-prompt
-prefill runs eagerly.  On the CPU, and under ``step_graphs.eager()``,
+load: read them before the next call.  zamba2's and rwkv6's prefill
+(``Model.prefill_per_shape`` false: a loop over chunks or tokens) runs
+eagerly around the scan bodies it replays, each captured once
+(``models/common.py::compiled_scan``: the SSD carry, the wkv
+recurrence), as the reference's compiled prefill runs a ``lax.scan``
+body compiled once.  On the CPU, and under ``step_graphs.eager()``,
 every variant runs eagerly over the same buffers.  ``migrate_slots`` and
 ``resize`` write the expert weights in place: engines that share them (a
 cluster's clients) have one of them write, once.
@@ -179,10 +184,11 @@ class Executor:
                 step_graphs.addresses(static, rt, self.params, self.cache))
 
     def _run(self, name: str, key: tuple, fn, shape: tuple):
-        """A prefill variant: graphed per shape for the decoder family;
-        the other families' prefill runs eagerly (their per-token and
-        per-chunk loops are not one graph per prompt length)."""
-        if self.supports_chunked_prefill:
+        """A prefill variant: graphed per shape where the family's prefill
+        is one fixed sequence of kernels a prompt length (the decoder
+        family, gemma3, whisper: ``Model.prefill_per_shape``); zamba2's
+        and rwkv6's run eagerly, around the scan bodies they replay."""
+        if self.model.prefill_per_shape:
             return self.graphs.run(name, key, fn, shape)
         return fn()
 

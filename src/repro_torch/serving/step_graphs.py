@@ -41,12 +41,16 @@ or replay raises: nothing runs the step eagerly in a graph's place.
 
 On the CPU (``device="cpu"``) and under :func:`eager` (the counterpart of
 ``jax.disable_jit()``) the same staging runs the step eagerly over the
-static buffers.
+static buffers.  :func:`eager` is ``kernels/build.py``'s switch, below
+both this module and the models: it also turns off the scan bodies the
+recurrent models capture once and replay inside an eager prefill
+(``models/common.py::compiled_scan``: rwkv6's wkv recurrence, zamba2's
+SSD carry).  Captures of both run on the device's one capture stream
+(``build.capture``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -55,21 +59,10 @@ import torch
 
 from repro_torch.kernels import build
 
-# process-wide, as jax.disable_jit() is: set only through eager()
-_EAGER = [False]
-
-
-@contextlib.contextmanager
-def eager():
-    """Run every executor's step variants eagerly inside the block (the
-    reference's ``jax.disable_jit()``): the same staging, no graph.  Graphs
-    are the default on the card."""
-    prev = _EAGER[0]
-    _EAGER[0] = True
-    try:
-        yield
-    finally:
-        _EAGER[0] = prev
+# the switch is process-wide and lives below the models, whose scan bodies
+# read it too (``kernels/build.py``); ``eager`` is the name callers use
+_EAGER = build.EAGER
+eager = build.eager
 
 
 def tensors(tree) -> Iterator[torch.Tensor]:
@@ -156,11 +149,10 @@ class StepGraphs:
         self.replays: Dict[str, int] = {}
         self.per_shape: Dict[Tuple[str, tuple], List[int]] = {}
         self._pool = None
-        self._stream: Optional[torch.cuda.Stream] = None
 
     @property
     def enabled(self) -> bool:
-        return self.device.type == "cuda" and not _EAGER[0]
+        return self.device.type == "cuda" and not build.EAGER[0]
 
     def reset(self) -> None:
         """Drop every graph (a pool resize, a new structure): each variant
@@ -202,38 +194,11 @@ class StepGraphs:
         count[1] += 1
         return v.outputs
 
-    def _capture_stream(self) -> torch.cuda.Stream:
-        """The stream every capture of this executor runs on.  Made at
-        the first capture, with a few small matmuls of each dtype run on
-        it first, so that cuBLAS sets itself up for the stream (its
-        workspace is per stream) outside any capture, as a warm-up on a
-        side stream does.  The steps themselves run their first calls on
-        the caller's stream, as :func:`eager` does."""
-        if self._stream is None:
-            stream = torch.cuda.Stream(self.device)
-            with torch.cuda.stream(stream):
-                for dt in (torch.float32, torch.bfloat16):
-                    a = torch.ones(16, 16, dtype=dt, device=self.device)
-                    torch.addmm(a, a, a)
-                    torch.bmm(a[None], a[None])
-            stream.synchronize()
-            self._stream = stream
-        return self._stream
-
     def _capture(self, v: _Variant, fn) -> None:
-        """Capture ``fn`` into the executor's pool on the capture stream.
-        ``torch.cuda.graph`` would first synchronize, collect garbage and
-        empty the allocator's cache: with a capture per shape, the eager
-        calls after each capture would ``cudaMalloc`` their blocks
-        again."""
-        graph, stream = torch.cuda.CUDAGraph(), self._capture_stream()
+        """Capture ``fn`` into the executor's pool on the device's capture
+        stream (``build.capture``: no synchronize, collection or emptied
+        cache per capture)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with build.recording(v.counts), torch.cuda.stream(stream):
-            graph.capture_begin(self._pool)
-            try:
-                v.outputs = fn()
-            finally:
-                graph.capture_end()
-        v.graph = graph
+        v.graph, v.outputs = build.capture(fn, self.device, self._pool,
+                                           v.counts)

@@ -1523,3 +1523,121 @@ def test_graph_prefill_equals_eager_bitwise(cuda, variant):
     assert not plain.graphs.captures and not plain.graphs.replays
     if variant != "copy_blocks":
         assert build.LAUNCHES["grouped_gemm"] > 0
+
+
+# ---- every family's prefill compiled: per-shape graphs and scan bodies ----
+
+def _scan_inputs(cuda, L, seed):
+    """A reduced fp32 rwkv6 time-mix layer's params, state and input, and
+    a (B = 1) chunked SSD's inputs, L steps each, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv
+
+    cfg = get_config("rwkv6-7b").reduced().replace(dtype="float32")
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    tp = rwkv.init_rwkv_tmix(cfg, torch.float32, cuda, g)
+    tp["bonus_u"].normal_(generator=g)
+    state = rwkv.init_rwkv_state(cfg, 1, cuda)
+    state.wkv.normal_(generator=g).mul_(0.2)
+    x = torch.randn(1, L, cfg.d_model, generator=g, device=cuda) * 0.5
+    H, P, N = 4, 8, 16
+    ssd = (torch.randn(1, L, H, P, generator=g, device=cuda) * 0.3,
+           -torch.rand(1, L, H, generator=g, device=cuda) * 0.3,
+           torch.randn(1, L, N, generator=g, device=cuda) * 0.5,
+           torch.randn(1, L, N, generator=g, device=cuda) * 0.5,
+           torch.randn(1, H, P, N, generator=g, device=cuda) * 0.3)
+    return cfg, tp, state, x, ssd
+
+
+@pytest.mark.cuda
+def test_scan_bodies_graph_equals_eager_bitwise(cuda):
+    """``tmix_forward`` and ``_ssd_chunked`` without grad, their scans
+    captured once and replayed, give outputs and states bitwise those of
+    the same calls under ``step_graphs.eager()`` (the plain loops) at L =
+    1, 63, 64, 65 and 1021 (a prime: the SSD at Q = 1, 15 x 64 + 61
+    chunks), each length run three times; two bodies per scan captured
+    over all of it."""
+    from repro_torch.models import common, mamba, rwkv
+    from repro_torch.serving import step_graphs
+
+    common.reset_scans()
+    with torch.inference_mode():
+        for L in (1, 63, 64, 65, 1021):
+            cfg, tp, state, x, ssd = _scan_inputs(cuda, L, L)
+            with step_graphs.eager():
+                want = (*rwkv.tmix_forward(tp, cfg, x, state),
+                        *mamba._ssd_chunked(*ssd, chunk=64))
+            for _ in range(3):
+                got = (*rwkv.tmix_forward(tp, cfg, x, state),
+                       *mamba._ssd_chunked(*ssd, chunk=64))
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), L
+    stats = common.SCAN_STATS
+    assert stats["wkv"]["captures"] == 2
+    assert stats["ssd_carry"]["captures"] == 2
+    assert stats["wkv"]["replays"] > 0 and stats["ssd_carry"]["replays"] > 0
+
+
+def _family_executor(cuda, arch, params=None):
+    """A reduced bf16 executor of ``arch`` on the card: 4 slots of 128."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving.executor import Executor
+
+    kw = {"num_layers": 6} if arch == "gemma3-4b" else {}
+    cfg = get_config(arch).reduced().replace(dtype="bfloat16", **kw)
+    model = build_model(cfg, 1, None, cuda)
+    if params is None:
+        params = model.init_params(
+            torch.Generator(device=cuda).manual_seed(0))
+    return Executor(model, params, None, max_batch=4, max_seq=128,
+                    device=cuda)
+
+
+FAMILY_PROMPTS = ((0, 71), (2, 71), (1, 40), (3, 71), (0, 40), (2, 40),
+                  (1, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-4b", "whisper-base",
+                                  "zamba2-2.7b", "rwkv6-7b"])
+def test_family_prefill_graphs_equal_eager_bitwise(cuda, arch):
+    """Whole prompts of 71, 40 and 64 tokens into changing slots: each
+    call's logits and every cache leaf bitwise those of the same calls
+    under ``step_graphs.eager()``.  gemma3 and whisper capture once per
+    length seen twice or more (never on a first sight, never per slot)
+    and replay after; zamba2 and rwkv6 keep no prefill graph, and capture
+    their scan's two bodies once for every layer and prompt."""
+    import collections
+
+    from repro_torch.models import common
+    from repro_torch.serving import step_graphs
+
+    common.reset_scans()
+    graphed = _family_executor(cuda, arch)
+    plain = _family_executor(cuda, arch, params=graphed.params)
+    rng = np.random.default_rng(6)
+    seen = collections.Counter()
+    for slot, n in FAMILY_PROMPTS:
+        prompt = rng.integers(0, graphed.model.cfg.vocab_size, n)
+        seen[n] += 1
+        got = graphed.prefill(slot, prompt).clone()
+        with step_graphs.eager():
+            want = plain.prefill(slot, prompt)
+        assert torch.equal(got, want), (arch, slot, n)
+        for a, b in zip(step_graphs.tensors(graphed.cache),
+                        step_graphs.tensors(plain.cache)):
+            assert torch.equal(a, b), (arch, slot, n)
+    g = graphed.graphs
+    if graphed.model.prefill_per_shape:
+        assert [s for _, s in g.keys["prefill"]] == [(n,) for n in seen]
+        for n, k in seen.items():
+            assert g.per_shape.get(("prefill", (n,)), [0, 0]) == \
+                ([1, k - 1] if k >= 2 else [0, 0]), n
+        assert not common.SCAN_STATS
+    else:
+        assert "prefill" not in g.keys and not g.captures
+        name = "ssd_carry" if arch == "zamba2-2.7b" else "wkv"
+        assert list(common.SCAN_STATS) == [name]
+        assert common.SCAN_STATS[name]["captures"] == 2
+    assert not plain.graphs.captures and not plain.graphs.replays
