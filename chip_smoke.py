@@ -155,13 +155,15 @@ Phases, each of which raises on failure (exit code != 0):
 22. training at full width: deepseek-r1 at its published widths, depth
    cut to 1 dense + 1 MoE block (13.47 B params, bf16), 2 expert servers
    of 128 experts, 8 Adafactor steps (lr 1e-4) on one repeated batch of
-   8 x 256 synthetic tokens: finite losses that fall, the grouped GEMM,
-   its dx / dw kernels and the combine's slot entry launched every step;
-   step wall p50, train tokens/s, the forward / backward / optimizer
-   split, device busy and idle share (profiled), launches per step, peak
-   memory;
+   8 x 256 synthetic tokens through the compiled step (a CUDA graph):
+   finite losses that fall, the grouped GEMM, its dx / dw kernels and the
+   combine's slot entry launched every step; step wall p50, train
+   tokens/s, device busy and idle share (profiled), launches per step,
+   graph pool, peak memory (the forward / backward / optimizer split is
+   phase 30's eager arm's);
 23. the train launcher, ``python -m repro_torch.launch.train --arch
-   granite-3-2b`` (full width and depth, 2.5 B params, AdamW), 10 steps.
+   granite-3-2b`` (full width and depth, 2.5 B params, AdamW), 10 steps,
+   its step a CUDA graph.
    The kernels phase (3) also holds the backward kernels
    (``grouped_gemm_dx`` / ``_dw``) against their plain versions at the
    full-width training shapes (bf16, 2e-2; dw also accumulating, the
@@ -192,9 +194,10 @@ Phases, each of which raises on failure (exit code != 0):
    ranks on one device) running reduced deepseek-r1 on a (2, 2) mesh
    against the one-process run (1e-5).
 25. mesh: the dry-run's cells on torch.distributed (``mesh_phase``): the
-   full-width train cells of deepseek-r1, gemma3-4b (its peak and step
-   wall printed beside the values measured without the attention's
-   q-block checkpoints) and whisper-base and the decode cells of four
+   full-width train cells of deepseek-r1, gemma3-4b (depth cut to 12 of
+   its 34 layers for the script's time limit; its one-device step also
+   run without the attention's q-block checkpoints, bitwise, peak and
+   step wall printed) and whisper-base and the decode cells of four
    families on a 1 x 1 NCCL mesh against the one-device path, 4 gloo
    ranks on reduced cells, and the per-rank accounting on ``meta``;
 26. remat: one rwkv6-7b time-mix layer at its published widths (d_model
@@ -254,7 +257,20 @@ Phases, each of which raises on failure (exit code != 0):
    L = 1, 63, 64, 65 and 1021.  Each arm's TTFT p50 / p99, prefill wall
    by prompt length (ms a token), a prompt profiled back to back (device
    busy, idle share, host calls that enqueue work), and the memory each
-   capture added.
+   capture added;
+30. train-graphs: the train step compiled as the reference jits it
+   (``train_loop.compile_train_step``: the whole step one CUDA graph,
+   captured at the second step and replayed, the step counter, learning
+   rate and optimizer state as data written in place; phases 22-23 run
+   so and are this phase's graphed arms), against
+   ``step_graphs.eager()`` from the same seed: phase 22's deepseek-r1
+   workload and phase 23's granite-3-2b launcher.  Losses, grad norms,
+   kernel launches per step and a digest of the params, optimizer state
+   and step counter equal; one capture and steps - 2 replays, none
+   eager; deepseek-r1's four training-path kernels launched at every
+   step.  Each arm's step wall p50, a profiled step's device busy, idle
+   share and host calls that enqueue work, the graph pool, the peak
+   memory; the eager arm's forward / backward / optimizer split.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -264,7 +280,8 @@ backward kernels' checks and phases 21-23; ``--only spmd`` the partial
 kernel's checks and phase 24; ``--only mesh`` the partial kernel's checks
 and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
 ``--only graphs`` phase 27; ``--only prefill`` phase 28;
-``--only family-prefill`` phase 29.
+``--only family-prefill`` phase 29; ``--only train-graphs`` phase 30
+(both arms of both workloads).
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -3162,19 +3179,56 @@ def _timed(torch, fn, acc: list):
     return run
 
 
-def train_phase(torch, get_config, smi):
-    """deepseek-r1 at its full published widths, depth cut to 1 dense + 1
-    MoE block (13.47 B params, bf16), trained 8 steps with Adafactor on
-    one repeated batch of 8 x 256 synthetic tokens, S = 2 expert servers
-    of 128 experts (no replicas), no remat, CE in 256-position chunks:
-    finite losses that fall, the four training-path kernels launched
-    every step; the step wall p50, tokens/s, the forward / backward /
-    optimizer split, device busy and idle share (profiled), launches per
-    step and peak memory.  Returns the launches of the 8 steps and the
-    group sizes of its first step's first dw launch (one server's: every
-    expert GEMM of a server shares them)."""
+TRAIN_STEPS = {"deepseek-r1": 8, "granite-3-2b": 10}
+
+
+def _state_digest(torch, state) -> str:
+    """The params', the optimizer state's, the residual's and the step's
+    exact bits (``_param_digest``)."""
+    return _param_digest(torch, {"params": state.params,
+                                 "opt": state.opt_state,
+                                 "ef": state.ef_residual or {},
+                                 "step": state.step.reshape(1)})
+
+
+def _record_step(arm: dict, met, wall_ms: float, launches: dict) -> None:
+    """One step's loss, grad norm, wall and kernel launches."""
+    arm["wall_ms"].append(wall_ms)
+    arm["losses"].append(float(met["loss"]))
+    arm["grad_norms"].append(float(met["grad_norm"]))
+    arm["per_step"].append(launches)
+
+
+def _close_arm(torch, arm: dict, state, met, step, batch) -> None:
+    """After the last step: the state's digest, the step's captures /
+    replays / graph pool, peak memory, then one more step profiled (after
+    the digest: it moves the state on)."""
     import types
 
+    arm.update(digest=_state_digest(torch, state),
+               step_counter=int(state.step), captures=step.captures,
+               replays=step.replays, pool_gib=step.pool_bytes / 2**30,
+               dropped=int(met.get("dropped", 0)),
+               miss=int(met.get("miss", 0)), **_memory(torch))
+    arm["prof"] = _step_profile(torch, types.SimpleNamespace(
+        step=lambda: step(state, batch)), 1)
+
+
+def _new_arm() -> dict:
+    return {"wall_ms": [], "losses": [], "grad_norms": [], "per_step": []}
+
+
+def _dsr1_train_arm(torch, get_config, graphs: bool) -> dict:
+    """Phase 22's workload, one arm: deepseek-r1 at its full published
+    widths, depth cut to 1 dense + 1 MoE block (13.47 B params, bf16),
+    S = 2 expert servers of 128 experts (no replicas), no remat, CE in
+    256-position chunks, 8 Adafactor steps (lr 1e-4) on one repeated
+    batch of 8 x 256 synthetic tokens, from seed 0, through
+    ``compile_train_step`` as CUDA graphs or under ``eager()``.  The
+    eager arm also times the forward and the optimizer inside the step
+    (their host syncs cannot sit inside a capture).  Also returns the
+    group sizes of the first step's first dw launch (one server's: every
+    expert GEMM of a server shares them; step 0 is eager in both arms)."""
     import numpy as np
 
     from repro_torch.core.moe_layer import default_runtime
@@ -3184,7 +3238,8 @@ def train_phase(torch, get_config, smi):
     from repro_torch.training import optimizer as topt
     from repro_torch.training import tree
     from repro_torch.training.data import synthetic_lm_batches
-    from repro_torch.training.train_loop import (init_train_state,
+    from repro_torch.training.train_loop import (compile_train_step,
+                                                 init_train_state,
                                                  make_train_step)
 
     _free(torch)
@@ -3192,128 +3247,265 @@ def train_phase(torch, get_config, smi):
     cfg = base.replace(num_layers=2,
                        moe=dataclasses.replace(base.moe, first_k_dense=1))
     S, B, L = 2, 8, 256
-    t0 = time.perf_counter()
-    model = build_model(cfg, S, np.zeros((S, 0), np.int32), "cuda")
-    rt = default_runtime(cfg, S, B * L, "cuda")
-    fwd, opt_ms = [], []
-    opt = topt.adafactor(lr=1e-4)
-    timed_model = model._replace(loss_fn=_timed(torch, model.loss_fn, fwd))
-    timed_opt = opt._replace(apply_=_timed(torch, opt.apply_, opt_ms))
-    state = init_train_state(model, opt,
-                             torch.Generator(device="cuda").manual_seed(0))
+    arm = _new_arm()
+    with _arm(graphs):
+        t0 = time.perf_counter()
+        model = build_model(cfg, S, np.zeros((S, 0), np.int32), "cuda")
+        rt = default_runtime(cfg, S, B * L, "cuda")
+        opt = topt.adafactor(lr=1e-4)
+        fwd, opt_ms = [], []
+        if not graphs:
+            model = model._replace(loss_fn=_timed(torch, model.loss_fn, fwd))
+            opt = opt._replace(apply_=_timed(torch, opt.apply_, opt_ms))
+        state = init_train_state(
+            model, opt, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        arm.update(cfg=cfg, S=S, B=B, L=L, capacity=rt.capacity,
+                   n_params=sum(p.numel() for p in tree.leaves(state.params)),
+                   init_s=time.perf_counter() - t0,
+                   resident_gib=torch.cuda.memory_allocated() / 2**30)
+        step = compile_train_step(make_train_step(
+            model, opt, TrainCtx(moe_runtime=rt, remat=False, ce_chunk=256)),
+            "cuda")
+        batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        routed, dw_cuda = [], kag.grouped_gemm_dw_cuda
+
+        def seen(x, dy, sizes, out=None):
+            routed.append(sizes.clone())    # no sync: read after the step
+            return dw_cuda(x, dy, sizes, out=out)
+
+        for i in range(TRAIN_STEPS["deepseek-r1"]):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            kag.grouped_gemm_dw_cuda = seen if i == 0 else dw_cuda
+            try:
+                state, met = step(state, batch)
+            finally:
+                kag.grouped_gemm_dw_cuda = dw_cuda
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            _record_step(arm, met, (time.perf_counter() - t1) * 1e3,
+                         {k: after[k] - before[k] for k in after})
+        _close_arm(torch, arm, state, met, step, batch)
+        arm.update(routed=routed[0].tolist(), fwd_ms=fwd, opt_ms=opt_ms)
+    del state, model, step
+    _free(torch)
+    return arm
+
+
+def _launcher_train_arm(torch, graphs: bool) -> dict:
+    """Phase 23's workload, one arm: the normal entry point, ``python -m
+    repro_torch.launch.train --arch granite-3-2b`` (its default arch) at
+    full width and depth (40 layers, 2.5 B params, bf16, AdamW under a
+    cosine schedule with 10 warm-up steps), 10 steps of the synthetic
+    stream, no checkpoint directory; its compiled step as CUDA graphs (the
+    default) or under ``eager()``, each step observed through
+    ``launch.train.run``'s hook (a step's wall runs from the previous
+    observation, so step 0's holds the set-up)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+
+    _free(torch)
+    ops.reset_launches()
+    arm = _new_arm()
+    n = TRAIN_STEPS["granite-3-2b"]
+    marks = {"launches": ops.launch_counts()}
+
+    def observe(i, state, met, step, batch):
+        torch.cuda.synchronize()
+        after = ops.launch_counts()
+        _record_step(arm, met, (time.perf_counter() - marks["t"]) * 1e3,
+                     {k: after[k] - marks["launches"][k] for k in after})
+        if i == n - 1:
+            _close_arm(torch, arm, state, met, step, batch)
+        marks.update(t=time.perf_counter(), launches=ops.launch_counts())
+
+    with _arm(graphs):
+        marks["t"] = t0 = time.perf_counter()
+        hist = launch_train.run(launch_train.parser().parse_args(
+            ["--arch", "granite-3-2b", "--steps", str(n)]), observe=observe)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    arm.update(hist=hist, run_s=time.perf_counter() - t0,
+               launches=ops.launch_counts())
+    _free(torch)
+    return arm
+
+
+def _train_arm_line(label, name, r, smi) -> str:
+    p = r["prof"]
+    prof = ("the profiler saw no device time (not measured)" if p is None
+            else f"profiled step {p['plain_ms']:.1f} ms, device busy "
+                 f"{p['busy_ms']:.1f} ms (union {p['union_ms']:.1f} ms), "
+                 f"idle share "
+                 f"{max(0.0, 1 - p['union_ms'] / p['plain_ms']):.4f}, host "
+                 f"calls that enqueue work {p['host_launches']:.1f} a step "
+                 f"{json.dumps(p.get('host_calls', {}))}, device kernels "
+                 f"{p['launches']:.0f} and copies {p['copies']:.0f} a step")
+    return (f"{label} ({name}): step wall p50 "
+            f"{statistics.median(r['wall_ms'][2:]):.1f} ms over steps "
+            f"2-{len(r['wall_ms']) - 1} (step 1, the graphs arm's capture, "
+            f"{r['wall_ms'][1]:.1f} ms); {prof}; captures "
+            f"{r['captures']}, replays {r['replays']}, graph pool "
+            f"{r['pool_gib']:.2f} GiB; peak memory {r['peak_gib']:.2f} GiB "
+            f"allocated, {r['reserved_gib']:.2f} GiB reserved; digest "
+            f"{r['digest']} ({smi})")
+
+
+def train_phase(torch, get_config, smi):
+    """Phase 22: phase 22's deepseek-r1 workload (``_dsr1_train_arm``)
+    through its compiled step, as CUDA graphs: finite losses that fall,
+    the four training-path kernels launched every step; the step wall
+    p50, tokens/s, device busy and idle share (profiled), launches per
+    step and peak memory.  Returns the 8 steps' launches, the group
+    sizes of its first step's first dw launch, and the arm (phase 30's
+    graphed arm)."""
+    import numpy as np
+
+    r = _dsr1_train_arm(torch, get_config, graphs=True)
+    cfg, losses = r["cfg"], r["losses"]
     log(f"train: deepseek-r1 d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} vocab={cfg.vocab_size} experts="
         f"{cfg.moe.num_experts} top-{cfg.moe.top_k} d_expert="
         f"{cfg.moe.d_expert} layers={cfg.num_layers} (1 dense + 1 MoE) "
-        f"{cfg.dtype}: {n_params / 1e9:.2f}B params, init "
-        f"{time.perf_counter() - t0:.1f}s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; S = {S}, "
-        f"capacity {rt.capacity}, batch {B} x {L}, Adafactor lr 1e-4")
-    ctx = TrainCtx(moe_runtime=rt, remat=False, ce_chunk=256)
-    step = make_train_step(timed_model, timed_opt, ctx)
-    batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    losses, walls, per_step = [], [], []
-    routed, dw_cuda = [], kag.grouped_gemm_dw_cuda
-
-    def seen(x, dy, sizes, out=None):
-        routed.append(sizes.clone())    # no sync: read after the step
-        return dw_cuda(x, dy, sizes, out=out)
-    for i in range(8):
-        before = ops.launch_counts()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        kag.grouped_gemm_dw_cuda = seen if i == 0 else dw_cuda
-        try:
-            state, met = step(state, batch)
-        finally:
-            kag.grouped_gemm_dw_cuda = dw_cuda
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(met["loss"]))
-        after = ops.launch_counts()
-        per_step.append({k: after[k] - before[k] for k in after})
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+        f"{cfg.dtype}: {r['n_params'] / 1e9:.2f}B params, init "
+        f"{r['init_s']:.1f}s, {r['resident_gib']:.1f} GiB; S = {r['S']}, "
+        f"capacity {r['capacity']}, batch {r['B']} x {r['L']}, Adafactor "
+        f"lr 1e-4, the step compiled (a CUDA graph)")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses} do not fall")
-    missing = [(i, k) for i, n in enumerate(per_step) for k in TRAIN_PATH
-               if n[k] <= 0]
+    missing = [(i, k) for i, n in enumerate(r["per_step"])
+               for k in TRAIN_PATH if n[k] <= 0]
     if missing:
         raise AssertionError(f"train: kernels not launched in a step: "
                              f"{missing}")
-    p50 = statistics.median(walls[1:])
-    f50, o50 = statistics.median(fwd[1:]), statistics.median(opt_ms[1:])
+    launches = {k: sum(n[k] for n in r["per_step"]) for k in r["per_step"][0]}
+    p50 = statistics.median(r["wall_ms"][2:])
     rises = sum(b > a for a, b in zip(losses, losses[1:]))
     log(f"train: losses {[round(x, 4) for x in losses]} (one repeated "
-        f"batch; {rises} of 7 steps rose), grad_norm last {float(met['grad_norm']):.3f}, dropped "
-        f"{int(met['dropped'])}, miss {int(met['miss'])}")
-    log(f"train: step wall p50 {p50:.1f} ms over steps 1-7 (step 0 "
-        f"{walls[0]:.1f} ms), {B * L * 1e3 / p50:.1f} train tokens/s; "
-        f"forward {f50:.1f} ms, backward (with the gradient collection and "
-        f"clip) {p50 - f50 - o50:.1f} ms, optimizer {o50:.1f} ms; "
-        f"launches per step {json.dumps(per_step[-1])}; peak memory "
-        f"{peak:.2f} GiB ({smi})")
-    prof = _step_profile(torch, types.SimpleNamespace(
-        step=lambda: step(state, batch)), 1)
-    if prof is None:
-        log("train: the profiler saw no device time (not measured)")
-    else:
-        log(f"train: profiled step wall {prof['plain_ms']:.1f} ms, device "
-            f"busy {prof['busy_ms']:.1f} ms (union {prof['union_ms']:.1f} "
-            f"ms), idle share "
-            f"{max(0.0, 1 - prof['union_ms'] / prof['plain_ms']):.3f}; "
-            f"{prof['launches']:.0f} device launches and "
-            f"{prof['copies']:.0f} copies per step")
-        top = sorted(prof["rows"].items(), key=lambda kv: -kv[1][0])
+        f"batch; {rises} of 7 steps rose), grad_norm last "
+        f"{r['grad_norms'][-1]:.3f}, dropped {r['dropped']}, miss "
+        f"{r['miss']}; {r['B'] * r['L'] * 1e3 / p50:.1f} train tokens/s; "
+        f"launches per step {json.dumps(r['per_step'][-1])}")
+    log(_train_arm_line("train", "graphs", r, smi))
+    p = r["prof"]
+    if p is not None:
+        top = sorted(p["rows"].items(), key=lambda kv: -kv[1][0])
         for key, (ms, n) in top[:8]:
             log(f"train: {ms:9.3f} ms/step {n:6.1f} calls/step  {key[:90]}")
-    del state, model, step, timed_model
-    _free(torch)
-    return launches, routed[0].tolist()
+    return launches, r["routed"], r
 
 
 def train_phases(torch, get_config, smi, cases):
     """Phases 21-23: the backward kernels' edges were checked in the
     kernels phase; here the training reference, the full-width run, the
     backward kernels on the sizes that run routed, and the launcher.
-    Returns (the full-width run's launches, the launcher's)."""
+    Returns (the full-width run's launches, the launcher's, the graphed
+    arms of both for phase 30)."""
     train_reference_phase(torch, get_config)
-    launches, routed = train_phase(torch, get_config, smi)
+    launches, routed, dsr1 = train_phase(torch, get_config, smi)
     captured_sizes_case(torch, get_config("deepseek-r1"), cases, routed)
-    return launches, train_launcher_phase(torch)
+    launcher = train_launcher_phase(torch, smi)
+    return launches, launcher["launches"], {"deepseek-r1": dsr1,
+                                            "granite-3-2b": launcher}
 
 
-def train_launcher_phase(torch) -> dict:
-    """The normal entry point, ``python -m repro_torch.launch.train --arch
-    granite-3-2b`` (its default arch) at full width and depth (40 layers,
-    2.5 B params, bf16, AdamW), 10 steps of the synthetic stream, no
-    checkpoint directory."""
+def train_launcher_phase(torch, smi) -> dict:
+    """Phase 23: the launcher's workload (``_launcher_train_arm``), its
+    step a CUDA graph (the launcher's default on the card): finite
+    losses; the arm (phase 30's graphed arm)."""
     import numpy as np
 
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train as launch_train
-
-    _free(torch)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    hist = launch_train.run(launch_train.parser().parse_args(
-        ["--arch", "granite-3-2b", "--steps", "10"]))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    r = _launcher_train_arm(torch, graphs=True)
+    hist = r["hist"]
     if not hist or not all(np.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"train launcher: {hist}")
     log(f"train launcher: granite-3-2b full width and depth, 10 steps of "
         f"8 x 64 tokens (AdamW, cosine warm-up 10): logged {hist}; "
-        f"{wall:.1f}s with init, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{json.dumps(ops.launch_counts())} (a dense model: no TPU kernel "
+        f"{r['run_s']:.1f}s with init; launches "
+        f"{json.dumps(r['launches'])} (a dense model: no TPU kernel "
         "on its path)")
-    _free(torch)
-    return ops.launch_counts()
+    log(_train_arm_line("train launcher", "graphs", r, smi))
+    return r
+
+
+# ---- phase 30: the train step as one CUDA graph ---------------------------
+
+def _train_graph_checks(label, g, e) -> list:
+    """What phase 30 requires of one workload's arms."""
+    n = len(g["losses"])
+    bad = []
+    for k in ("losses", "grad_norms", "digest", "step_counter", "per_step",
+              "dropped", "miss"):
+        if g[k] != e[k]:
+            bad.append(f"{label}: {k} differ: graphs {g[k]} vs eager {e[k]}")
+    if (g["captures"], g["replays"]) != (1, n - 2):
+        bad.append(f"{label}: graphs captured {g['captures']} and replayed "
+                   f"{g['replays']} times over {n} steps (want 1, {n - 2})")
+    if (e["captures"], e["replays"]) != (0, 0):
+        bad.append(f"{label}: eager() captured {e['captures']}")
+    if g["step_counter"] != n:
+        bad.append(f"{label}: the step counter reads {g['step_counter']}")
+    if len({json.dumps(c, sort_keys=True) for c in g["per_step"]}) != 1:
+        bad.append(f"{label}: launches differ by step {g['per_step']}")
+    for arm, r in (("graphs", g), ("eager", e)):
+        logged = [(h["loss"], h["grad_norm"]) for h in r.get("hist", [])]
+        if any(x not in zip(r["losses"], r["grad_norms"]) for x in logged):
+            bad.append(f"{label} ({arm}): the launcher logged {logged}, "
+                       f"not its steps' metrics")
+    return bad
+
+
+def train_graphs_phase(torch, get_config, smi, graphed=None) -> dict:
+    """Phase 30: the train step compiled as the reference jits it, one
+    CUDA graph captured at the second step and replayed, against
+    ``step_graphs.eager()`` from the same seed: phase 22's deepseek-r1
+    workload (full width, depth 2, Adafactor, 8 steps) and phase 23's
+    granite-3-2b launcher (full width and depth, AdamW, cosine warm-up
+    10, 10 steps).  ``graphed``: phases 22-23's arms (run here when
+    None).  Losses, grad norms, launches per step and a digest of the
+    params, optimizer state and step counter equal; one capture and
+    steps - 2 replays, none eager; deepseek-r1's four training-path
+    kernels launched every step.  Each arm's step wall p50, the profiled
+    step's device busy, idle share and host calls that enqueue work, the
+    graph pool and the peak memory.  Returns the eager arms' launches."""
+    if graphed is None:
+        graphed = {"deepseek-r1": _dsr1_train_arm(torch, get_config, True),
+                   "granite-3-2b": _launcher_train_arm(torch, True)}
+    eager = {"deepseek-r1": _dsr1_train_arm(torch, get_config, False),
+             "granite-3-2b": _launcher_train_arm(torch, False)}
+    bad, out = [], {}
+    for label, g in graphed.items():
+        e = eager[label]
+        bad += _train_graph_checks(label, g, e)
+        log(_train_arm_line(f"train-graphs: {label}", "graphs", g, smi))
+        log(_train_arm_line(f"train-graphs: {label}", "eager", e, smi))
+        same = (g["losses"], g["grad_norms"]) == (e["losses"],
+                                                   e["grad_norms"])
+        log(f"train-graphs: {label}: losses {g['losses']} grad norms "
+            f"{g['grad_norms']} (graphs), the eager arm's equal: {same}; "
+            f"launches a step {json.dumps(g['per_step'][-1])}")
+        out[label] = {k: sum(n[k] for n in e["per_step"])
+                      for k in e["per_step"][0]}
+    d = eager["deepseek-r1"]
+    if d["fwd_ms"]:
+        p50 = statistics.median(d["wall_ms"][1:])
+        f50, o50 = (statistics.median(d["fwd_ms"][1:]),
+                    statistics.median(d["opt_ms"][1:]))
+        log(f"train-graphs: deepseek-r1 (eager): forward {f50:.1f} ms, "
+            f"backward (with the gradient collection and clip) "
+            f"{p50 - f50 - o50:.1f} ms, optimizer {o50:.1f} ms of a "
+            f"{p50:.1f} ms step (steps 1-7, each part synchronised) ({smi})")
+    missing = [(i, k) for i, n in enumerate(graphed["deepseek-r1"]
+                                            ["per_step"])
+               for k in TRAIN_PATH if n[k] <= 0]
+    if missing:
+        bad.append(f"deepseek-r1: kernels not launched in a graphed step: "
+                   f"{missing}")
+    if bad:
+        raise AssertionError("train-graphs: " + "; ".join(bad))
+    return out
 
 
 def train_alone(torch, get_config, smi) -> None:
@@ -4031,10 +4223,12 @@ def mesh_full_width(torch, get_config, smi) -> dict:
     return launches
 
 
-# a train cell's peak (GiB) and step wall p50 (ms) measured on this path
-# before the attention's q-block checkpoints (NVIDIA H100 80GB HBM3,
-# 700.00 W); the cell also runs its one-device step without them
-UNCHECKPOINTED = {"gemma3-4b": (27.76, 3312.0)}
+# the train cells that also run their one-device step without the
+# attention's q-block checkpoints
+UNCHECKPOINTED = ("gemma3-4b",)
+# train cells whose depth is cut (layers), for the script's time limit:
+# gemma3-4b's 12 of 34 keep two of its global layers (5 local : 1 global)
+TRAIN_CELL_DEPTH = {"gemma3-4b": 12}
 
 
 def _unchecked_core(torch, attention):
@@ -4052,8 +4246,8 @@ def _unchecked_core(torch, attention):
 
 
 def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
-    """(a) ``arch``'s train cell at its published widths and depth on a
-    1 x 1 NCCL mesh (its production phase ``train_tp``, remat, CE chunks
+    """(a) ``arch``'s train cell at its published widths and depth (cut
+    where ``TRAIN_CELL_DEPTH`` says) on a 1 x 1 NCCL mesh (its production phase ``train_tp``, remat, CE chunks
     of 512, Adafactor lr 1e-3; whisper's frames from numpy) against the
     one-device ``make_train_step`` on weights rebuilt from the same seed:
     loss, grad norm and the updated params' digest must be bitwise equal
@@ -4071,6 +4265,8 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
 
     _free(torch)
     cfg = get_config(arch)
+    if arch in TRAIN_CELL_DEPTH:
+        cfg = cfg.replace(num_layers=TRAIN_CELL_DEPTH[arch])
     steps = 3
     batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
     meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
@@ -4145,7 +4341,6 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
         f"{got['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB, idle share "
         f"{got['idle']} vs {ref['idle']} ({smi})")
     if plain is not None:
-        gib, ms = UNCHECKPOINTED[arch]
         plain_same = all(plain[k] == ref[k] for k in keys)
         log(f"mesh: {arch} train cell with the attention's q-block "
             f"checkpoints: peak {got['peak_gib']:.2f} GiB, step wall "
@@ -4153,9 +4348,7 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
             f"{ref['wall_ms']:.1f} ms); the one-device step without them in "
             f"this run {plain['peak_gib']:.2f} GiB, {plain['wall_ms']:.1f} ms"
             f", loss, grad_norm and params digest "
-            f"{'bitwise equal' if plain_same else 'DIFFER'}; measured "
-            f"without them before: {gib:.2f} GiB, {ms:.1f} ms (NVIDIA H100 "
-            f"80GB HBM3, 700.00 W) ({smi})")
+            f"{'bitwise equal' if plain_same else 'DIFFER'} ({smi})")
         if not plain_same:
             raise AssertionError(f"mesh: {arch} with and without the q-block"
                                  f" checkpoints: {ref} vs {plain}")
@@ -4292,12 +4485,18 @@ def mesh_families_full(torch, get_config, smi) -> dict:
     whisper's self cache) and flash decode (gemma3's rings, whisper's
     cross attention) must launch where the cell runs them.  Returns the
     launches by family."""
+    t0 = time.perf_counter()
     _family_train_cell(torch, get_config, smi, "gemma3-4b", 8, 2048)
     _family_train_cell(torch, get_config, smi, "whisper-base", 8, 256)
+    times = {"train cells": time.perf_counter() - t0}
     out = {}
     for arch, P, slots, tol, eq in FAMILY_DECODE:
+        t0 = time.perf_counter()
         out[arch] = _family_decode_cell(torch, get_config, smi, arch, P,
                                         slots, tol, eq)
+        times[arch] = time.perf_counter() - t0
+    log(f"time: mesh: the families' cells (s) "
+        f"{json.dumps({k: round(v, 1) for k, v in times.items()})}")
     need = {"gemma3-4b": FAMILY_KERNELS,
             "zamba2-2.7b": ("flash_decode_partial",),
             "whisper-base": FAMILY_KERNELS}
@@ -4578,7 +4777,10 @@ def mesh_multirank(torch, get_config, smi) -> None:
     from repro_torch.distributed import sharding_rules as tsr
     from repro_torch.training import tree
 
+    t0 = time.perf_counter()
     ranks = _run_ranks(_mesh_rank, 4, (), timeout=600)
+    log(f"time: mesh: the 4 gloo ranks answered in "
+        f"{time.perf_counter() - t0:.1f} s")
     bad = [r[1] for r in ranks if r[2] is None]
     if bad:
         raise AssertionError(f"mesh (4 ranks): a rank failed:\n{bad[0]}")
@@ -4692,10 +4894,18 @@ def mesh_phase(torch, get_config, smi):
     launches by family."""
     acct = _accounting_start()
     try:
+        t0 = time.perf_counter()
         launches = mesh_full_width(torch, get_config, smi)
+        t1 = time.perf_counter()
         families = mesh_families_full(torch, get_config, smi)
+        t2 = time.perf_counter()
         mesh_multirank(torch, get_config, smi)
+        t3 = time.perf_counter()
         _accounting_report(acct)
+        log(f"time: mesh: deepseek-r1's cell {t1 - t0:.1f} s, the "
+            f"families' cells {t2 - t1:.1f} s, 4 gloo ranks {t3 - t2:.1f} "
+            f"s, then waited {time.perf_counter() - t3:.1f} s for the "
+            "accounting")
     finally:
         if acct.poll() is None:
             acct.kill()
@@ -5777,7 +5987,9 @@ def main() -> int:
              "graphs": lambda: graphs_phase(torch, get_config, smi),
              "prefill": lambda: prefill_phase(torch, get_config, smi),
              "family-prefill": lambda: family_prefill_phase(
-                 torch, get_config, smi)}
+                 torch, get_config, smi),
+             "train-graphs": lambda: train_graphs_phase(torch, get_config,
+                                                        smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -5799,44 +6011,82 @@ def main() -> int:
         elif line.startswith("=="):
             log(f"build: {line.strip()}")
 
+    clock = {"start": time.perf_counter()}
+    clock["t"] = clock["start"]
+
+    def mark(phase):
+        """The seconds a phase took, and the script's so far."""
+        now = time.perf_counter()
+        log(f"time: {phase} {now - clock['t']:.1f} s (script "
+            f"{now - clock['start']:.1f} s)")
+        clock["t"] = now
+
     cfg = get_config("deepseek-r1")
     cases, floor = kernels_phase(torch, cfg)
+    mark("kernels_phase")
     partial_kernel_phase(torch, cfg, cases)
+    mark("partial_kernel_phase")
     backward_kernels_phase(torch, cfg, cases)
+    mark("backward_kernels_phase")
     reference_phase(torch, get_config)
+    mark("reference_phase")
     launches, eng, serve_cfg, rng = serve_phase(torch, get_config)
+    mark("serve_phase")
     paged_launches, paged_prompts = paged_serve_phase(torch, serve_cfg,
                                                       eng.params, rng)
+    mark("paged_serve_phase")
     mode_launches = decode_modes_phase(torch, serve_cfg, eng.params, smi)
+    mark("decode_modes_phase")
     # the cluster phases share the dense serve's weights (one bank on the
     # card for every client); they run before the baselines free them
     cluster_launches = cluster_phase(torch, serve_cfg, eng.params, smi)
+    mark("cluster_phase")
     async_launches = async_cluster_phase(torch, serve_cfg, eng.params, smi)
+    mark("async_cluster_phase")
     cpaged_launches = paged_cluster_phase(torch, serve_cfg, eng.params,
                                           paged_prompts, smi)
+    mark("paged_cluster_phase")
     # the baselines have their own layouts, and the control plane owns its
     # weights (it reshards them in place): one full-width model at a time
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     mode_launches.update(baselines_phase(torch, serve_cfg, smi))
+    mark("baselines_phase")
     control_launches = control_plane_phase(torch, serve_cfg, smi)
+    mark("control_plane_phase")
     family_reference_phase(torch, get_config)
+    mark("family_reference_phase")
     disagg_launches = disaggregated_phase(torch, get_config, smi)
+    mark("disaggregated_phase")
     arctic_launches = arctic_phase(torch, get_config, smi)
+    mark("arctic_phase")
     gemma3_launches = gemma3_phase(torch, get_config, smi)
+    mark("gemma3_phase")
     zamba2_launches = zamba2_phase(torch, get_config, smi)
+    mark("zamba2_phase")
     rwkv6_launches = rwkv6_phase(torch, get_config, smi)
+    mark("rwkv6_phase")
     whisper_launches = whisper_phase(torch, get_config, smi)
-    train_launches, launcher_launches = train_phases(torch, get_config, smi,
-                                                     cases)
+    mark("whisper_phase")
+    train_launches, launcher_launches, train_arms = train_phases(
+        torch, get_config, smi, cases)
+    mark("train_phases")
     spmd_launches = spmd_phase(torch, get_config, smi)
+    mark("spmd_phase")
     mesh_launches, family_launches = mesh_phase(torch, get_config, smi)
+    mark("mesh_phase")
     remat_phase(torch, get_config, smi)
+    mark("remat_phase")
     graph_launches = graphs_phase(torch, get_config, smi)
+    mark("graphs_phase")
     prefill_launches = prefill_phase(torch, get_config, smi)
+    mark("prefill_phase")
     fprefill_launches = family_prefill_phase(torch, get_config, smi)
+    mark("family_prefill_phase")
+    tgraph_launches = train_graphs_phase(torch, get_config, smi, train_arms)
 
+    mark("train_graphs_phase")
     def entry(name):
         cs = cases[name]
         head = cs[0]                      # the decode shape: most launches
@@ -5875,7 +6125,9 @@ def main() -> int:
                                   **{f"prefill ({a})": n[name]
                                      for a, n in prefill_launches.items()},
                                   **{f"family-prefill ({a})": n[name]
-                                     for a, n in fprefill_launches.items()}},
+                                     for a, n in fprefill_launches.items()},
+                                  **{f"train-graphs ({a}, eager)": n[name]
+                                     for a, n in tgraph_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

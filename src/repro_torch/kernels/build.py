@@ -16,21 +16,24 @@ replay, so :data:`LAUNCHES` stays the number of kernels the device ran.
 What every CUDA graph of the port shares lives here too, below the models
 and the serving layer that capture them: the process-wide switch
 :func:`eager` (the counterpart of ``jax.disable_jit()``; the executor's
-step graphs and the models' scan bodies read it), the capture stream of a
-device (:func:`capture_stream`) and the capture itself (:func:`capture`).
+step graphs, the train step's graph and the models' scan bodies read
+it), the capture stream of a device (:func:`capture_stream`), the capture
+itself (:func:`capture`) and the addresses a graph is keyed on
+(:func:`addresses`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -253,6 +256,28 @@ def capture(fn, device, pool, counts: Dict[str, int]):
         finally:
             graph.capture_end()
     return graph, out
+
+
+def tensors(tree) -> Iterator[torch.Tensor]:
+    """The tensor leaves of dicts, tuples, named tuples and dataclasses."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from tensors(v)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from tensors(getattr(tree, f.name))
+
+
+def addresses(*trees) -> tuple:
+    """(data_ptr, shape, dtype) of every tensor leaf: what a captured graph
+    reads and writes at fixed addresses."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                 for tree in trees for t in tensors(tree))
 
 
 def dtype_code(dtype) -> int:

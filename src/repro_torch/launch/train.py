@@ -14,13 +14,18 @@ and exits with an error when there is none; ``--device cpu`` runs the
 plain versions and forces ``--reduced``, as the reference forces reduced
 configs on a CPU backend.  The full MoE configs do not fit one card
 (AdamW's moments alone are 8 bytes a parameter).
+
+The step is compiled where the reference jits it
+(``train_loop.compile_train_step``): on the card one CUDA graph, captured
+at the second step and replayed (eager under ``step_graphs.eager()``);
+a resumed run restores into the live state.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,7 +37,9 @@ from repro_torch.training.checkpoint import (AsyncCheckpointer, latest_step,
                                              restore_checkpoint)
 from repro_torch.training.data import synthetic_lm_batches
 from repro_torch.training.optimizer import adamw, cosine_schedule
-from repro_torch.training.train_loop import init_train_state, make_train_step
+from repro_torch.training.train_loop import (compile_train_step,
+                                             init_train_state,
+                                             make_train_step)
 
 CHECKPOINT_EVERY = 20
 
@@ -55,9 +62,13 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace) -> List[dict]:
+def run(args: argparse.Namespace,
+        observe: Optional[Callable] = None) -> List[dict]:
     """Train as the flags say; returns the logged steps (step, loss,
-    grad_norm)."""
+    grad_norm).  ``observe(i, state, metrics, step, batch)``, if given,
+    is called after each step ``i`` is logged, with the compiled ``step``
+    and the batch it took (a harness's measurements; a step it runs
+    overwrites the graph's metrics, which the log has read)."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port trains on the GPU — pass "
                          "--device cpu (reduced configs) to run the kernels' "
@@ -82,17 +93,23 @@ def run(args: argparse.Namespace) -> List[dict]:
     if args.ckpt_dir:
         ck = AsyncCheckpointer(args.ckpt_dir)
         if args.resume and latest_step(args.ckpt_dir) is not None:
-            state, start = restore_checkpoint(args.ckpt_dir, state)
+            state, start = restore_checkpoint(args.ckpt_dir, state,
+                                              into=True)
             print(f"resumed at step {start}")
-    step = make_train_step(model, opt, ctx, compression=args.compress_grads)
+    step = compile_train_step(
+        make_train_step(model, opt, ctx, compression=args.compress_grads),
+        dev)
     history = []
     for i in range(start, args.steps):
-        state, m = step(state, next(data))
+        batch = next(data)
+        state, m = step(state, batch)
         if i % 10 == 0 or i == args.steps - 1:
             history.append({"step": i, "loss": float(m["loss"]),
                             "grad_norm": float(m["grad_norm"])})
             print(f"step {i:5d}  loss {history[-1]['loss']:.4f}  "
                   f"gnorm {history[-1]['grad_norm']:.3f}", flush=True)
+        if observe is not None:
+            observe(i, state, m, step, batch)
         if ck and (i + 1) % CHECKPOINT_EVERY == 0:
             ck.save(i + 1, state)
     if ck:

@@ -207,10 +207,13 @@ def _layer(tree, i: int):
 
 def _remat(fn: Callable, ctx: ParallelCtx) -> Callable:
     """``fn`` recomputed in the backward when ``ctx.remat`` (the
-    reference's ``_maybe_remat``)."""
+    reference's ``_maybe_remat``).  A block draws no random numbers, so
+    no RNG state is kept (reading the CUDA generator's state has no place
+    in a captured train step)."""
     if not ctx.remat:
         return fn
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
 
 
 def _block_train(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -243,7 +246,8 @@ def chunked_cross_entropy(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                           ) -> torch.Tensor:
     """Mean cross entropy without the (B, S, V) logits: chunks of
     ``ctx.ce_chunk`` positions (halved until they divide S), each
-    recomputed in the backward; padded vocab masked to -1e30.  Under a
+    recomputed in the backward (no RNG state kept: a chunk draws no
+    random numbers); padded vocab masked to -1e30.  Under a
     dense layout the head is cut over the vocabulary and each chunk's
     loss is computed over the vocab shards (``vocab_parallel_ce_sum``)."""
     B, S, _ = x.shape
@@ -270,7 +274,8 @@ def chunked_cross_entropy(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     tot = torch.zeros((), device=x.device)
     for c in range(0, S, chunk):
         tot = tot + checkpoint(body, x[:, c:c + chunk],
-                               labels[:, c:c + chunk], use_reentrant=False)
+                               labels[:, c:c + chunk], use_reentrant=False,
+                               preserve_rng_state=False)
     return tot / (B * S)
 
 

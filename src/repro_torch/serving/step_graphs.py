@@ -52,7 +52,7 @@ SSD carry).  Captures of both run on the device's one capture stream
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,28 +63,9 @@ from repro_torch.kernels import build
 # read it too (``kernels/build.py``); ``eager`` is the name callers use
 _EAGER = build.EAGER
 eager = build.eager
-
-
-def tensors(tree) -> Iterator[torch.Tensor]:
-    """The tensor leaves of dicts, tuples, named tuples and dataclasses."""
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from tensors(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from tensors(v)
-    elif dataclasses.is_dataclass(tree):
-        for f in dataclasses.fields(tree):
-            yield from tensors(getattr(tree, f.name))
-
-
-def addresses(*trees) -> tuple:
-    """(data_ptr, shape, dtype) of every tensor leaf: what a captured graph
-    reads and writes at fixed addresses."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
-                 for tree in trees for t in tensors(tree))
+# a graph's tensors and their addresses, shared with the train step's graph
+tensors = build.tensors
+addresses = build.addresses
 
 
 def adopt(old, new) -> None:

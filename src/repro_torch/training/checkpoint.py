@@ -153,9 +153,13 @@ def _rebuild(like, path: str, manifest: Dict, prefix: str = ""):
     return type(like)(vals)
 
 
-def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None):
+def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
+                       *, into: bool = False):
     """Restore into the structure of ``tree_like`` (shapes must match);
-    returns (tree, step)."""
+    returns (tree, step).  With ``into``, every saved leaf is copied into
+    ``tree_like``'s own tensor (dtypes must match too) and ``tree_like``
+    is returned: a resumed train step keeps its CUDA graph, which reads
+    the state at its addresses (``train_loop.compile_train_step``)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -163,7 +167,18 @@ def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None):
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)["params"]
-    return _rebuild(tree_like, path, manifest), step
+    tree = _rebuild(tree_like, path, manifest)
+    if not into:
+        return tree, step
+    loaded = _flatten(tree)
+    with torch.no_grad():
+        for key, dst in _flatten(tree_like).items():
+            if not isinstance(dst, torch.Tensor) \
+                    or loaded[key].dtype != dst.dtype:
+                raise ValueError(f"{key}: restoring into a non-tensor or "
+                                 f"into another dtype")
+            dst.copy_(loaded[key])
+    return tree_like, step
 
 
 class AsyncCheckpointer:

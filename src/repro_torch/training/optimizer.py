@@ -8,7 +8,17 @@ Functional, over the reference's param dicts and with its roundings:
 ``torch.optim``.  ``opt.apply_(grads, state, params, step) -> state`` is
 the same update added into the params in place (``p + u`` in p's dtype,
 as the reference's train step adds it), without a tree of updates beside
-the params; the port's train step uses it.
+the params, and with the optimizer's state written in place (the
+returned state holds the input state's tensors); the port's train step
+uses it.  Both run the same operations in the same order, so they agree
+bitwise: ``update`` writes into fresh tensors what ``apply_`` writes over
+the old state.
+
+What depends on the step (the schedule's learning rate, ``t``, AdamW's
+bias corrections, Adafactor's ``beta``) is computed once per call, in
+float32, on the params' device, from a step tensor moved there: no host
+scalar reaches a kernel, so a CUDA graph of the train step reads the step
+it is replayed at (``train_loop.compile_train_step``).
 
 Adafactor works through a large leaf in chunks of whole matrices (or of
 rows, when one matrix is larger than the chunk): the factored statistics
@@ -111,44 +121,55 @@ def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
 
 def _lr_fn(lr) -> Callable:
     return lr if callable(lr) else (
-        lambda _: torch.tensor(lr, dtype=torch.float32))
+        lambda step: torch.full((), lr, dtype=torch.float32,
+                                device=step.device))
 
 
 def _t(step) -> torch.Tensor:
     return torch.as_tensor(step, dtype=torch.float32) + 1
 
 
-def _bundle(init, leaf_update, name: str) -> OptimizerBundle:
-    """``leaf_update(g, leaf_state, p, step, emit, shards) -> leaf_state``,
-    where ``emit(index, u)`` receives the update of ``p.view(-1, R,
-    C)[index]`` (or of the whole leaf, index None) in p's dtype and
-    ``shards`` is the leaf's ``LeafShards`` (None: a whole leaf)."""
+def _bundle(init, scalars, leaf_update, name: str) -> OptimizerBundle:
+    """``scalars(step) -> dict`` of the step's 0-d tensors (``step`` on
+    the params' device); ``leaf_update(g, leaf_state, p, sc, emit, shards,
+    out) -> out`` writes the leaf's new state into ``out`` (fresh tensors,
+    or ``leaf_state`` itself), where ``emit(index, u)`` receives the
+    update of ``p.view(-1, R, C)[index]`` (or of the whole leaf, index
+    None) in p's dtype and ``shards`` is the leaf's ``LeafShards`` (None:
+    a whole leaf)."""
+    def scalars_of(step, params):
+        dev = next(iter(T.leaves(params))).device
+        return scalars(torch.as_tensor(step, device=dev))
+
     def update(grads, state, params, step, shards=None):
+        sc = scalars_of(step, params)
+
         def one(g, f, p, sh):
             u = torch.empty_like(p)
             view = _as3(u)
 
             def emit(index, chunk):
                 (u if index is None else view[index]).copy_(chunk)
-            f = leaf_update(g, f, p, step, emit, sh)
-            return u, f
+            out = {k: torch.empty_like(v) for k, v in f.items()}
+            return u, leaf_update(g, f, p, sc, emit, sh, out)
         pairs = T.map_params(one, grads, state_of(state), params,
                              _or_none(shards, params))
         return (T.map_params(lambda p, pr: pr[0], params, pairs),
                 wrap(params, T.map_params(lambda p, pr: pr[1], params,
                                           pairs)))
 
+    @torch.no_grad()
     def apply_(grads, state, params, step, shards=None):
+        sc = scalars_of(step, params)
+
         def one(g, f, p, sh):
             view = _as3(p)
 
             def emit(index, chunk):
                 (p if index is None else view[index]).add_(chunk)
-            return leaf_update(g, f, p, step, emit, sh)
-        with torch.no_grad():
-            return wrap(params, T.map_params(one, grads, state_of(state),
-                                             params,
-                                             _or_none(shards, params)))
+            return leaf_update(g, f, p, sc, emit, sh, f)
+        return wrap(params, T.map_params(one, grads, state_of(state),
+                                         params, _or_none(shards, params)))
 
     def state_of(state):
         return state["f"] if name == "adafactor" else _zip_adam(state)
@@ -201,21 +222,28 @@ def adamw(lr=1e-3, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"mu": T.map_params(zeros, params),
                 "nu": T.map_params(zeros, params)}
 
-    def leaf_update(g, s, p, step, emit, sh):
+    def scalars(step):
         t = _t(step)
-        lr_t = lr_fn(step)
+        return {"neg_lr": -lr_fn(step),
+                "bc1": 1 - torch.full_like(t, b1) ** t,
+                "bc2": 1 - torch.full_like(t, b2) ** t}
+
+    def leaf_update(g, s, p, sc, emit, sh, out):
         g = g.float()
-        mu = b1 * s["mu"] + (1 - b1) * g
-        nu = b2 * s["nu"] + (1 - b2) * torch.square(g)
-        mu_hat = mu / (1 - torch.tensor(b1) ** t)
-        nu_hat = nu / (1 - torch.tensor(b2) ** t)
-        u = mu_hat / (torch.sqrt(nu_hat) + eps)
+        # b1 * mu + (1 - b1) * g, each product rounded as the functional
+        # expression rounds it (a fused add_(g, alpha=...) would not)
+        mu, nu = out["mu"], out["nu"]
+        torch.mul(s["mu"], b1, out=mu)
+        mu.add_((1 - b1) * g)
+        torch.mul(s["nu"], b2, out=nu)
+        nu.add_((1 - b2) * torch.square(g))
+        u = (mu / sc["bc1"]) / (torch.sqrt(nu / sc["bc2"]) + eps)
         if weight_decay:
             u = u + weight_decay * p.float()
-        emit(None, (-lr_t * u).to(p.dtype))
-        return {"mu": mu, "nu": nu}
+        emit(None, (sc["neg_lr"] * u).to(p.dtype))
+        return out
 
-    return _bundle(init, leaf_update, "adamw")
+    return _bundle(init, scalars, leaf_update, "adamw")
 
 
 # --------------------------------------------------------------- Adafactor
@@ -250,10 +278,12 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
             return {"v": torch.zeros(p.shape, **z)}
         return {"f": T.map_params(factors, params)}
 
-    def leaf_update(g, f, p, step, emit, sh):
-        t = _t(step)
-        beta = 1.0 - t ** (-decay)
-        lr_t = lr_fn(step)
+    def scalars(step):
+        beta = 1.0 - _t(step) ** (-decay)
+        return {"beta": beta, "1-beta": 1 - beta, "neg_lr": -lr_fn(step)}
+
+    def leaf_update(g, f, p, sc, emit, sh, out):
+        beta, nbeta, neg_lr = sc["beta"], sc["1-beta"], sc["neg_lr"]
         every = None if sh is None else sh.all
 
         def rms_of(sq_sum, n_local):
@@ -263,15 +293,17 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
                               / math.prod(sh.whole) + eps)
         if p.dim() < 2:
             g = g.float()
-            v = beta * f["v"] + (1 - beta) * (torch.square(g) + eps)
+            v = out["v"]
+            torch.mul(beta, f["v"], out=v)
+            v.add_(nbeta * (torch.square(g) + eps))
             u = g / torch.sqrt(v + eps)
             if every is None:
                 rms = torch.sqrt(torch.mean(torch.square(u)) + eps)
             else:
                 rms = rms_of(torch.square(u).sum(), u.numel())
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            emit(None, (-lr_t * u).to(p.dtype))
-            return {"v": v}
+            emit(None, (neg_lr * u).to(p.dtype))
+            return out
         g3 = _as3(g)
         n, R, C = g3.shape
         rows, cols = (None, None) if sh is None else (sh.rows, sh.cols)
@@ -280,16 +312,17 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
         vr_old = f["vr"].reshape(n, R)
         vc_old = f["vc"].reshape(n, C)
         parts = list(_chunks(n, R, C, CHUNK))
-        # pass 1: the factored statistics
-        vr = torch.empty_like(vr_old)
-        vc = torch.empty_like(vc_old)
+        # pass 1: the factored statistics (in place, ``out`` is ``f``: a
+        # chunk reads its own old rows and columns before it writes them)
+        vr = out["vr"].view(n, R)
+        vc = out["vc"].view(n, C)
         col = {}
         for bs, rs in parts:
             g2 = torch.square(g3[bs, rs].float()) + eps
-            vr[bs, rs] = beta * vr_old[bs, rs] + (1 - beta) * _mean(
+            vr[bs, rs] = beta * vr_old[bs, rs] + nbeta * _mean(
                 g2, -1, cols, C_all)
             if rs.stop - rs.start == R:
-                vc[bs] = beta * vc_old[bs] + (1 - beta) * _mean(
+                vc[bs] = beta * vc_old[bs] + nbeta * _mean(
                     g2, -2, rows, R_all)
             else:
                 b = bs.start
@@ -298,7 +331,7 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
                     tot = col.pop(b)
                     if rows is not None:
                         tot = tpl.all_sum(tot, rows)
-                    vc[bs] = beta * vc_old[bs] + (1 - beta) * (tot / R_all)
+                    vc[bs] = beta * vc_old[bs] + nbeta * (tot / R_all)
         denom = torch.clamp(_mean(vr, -1, rows, R_all, keepdim=True),
                             min=eps)[..., None]
 
@@ -319,8 +352,7 @@ def adafactor(lr=1e-2, decay: float = 0.8, eps: float = 1e-30,
         # pass 3: the update, chunk by chunk
         for bs, rs in parts:
             uc = u if len(parts) == 1 else u_of(bs, rs)
-            emit((bs, rs), (-lr_t * (uc / scale)).to(p.dtype))
-        return {"vr": vr.reshape(f["vr"].shape),
-                "vc": vc.reshape(f["vc"].shape)}
+            emit((bs, rs), (neg_lr * (uc / scale)).to(p.dtype))
+        return out
 
-    return _bundle(init, leaf_update, "adafactor")
+    return _bundle(init, scalars, leaf_update, "adafactor")

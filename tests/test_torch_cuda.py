@@ -1641,3 +1641,105 @@ def test_family_prefill_graphs_equal_eager_bitwise(cuda, arch):
         assert list(common.SCAN_STATS) == [name]
         assert common.SCAN_STATS[name]["captures"] == 2
     assert not plain.graphs.captures and not plain.graphs.replays
+
+
+# ---- the train step as one CUDA graph (train_loop.compile_train_step)
+
+def _graph_train_run(cuda, cfg, make_opt, compression, batches, graphs,
+                     resume_at=None, tmp=None):
+    """``len(batches)`` compiled steps of reduced ``cfg`` from seed 0, as
+    CUDA graphs or under ``eager()``: each step's (loss, grad_norm) and
+    launches, the final state's tensors, captures and replays.  With
+    ``resume_at``, the state is saved before that step, two steps run on
+    other data and the save is restored into the live state."""
+    from repro_torch.core.moe_layer import default_runtime
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import TrainCtx, build_model
+    from repro_torch.serving import step_graphs
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.train_loop import (compile_train_step,
+                                                 init_train_state,
+                                                 make_train_step)
+
+    S = 2 if cfg.moe else 1
+    with contextlib.nullcontext() if graphs else step_graphs.eager():
+        model = build_model(cfg, S, np.zeros((S, 0), np.int32), cuda)
+        rt = (default_runtime(cfg, S, batches[0]["tokens"].numel(), cuda)
+              if cfg.moe else None)
+        opt = make_opt()
+        state = init_train_state(
+            model, opt, torch.Generator(device=cuda).manual_seed(0),
+            compression=compression)
+        step = compile_train_step(make_train_step(
+            model, opt, TrainCtx(moe_runtime=rt, remat=False, ce_chunk=16),
+            compression=compression), cuda)
+        metrics, launches = [], []
+        for i, b in enumerate(batches):
+            if i == resume_at:
+                ckpt.save_checkpoint(tmp, i, state)
+                for other in batches[:2]:
+                    state, _ = step(state, {"tokens": other["labels"],
+                                            "labels": other["tokens"]})
+                state, _ = ckpt.restore_checkpoint(tmp, state, into=True)
+            before = dict(build.LAUNCHES)
+            state, m = step(state, b)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            launches.append({k: build.LAUNCHES[k] - before[k]
+                             for k in before})
+        return (metrics, launches,
+                [t.clone() for t in step_graphs.tensors(state)],
+                step.captures, step.replays)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["adamw", "adafactor"])
+def test_graph_train_step_equals_eager_bitwise(cuda, opt):
+    """Reduced deepseek-r1 in bf16, 5 steps of the compiled train step as
+    one CUDA graph against ``eager()`` from the same seed: AdamW under a
+    cosine warm-up (a new learning rate and bias correction every step)
+    with int8 compression, and Adafactor.  A learning rate or decay
+    frozen at the capture step, or a state read from stale addresses,
+    would show from step 3 on.  One capture, three replays; the
+    training-path kernels launched every step, as often as eagerly."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.data import synthetic_lm_batches
+
+    cfg = get_config("deepseek-r1").reduced()
+    data = synthetic_lm_batches(cfg, 4, 32, seed=0, device=cuda)
+    batches = [next(data) for _ in range(5)]
+    make = ((lambda: topt.adamw(lr=topt.cosine_schedule(3e-3, 3, 8)))
+            if opt == "adamw" else (lambda: topt.adafactor(lr=1e-2)))
+    comp = opt == "adamw"
+    g = _graph_train_run(cuda, cfg, make, comp, batches, True)
+    e = _graph_train_run(cuda, cfg, make, comp, batches, False)
+    assert g[0] == e[0] and g[1] == e[1]
+    assert all(torch.equal(a, b) for a, b in zip(g[2], e[2]))
+    assert (g[3], g[4], e[3], e[4]) == (1, 3, 0, 0)
+    assert all(n[k] > 0 for n in g[1] for k in (
+        "grouped_gemm", "grouped_gemm_dx", "grouped_gemm_dw",
+        "combine_slots"))
+
+
+@pytest.mark.cuda
+def test_graph_train_step_keeps_its_graph_through_a_restore(cuda, tmp_path):
+    """Reduced granite in bf16: a checkpoint restored into the live state
+    mid-run (after two steps on other data) keeps the one graph, and the
+    run is bitwise the eager run that did the same."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.data import synthetic_lm_batches
+
+    cfg = get_config("granite-3-2b").reduced()
+    data = synthetic_lm_batches(cfg, 4, 32, seed=0, device=cuda)
+    batches = [next(data) for _ in range(6)]
+
+    def make():
+        return topt.adamw(lr=topt.cosine_schedule(3e-3, 3, 8))
+    g = _graph_train_run(cuda, cfg, make, False, batches, True, 3,
+                         str(tmp_path / "g"))
+    e = _graph_train_run(cuda, cfg, make, False, batches, False, 3,
+                         str(tmp_path / "e"))
+    assert g[0] == e[0]
+    assert all(torch.equal(a, b) for a, b in zip(g[2], e[2]))
+    assert (g[3], g[4]) == (1, 6)
