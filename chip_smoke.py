@@ -271,6 +271,32 @@ Phases, each of which raises on failure (exit code != 0):
    step.  Each arm's step wall p50, a profiled step's device busy, idle
    share and host calls that enqueue work, the graph pool, the peak
    memory; the eager arm's forward / backward / optimizer split.
+31. examples: the README's entry points, the nine tours of
+   ``repro_torch.examples`` (the ``examples/`` scripts' counterparts),
+   each run through its ``main`` twice, with CUDA graphs and under
+   ``step_graphs.eager()``: quickstart at Kimi-K2's full widths (d_model
+   7168, top-8, T = 64) with 32 experts, the most the reference's
+   planner makes 2-homed (its candidate window), and again with all 384
+   (cut only where the reckoned peak of the 2-homed rebuild does not fit
+   the free memory), where the failover misses and the tour's assert
+   fails in both arms alike, as the JAX tour's does (only that assert,
+   after a failover that missed, and both arms' outputs compared);
+   serve_moe at
+   deepseek-r1's (1 dense + 2 MoE blocks, 4 servers + 2 redundant
+   slots; 16 requests, 4 clients, least_loaded, client 1 failing at step
+   40, a paged pool of 14 blocks a client, which preempts) in this
+   process; the other seven at their own reduced configs in a pool of
+   spawned processes meanwhile.  Each tour's own asserts hold
+   (quickstart's err < 1e-3 with a failover call that replays and
+   captures nothing, disaggregated's transparency,
+   cluster_failover's bitwise identity, prefix_cache's, overlap's and
+   expert_balance's identical tokens); the arms' printed lines (the VirtualClock's), tokens,
+   outputs and fingerprints are bitwise equal.  serve_moe runs once as
+   a user runs it, under the wall clock (counts and times reported: its
+   cluster steps the client whose clock is most behind, so which rows
+   share a step, and the greedy tokens with them, follow the card's
+   timing), and its two held arms interleave the clients by the
+   VirtualClock.  Each tour's wall, captures, replays and launches.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -281,7 +307,9 @@ kernel's checks and phase 24; ``--only mesh`` the partial kernel's checks
 and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
 ``--only graphs`` phase 27; ``--only prefill`` phase 28;
 ``--only family-prefill`` phase 29; ``--only train-graphs`` phase 30
-(both arms of both workloads).
+(both arms of both workloads); ``--only examples`` phase 31;
+``--only examples-solo`` phase 31 with a pool of one process, started
+after serve_moe's arms, so each reduced tour's arm runs alone.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -293,6 +321,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -5938,6 +5967,411 @@ def family_prefill_phase(torch, get_config, smi) -> dict:
             for label, *_ in FAMILY_PREFILL}
 
 
+# ---------------------------------------------------------------- examples
+
+# the tours run in the pool of spawned processes, longest first
+POOL_TOURS = ("scenario_cluster_failover", "scenario_overlap_ablation",
+              "scenario_autoscale", "scenario_prefix_cache",
+              "scenario_expert_balance", "train_small",
+              "disaggregated_serving")
+TOUR_WORKERS = 6
+SERVE_MOE_ARGV = ["--requests", "16", "--clients", "4",
+                  "--frontend-policy", "least_loaded", "--fail-client", "1",
+                  "--kv-mode", "paged", "--kv-blocks", "14"]
+
+
+def _watch_tour(mod) -> dict:
+    """Wrap the tour module's engine, cluster, scenario and train-step
+    builders so that what the tour makes can be read after it ran."""
+    made = {"engines": [], "runs": [], "steps": []}
+
+    def wrap(name, keep):
+        if not hasattr(mod, name):
+            return
+        real = getattr(mod, name)
+
+        def make(*a, **kw):
+            obj = real(*a, **kw)
+            keep(obj)
+            return obj
+        setattr(mod, name, make)
+
+    wrap("ServingEngine", made["engines"].append)
+    wrap("Cluster", made["engines"].append)
+    wrap("compile_train_step", made["steps"].append)
+    wrap("compile_fn", made["steps"].append)
+    if hasattr(mod, "Scenario"):
+        real_run = mod.Scenario.run
+
+        class Watched(mod.Scenario):
+            def run(self, *a, **kw):
+                res = real_run(self, *a, **kw)
+                made["runs"].append(res)
+                return res
+        mod.Scenario = Watched
+    return made
+
+
+def _graph_counts(made: dict) -> tuple:
+    """(captures, replays) over every graph the tour made: each engine's
+    (a cluster's clients') step graphs, the train step, quickstart's two
+    programs."""
+    caps = reps = 0
+    for obj in made["engines"]:
+        for eng in getattr(obj, "clients", [obj]):
+            g = eng.executor.graphs
+            caps += sum(g.captures.values())
+            reps += sum(g.replays.values())
+    for c in made["steps"]:
+        caps += c.captures
+        reps += c.replays
+    return caps, reps
+
+
+def _tour_digest(made: dict, res: dict) -> str:
+    """sha1 of what the tour computed: every scenario run's and
+    request's greedy tokens, the layer outputs' bytes, the losses and
+    grad norms (exact floats)."""
+    h = hashlib.sha1()
+    for run in made["runs"]:
+        h.update(repr(sorted((r.request_id, tuple(r.output_tokens))
+                             for r in run.requests)).encode())
+    if "requests" in res:
+        h.update(repr([tuple(r.output_tokens)
+                       for r in res["requests"]]).encode())
+    for k in ("y", "y_healthy", "y_failover", "y0_healthy", "y1_healthy",
+              "y0_failover", "y0_back"):
+        if k in res:
+            h.update(res[k].detach().float().cpu().numpy().tobytes())
+    if "history" in res:
+        h.update(repr(res["history"]).encode())
+    return h.hexdigest()[:16]
+
+
+def _run_tour(torch, name: str, graphs: bool, argv=(), cfg=None,
+              ckpt_dir=None, expect_fail=False, virtual=False) -> dict:
+    """Run tour ``name``'s ``main`` on the card in one arm; its printed
+    lines, digest, fingerprints, graph counts, launches, wall and peak
+    memory.  The tour's own asserts raise, unless ``expect_fail``
+    (quickstart only): then the ``AssertionError`` of quickstart's own
+    ``assert err < 1e-3`` is caught, and only that one, and ``failed``
+    says whether it came; the lines up to it are kept, and what the tour
+    computed before it (``main``'s ``out``).  ``virtual``: the tour's
+    clusters run under the VirtualClock (serve_moe's lockstep one would
+    take the wall clock)."""
+    import importlib
+    import io
+    import traceback
+
+    from repro_torch.kernels import build
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    mod = importlib.reload(mod)           # a fresh module: its names wrap
+    if virtual:
+        from repro_torch.serving import VirtualClock
+        cluster = mod.Cluster
+        mod.Cluster = lambda *a, **kw: cluster(
+            *a, **dict(kw, clock_factory=VirtualClock))
+    made = _watch_tour(mod)
+    if ckpt_dir is not None:
+        mod.CKPT_DIR = ckpt_dir
+    kw = {} if cfg is None else {"cfg": cfg}
+    if expect_fail:
+        kw["out"] = {}
+    _free(torch)
+    build.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    failed = False
+    with _arm(graphs), contextlib.redirect_stdout(out):
+        try:
+            res = mod.main(["--device", "cuda", *argv], **kw)
+        except AssertionError as err:
+            where = traceback.extract_tb(err.__traceback__)[-1]
+            if not (expect_fail and where.name == "tour"
+                    and where.filename.endswith(QUICKSTART_SRC)
+                    and where.line == "assert err < 1e-3"):
+                raise
+            res, failed = kw["out"], True
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    caps, reps = _graph_counts(made)
+    fps = [o.metrics.fingerprint() for o in made["engines"]]
+    fps += [run.metrics.fingerprint() for run in made["runs"]]
+    r = dict(lines=out.getvalue().rstrip("\n").split("\n"),
+             digest=_tour_digest(made, res),
+             fingerprints=[hashlib.sha1(f.encode()).hexdigest()[:16]
+                           for f in fps],
+             captures=caps, replays=reps, launches=launches,
+             wall_s=round(wall, 2),
+             peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 2),
+             failed=failed)
+    for k in ("err", "failover_captures", "identical", "halted", "final"):
+        if k in res:
+            r[k] = res[k]
+    if name == "quickstart":
+        fn2 = made["steps"][1]
+        r["fn2"] = (fn2.captures, fn2.replays)
+        r["counts"] = dict(fn2.counts)
+    if name == "serve_moe":
+        m = res["metrics"]
+        r.update(completed=m.completed, stranded=m.failed_requests,
+                 preemptions=sum(c.metrics.preemptions
+                                 for c in res["cluster"].clients))
+    del res
+    for v in made.values():      # the wrapped names outlive the run
+        v.clear()
+    return r
+
+
+def _tour_job(name: str, graphs: bool) -> dict:
+    """A pool process's job: one arm of one reduced tour (its checkpoints,
+    train_small's, under the ignored build directory)."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    build.load_library()
+    ckpt = ROOT / "build" / f"ckpt_{name}_{'graphs' if graphs else 'eager'}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        return _run_tour(torch, name, graphs, ckpt_dir=str(ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+QUICKSTART_SRC = str(Path("repro_torch", "examples", "quickstart.py"))
+# the reference's planner replicates only the hottest max(32, 4 S)
+# experts (``core/load_balance.py::eplb_plan``'s candidate window):
+# quickstart's "every expert 2-homed" holds up to 32 experts of 4 servers
+QUICKSTART_HOMED = 32
+
+
+def _quickstart_cfg(torch, get_config) -> tuple:
+    """Kimi-K2 at its full widths with the largest expert count whose
+    2-homed rebuild fits the free memory: the reckoning, and the cut."""
+    cfg = get_config("kimi-k2-1t-a32b")
+    m = cfg.moe
+    per = 3 * cfg.d_model * m.d_expert * 2      # one expert's weights, bf16
+    _free(torch)
+    free = torch.cuda.mem_get_info()[0]
+
+    def need(E):
+        """The rebuild's peak (``quickstart.replicate``, a weight at a
+        time): the last weight's 1-homed bank beside all three 2-homed
+        ones, 7 thirds of ``E * per``; 1.5 GiB for the rest (the
+        activations at T = 64 and the graph pools are tens of MiB)."""
+        return 7 * E * per // 3 + 3 * 2**29
+
+    E = m.num_experts
+    while need(E) > free:
+        E -= 32                        # 8 experts a server of S = 4
+    log(f"examples (quickstart): {cfg.arch_id} d_model {cfg.d_model} "
+        f"d_expert {m.d_expert} top-{m.top_k}; 2-homed bank of "
+        f"{m.num_experts} experts {2 * m.num_experts * per / 2**30:.1f} GiB, "
+        f"rebuild peak {need(m.num_experts) / 2**30:.1f} GiB with 1.5 GiB "
+        f"of headroom, free {free / 2**30:.1f} GiB (allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f}) -> "
+        + (f"all {E} experts" if E == m.num_experts else
+           f"CUT to {E} experts (2-homed bank "
+           f"{2 * E * per / 2**30:.1f} GiB)"))
+    return cfg.replace(moe=dataclasses.replace(m, num_experts=E)), E
+
+
+def _quickstart_runs(torch, get_config, runs: dict) -> int:
+    """quickstart at Kimi-K2's full widths, both arms: at
+    ``QUICKSTART_HOMED`` experts (every expert 2-homed: the tour's asserts
+    hold), then at all 384 (cut only where memory says): the planner
+    leaves most experts one home, server 2's die with it and the failover
+    misses, so the tour's assert fails, in both arms alike, as the
+    reference's would.  Returns the expert count of the second."""
+    full = get_config("kimi-k2-1t-a32b")
+    homed = full.replace(moe=dataclasses.replace(
+        full.moe, num_experts=QUICKSTART_HOMED))
+    for graphs in (True, False):
+        runs["quickstart", graphs] = _run_tour(torch, "quickstart", graphs,
+                                               cfg=homed)
+    qcfg, E = _quickstart_cfg(torch, get_config)
+    while ("quickstart@all", False) not in runs:
+        try:
+            for graphs in (True, False):
+                runs["quickstart@all", graphs] = _run_tour(
+                    torch, "quickstart", graphs, cfg=qcfg, expect_fail=True)
+        except torch.OutOfMemoryError as err:
+            if E <= 2 * QUICKSTART_HOMED:
+                raise
+            runs.pop(("quickstart@all", True), None)
+            E -= 32
+            qcfg = qcfg.replace(moe=dataclasses.replace(qcfg.moe,
+                                                        num_experts=E))
+            log(f"examples (quickstart): out of memory "
+                f"({str(err).splitlines()[0][:120]}); CUT to {E} experts")
+    return E
+
+
+def _tour_checks(label: str, g: dict, e: dict) -> list:
+    """What must hold between a tour's two arms, and its own checks."""
+    name = label.split("@")[0]
+    bad = []
+    held = ("lines", "digest", "fingerprints", "launches")
+    if name == "quickstart":
+        # a program's first call runs it eagerly once before its capture:
+        # the graph arm launches 5 calls' kernels to the eager arm's 3
+        held = ("lines", "digest")
+    if name == "serve_moe":
+        for arm in (g, e):
+            if arm["completed"] + arm["stranded"] != 16 or \
+                    arm["preemptions"] == 0:
+                bad.append(f"{name}: {arm['completed']} completed + "
+                           f"{arm['stranded']} stranded of 16, "
+                           f"{arm['preemptions']} preemptions")
+    for k in held:
+        if g[k] != e[k]:
+            bad.append(f"{label}: {k} differ between graphs and eager: "
+                       f"{g[k]} / {e[k]}")
+    if e["captures"] or e["replays"]:
+        bad.append(f"{label}: the eager arm captured {e['captures']}")
+    if label == "quickstart@all":
+        # only the tour's own assert, after a failover that missed
+        for arm in (g, e):
+            last = arm["lines"][-1]
+            miss = re.search(r"miss=(\d+)$", last)
+            if not (arm["failed"] and last.startswith("server 2 killed")
+                    and miss and int(miss.group(1)) > 0
+                    and arm["err"] >= 1e-3):
+                bad.append(f"{label}: expected the failover to miss and "
+                           f"the tour's assert to fail: {last!r}")
+    elif g["failed"] or e["failed"]:
+        bad.append(f"{label}: the tour's assert failed")
+    if name == "quickstart":
+        if g["fn2"] != (1, 1) or g.get("failover_captures") not in (0,
+                                                                    None):
+            bad.append(f"{label}: fn2 captures / replays {g['fn2']}, "
+                       f"failover captures {g.get('failover_captures')}")
+        if label == "quickstart" and not g["err"] < 1e-3:
+            bad.append(f"quickstart: err {g['err']}")
+    if name in ("scenario_cluster_failover", "scenario_overlap_ablation",
+                "scenario_expert_balance"):
+        for arm in (g, e):
+            if not arm["identical"]:
+                bad.append(f"{name}: the tour's token streams differ")
+    if name != "train_small" and not g["launches"].get("grouped_gemm"):
+        bad.append(f"{label}: the grouped GEMM never launched")
+    if name == "train_small" and not (g["launches"].get("grouped_gemm_dx")
+                                      and g["launches"].get(
+                                          "grouped_gemm_dw")):
+        bad.append(f"train_small: dx / dw launched {g['launches']}")
+    return bad
+
+
+def _tour_report(name: str, g: dict, e: dict, smi: str) -> None:
+    log(f"examples ({name}): graphs {g['wall_s']} s, {g['captures']} "
+        f"captures, {g['replays']} replays, launches {g['launches']}, "
+        f"peak {g['peak_gib']} GiB; eager() {e['wall_s']} s, launches "
+        f"{e['launches']}; lines, digest {g['digest']} and fingerprints "
+        f"equal: {g['lines'] == e['lines']} / {g['digest'] == e['digest']} "
+        f"/ {g['fingerprints'] == e['fingerprints']} ({smi})")
+    for ln in g["lines"][-3:]:
+        log(f"examples ({name}):   | {ln[:160]}")
+
+
+def examples_phase(torch, get_config, smi, workers=TOUR_WORKERS) -> dict:
+    """Phase 31: the nine tours, graphs against ``eager()``.  quickstart's
+    full-width arms first, alone on the card (their rebuild takes most of
+    its memory); then the pool's seven reduced tours (14 arms) run while
+    this process serves serve_moe's two arms at full width.  With
+    ``workers`` 1 the pool starts after serve_moe's arms: each arm runs
+    alone, and its wall is the tour's own, not the contended pool's.
+    Returns each tour's graph-arm launches."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    runs, bad = {}, []
+    E = _quickstart_runs(torch, get_config, runs)
+    t_quick = time.perf_counter() - t0
+    ctx = mp.get_context("spawn")
+    pool = ctx.Pool(workers)
+    jobs = {}
+
+    def submit():
+        jobs.update({(name, graphs): pool.apply_async(_tour_job,
+                                                      (name, graphs))
+                     for name in POOL_TOURS for graphs in (True, False)})
+    try:
+        if workers > 1:
+            submit()
+        base = get_config("deepseek-r1")
+        cfg = base.replace(num_layers=3,
+                           moe=dataclasses.replace(base.moe,
+                                                   first_k_dense=1))
+        # as a user runs it (the wall clock), then both arms with the
+        # cluster's clients interleaved by the VirtualClock: under the
+        # wall clock the cluster steps the client whose clock is most
+        # behind, so which rows share a step follows the card's timing,
+        # and the greedy tokens with it (two wall-clock arms diverged
+        # after a few tokens)
+        wall = _run_tour(torch, "serve_moe", True, SERVE_MOE_ARGV, cfg=cfg)
+        for graphs in (True, False):
+            runs["serve_moe", graphs] = _run_tour(
+                torch, "serve_moe", graphs, SERVE_MOE_ARGV, cfg=cfg,
+                virtual=True)
+        t_serve = time.perf_counter() - t0
+        if workers == 1:
+            submit()
+        for key, job in jobs.items():
+            runs[key] = job.get(timeout=max(30.0, 600 * (1 + (workers == 1))
+                                            - (time.perf_counter() - t0)))
+        t_pool = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    labels = ("quickstart", "quickstart@all", "serve_moe") + POOL_TOURS
+    for label in labels:
+        g, e = runs[label, True], runs[label, False]
+        _tour_report(label, g, e, smi)
+        bad += _tour_checks(label, g, e)
+    log(f"examples (serve_moe, wall clock): {wall['wall_s']} s, "
+        f"{wall['completed']} completed, {wall['stranded']} stranded, "
+        f"{wall['preemptions']} preemptions, {wall['captures']} captures, "
+        f"{wall['replays']} replays, launches {wall['launches']}, peak "
+        f"{wall['peak_gib']} GiB ({smi})")
+    for ln in wall["lines"]:
+        log(f"examples (serve_moe, wall clock):   | {ln[:160]}")
+    if wall["completed"] + wall["stranded"] != 16:
+        bad.append(f"serve_moe (wall clock): {wall['completed']} + "
+                   f"{wall['stranded']} of 16")
+    q, qa = runs["quickstart", True], runs["quickstart@all", True]
+    sm = runs["serve_moe", True]
+    log(f"examples: quickstart at {QUICKSTART_HOMED} experts: fn2 captures "
+        f"/ replays {q['fn2']} (the failover call captured "
+        f"{q['failover_captures']}), a replay's launches {q['counts']}, err "
+        f"{q['err']:.2e}; at {E} experts: fn2 {qa['fn2']}, the tour's "
+        f"assert failed in both arms: {qa['failed']} "
+        f"({qa['lines'][-1][:90]}), peak {qa['peak_gib']} / "
+        f"{runs['quickstart@all', False]['peak_gib']} GiB (graphs / eager); "
+        f"serve_moe: {sm['completed']} completed, {sm['stranded']} "
+        f"stranded, {sm['preemptions']} preemptions (eager arm "
+        f"{runs['serve_moe', False]['completed']} / "
+        f"{runs['serve_moe', False]['stranded']} / "
+        f"{runs['serve_moe', False]['preemptions']}), peak {sm['peak_gib']} / "
+        f"{runs['serve_moe', False]['peak_gib']} GiB; overlap tokens "
+        f"identical across variants: "
+        f"{runs['scenario_overlap_ablation', True]['identical']}; "
+        f"quickstart's four arms {t_quick:.1f} s, serve_moe's arms done at "
+        f"{t_serve:.1f} s, the pool ({workers} processes, "
+        f"{len(POOL_TOURS)} tours x 2 arms) at {t_pool:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    if bad:
+        raise AssertionError(f"examples: {bad}")
+    return {label: runs[label, True]["launches"] for label in labels}
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5989,7 +6423,10 @@ def main() -> int:
              "family-prefill": lambda: family_prefill_phase(
                  torch, get_config, smi),
              "train-graphs": lambda: train_graphs_phase(torch, get_config,
-                                                        smi)}
+                                                        smi),
+             "examples": lambda: examples_phase(torch, get_config, smi),
+             "examples-solo": lambda: examples_phase(torch, get_config, smi,
+                                                     workers=1)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -6085,8 +6522,10 @@ def main() -> int:
     fprefill_launches = family_prefill_phase(torch, get_config, smi)
     mark("family_prefill_phase")
     tgraph_launches = train_graphs_phase(torch, get_config, smi, train_arms)
-
     mark("train_graphs_phase")
+    example_launches = examples_phase(torch, get_config, smi)
+    mark("examples_phase")
+
     def entry(name):
         cs = cases[name]
         head = cs[0]                      # the decode shape: most launches
@@ -6127,7 +6566,9 @@ def main() -> int:
                                   **{f"family-prefill ({a})": n[name]
                                      for a, n in fprefill_launches.items()},
                                   **{f"train-graphs ({a}, eager)": n[name]
-                                     for a, n in tgraph_launches.items()}},
+                                     for a, n in tgraph_launches.items()},
+                                  **{f"examples ({a})": n.get(name, 0)
+                                     for a, n in example_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

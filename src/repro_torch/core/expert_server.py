@@ -72,13 +72,23 @@ def build_server_weights(bank: Dict, num_servers: int,
                          redundant_table: np.ndarray) -> Dict:
     """Per-server (S, L, ...) arrays from a global (E, d, f) bank.
     Redundant slots are copies — replication costs memory, as in the
-    paper.  (Full-width init skips the bank: see :func:`fill_redundant`.)"""
+    paper.  (Full-width init skips the bank: see :func:`fill_redundant`.)
+    Each server's slots are gathered straight into the result, so the
+    only memory this takes beyond the bank is the result itself."""
     first = next(iter(bank.values()))
     local_ids = _layout_ids(first.shape[0], num_servers, redundant_table)
     dev = first.device
     gather = torch.as_tensor(np.maximum(local_ids, 0), device=dev)
-    keep = torch.as_tensor(local_ids >= 0, device=dev)[..., None, None]
-    return {k: torch.where(keep, w[gather], 0) for k, w in bank.items()}
+    empty = torch.as_tensor(local_ids < 0, device=dev)
+    out = {}
+    for k, w in bank.items():
+        o = torch.empty((*local_ids.shape, *w.shape[1:]), dtype=w.dtype,
+                        device=dev)
+        for s in range(num_servers):
+            torch.index_select(w, 0, gather[s], out=o[s])
+            o[s][empty[s]] = 0
+        out[k] = o
+    return out
 
 
 def _apply_slots(w: torch.Tensor, num_experts: int, updates) -> None:

@@ -18,8 +18,9 @@ and the serving layer that capture them: the process-wide switch
 :func:`eager` (the counterpart of ``jax.disable_jit()``; the executor's
 step graphs, the train step's graph and the models' scan bodies read
 it), the capture stream of a device (:func:`capture_stream`), the capture
-itself (:func:`capture`) and the addresses a graph is keyed on
-(:func:`addresses`).
+itself (:func:`capture`), the addresses a graph is keyed on
+(:func:`addresses`) and :class:`CompiledFn`, one function compiled as
+one graph (quickstart's layer programs and the train step).
 """
 
 from __future__ import annotations
@@ -278,6 +279,130 @@ def addresses(*trees) -> tuple:
     reads and writes at fixed addresses."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype)
                  for tree in trees for t in tensors(tree))
+
+
+def _clone(tree):
+    """The tensor leaves of ``tree`` cloned (tuples, named tuples, dicts)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+class CompiledFn:
+    """``jax.jit`` of ``fn(held, *data)``: on the card, one CUDA graph,
+    captured once under a key and replayed.
+
+    ``held`` (the weights, a train state) is read where it lies: the
+    addresses of its tensors are part of the key.  Each ``data`` argument
+    (a tensor or a dict of tensors: the inputs, the runtime's tables, a
+    batch, as a jit's arguments) is copied into static buffers of its
+    position (and key); a buffer is reallocated only when its shape or
+    dtype changes, which changes the key.  So rewriting a liveness mask,
+    a mapping or a batch between calls replays the same graph, as the
+    reference's jitted function takes them as arguments and does not
+    recompile.  A new key drops the old graph and its pool.
+
+    The first call under a key runs ``fn`` eagerly (cuBLAS, the autograd
+    engine and the kernels' library set themselves up outside any
+    capture).  A pure ``fn`` (:attr:`PURE`) is then captured in the same
+    call; a step that writes ``held`` in place (a subclass with ``PURE =
+    False``) returns that eager call's result, and its second call
+    captures.  The capture runs into a pool of its own after the
+    allocator's cache is emptied, so the eager call's cached blocks and
+    the graph's pool need not fit the card together.  A call that
+    replays returns :meth:`_result`: here clones of the graph's static
+    outputs, so a result outlives the next replay, as a jitted
+    function's does.
+
+    ``captures`` counts captures (a capturing call replays its new graph
+    once), ``replays`` the calls that replayed a graph captured earlier,
+    ``counts`` the kernel launches of one replay (added to
+    :data:`LAUNCHES` at each) and ``pool_bytes`` what the last capture
+    added to the reserved memory.  On the CPU and under :func:`eager`
+    the staged call runs eagerly; a failure to capture or replay raises:
+    nothing runs ``fn`` eagerly in the graph's place."""
+
+    PURE = True
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.captures = 0
+        self.replays = 0
+        self.pool_bytes = 0
+        self.counts: Dict[str, int] = {}
+        self._data: Dict = {}
+        self._key: Optional[tuple] = None
+        self._warm = False
+        self._graph = None
+        self._outputs = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.device.type == "cuda" and not EAGER[0]
+
+    def _buffer(self, name, v) -> torch.Tensor:
+        v = torch.as_tensor(v)
+        buf = self._data.get(name)
+        if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+            buf = self._data[name] = torch.empty(v.shape, dtype=v.dtype,
+                                                 device=self.device)
+        return buf.copy_(v)
+
+    def _stage(self, data) -> list:
+        return [{k: self._buffer((i, k), t) for k, t in v.items()}
+                if isinstance(v, dict) else self._buffer(i, v)
+                for i, v in enumerate(data)]
+
+    def _run(self, held, staged):
+        """One eager call over the staged data."""
+        return self.fn(held, *staged)
+
+    def _captured(self, held, staged):
+        """What the graph computes: its outputs are the static ones."""
+        return self._run(held, staged)
+
+    def _result(self, held):
+        """A replaying call's result."""
+        return _clone(self._outputs)
+
+    def __call__(self, held, *data):
+        staged = self._stage(data)
+        if not self.enabled:
+            return self._run(held, staged)
+        key = addresses(held, staged)
+        if key != self._key:
+            self._key, self._warm = key, False
+            self._graph = self._outputs = None
+        if not self._warm:
+            self._warm = True
+            out = self._run(held, staged)
+            if not self.PURE:
+                return out
+        if self._graph is None:
+            self._capture(held, staged)
+        else:
+            self.replays += 1
+        self._graph.replay()
+        add_launches(self.counts)
+        return self._result(held)
+
+    def _capture(self, held, staged) -> None:
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(self.device)
+        self.counts = {}
+        self._graph, self._outputs = capture(
+            lambda: self._captured(held, staged), self.device,
+            torch.cuda.graph_pool_handle(), self.counts)
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
+        self.captures += 1
 
 
 def dtype_code(dtype) -> int:

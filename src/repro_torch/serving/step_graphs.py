@@ -47,6 +47,11 @@ recurrent models capture once and replay inside an eager prefill
 (``models/common.py::compiled_scan``: rwkv6's wkv recurrence, zamba2's
 SSD carry).  Captures of both run on the device's one capture stream
 (``build.capture``).
+
+:func:`compile_fn` (``build.CompiledFn``) is ``jax.jit`` of a pure
+layer call outside an executor (quickstart's two MoE programs): captured
+at its first call, its data arguments in static buffers, so new data
+replays.
 """
 
 from __future__ import annotations
@@ -66,6 +71,8 @@ eager = build.eager
 # a graph's tensors and their addresses, shared with the train step's graph
 tensors = build.tensors
 addresses = build.addresses
+# ``jax.jit`` of a pure layer call outside an executor
+CompiledFn = compile_fn = build.CompiledFn
 
 
 def adopt(old, new) -> None:

@@ -159,32 +159,25 @@ def make_train_step(model: Model, opt: OptimizerBundle, ctx: ParallelCtx,
     return train_step
 
 
-class CompiledTrainStep:
+class CompiledTrainStep(build.CompiledFn):
     """``step_fn`` (a :func:`make_train_step` step, or any step that
     writes its state in place) compiled as the reference jits its train
     step: on the card, one CUDA graph of the whole step — forward,
     backward, gradient collection, compression, clip, optimizer and the
-    step's increment — captured once and replayed.
+    step's increment — captured once and replayed
+    (:class:`~repro_torch.kernels.build.CompiledFn` with ``held`` the
+    state and the batch its one data argument).
 
-    Each call first copies the batch into static buffers on ``device``
-    (one per key, reallocated only when a key's shape or dtype changes),
+    Each call first copies the batch into static buffers on ``device``,
     as the reference passes the batch as a jit argument; the data
     iterator's fresh tensors are never read by the graph.  The graph's
     key is the address, shape and dtype of every tensor the step reads or
     writes (the state's params, optimizer state, residual and step, and
-    the batch buffers): the first call under a key runs eagerly (cuBLAS
-    and the autograd engine set themselves up outside any capture), the
-    second is captured and replayed, later calls replay.  A state at
-    other addresses captures again (the old graph and its pool are
-    dropped); a checkpoint restored into the live state
+    the batch buffers).  The step is not pure: the first call under a key
+    is the eager step itself, the second is captured and replayed, later
+    calls replay.  A state at other addresses captures again; a
+    checkpoint restored into the live state
     (``checkpoint.restore_checkpoint(..., into=True)``) keeps the graph.
-
-    Unlike the executor's ``step_graphs.StepGraphs`` (a graph per shape,
-    captures that skip ``torch.cuda.graph``'s cache emptying), the train
-    step has one key and one capture, into a pool of its own: the
-    allocator's cache is emptied once before that capture, so the eager
-    step's cached blocks (tens of GiB at full width) and the graph's pool
-    need not fit the card together.
 
     A replay returns the caller's ``state`` (its tensors hold the new
     state) and the graph's static metrics (``loss``, ``grad_norm`` and the
@@ -197,84 +190,33 @@ class CompiledTrainStep:
     The step runs eagerly over the same staging on the CPU, on ``meta``,
     under ``step_graphs.eager()`` (``build.eager``, the reference's
     ``jax.disable_jit()``) and on a mesh (``step_fn.on_mesh``: its
-    collectives are not captured).  A failure to capture or replay
-    raises: nothing runs the eager step in the graph's place.
+    collectives are not captured)."""
 
-    ``captures`` counts this step's captures (a capturing call replays
-    its new graph once, to run the step), ``replays`` the calls that
-    replayed a graph captured earlier; ``counts`` are the kernel launches
-    of one replay (added to ``build.LAUNCHES`` at each); ``pool_bytes``
-    is what the capture added to the reserved memory."""
-
-    def __init__(self, step_fn: Callable, device):
-        self.step_fn = step_fn
-        self.device = torch.device(device)
-        self.captures = 0
-        self.replays = 0
-        self.pool_bytes = 0
-        self.counts: Dict[str, int] = {}
-        self._batch: Dict[str, torch.Tensor] = {}
-        self._key: Optional[tuple] = None
-        self._warm = False
-        self._graph = None
-        self._metrics: Optional[Dict] = None
+    PURE = False
 
     @property
     def enabled(self) -> bool:
-        return (self.device.type == "cuda" and not build.EAGER[0]
-                and not getattr(self.step_fn, "on_mesh", False))
+        return super().enabled and not getattr(self.fn, "on_mesh", False)
 
-    def _stage(self, batch: Dict) -> Dict:
-        staged = {}
-        for k, v in batch.items():
-            v = torch.as_tensor(v)
-            buf = self._batch.get(k)
-            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
-                buf = self._batch[k] = torch.empty(
-                    v.shape, dtype=v.dtype, device=self.device)
-            staged[k] = buf.copy_(v)
-        return staged
+    def __call__(self, state: TrainState, batch: Dict):
+        if self.enabled and state.step.device.type != "cuda":
+            raise ValueError(f"compile_train_step: the step counter is on "
+                             f"{state.step.device}, not the card")
+        return super().__call__(state, batch)
 
-    def _run(self, state: TrainState, batch: Dict):
-        new, metrics = self.step_fn(state, batch)
+    def _run(self, state: TrainState, staged):
+        new, metrics = self.fn(state, *staged)
         if build.addresses(new) != build.addresses(state):
             raise ValueError("compile_train_step: the step must write its "
                              "state in place (a new tensor in the returned "
                              "state)")
         return new, metrics
 
-    def __call__(self, state: TrainState, batch: Dict):
-        batch = self._stage(batch)
-        if not self.enabled:
-            return self._run(state, batch)
-        if state.step.device.type != "cuda":
-            raise ValueError(f"compile_train_step: the step counter is on "
-                             f"{state.step.device}, not the card")
-        key = build.addresses(state, batch)
-        if key != self._key:      # the old graph and its pool are dropped
-            self._key, self._warm = key, False
-            self._graph = self._metrics = None
-        if not self._warm:
-            self._warm = True
-            return self._run(state, batch)
-        if self._graph is None:
-            self._capture(state, batch)
-        else:
-            self.replays += 1
-        self._graph.replay()
-        build.add_launches(self.counts)
-        return state, dict(self._metrics)
+    def _captured(self, state: TrainState, staged):
+        return self._run(state, staged)[1]
 
-    def _capture(self, state: TrainState, batch: Dict) -> None:
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved(self.device)
-        self.counts = {}
-        self._graph, self._metrics = build.capture(
-            lambda: self._run(state, batch)[1], self.device,
-            torch.cuda.graph_pool_handle(), self.counts)
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
-        self.captures += 1
+    def _result(self, state: TrainState):
+        return state, dict(self._outputs)
 
 
 def compile_train_step(step_fn: Callable, device) -> CompiledTrainStep:

@@ -1743,3 +1743,50 @@ def test_graph_train_step_keeps_its_graph_through_a_restore(cuda, tmp_path):
     assert g[0] == e[0]
     assert all(torch.equal(a, b) for a, b in zip(g[2], e[2]))
     assert (g[3], g[4]) == (1, 6)
+
+
+@pytest.mark.cuda
+def test_quickstart_programs_graph_equals_eager_bitwise(cuda, capsys):
+    """``repro_torch.examples.quickstart`` (reduced Kimi-K2) on the card:
+    each layer program captured at its first call
+    (``step_graphs.compile_fn``), the failover call a replay that
+    captures nothing; every output bitwise the ``eager()`` tour's, which
+    captures nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart
+    from repro_torch.serving import step_graphs
+
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    g = quickstart.tour(cfg, cuda)
+    with step_graphs.eager():
+        e = quickstart.tour(cfg, cuda)
+    capsys.readouterr()
+    for k in ("y", "y_healthy", "y_failover"):
+        assert torch.equal(g[k], e[k]), k
+    assert (g["fn"].captures, g["fn"].replays) == (1, 0)
+    assert (g["fn2"].captures, g["fn2"].replays) == (1, 1)
+    assert g["failover_captures"] == 0
+    assert g["fn2"].counts.get("grouped_gemm") and \
+        g["fn2"].counts.get("combine_slots")
+    assert e["fn"].captures == e["fn2"].captures == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["disaggregated_serving",
+                                  "scenario_expert_balance"])
+def test_tours_run_on_the_card(cuda, capsys, name):
+    """A tour's ``main`` with no flags runs on the card and launches the
+    grouped GEMM; under ``eager()`` it prints the same lines."""
+    import importlib
+
+    from repro_torch.kernels import build
+    from repro_torch.serving import step_graphs
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    build.reset_launches()
+    mod.main([])
+    graphed = capsys.readouterr().out
+    assert build.LAUNCHES["grouped_gemm"] > 0
+    with step_graphs.eager():
+        mod.main([])
+    assert capsys.readouterr().out == graphed
