@@ -192,14 +192,19 @@ Phases, each of which raises on failure (exit code != 0):
    tensor-parallel block (within 2e-2 of the one-device block), and 4
    gloo ranks on the card (gloo takes CUDA tensors; NCCL refuses two
    ranks on one device) running reduced deepseek-r1 on a (2, 2) mesh
-   against the one-process run (1e-5).
+   against the one-process run (1e-5).  The prefill and the decode steps
+   are the dry-run cells' compiled steps (``dryrun.compile_prefill`` /
+   ``compile_serve``): CUDA graphs with their c10d calls on the NCCL
+   mesh, eager on the gloo ranks (which print why);
 25. mesh: the dry-run's cells on torch.distributed (``mesh_phase``): the
    full-width train cells of deepseek-r1, gemma3-4b (depth cut to 12 of
    its 34 layers for the script's time limit; its one-device step also
    run without the attention's q-block checkpoints, bitwise, peak and
    step wall printed) and whisper-base and the decode cells of four
-   families on a 1 x 1 NCCL mesh against the one-device path, 4 gloo
-   ranks on reduced cells, and the per-rank accounting on ``meta``;
+   families on a 1 x 1 NCCL mesh against the one-device path, their
+   steps compiled as the reference jits them (CUDA graphs), 4 gloo ranks
+   on reduced cells (eager, and say why), and the per-rank accounting
+   on ``meta``;
 26. remat: one rwkv6-7b time-mix layer at its published widths (d_model
    4096, 64 heads of 64, bf16), forward and backward over 2 x 4096
    tokens, the wkv recurrence checkpointed a chunk of 64 tokens at a time
@@ -297,6 +302,23 @@ Phases, each of which raises on failure (exit code != 0):
    share a step, and the greedy tokens with them, follow the card's
    timing), and its two held arms interleave the clients by the
    VirtualClock.  Each tour's wall, captures, replays and launches.
+32. mesh-graphs: the reference's jitted mesh steps as CUDA graphs
+   (``dryrun.build_cell``'s train, prefill and serve steps over NCCL,
+   their c10d calls inside the graph) against ``step_graphs.eager()``
+   on the same weights, for every 1 x 1 NCCL cell of phases 24-25
+   (which run both arms; their graphed arms are those phases' runs):
+   phase 24's full-width deepseek-r1 (8 x 512 prompt tokens in a2a, then
+   32 decode steps in replicated mode), the train cells of deepseek-r1
+   (1 + 1 layers), gemma3-4b (``TRAIN_CELL_DEPTH``) and whisper-base,
+   and the decode cells of gemma3-4b, zamba2-2.7b, rwkv6-7b and
+   whisper-base.  Logits and tokens, or losses, grad norms and the
+   params' digest, bitwise equal; one capture and a replay at every
+   later call under the key, none eager; equal launches over the decode
+   steps.  Each arm's decision, captures, replays, the c10d calls the
+   graph holds, wall p50 over the replays, a profiled call's device
+   busy, idle share, host calls that enqueue work and c10d host calls,
+   the graph pool and peak memory, beside the predicted graphed wall.
+   The 4 gloo ranks of phases 24-25 stay eager and print why.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -309,7 +331,9 @@ and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
 ``--only family-prefill`` phase 29; ``--only train-graphs`` phase 30
 (both arms of both workloads); ``--only examples`` phase 31;
 ``--only examples-solo`` phase 31 with a pool of one process, started
-after serve_moe's arms, so each reduced tour's arm runs alone.
+after serve_moe's arms, so each reduced tour's arm runs alone;
+``--only mesh-graphs`` phase 32: phases 24-25's 1 x 1 NCCL cells, each
+graphed and under ``eager()`` (no gloo ranks, no accounting).
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -2297,7 +2321,11 @@ def _step_profile(torch, eng, steps: int):
         end = max(end, b)
     host = {e.key: e.count / steps for e in prof.key_averages()
             if e.device_type != DeviceType.CUDA and e.key in HOST_CALLS}
+    c10d = sum(e.count for e in prof.key_averages()
+               if e.device_type != DeviceType.CUDA
+               and e.key.startswith("c10d::")) / steps
     return {"plain_ms": plain_ms, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "c10d_calls": c10d,
             "union_ms": union / 1e3 / steps,
             "launches": sum(n for _, n in rows.values()) - copies,
             "copies": copies, "rows": rows,
@@ -3653,25 +3681,61 @@ def _spmd_ctx(tr, mesh, rt, mode):
                           seq_shard_cache=True, seq_shard_axes=("model",))
 
 
-def _greedy(torch, model, params, prompt, pre, dec, steps: int,
-            slots: int, forced=None):
-    """Prefill ``prompt`` then ``steps`` decode steps: greedy, or fed
-    ``forced`` (steps, B) tokens.  Returns (the logits of every step,
-    the tokens fed)."""
-    logits, cache, _ = model.prefill(params, prompt, pre, max_slots=slots)
+def _cell_steps(model, pre, dec, slots: int, compiled: bool = True):
+    """(prefill, serve): the dry-run's prefill cell over ``pre`` into
+    ``slots`` slots and its serve step over ``dec`` (returning the step's
+    logits too), compiled as the reference jits them
+    (``dryrun.compile_prefill`` / ``compile_serve``: CUDA graphs over an
+    NCCL mesh, eager over gloo, each with its ``decision``) or plain."""
+    from repro_torch.launch import dryrun
+
+    pf = dryrun.prefill_step_of(model, pre, slots)
+    sv = dryrun.serve_step_of(model, dec, logits=True)
+    if not compiled:
+        return pf, sv
+    return (dryrun.compile_prefill(pf, model, pre, "cuda"),
+            dryrun.compile_serve(sv, dec, "cuda"))
+
+
+def _decode_loop(torch, serve, params, logits, cache, steps: int,
+                 forced=None, walls=None):
+    """``steps`` calls of ``serve(params, token, cache) -> (next token,
+    cache, logits)`` after a prefill's ``logits``: greedy, or fed
+    ``forced`` (steps, B) tokens; each call's wall (synchronised) into
+    ``walls``.  Returns (the logits of every step, the tokens fed)."""
     seq, fed = [logits], []
+    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
     for i in range(steps):
-        tok = (logits.argmax(-1) if forced is None else forced[i])[:, None]
-        fed.append(tok)
-        logits, cache, _ = model.decode_step(params, tok, cache, dec)
-        seq.append(logits)
-    return torch.stack(seq), torch.cat(fed, dim=1)
+        if forced is not None:
+            tok = forced[i][:, None].to(torch.int32)
+        fed.append(tok.long())
+        if walls is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        tok, cache, logits = serve(params, tok, cache)
+        if walls is not None:
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        seq.append(logits.clone())          # a replay's logits are static
+    return torch.stack(seq), torch.cat(fed, dim=1), (cache, tok)
+
+
+def _greedy(torch, steps_fns, params, prompt, steps: int, forced=None,
+            walls=None):
+    """Prefill ``prompt``, then ``steps`` decode steps (``_decode_loop``:
+    the logits, the tokens fed, the last cache and token) through
+    ``steps_fns`` (``_cell_steps``)."""
+    prefill, serve = steps_fns
+    logits, cache = prefill(params, prompt)
+    return _decode_loop(torch, serve, params, logits, cache, steps, forced,
+                        walls)
 
 
 def _spmd_profile(torch, step, steps: int = 2) -> dict:
     """``steps`` calls of ``step`` under torch.profiler: the collectives'
     host calls and device ms per step beside the step's device busy ms
-    and wall."""
+    (and the union of its device intervals), the host's calls that put
+    work on a stream (``HOST_CALLS``) and the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3689,7 +3753,17 @@ def _spmd_profile(torch, step, steps: int = 2) -> dict:
     nccl_dev = [e for e in dev if "nccl" in e.key.lower()]
     host = [e for e in rows if e.device_type == DeviceType.CPU
             and e.key.startswith("c10d::")]
-    return {"wall_ms": wall,
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return {"wall_ms": wall, "union_ms": union / 1e3 / steps,
+            "host_launches": sum(e.count for e in rows
+                                 if e.key in HOST_CALLS) / steps,
             "host": {e.key: (e.self_cpu_time_total / 1e3 / steps,
                              e.count / steps)
                      for e in rows if e.device_type == DeviceType.CPU},
@@ -3703,22 +3777,45 @@ def _spmd_profile(torch, step, steps: int = 2) -> dict:
             "nccl_kernels": sum(e.count for e in nccl_dev) / steps}
 
 
-def spmd_full_width(torch, get_config, smi, mesh) -> dict:
+def _mesh_arm(step, **kw) -> dict:
+    """A compiled step's record for phase 32, read right after its calls:
+    its decision and reason, captures, replays, the c10d calls its graph
+    holds and its graph pool."""
+    d = step.decision
+    return dict(kw, graphed=d.graphed, reason=d.reason,
+                captures=step.captures, replays=step.replays,
+                collectives=step.collectives,
+                pool_gib=step.pool_bytes / 2**30)
+
+
+def _profile_calls(torch, fn, n: int = 2):
+    """``_step_profile`` of ``n`` calls of ``fn``."""
+    import types
+
+    return _step_profile(torch, types.SimpleNamespace(step=fn), n)
+
+
+def spmd_full_width(torch, get_config, smi, mesh, arms) -> dict:
     """(b) deepseek-r1 at its full published widths, depth 1 dense + 2
     MoE, on the 1 x 1 NCCL mesh: one rank is the one expert server of all
     256 experts (2 x 22.5 GB of bf16 banks).  8 x 512 prompt tokens
     prefilled in a2a, 32 greedy decode steps in replicated mode over a
     1024-slot cache slot-sharded over the model axis (the partial kernel
-    and one combine per layer) — against the one-device path on the same
-    weights and runtimes: prefill logits and 8 teacher-forced decode steps
-    within 3e-2, both greedy digests with the count of equal tokens.  The
+    and one combine per layer), through the dry-run cells' compiled steps
+    (``_cell_steps``: the prefill one CUDA graph for its shape, the serve
+    step captured at its second call and replayed, with their c10d
+    calls) — against the one-device path on the same weights and
+    runtimes: prefill logits and 8 teacher-forced decode steps within
+    3e-2, both greedy digests with the count of equal tokens.  The
     grouped GEMM, the combine's slot entry and flash_decode_partial must
-    launch in the SPMD run.  Returns its launches."""
+    launch in the SPMD run.  The same run under ``eager()`` on the same
+    weights is phase 32's eager arm (``arms["spmd deepseek-r1"]``).
+    Returns the graphed run's launches."""
     import numpy as np
 
     from repro_torch.configs import InputShape
     from repro_torch.distributed.sharding_rules import shard_params
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.launch.dryrun import moe_runtime_for
     from repro_torch.models import transformer as tr
 
@@ -3749,31 +3846,47 @@ def spmd_full_width(torch, get_config, smi, mesh) -> dict:
                 _spmd_ctx(tr, mesh, rt_dec, "replicated"))
     prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=torch
                            .Generator().manual_seed(12)).cuda()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        spmd, toks = _greedy(torch, model, params, prompt, pre, dec, steps,
-                             slots)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    runs = {}
+    for name in ("graphs", "eager"):
+        _free(torch)
+        ops.reset_launches()
+        fns, walls = _cell_steps(model, pre, dec, slots), []
+        t0 = time.perf_counter()
+        with torch.no_grad(), (contextlib.nullcontext() if name == "graphs"
+                               else build.eager()):
+            seq, toks, last = _greedy(torch, fns, params, prompt, steps,
+                                      walls=walls)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            runs[name] = dict(
+                seq=seq, toks=toks, wall=wall, launches=launches,
+                serve=fns[1], last=last,
+                arm=_mesh_arm(fns[1], walls=walls, prefill=_mesh_arm(fns[0]),
+                              **_memory(torch)))
+        del fns
+    spmd, toks, launches = (runs["graphs"][k] for k in ("seq", "toks",
+                                                        "launches"))
+    wall, peak = runs["graphs"]["wall"], runs["graphs"]["arm"]["peak_gib"]
     zero = [k for k in SPMD_PATH if launches[k] <= 0]
     if zero:
         raise AssertionError(f"spmd: kernels never launched: {zero}")
     if spmd.shape != (steps + 1, B, cfg.padded_vocab) or \
             not torch.isfinite(spmd).all():
         raise AssertionError(f"spmd: bad logits {tuple(spmd.shape)}")
-    # the one-device path on the same weights and runtimes
+    e = runs["eager"]
+    arms["spmd deepseek-r1 (8 x 512 a2a prefill, 32 decode steps)"] = {
+        "kind": "decode", "graphs": runs["graphs"]["arm"],
+        "eager": e["arm"], "calls": steps,
+        "equal": {"logits": torch.equal(spmd, e["seq"]),
+                  "tokens": torch.equal(toks, e["toks"])}}
+    # the one-device path on the same weights and runtimes (plain steps)
     local = (tr.ParallelCtx(moe_runtime=rt_pre),
              tr.ParallelCtx(moe_runtime=rt_dec))
+    plain = _cell_steps(model, *local, slots, compiled=False)
     with torch.no_grad():
-        ref, _ = _greedy(torch, model, full, prompt, *local, 8, slots,
-                         forced=toks.T)
-        own, ltoks = _greedy(torch, model, full, prompt, *local, steps,
-                             slots)
+        ref, _, _ = _greedy(torch, plain, full, prompt, 8, forced=toks.T)
+        own, ltoks, lone = _greedy(torch, plain, full, prompt, steps)
     errs = (spmd[:9] - ref).abs().amax(dim=(1, 2)).tolist()
     err = max(errs)
     same = int((toks == ltoks).sum())
@@ -3788,49 +3901,59 @@ def spmd_full_width(torch, get_config, smi, mesh) -> dict:
     if not err <= 3e-2:
         raise AssertionError(f"spmd: SPMD and one-device logits differ "
                              f"({err})")
-    log(f"spmd: prefill + {steps} decode steps {wall:.2f}s wall (card "
-        f"{smi}); peak memory {peak:.2f} GiB; launches "
-        f"{json.dumps(launches)}")
-    # where a decode step's time goes, what its collectives cost, and the
-    # one-device step beside it (rounds alternated: spmd, local, local,
-    # spmd)
-    tok = toks[:, :1]
-    steps_of = {}
-    with torch.no_grad():
-        for name, p, ctx_pre, ctx_dec in (("spmd", params, pre, dec),
-                                          ("one-device", full, *local)):
-            c = model.prefill(p, prompt, ctx_pre, max_slots=slots)[1]
-            steps_of[name] = (lambda p=p, c=c, d=ctx_dec:
-                              model.decode_step(p, tok, c, d))
-    walls = {name: [] for name in steps_of}
-    for name in ("spmd", "one-device", "one-device", "spmd"):
+    log(f"spmd: prefill + {steps} decode steps {wall:.2f}s wall, compiled "
+        f"(prefill {runs['graphs']['arm']['prefill']['reason']}; serve "
+        f"{runs['graphs']['arm']['reason']}) (card {smi}); peak memory "
+        f"{peak:.2f} GiB; launches {json.dumps(launches)}")
+    # where a decode step's time goes, what its collectives cost: the
+    # graphed and the eager SPMD step, each on its arm's cache, and the
+    # one-device step beside them (rounds alternated)
+    steps_of = {"spmd": (runs["graphs"]["serve"], params, *runs["graphs"]
+                         ["last"], contextlib.nullcontext),
+                "spmd eager": (runs["eager"]["serve"], params,
+                               *runs["eager"]["last"], build.eager),
+                "one-device": (plain[1], full, *lone,
+                               contextlib.nullcontext)}
+    call = {name: (lambda sv=sv, p=p, c=c, t=t, m=m: _in(m, sv, p, t, c))
+            for name, (sv, p, c, t, m) in steps_of.items()}
+    walls = {name: [] for name in call}
+    for name in ("spmd", "spmd eager", "one-device", "one-device",
+                 "spmd eager", "spmd"):
         with torch.no_grad():
             for _ in range(2):
-                steps_of[name]()
+                call[name]()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(8):
-                steps_of[name]()
+                call[name]()
             torch.cuda.synchronize()
         walls[name].append((time.perf_counter() - t0) * 1e3 / 8)
     with torch.no_grad():
-        p = _spmd_profile(torch, steps_of["spmd"])
-        q = _spmd_profile(torch, steps_of["one-device"])
-    log(f"spmd: decode step (8 rows) wall {statistics.mean(walls['spmd']):.2f}"
-        f" ms (rounds {[round(w, 2) for w in walls['spmd']]}), one-device "
-        f"{statistics.mean(walls['one-device']):.2f} ms (rounds "
-        f"{[round(w, 2) for w in walls['one-device']]}); under the profiler "
-        f"{p['wall_ms']:.2f} vs {q['wall_ms']:.2f} ms, device busy "
-        f"{p['busy_ms']:.3f} vs {q['busy_ms']:.3f} ms; NCCL "
-        f"{p['nccl_calls']:.0f} calls a step "
-        f"{json.dumps(p['nccl_calls_by_op'])}, {p['nccl_kernels']:.0f} "
-        f"device kernels, {p['nccl_device_ms']:.4f} device ms a step "
-        f"(world of 1: what one card cannot show is the transfer time) "
-        f"({smi})")
-    # where the SPMD step's extra host time goes: the host rows (self CPU
-    # ms a step under the profiler, and a call) that grew most over the
-    # one-device step's
-    log(f"spmd: device operations a step {p['launches']:.0f} vs "
+        prof = {name: _spmd_profile(torch, call[name]) for name in call}
+    for name in ("graphs", "eager"):
+        runs[name]["arm"]["prof"] = _with_c10d(prof["spmd" if name == "graphs"
+                                                    else "spmd eager"])
+    p, q = prof["spmd"], prof["one-device"]
+    rounds = {n: f"{statistics.mean(w):.2f} ms (rounds "
+                 f"{[round(x, 2) for x in w]})" for n, w in walls.items()}
+    log(f"spmd: decode step (8 rows) wall: graphed {rounds['spmd']}, eager "
+        f"{rounds['spmd eager']}, one-device (eager) {rounds['one-device']};"
+        f" under the profiler {p['wall_ms']:.2f} / "
+        f"{prof['spmd eager']['wall_ms']:.2f} / {q['wall_ms']:.2f} ms, "
+        f"device busy {p['busy_ms']:.3f} / "
+        f"{prof['spmd eager']['busy_ms']:.3f} / {q['busy_ms']:.3f} ms; c10d "
+        f"host calls a step {p['nccl_calls']:.0f} graphed (its graph holds "
+        f"{runs['graphs']['arm']['collectives']}), "
+        f"{prof['spmd eager']['nccl_calls']:.0f} eager "
+        f"{json.dumps(prof['spmd eager']['nccl_calls_by_op'])}, "
+        f"{p['nccl_kernels']:.0f} NCCL device kernels, "
+        f"{p['nccl_device_ms']:.4f} device ms a step (world of 1: what one "
+        f"card cannot show is the transfer time) ({smi})")
+    # where the eager SPMD step's extra host time goes: the host rows
+    # (self CPU ms a step under the profiler, and a call) that grew most
+    # over the one-device step's
+    p = prof["spmd eager"]
+    log(f"spmd: device operations a step {p['launches']:.0f} (eager) vs "
         f"{q['launches']:.0f} one-device")
     grew = sorted(((ms - q["host"].get(k, (0.0, 0.0))[0], k, ms, n)
                    for k, (ms, n) in p["host"].items()), reverse=True)
@@ -3839,9 +3962,24 @@ def spmd_full_width(torch, get_config, smi, mesh) -> dict:
         log(f"spmd: host +{d:.3f} ms/step ({ms:.3f} ms, {n:.1f} calls vs "
             f"{n0:.1f} one-device, {1e3 * ms / max(n, 1):.1f} us a call)  "
             f"{k[:80]}")
-    del full, params, model, steps_of
+    del full, params, model, steps_of, call, runs, plain
     _free(torch)
     return launches
+
+
+def _in(mode, fn, *args):
+    """``fn(*args)`` inside the context ``mode()`` (``build.eager`` or a
+    null context)."""
+    with mode():
+        return fn(*args)
+
+
+def _with_c10d(p: dict) -> dict:
+    """``_spmd_profile``'s step record in ``_step_profile``'s names, for
+    phase 32's lines."""
+    return {"plain_ms": p["wall_ms"], "busy_ms": p["busy_ms"],
+            "union_ms": p["union_ms"], "host_launches": p["host_launches"],
+            "c10d_calls": p["nccl_calls"]}
 
 
 def spmd_reduced(torch, get_config, smi, mesh) -> None:
@@ -3867,18 +4005,20 @@ def spmd_reduced(torch, get_config, smi, mesh) -> None:
                              "replicated")
     prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch
                            .Generator().manual_seed(3)).cuda()
+    fns = _cell_steps(model, _spmd_ctx(tr, mesh, rt_pre, "a2a"),
+                      _spmd_ctx(tr, mesh, rt_dec, "replicated"), 64)
     with torch.no_grad():
-        spmd, toks = _greedy(torch, model, params, prompt,
-                             _spmd_ctx(tr, mesh, rt_pre, "a2a"),
-                             _spmd_ctx(tr, mesh, rt_dec, "replicated"), 16,
-                             64)
-        local, ltoks = _greedy(torch, model, full, prompt,
-                               tr.ParallelCtx(moe_runtime=rt_pre),
-                               tr.ParallelCtx(moe_runtime=rt_dec), 16, 64)
+        spmd, toks, _ = _greedy(torch, fns, params, prompt, 16)
+        local, ltoks, _ = _greedy(torch, _cell_steps(
+            model, tr.ParallelCtx(moe_runtime=rt_pre),
+            tr.ParallelCtx(moe_runtime=rt_dec), 64, compiled=False), full,
+            prompt, 16)
     err = (spmd - local).abs().max().item()
-    log(f"spmd: reduced deepseek-r1 float32, 1 x 1 mesh, 16 greedy steps: "
-        f"tokens equal the one-device path's {torch.equal(toks, ltoks)}, "
-        f"max |logit err| {err:.3e} ({smi})")
+    log(f"spmd: reduced deepseek-r1 float32, 1 x 1 mesh, 16 greedy steps "
+        f"through the compiled cells ({fns[1].decision.reason}; captures "
+        f"prefill {fns[0].captures}, serve {fns[1].captures}, replays "
+        f"{fns[1].replays}): tokens equal the one-device path's "
+        f"{torch.equal(toks, ltoks)}, max |logit err| {err:.3e} ({smi})")
     if not torch.equal(toks, ltoks):
         raise AssertionError("spmd (reduced): greedy tokens differ")
 
@@ -3960,17 +4100,19 @@ def _spmd_rank(rank: int, world: int, init: str, forced, q) -> None:
             cfg, mesh, InputShape("d", 32, 2, "decode"), "replicated"),
             "replicated")
         ops.reset_launches()
+        fns = _cell_steps(model, pre, dec, 32)
         with torch.no_grad():
-            out, _ = _greedy(torch, model, params, prompt[d:d + 1].cuda(),
-                             pre, dec, 4, 32,
-                             forced=torch.as_tensor(forced)[:, d:d + 1]
-                             .cuda())
+            out, _, _ = _greedy(torch, fns, params,
+                                prompt[d:d + 1].cuda(), 4,
+                                forced=torch.as_tensor(forced)[:, d:d + 1]
+                                .cuda())
         torch.cuda.synchronize()
-        q.put((rank, out.cpu().numpy(), ops.launch_counts()))
+        q.put((rank, out.cpu().numpy(), ops.launch_counts(),
+               fns[1].decision.reason))
     except Exception as e:  # noqa: BLE001 - reported to the parent
         import traceback
         q.put((rank, f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
-               None))
+               None, None))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4034,15 +4176,18 @@ def spmd_multirank(torch, get_config, smi) -> None:
     rt_dec = default_runtime(cfg, 2, 2, "cuda")._replace(capacity=8)
     prompt = _spmd_prompt(torch, cfg).cuda()
     with torch.no_grad():
-        ref, toks = _greedy(torch, model, full, prompt,
-                            tr.ParallelCtx(moe_runtime=rt_pre),
-                            tr.ParallelCtx(moe_runtime=rt_dec), 4, 32)
+        ref, toks, _ = _greedy(torch, _cell_steps(
+            model, tr.ParallelCtx(moe_runtime=rt_pre),
+            tr.ParallelCtx(moe_runtime=rt_dec), 32, compiled=False), full,
+            prompt, 4)
     ranks = _run_ranks(_spmd_rank, 4, (toks.T.cpu().numpy(),), timeout=300)
     bad = [r[1] for r in ranks if r[2] is None]
     if bad:
         raise AssertionError(f"spmd (4 ranks): a rank failed:\n{bad[0]}")
+    log(f"spmd: the 4 gloo ranks' compiled cells run eagerly: "
+        f"{sorted({r[3] for r in ranks})}")
     errs = []
-    for rank, out, launches in ranks:
+    for rank, out, launches, _ in ranks:
         d = rank // 2
         errs.append(float(np.abs(out[:, 0] - ref[:, d].cpu().numpy()).max()))
         zero = [k for k in SPMD_PATH if launches[k] <= 0]
@@ -4058,12 +4203,9 @@ def spmd_multirank(torch, get_config, smi) -> None:
         raise AssertionError(f"spmd (4 ranks): logits differ {errs}")
 
 
-def spmd_phase(torch, get_config, smi) -> dict:
-    """Phase 24: the multi-device expert tier on torch.distributed — (b)
-    deepseek-r1 at full width, (c) reduced float32 tokens, (d) rwkv6-7b's
-    tensor-parallel layer, each on a 1 x 1 NCCL mesh (one card: NCCL
-    refuses two ranks on one device); then (e) 4 gloo ranks on the card.
-    Returns (b)'s launches."""
+def _nccl_world(torch, fn, *args):
+    """``fn(mesh, *args)`` on a 1 x 1 NCCL mesh of a world of 1 started
+    here and torn down after."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as meshlib
@@ -4071,12 +4213,25 @@ def spmd_phase(torch, get_config, smi) -> dict:
     meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
                              timeout_s=600)
     try:
-        mesh = meshlib.make_test_mesh(1, 1)
-        launches = spmd_full_width(torch, get_config, smi, mesh)
-        spmd_reduced(torch, get_config, smi, mesh)
-        spmd_rwkv(torch, get_config, smi, mesh)
+        return fn(meshlib.make_test_mesh(1, 1), *args)
     finally:
         dist.destroy_process_group()
+
+
+def spmd_phase(torch, get_config, smi, arms) -> dict:
+    """Phase 24: the multi-device expert tier on torch.distributed — (b)
+    deepseek-r1 at full width (both of phase 32's arms into ``arms``),
+    (c) reduced float32 tokens, (d) rwkv6-7b's tensor-parallel layer,
+    each on a 1 x 1 NCCL mesh (one card: NCCL refuses two ranks on one
+    device), the cells' steps compiled (CUDA graphs); then (e) 4 gloo
+    ranks on the card (eager: gloo's collectives cannot be captured).
+    Returns (b)'s launches."""
+    def one_rank(mesh):
+        launches = spmd_full_width(torch, get_config, smi, mesh, arms)
+        spmd_reduced(torch, get_config, smi, mesh)
+        spmd_rwkv(torch, get_config, smi, mesh)
+        return launches
+    launches = _nccl_world(torch, one_rank)
     _free(torch)
     spmd_multirank(torch, get_config, smi)
     return launches
@@ -4086,7 +4241,7 @@ def spmd_alone(torch, get_config, smi) -> None:
     """``--only spmd``: the partial kernel's checks, then phase 24."""
     cases = {"flash_decode_partial": []}
     partial_kernel_phase(torch, get_config("deepseek-r1"), cases)
-    spmd_phase(torch, get_config, smi)
+    spmd_phase(torch, get_config, smi, {})
 
 
 # ------------------------------------------------- phase 25: the mesh cells
@@ -4118,33 +4273,41 @@ def _param_digest(torch, params) -> str:
 
 def _train_run(torch, label, step, state, batch, steps: int, smi):
     """``steps`` steps of ``step`` from ``state`` on ``batch``: the first
-    step's loss, grad norm and updated params' digest, the later steps'
-    wall p50, one profiled step's idle share, peak memory."""
-    import types
-
+    step's loss, grad norm and updated params' digest, every step's loss
+    and grad norm, the last params' digest, the later steps' wall p50,
+    one profiled step's idle share, peak memory; for a compiled step
+    (the cells') its record for phase 32 (``_mesh_arm``, before the
+    profiled steps)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls = []
+    walls, losses, norms = [], [], []
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, met = step(state, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
         if i == 0:
             first = {"loss": float(met["loss"]),
                      "grad_norm": float(met["grad_norm"]),
                      "dropped": int(met.get("dropped", 0)),
                      "digest": _param_digest(torch, state.params)}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    prof = _step_profile(torch, types.SimpleNamespace(
-        step=lambda: step(state, batch)), 1)
+    last = _param_digest(torch, state.params)
+    arm = (_mesh_arm(step, walls=walls, **_memory(torch))
+           if hasattr(step, "decision") else None)
+    prof = _profile_calls(torch, lambda: step(state, batch), 1)
+    if arm is not None:
+        arm["prof"] = prof
     idle = (None if prof is None
             else max(0.0, 1 - prof["union_ms"] / prof["plain_ms"]))
     top = (None if prof is None else
            sorted(prof["rows"].items(), key=lambda kv: -kv[1][0])[:8])
     out = dict(first, wall_ms=statistics.median(walls[1:] or walls),
-               first_ms=walls[0], peak_gib=peak, idle=idle, top=top)
+               first_ms=walls[0], peak_gib=peak, idle=idle, top=top,
+               losses=losses, grad_norms=norms, last_digest=last, arm=arm)
     log(f"mesh: {label}: step 1 loss {first['loss']!r} grad_norm "
         f"{first['grad_norm']!r} dropped {first['dropped']} params digest "
         f"{first['digest']}; step wall p50 {out['wall_ms']:.1f} ms over "
@@ -4156,7 +4319,35 @@ def _train_run(torch, label, step, state, batch, steps: int, smi):
     return out
 
 
-def mesh_full_width(torch, get_config, smi) -> dict:
+def _eager_train_arm(torch, label, build_cell, batch, steps: int, smi):
+    """Phase 32's eager arm of a train cell: ``build_cell()`` again under
+    ``eager()`` (a fresh compiled step), its state from seed 0 as the
+    graphed arm's, ``steps`` steps on ``batch``."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+
+    _free(torch)
+    with build.eager():
+        cell = build_cell()
+        state = dryrun.init_state(cell, cell.shard(cell.model.init_params(
+            torch.Generator(device="cuda").manual_seed(0))))
+        out = _train_run(torch, f"{label} under eager()", cell.step, state,
+                         batch, steps, smi)
+    del state, cell
+    _free(torch)
+    return out
+
+
+def _train_arms(got: dict, eager: dict) -> dict:
+    """Phase 32's record of a train cell: both arms and what must be
+    bitwise equal."""
+    return {"kind": "train", "graphs": got["arm"], "eager": eager["arm"],
+            "calls": len(got["losses"]),
+            "equal": {k: got[k] == eager[k] for k in
+                      ("losses", "grad_norms", "last_digest")}}
+
+
+def mesh_full_width(torch, get_config, smi, arms) -> dict:
     """(a) deepseek-r1 at its published widths, depth 1 dense + 1 MoE
     (13.47 B params, bf16), one expert server of all 256 experts, the
     training phase's batch of 8 x 256 synthetic tokens:
@@ -4167,7 +4358,10 @@ def mesh_full_width(torch, get_config, smi) -> dict:
     weights rebuilt from the same seed (two states do not fit), same
     runtime, remat and chunks.  Loss, grad norm and the updated params'
     digest must be equal (else within 2e-2, reported); the four training
-    kernels must launch in the cell's steps.  Returns their launches."""
+    kernels must launch in the cell's steps.  The cell's step is compiled
+    (one CUDA graph with its collectives, captured at the second step);
+    the same steps under ``eager()`` from the same seed are phase 32's
+    eager arm (``arms``).  Returns the graphed steps' launches."""
     import numpy as np
 
     from repro_torch.configs import InputShape
@@ -4192,9 +4386,12 @@ def mesh_full_width(torch, get_config, smi) -> dict:
     try:
         mesh = meshlib.make_test_mesh(1, 1)
         t0 = time.perf_counter()
-        cell = dryrun.build_cell("deepseek-r1",
-                                 InputShape("train_8x256", L, B, "train"),
-                                 mesh, cfg=cfg)
+
+        def make():
+            return dryrun.build_cell(
+                "deepseek-r1", InputShape("train_8x256", L, B, "train"),
+                mesh, cfg=cfg)
+        cell = make()
         ctx = cell.ctx
         if cell.phase != "train" or not (ctx.sp_residual and ctx.remat):
             raise AssertionError(f"mesh: phase {cell.phase}, ctx {ctx}")
@@ -4210,6 +4407,9 @@ def mesh_full_width(torch, get_config, smi) -> dict:
         launches = ops.launch_counts()
         rt = ctx.moe_runtime
         del state, cell
+        arms["deepseek-r1 train cell (1 + 1 layers, 8 x 256)"] = _train_arms(
+            got, _eager_train_arm(torch, "deepseek-r1 train cell", make,
+                                  batch, steps, smi))
     finally:
         dist.destroy_process_group()
     _free(torch)
@@ -4274,14 +4474,15 @@ def _unchecked_core(torch, attention):
     return core
 
 
-def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
+def _family_train_cell(torch, get_config, smi, arch, B, L, arms) -> dict:
     """(a) ``arch``'s train cell at its published widths and depth (cut
     where ``TRAIN_CELL_DEPTH`` says) on a 1 x 1 NCCL mesh (its production phase ``train_tp``, remat, CE chunks
     of 512, Adafactor lr 1e-3; whisper's frames from numpy) against the
     one-device ``make_train_step`` on weights rebuilt from the same seed:
     loss, grad norm and the updated params' digest must be bitwise equal
     (else, where the one-device step does not repeat itself bitwise,
-    within 2e-2, as deepseek-r1's cell)."""
+    within 2e-2, as deepseek-r1's cell).  The cell's step is compiled;
+    the same steps under ``eager()`` are phase 32's eager arm."""
     from repro_torch.configs import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as meshlib
@@ -4304,12 +4505,17 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
     # under 17 B params), which one rank's budget alone would not pick
     phase = dryrun.train_phase_for(cfg.num_params(), 16)
     keep = dryrun.train_phase_for
-    dryrun.train_phase_for = lambda *a, **k: phase
     try:
         mesh = meshlib.make_test_mesh(1, 1)
-        cell = dryrun.build_cell(arch, InputShape(f"train_{B}x{L}", L, B,
-                                                  "train"), mesh, cfg=cfg)
-        dryrun.train_phase_for = keep
+
+        def make():
+            dryrun.train_phase_for = lambda *a, **k: phase
+            try:
+                return dryrun.build_cell(arch, InputShape(
+                    f"train_{B}x{L}", L, B, "train"), mesh, cfg=cfg)
+            finally:
+                dryrun.train_phase_for = keep
+        cell = make()
         if cell.phase != "train_tp":
             raise AssertionError(f"mesh: {arch} phase {cell.phase}")
         state = dryrun.init_state(cell, cell.shard(cell.model.init_params(
@@ -4322,6 +4528,9 @@ def _family_train_cell(torch, get_config, smi, arch, B, L) -> dict:
         got = _train_run(torch, f"{arch} build_cell train step (1 x 1 "
                          "NCCL mesh)", cell.step, state, batch, steps, smi)
         del state, cell
+        arms[f"{arch} train cell ({cfg.num_layers} layers, {B} x {L})"] = \
+            _train_arms(got, _eager_train_arm(
+                torch, f"{arch} train cell", make, batch, steps, smi))
     finally:
         dryrun.train_phase_for = keep
         dist.destroy_process_group()
@@ -4400,13 +4609,11 @@ FAMILY_STEPS = 16
 FAMILY_KERNELS = ("flash_decode", "flash_decode_partial")
 
 
-def _ragged_greedy(torch, model, params, prompts, ctx, steps: int,
-                   slots: int, forced=None):
-    """``_greedy`` over prompts of different lengths: each row prefilled
-    alone into its own cache, the caches joined along their batch dims
-    (found by role, ``sharding_rules.cache_placements``), then ``steps``
-    batched decode steps.  Returns (the logits of every step, the tokens
-    fed)."""
+def _ragged_prefill(torch, model, params, prompts, ctx, slots: int):
+    """Prompts of different lengths each prefilled alone into its own
+    cache of ``slots`` slots, the caches joined along their batch dims
+    (found by role, ``sharding_rules.cache_placements``): (the last
+    logits, the batch's cache)."""
     from repro_torch.distributed import sharding_rules as tsr
     from repro_torch.training import tree
 
@@ -4418,32 +4625,59 @@ def _ragged_greedy(torch, model, params, prompts, ctx, steps: int,
         cache = tree.map_paths(lambda path, _, spec: torch.cat(
             [r[path] for r in rows], dim=spec.index("data")), cache,
             tsr.cache_placements(cache, 2, ("data",), (), -1))
-    logits = torch.cat([o[0] for o in outs])
-    seq, fed = [logits], []
-    for i in range(steps):
-        tok = (logits.argmax(-1) if forced is None else forced[i])[:, None]
-        fed.append(tok)
-        logits, cache, _ = model.decode_step(params, tok, cache, ctx)
-        seq.append(logits)
-    return torch.stack(seq), torch.cat(fed, dim=1)
+    return torch.cat([o[0] for o in outs]), cache
+
+
+def _ragged_greedy(torch, model, params, prompts, ctx, steps: int,
+                   slots: int, forced=None):
+    """``_ragged_prefill``, then ``steps`` plain batched decode steps
+    (``_decode_loop``).  Returns (the logits of every step, the tokens
+    fed)."""
+    from repro_torch.launch import dryrun
+
+    logits, cache = _ragged_prefill(torch, model, params, prompts, ctx,
+                                    slots)
+    return _decode_loop(torch, dryrun.serve_step_of(model, ctx, logits=True),
+                        params, logits, cache, steps, forced)[:2]
+
+
+def _decode_arm(torch, serve, params, logits, cache, steps: int) -> tuple:
+    """One of phase 32's arms of a decode cell: ``steps`` greedy calls of
+    the compiled ``serve`` from a prefill's ``logits`` and ``cache``,
+    each call's wall, the calls' launches, then two more calls profiled.
+    Returns (the logits of every step, the tokens fed, the arm's record)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before, walls = ops.launch_counts(), []
+    seq, toks, (cache, tok) = _decode_loop(torch, serve, params, logits,
+                                           cache, steps, walls=walls)
+    after = ops.launch_counts()
+    arm = _mesh_arm(serve, walls=walls, **_memory(torch),
+                    launches={k: after[k] - before[k] for k in after})
+    arm["prof"] = _profile_calls(torch, lambda: serve(params, tok, cache))
+    return seq, toks, arm
 
 
 def _family_decode_cell(torch, get_config, smi, arch, P, slots, tol,
-                        equal_tokens) -> dict:
+                        equal_tokens, arms) -> dict:
     """(a) ``arch``'s decode cell at its published widths and depth on a
     1 x 1 NCCL mesh (phase ``decode``: the linear caches slot-sharded,
     gemma3's rings whole, rwkv6 through its island on a group of one):
     8 prompts of ``P = (lo, hi)`` tokens (each row's length drawn in
     between) prefilled into ``slots`` slots, then FAMILY_STEPS greedy
-    steps, against the one-device path on the same weights: the logits of
-    8 teacher-forced steps within ``tol``, both greedy digests (equal
-    tokens where ``equal_tokens``).  Returns the cell's flash-decode
-    launches."""
+    steps through the cell's serve step compiled (``dryrun.compile_serve``
+    of its step with the logits returned: a CUDA graph with its c10d
+    calls), against the one-device path on the same weights: the logits
+    of 8 teacher-forced steps within ``tol``, both greedy digests (equal
+    tokens where ``equal_tokens``).  The same steps under ``eager()`` from
+    the same prefilled cache are phase 32's eager arm (``arms``).
+    Returns the cell's flash-decode launches."""
     from repro_torch.configs import InputShape
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.launch import dryrun
-    from repro_torch.launch import mesh as meshlib
-    import torch.distributed as dist
+    from repro_torch.training import tree
 
     _free(torch)
     cfg = get_config(arch)
@@ -4452,10 +4686,8 @@ def _family_decode_cell(torch, get_config, smi, arch, P, slots, tol,
     lens = torch.randint(P[0], P[1] + 1, (B,), generator=g).tolist()
     prompt = [torch.randint(0, cfg.vocab_size, (n,), generator=g).cuda()
               for n in lens]
-    meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
-                             timeout_s=600)
-    try:
-        mesh = meshlib.make_test_mesh(1, 1)
+
+    def graphed_and_eager(mesh):
         cell = dryrun.build_cell(arch, InputShape("decode", slots, B,
                                                   "decode"), mesh, cfg=cfg)
         model, ctx = cell.model, cell.ctx
@@ -4466,15 +4698,31 @@ def _family_decode_cell(torch, get_config, smi, arch, P, slots, tol,
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         t0 = time.perf_counter()
+        step = dryrun.serve_step_of(model, ctx, logits=True)
         with torch.no_grad():
-            seq, toks = _ragged_greedy(torch, model, params, prompt, ctx,
-                                       FAMILY_STEPS, slots)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-    finally:
-        dist.destroy_process_group()
+            logits, cache = _ragged_prefill(torch, model, params, prompt,
+                                            ctx, slots)
+            start = tree.map_paths(lambda _, t: t.clone(), cache)
+            seq, toks, g_arm = _decode_arm(
+                torch, dryrun.compile_serve(step, ctx, "cuda"), params,
+                logits, cache, FAMILY_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            with build.eager():
+                e_seq, e_toks, e_arm = _decode_arm(
+                    torch, dryrun.compile_serve(step, ctx, "cuda"), params,
+                    logits, start, FAMILY_STEPS)
+        arms[f"{arch} decode cell ({cfg.num_layers} layers, {B} rows, "
+             f"{slots} slots)"] = {
+            "kind": "decode", "graphs": g_arm, "eager": e_arm,
+            "calls": FAMILY_STEPS,
+            "equal": {"logits": torch.equal(seq, e_seq),
+                      "tokens": torch.equal(toks, e_toks)}}
+        return model, full, seq, toks, wall, launches, peak
+    model, full, seq, toks, wall, launches, peak = _nccl_world(
+        torch, graphed_and_eager)
     if seq.shape != (FAMILY_STEPS + 1, B, cfg.padded_vocab) or \
             not torch.isfinite(seq).all():
         raise AssertionError(f"mesh: {arch} bad logits {tuple(seq.shape)}")
@@ -4491,13 +4739,14 @@ def _family_decode_cell(torch, get_config, smi, arch, P, slots, tol,
     log(f"mesh: {arch} decode cell (1 x 1 NCCL mesh, {cfg.num_layers} "
         f"layers, {B} prompts of {min(lens)}-{max(lens)} tokens, {slots} "
         f"slots, "
-        f"{FAMILY_STEPS} greedy steps): prefill + decode {wall:.2f}s wall, "
+        f"{FAMILY_STEPS} greedy steps, compiled): prefill + decode "
+        f"{wall:.2f}s wall, "
         f"peak {peak:.2f} GiB; vs the one-device path: max |logit err| "
         f"{err:.3e} (tol {tol}; by step {[float(f'{e:.3g}') for e in errs]})"
         f", bitwise equal {torch.equal(seq[:9], ref)}; greedy tokens sha1 "
         f"cell {digest(toks)}, one-device {digest(ltoks)}, {same}/"
         f"{toks.numel()} equal; launches {json.dumps(fd)} ({smi})")
-    del full, params, model, cell
+    del full, model
     _free(torch)
     if not err <= tol:
         raise AssertionError(f"mesh: {arch} decode cell logits differ {err}")
@@ -4506,23 +4755,24 @@ def _family_decode_cell(torch, get_config, smi, arch, P, slots, tol,
     return fd
 
 
-def mesh_families_full(torch, get_config, smi) -> dict:
+def mesh_families_full(torch, get_config, smi, arms) -> dict:
     """(a) the four families' cells at full width and depth on a 1 x 1
-    NCCL mesh: gemma3-4b's and whisper-base's train cells bitwise the
-    one-device step, and the decode cells of all four.  The partial flash
+    NCCL mesh, compiled (phase 32's arms into ``arms``): gemma3-4b's and
+    whisper-base's train cells bitwise the one-device step, and the
+    decode cells of all four.  The partial flash
     decode (SP decode over gemma3's globals, zamba2's shared block,
     whisper's self cache) and flash decode (gemma3's rings, whisper's
     cross attention) must launch where the cell runs them.  Returns the
     launches by family."""
     t0 = time.perf_counter()
-    _family_train_cell(torch, get_config, smi, "gemma3-4b", 8, 2048)
-    _family_train_cell(torch, get_config, smi, "whisper-base", 8, 256)
+    _family_train_cell(torch, get_config, smi, "gemma3-4b", 8, 2048, arms)
+    _family_train_cell(torch, get_config, smi, "whisper-base", 8, 256, arms)
     times = {"train cells": time.perf_counter() - t0}
     out = {}
     for arch, P, slots, tol, eq in FAMILY_DECODE:
         t0 = time.perf_counter()
         out[arch] = _family_decode_cell(torch, get_config, smi, arch, P,
-                                        slots, tol, eq)
+                                        slots, tol, eq, arms)
         times[arch] = time.perf_counter() - t0
     log(f"time: mesh: the families' cells (s) "
         f"{json.dumps({k: round(v, 1) for k, v in times.items()})}")
@@ -4671,7 +4921,7 @@ def _mesh_rank(rank: int, world: int, init: str, q) -> None:
         # fails its peers' collectives too, not after gloo's 30 minutes
         mesh = meshlib.make_test_mesh(2, 2, device="cuda")
         _no_drop_runtime(dryrun, True)
-        out, launches = {}, {}
+        out, launches, reasons = {}, {}, {}
         keep_phase = dryrun.train_phase_for
         for arch in MESH_ARCHS:
             cfg = _mesh_cfg(get_config, arch)
@@ -4722,11 +4972,12 @@ def _mesh_rank(rank: int, world: int, init: str, q) -> None:
                                 "k": _numpy_leaves(tree, cache)}
                 torch.cuda.synchronize()
                 launches[key] = ops.launch_counts()
-        q.put((rank, out, launches, mesh.get_coordinate()))
+                reasons[key] = cell.step.decision.reason
+        q.put((rank, out, launches, mesh.get_coordinate(), reasons))
     except Exception as e:  # noqa: BLE001 - reported to the parent
         import traceback
         q.put((rank, f"{type(e).__name__}: {e}\n{traceback.format_exc()}",
-               None, None))
+               None, None, None))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -4813,6 +5064,8 @@ def mesh_multirank(torch, get_config, smi) -> None:
     bad = [r[1] for r in ranks if r[2] is None]
     if bad:
         raise AssertionError(f"mesh (4 ranks): a rank failed:\n{bad[0]}")
+    log(f"mesh: the 4 gloo ranks' compiled cells run eagerly: "
+        f"{sorted({v for r in ranks for v in r[4].values()})}")
     b, errs, tols = MESH_B // 2, {}, {}
     mesh = _MeshShape(2, 2)
 
@@ -4835,7 +5088,7 @@ def mesh_multirank(torch, get_config, smi) -> None:
                     ("model",) if kind == "decode" else (), S)
                 specs = {"/".join(p): v for p, v in tree.paths(placed)}
             err = 0.0
-            for rank, out, launches, (d, m) in ranks:
+            for rank, out, launches, (d, m), _ in ranks:
                 got = out[key]
                 mesh.coord = [d, m]
                 if kind == "train":
@@ -4912,21 +5165,23 @@ def _accounting_report(proc) -> None:
         f"{json.dumps(r['collective_counts'])}")
 
 
-def mesh_phase(torch, get_config, smi):
+def mesh_phase(torch, get_config, smi, arms):
     """Phase 25: the dry-run's cells on torch.distributed — (a) the
     full-width deepseek-r1 train cell on a 1 x 1 NCCL mesh against the
     one-device step, then the full-width cells of gemma3-4b, zamba2-2.7b,
-    rwkv6-7b and whisper-base (``mesh_families_full``), (b) 4 gloo ranks
-    on the card running reduced cells against the one-process run, (c)
-    the dry-run's per-rank accounting (beside them, in its own process).
-    Returns (a)'s launches: deepseek-r1's, and the families' flash-decode
-    launches by family."""
+    rwkv6-7b and whisper-base (``mesh_families_full``), their steps
+    compiled (phase 32's arms into ``arms``), (b) 4 gloo ranks on the
+    card running reduced cells against the one-process run (eagerly:
+    gloo's collectives cannot be captured), (c) the dry-run's per-rank
+    accounting (beside them, in its own process).  Returns (a)'s
+    launches: deepseek-r1's, and the families' flash-decode launches by
+    family."""
     acct = _accounting_start()
     try:
         t0 = time.perf_counter()
-        launches = mesh_full_width(torch, get_config, smi)
+        launches = mesh_full_width(torch, get_config, smi, arms)
         t1 = time.perf_counter()
-        families = mesh_families_full(torch, get_config, smi)
+        families = mesh_families_full(torch, get_config, smi, arms)
         t2 = time.perf_counter()
         mesh_multirank(torch, get_config, smi)
         t3 = time.perf_counter()
@@ -4946,7 +5201,120 @@ def mesh_alone(torch, get_config, smi) -> None:
     among them), then phase 25."""
     cases = {"flash_decode_partial": []}
     partial_kernel_phase(torch, get_config("deepseek-r1"), cases)
-    mesh_phase(torch, get_config, smi)
+    mesh_phase(torch, get_config, smi, {})
+
+
+# ---------------------------------------- phase 32: the mesh steps graphed
+
+# the graphed step's wall (ms) predicted before the first chip run of the
+# phase (PERF.md §6, PR 31), by the start of a cell's label
+MESH_PREDICTED = {"spmd deepseek-r1": (5.5, 8.0),
+                  "gemma3-4b decode": (7.5, 12.0),
+                  "zamba2-2.7b decode": (11.5, 16.0),
+                  "rwkv6-7b decode": (33.0, 40.0),
+                  "whisper-base decode": (1.1, 3.0),
+                  "deepseek-r1 train": (1050.0, 1250.0),
+                  "gemma3-4b train": (1100.0, 1500.0),
+                  "whisper-base train": (10.0, 60.0)}
+
+
+def _mesh_graph_checks(label: str, r: dict) -> list:
+    """What phase 32 requires of one cell's arms: bitwise equal outputs;
+    the graphed arm graphed, captured once and replayed at every call
+    after the capture; the eager arm eager under ``eager()``, with no
+    capture; equal kernel launches over the decode steps."""
+    g, e, n = r["graphs"], r["eager"], r["calls"]
+    bad = [f"{label}: {k} differ between the arms"
+           for k, same in r["equal"].items() if not same]
+    if not g["graphed"]:
+        bad.append(f"{label}: not graphed ({g['reason']})")
+    if (g["captures"], g["replays"]) != (1, n - 2):
+        bad.append(f"{label}: graphs captured {g['captures']} and replayed "
+                   f"{g['replays']} times over {n} calls (want 1, {n - 2})")
+    if "prefill" in g and g["prefill"]["captures"] != 1:
+        bad.append(f"{label}: the prefill captured "
+                   f"{g['prefill']['captures']} times")
+    for arm in (e, e.get("prefill")):
+        if arm is not None and (arm["graphed"] or arm["captures"]
+                                or "under eager()" not in arm["reason"]):
+            bad.append(f"{label}: the eager arm {arm['reason']}, captured "
+                       f"{arm['captures']}")
+    if "launches" in g and g["launches"] != e["launches"]:
+        bad.append(f"{label}: launches differ: {g['launches']} vs "
+                   f"{e['launches']}")
+    return bad
+
+
+def _mesh_arm_line(label: str, name: str, a: dict, smi: str) -> str:
+    p = a.get("prof")
+    replays = a["walls"][2:] or a["walls"]
+    prof = ("the profiler saw no device time (not measured)" if p is None
+            else f"profiled call {p['plain_ms']:.3f} ms, device busy "
+                 f"{p['busy_ms']:.3f} ms (union {p['union_ms']:.3f}), idle "
+                 f"share {max(0.0, 1 - p['union_ms'] / p['plain_ms']):.4f}, "
+                 f"host calls that enqueue work {p['host_launches']:.1f} a "
+                 f"call, c10d host calls {p['c10d_calls']:.1f} a call")
+    return (f"mesh-graphs: {label} ({name}): {a['reason']}; captures "
+            f"{a['captures']}, replays {a['replays']}, c10d calls inside the "
+            f"graph {a['collectives']}; wall p50 "
+            f"{statistics.median(replays):.3f} ms over calls 3-"
+            f"{len(a['walls'])} (call 1 {a['walls'][0]:.3f} ms, call 2 "
+            f"{a['walls'][1]:.3f} ms"
+            + (": the eager call and the capture" if a["graphed"] else "")
+            + f"); {prof}; graph pool {a['pool_gib']:.3f} GiB; peak "
+            f"{a['peak_gib']:.2f} GiB allocated, {a['reserved_gib']:.2f} GiB "
+            f"reserved ({smi})")
+
+
+def mesh_graphs_phase(torch, smi, arms: dict) -> dict:
+    """Phase 32: the reference's jitted mesh steps as CUDA graphs
+    (``dryrun.build_cell``'s train, prefill and serve steps over NCCL,
+    with their c10d calls in the graph) against ``eager()`` on the same
+    weights, for every 1 x 1 NCCL cell of phases 24-25 (``arms``, filled
+    there): the SPMD deepseek-r1 prefill and 32 decode steps, the three
+    train cells and the four families' decode cells.  Each cell's arms
+    bitwise equal (logits and tokens; losses, grad norms and the params'
+    digest), one capture and a replay at every later call under the
+    key, none eager; per arm the wall p50 over the replays, a profiled
+    call's device busy, idle share, host calls that enqueue work and
+    c10d calls, the c10d calls the graph holds, the graph pool and the
+    peak memory, beside the predicted graphed wall.  Returns the graphed
+    arms' launches by cell (the decode cells')."""
+    bad, out = [], {}
+    for label, r in arms.items():
+        bad += _mesh_graph_checks(label, r)
+        g, e = r["graphs"], r["eager"]
+        for name, a in (("graphs", g), ("eager", e)):
+            log(_mesh_arm_line(label, name, a, smi))
+        gw = statistics.median(g["walls"][2:] or g["walls"])
+        ew = statistics.median(e["walls"][2:] or e["walls"])
+        lo, hi = next((v for k, v in MESH_PREDICTED.items()
+                       if label.startswith(k)), (None, None))
+        log(f"mesh-graphs: {label}: bitwise equal "
+            f"{json.dumps(r['equal'])}; wall p50 graphs {gw:.3f} ms vs eager "
+            f"{ew:.3f} ms ({ew / gw:.2f}x); predicted graphs "
+            + ("none" if lo is None else
+               f"{lo}-{hi} ms: {'inside' if lo <= gw <= hi else 'OUTSIDE'}")
+            + f" ({smi})")
+        if "launches" in g:
+            out[label] = g["launches"]
+    if bad:
+        raise AssertionError("mesh-graphs: " + "; ".join(bad))
+    return out
+
+
+def mesh_graphs_alone(torch, get_config, smi) -> None:
+    """``--only mesh-graphs``: phase 24's full-width deepseek-r1 and phase
+    25's full-width cells on their 1 x 1 NCCL meshes, each graphed and
+    under ``eager()`` (with their checks against the one-device path),
+    then phase 32's report; no gloo ranks, no accounting."""
+    arms = {}
+    _nccl_world(torch, lambda mesh: spmd_full_width(torch, get_config, smi,
+                                                    mesh, arms))
+    _free(torch)
+    mesh_full_width(torch, get_config, smi, arms)
+    mesh_families_full(torch, get_config, smi, arms)
+    mesh_graphs_phase(torch, smi, arms)
 
 
 def _tmix_per_token(torch, rwk, params, cfg, x, state):
@@ -6426,7 +6794,9 @@ def main() -> int:
                                                         smi),
              "examples": lambda: examples_phase(torch, get_config, smi),
              "examples-solo": lambda: examples_phase(torch, get_config, smi,
-                                                     workers=1)}
+                                                     workers=1),
+             "mesh-graphs": lambda: mesh_graphs_alone(torch, get_config,
+                                                      smi)}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -6509,9 +6879,11 @@ def main() -> int:
     train_launches, launcher_launches, train_arms = train_phases(
         torch, get_config, smi, cases)
     mark("train_phases")
-    spmd_launches = spmd_phase(torch, get_config, smi)
+    mesh_arms = {}           # phase 32's arms, run inside phases 24-25
+    spmd_launches = spmd_phase(torch, get_config, smi, mesh_arms)
     mark("spmd_phase")
-    mesh_launches, family_launches = mesh_phase(torch, get_config, smi)
+    mesh_launches, family_launches = mesh_phase(torch, get_config, smi,
+                                                mesh_arms)
     mark("mesh_phase")
     remat_phase(torch, get_config, smi)
     mark("remat_phase")
@@ -6525,6 +6897,8 @@ def main() -> int:
     mark("train_graphs_phase")
     example_launches = examples_phase(torch, get_config, smi)
     mark("examples_phase")
+    mgraph_launches = mesh_graphs_phase(torch, smi, mesh_arms)
+    mark("mesh_graphs_phase")
 
     def entry(name):
         cs = cases[name]
@@ -6568,7 +6942,9 @@ def main() -> int:
                                   **{f"train-graphs ({a}, eager)": n[name]
                                      for a, n in tgraph_launches.items()},
                                   **{f"examples ({a})": n.get(name, 0)
-                                     for a, n in example_launches.items()}},
+                                     for a, n in example_launches.items()},
+                                  **{f"mesh-graphs ({a})": n.get(name, 0)
+                                     for a, n in mgraph_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -55,3 +55,13 @@ def axes_group(mesh, axes: Sequence[str]):
         raise ValueError(f"axes {axes} out of the mesh's order "
                          f"{mesh.mesh_dim_names}")
     return mesh[axes]._flatten().get_group()
+
+
+def mesh_groups(mesh) -> Tuple:
+    """Every process group a step on ``mesh`` may call a collective over:
+    each axis's and the world's (several axes' groups are flattened from
+    these and share their backend); none for one device (``mesh`` None)."""
+    if mesh is None:
+        return ()
+    return (*(mesh.get_group(a) for a in mesh.mesh_dim_names),
+            dist.group.WORLD)

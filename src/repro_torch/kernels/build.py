@@ -19,8 +19,12 @@ and the serving layer that capture them: the process-wide switch
 step graphs, the train step's graph and the models' scan bodies read
 it), the capture stream of a device (:func:`capture_stream`), the capture
 itself (:func:`capture`), the addresses a graph is keyed on
-(:func:`addresses`) and :class:`CompiledFn`, one function compiled as
-one graph (quickstart's layer programs and the train step).
+(:func:`addresses`), the rule that decides whether a compiled step is
+graphed (:func:`decide`: from the device, the backends of its process
+groups and the switch, before any work) and :class:`CompiledFn`, one
+function compiled as one graph (quickstart's layer programs, the train
+step, the dry-run's mesh cells) with :class:`CompiledPerShape`, one such
+graph per input shape.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -240,23 +244,80 @@ def capture_stream(device) -> "torch.cuda.Stream":
     return stream
 
 
-def capture(fn, device, pool, counts: Dict[str, int]):
+def capture(fn, device, pool, counts: Dict[str, int],
+            collectives: bool = False):
     """Capture ``fn()`` into the graph memory pool ``pool`` on ``device``'s
     capture stream -> (graph, its static outputs); the launches its
     wrappers make go into ``counts`` (:func:`recording`).
     ``torch.cuda.graph`` would first synchronize, collect garbage and
     empty the allocator's cache: with a capture per shape, the eager calls
     after each capture would ``cudaMalloc`` their blocks again.  A failure
-    raises: no caller runs the work eagerly in the graph's place."""
+    raises: no caller runs the work eagerly in the graph's place.
+
+    ``collectives``: ``fn`` calls NCCL collectives.  c10d's watchdog
+    thread polls the events of earlier collectives while such a step may
+    be capturing; under the default ``global`` capture mode an unsafe
+    call from another thread invalidates a capture, so these captures use
+    ``thread_local``, which refuses only this thread's.  Every other
+    capture keeps the default."""
     graph, stream = torch.cuda.CUDAGraph(), capture_stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with recording(counts), torch.cuda.stream(stream):
-        graph.capture_begin(pool)
+        if collectives:
+            graph.capture_begin(pool, capture_error_mode="thread_local")
+        else:
+            graph.capture_begin(pool)
         try:
             out = fn()
         finally:
             graph.capture_end()
     return graph, out
+
+
+class GraphDecision(NamedTuple):
+    """Whether a compiled step runs as a CUDA graph, and why."""
+    graphed: bool
+    reason: str
+
+
+# the process-group backends whose collectives a CUDA graph can hold
+CAPTURABLE_BACKENDS = ("nccl",)
+
+
+def group_backends(groups) -> Tuple[str, ...]:
+    """The backend of each process group (``nccl``, ``gloo``, ``fake``)."""
+    if not groups:
+        return ()
+    import torch.distributed as dist
+    return tuple(str(dist.get_backend(g)) for g in groups)
+
+
+def decide(device, backends=(), eager_reason: Optional[str] = None
+           ) -> GraphDecision:
+    """Graphed or eager, decided before any work: graphed on a ``cuda``
+    device when every process group the step's collectives use
+    (``backends``) is NCCL's, outside :func:`eager` and unless the step
+    stays eager by its own rule (``eager_reason``); eager on the CPU, on
+    ``meta`` (the accounting) and where a group is gloo's or the fake
+    world's, whose collectives a graph cannot hold.  The reason lists
+    every rule that holds.  Never revised after a failure: a capture or
+    replay that fails raises."""
+    device = torch.device(device)
+    why = []
+    if device.type != "cuda":
+        why.append(f"on {device.type}")
+    if EAGER[0]:
+        why.append("under eager()")
+    other = sorted({b for b in backends if b not in CAPTURABLE_BACKENDS})
+    if other:
+        why.append(f"{'/'.join(other)} collectives cannot be captured in a "
+                   "CUDA graph")
+    if eager_reason:
+        why.append(eager_reason)
+    if why:
+        return GraphDecision(False, "eager: " + "; ".join(why))
+    return GraphDecision(True, "graphed: on cuda, collectives on NCCL"
+                         if backends else "graphed: on cuda")
 
 
 def tensors(tree) -> Iterator[torch.Tensor]:
@@ -281,8 +342,19 @@ def addresses(*trees) -> tuple:
                  for tree in trees for t in tensors(tree))
 
 
+def adopt(old, new) -> None:
+    """Copy each leaf of ``new`` that is not its counterpart in ``old`` into
+    it, so ``old`` keeps its storage (a step that returns fresh state
+    tensors, written back as a donated argument is; the port's decode
+    steps write theirs in place)."""
+    for a, b in zip(tensors(old), tensors(new)):
+        if a is not b:
+            a.copy_(b)
+
+
 def _clone(tree):
-    """The tensor leaves of ``tree`` cloned (tuples, named tuples, dicts)."""
+    """The tensor leaves of ``tree`` cloned (tuples, named tuples, dicts,
+    dataclasses: a cache)."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     if isinstance(tree, dict):
@@ -291,6 +363,10 @@ def _clone(tree):
         return type(tree)(*(_clone(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_clone(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _clone(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
     return tree
 
 
@@ -320,22 +396,34 @@ class CompiledFn:
     outputs, so a result outlives the next replay, as a jitted
     function's does.
 
+    ``groups`` are the process groups whose collectives ``fn`` calls (a
+    mesh step's: ``mesh_axes.mesh_groups``).  Whether a call is graphed
+    is :attr:`decision` (:func:`decide`), taken before any work from the
+    device, the groups' backends, the :func:`eager` switch and
+    ``eager_reason`` (a step that stays eager by its own rule): on NCCL
+    the collectives are captured with the step, and the NCCL
+    communicators exist by then, made by the first, eager call.
+
     ``captures`` counts captures (a capturing call replays its new graph
     once), ``replays`` the calls that replayed a graph captured earlier,
     ``counts`` the kernel launches of one replay (added to
-    :data:`LAUNCHES` at each) and ``pool_bytes`` what the last capture
-    added to the reserved memory.  On the CPU and under :func:`eager`
-    the staged call runs eagerly; a failure to capture or replay raises:
-    nothing runs ``fn`` eagerly in the graph's place."""
+    :data:`LAUNCHES` at each), ``collectives`` the ``c10d`` calls the
+    last capture holds and ``pool_bytes`` what the last capture added to
+    the reserved memory.  Where the decision is eager the staged call
+    runs eagerly; a failure to capture or replay raises: nothing runs
+    ``fn`` eagerly in the graph's place."""
 
     PURE = True
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, groups=(), eager_reason=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.groups = tuple(groups)
+        self.eager_reason = eager_reason
         self.captures = 0
         self.replays = 0
         self.pool_bytes = 0
+        self.collectives = 0
         self.counts: Dict[str, int] = {}
         self._data: Dict = {}
         self._key: Optional[tuple] = None
@@ -344,8 +432,13 @@ class CompiledFn:
         self._outputs = None
 
     @property
+    def decision(self) -> GraphDecision:
+        return decide(self.device, group_backends(self.groups),
+                      self.eager_reason)
+
+    @property
     def enabled(self) -> bool:
-        return self.device.type == "cuda" and not EAGER[0]
+        return self.decision.graphed
 
     def _buffer(self, name, v) -> torch.Tensor:
         v = torch.as_tensor(v)
@@ -398,11 +491,68 @@ class CompiledFn:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved(self.device)
         self.counts = {}
-        self._graph, self._outputs = capture(
-            lambda: self._captured(held, staged), self.device,
-            torch.cuda.graph_pool_handle(), self.counts)
+        tally = _C10dCalls() if self.groups else contextlib.nullcontext()
+        with tally:
+            self._graph, self._outputs = capture(
+                lambda: self._captured(held, staged), self.device,
+                torch.cuda.graph_pool_handle(), self.counts,
+                collectives=bool(self.groups))
+        self.collectives = getattr(tally, "n", 0)
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
         self.captures += 1
+
+
+def _C10dCalls():
+    """A dispatch mode counting the ``c10d`` ops (collectives) issued
+    inside it, on every thread that inherits it (autograd's included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "c10d":
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+    return Count()
+
+
+class CompiledPerShape:
+    """``jax.jit``'s cache of one executable per input shape: a
+    :class:`CompiledFn` of ``fn`` per shape and dtype of the data
+    arguments, side by side, so another prompt length captures once more
+    and leaves the other lengths' graphs alone.  ``per_shape[shape]`` is
+    that shape's :class:`CompiledFn`; ``captures``, ``replays`` and
+    ``pool_bytes`` sum over them."""
+
+    def __init__(self, fn, device, groups=(), eager_reason=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.groups = tuple(groups)
+        self.eager_reason = eager_reason
+        self.per_shape: Dict[tuple, CompiledFn] = {}
+
+    @property
+    def decision(self) -> GraphDecision:
+        return decide(self.device, group_backends(self.groups),
+                      self.eager_reason)
+
+    def __call__(self, held, *data):
+        shape = tuple((tuple(t.shape), t.dtype) for t in tensors(data))
+        fn = self.per_shape.get(shape)
+        if fn is None:
+            fn = self.per_shape[shape] = CompiledFn(
+                self.fn, self.device, self.groups, self.eager_reason)
+        return fn(held, *data)
+
+    def _sum(self, name: str) -> int:
+        return sum(getattr(f, name) for f in self.per_shape.values())
+
+    captures = property(lambda self: self._sum("captures"))
+    replays = property(lambda self: self._sum("replays"))
+    pool_bytes = property(lambda self: self._sum("pool_bytes"))
+    collectives = property(lambda self: max(
+        [f.collectives for f in self.per_shape.values()], default=0))
 
 
 def dtype_code(dtype) -> int:

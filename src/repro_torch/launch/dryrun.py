@@ -5,10 +5,14 @@ prefill or one serve step for an inference shape — and its accounting per
 device.
 
 * :func:`build_cell` builds a cell's step with the reference's contexts,
-  phases, capacities and cache placements.  It executes on the card by
-  default, on a real NCCL mesh, or on gloo ranks with ``device="cpu"``
-  (the tests); the params are the rank's shards
-  (``sharding_rules.shard_params(..., dense=True)``).
+  phases, capacities and cache placements, compiled as the reference
+  jits it: on the card over an NCCL mesh each step is a CUDA graph
+  holding its collectives (the train step through
+  ``train_loop.compile_train_step``, the prefill one graph per prompt
+  shape, the serve step writing the cache in place as the reference
+  donates it); over gloo ranks with ``device="cpu"`` (the tests) and on
+  ``meta`` the same steps run eagerly (``build.decide``).  The params
+  are the rank's shards (``sharding_rules.shard_params(..., dense=True)``).
 * :func:`run_cell` is the accounting.  It runs the per-rank step once on
   ``meta`` tensors — the params built as ``jax.eval_shape(init_params)``
   builds them, cut to the rank's shards — under the ``fake`` process-group
@@ -23,6 +27,8 @@ device.
   counts every layer, so the reference's depth probes are not needed;
   :func:`probe_plan` and :func:`_lin` stay, and a test holds the probe
   extrapolation (:func:`run_probes`) equal to the full-depth count.
+  It counts the cell's plain step (``Cell.plain``): the compiled
+  wrapper's static buffers are its machinery, not the step's memory.
 
 Not portable: the reference's ``parse_collective_bytes`` and
 ``_cost_dict`` read XLA's partitioned HLO text and ``cost_analysis()``,
@@ -61,16 +67,18 @@ from repro_torch.core import expert_server
 from repro_torch.core import mapping as emap
 from repro_torch.core.moe_layer import MoERuntime, default_capacity
 from repro_torch.distributed import mesh_axes
-from repro_torch.distributed.mesh_axes import data_axes
+from repro_torch.distributed.mesh_axes import data_axes, mesh_groups
 from repro_torch.distributed.sharding_rules import (cache_placements,
                                                     shard_leaf, shard_params,
                                                     train_phase_for)
+from repro_torch.kernels import build
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import ParallelCtx, build_model
 from repro_torch.models.whisper import frame_spec
 from repro_torch.training import tree as T
 from repro_torch.training.optimizer import adafactor
-from repro_torch.training.train_loop import TrainState, make_train_step
+from repro_torch.training.train_loop import (TrainState, compile_train_step,
+                                             make_train_step)
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "experiments", "dryrun_torch")
@@ -143,9 +151,12 @@ class Cell(NamedTuple):
 
     ``step``: train — ``(TrainState, batch rows) -> (state, metrics)``;
     prefill — ``(params, token rows) -> (logits, cache)``; decode —
-    ``(params, token rows, cache shard) -> (next token, cache)``.
-    ``phase`` is the sharding table's; ``seq_axes`` the decode cache's
-    slot axes."""
+    ``(params, token rows, cache shard) -> (next token, cache)``; compiled
+    (:func:`compile_prefill`, :func:`compile_serve`,
+    ``train_loop.compile_train_step``: ``step.decision`` says whether it
+    runs as a CUDA graph, and why).  ``plain`` is the same step
+    uncompiled.  ``phase`` is the sharding table's; ``seq_axes`` the
+    decode cache's slot axes."""
 
     cfg: ModelConfig
     shape: InputShape
@@ -156,6 +167,7 @@ class Cell(NamedTuple):
     step: Callable
     opt: object = None
     seq_axes: tuple = ()
+    plain: Callable = None
 
     def shard(self, full):
         """This rank's shards of a whole params tree (tensors or numpy
@@ -233,32 +245,114 @@ def build_cell(arch: str, shape: InputShape, mesh, cfg=None,
 
     if shape.kind == "train":
         opt = adafactor(lr=1e-3)
-        step = make_train_step(model, opt, ctx)
-        return Cell(cfg, shape, mesh, model, ctx, phase, step, opt)
+        plain = make_train_step(model, opt, ctx)
+        return Cell(cfg, shape, mesh, model, ctx, phase,
+                    compile_train_step(plain, device), opt, plain=plain)
 
     if shape.kind == "prefill":
-        def prefill_step(params, tokens, batch=None):
-            logits, cache, _ = model.prefill(params, tokens, ctx,
-                                             max_slots=shape.seq_len,
-                                             batch=batch)
-            return logits, cache
-        return Cell(cfg, shape, mesh, model, ctx, phase, prefill_step)
+        plain = prefill_step_of(model, ctx, shape.seq_len)
+        return Cell(cfg, shape, mesh, model, ctx, phase,
+                    compile_prefill(plain, model, ctx, device), plain=plain)
 
+    plain = serve_step_of(model, ctx)
+    return Cell(cfg, shape, mesh, model, ctx, phase,
+                compile_serve(plain, ctx, device), seq_axes=seq_axes,
+                plain=plain)
+
+
+def prefill_step_of(model, ctx: ParallelCtx, max_slots: int) -> Callable:
+    """The prefill cell's step: ``(params, tokens, batch=None) -> (logits,
+    cache)`` into a cache of ``max_slots`` slots."""
+    def prefill_step(params, tokens, batch=None):
+        logits, cache, _ = model.prefill(params, tokens, ctx,
+                                         max_slots=max_slots, batch=batch)
+        return logits, cache
+    return prefill_step
+
+
+def serve_step_of(model, ctx: ParallelCtx, logits: bool = False
+                  ) -> Callable:
+    """The serve cell's step: ``(params, token, cache) -> (next token,
+    cache)``, greedy; with ``logits`` it also returns the step's logits
+    (a caller that checks them)."""
     def serve_step(params, token, cache):
-        logits, cache, _ = model.decode_step(params, token, cache, ctx)
-        return torch.argmax(logits, dim=-1, keepdim=True).to(
-            torch.int32), cache
-    return Cell(cfg, shape, mesh, model, ctx, phase, serve_step,
-                seq_axes=seq_axes)
+        out, cache, _ = model.decode_step(params, token, cache, ctx)
+        nxt = torch.argmax(out, dim=-1, keepdim=True).to(torch.int32)
+        return (nxt, cache, out) if logits else (nxt, cache)
+    return serve_step
+
+
+# the reference's prefill is one jitted function a prompt shape; zamba2's
+# and rwkv6's loop over their scan bodies, each captured and replayed
+# inside the eager prefill (``Model.prefill_per_shape``, the executor's
+# rule)
+SCAN_PREFILL = ("the family's prefill loops over its scan bodies, each a "
+                "CUDA graph (Model.prefill_per_shape)")
+
+
+def compile_prefill(step: Callable, model, ctx: ParallelCtx, device
+                    ) -> build.CompiledPerShape:
+    """``jax.jit`` of the prefill cell's ``step``: one CUDA graph per
+    prompt shape (``build.CompiledPerShape``: the tokens, and a batch's
+    inputs, copied into static buffers), returning clones of its logits
+    and its fresh cache (the reference's ``out_shardings``); eager where
+    the family's prefill replays scan bodies, over gloo and on
+    ``meta``."""
+    return build.CompiledPerShape(
+        step, device, mesh_groups(ctx.mesh),
+        None if model.prefill_per_shape else SCAN_PREFILL)
+
+
+class CompiledServeStep(build.CompiledFn):
+    """``jax.jit(serve_step, donate_argnums=(2,))``: the serve cell's step
+    as one CUDA graph, ``(params, token, cache) -> (next token, cache,
+    *rest)``.  The token is data (copied into a static buffer, so a new
+    token replays); the params and the cache are read where they lie
+    (their addresses key the graph), and the cache is written in place,
+    as the reference donates it: a leaf the step returns fresh is copied
+    back into the caller's (``build.adopt``), and the returned cache is
+    the caller's.  The next token (and a step's logits) are the graph's
+    static outputs, overwritten by the next replay.  The first call under
+    a key runs eagerly, the second captures, later calls replay; a cache
+    at other addresses captures again."""
+
+    PURE = False
+
+    def __call__(self, params, token, cache):
+        return super().__call__((params, cache), token)
+
+    def _run(self, held, staged):
+        params, cache = held
+        nxt, new, *rest = self.fn(params, *staged, cache)
+        build.adopt(cache, new)
+        return (nxt, cache, *rest)
+
+    def _captured(self, held, staged):
+        nxt, _, *rest = self._run(held, staged)
+        return (nxt, *rest)
+
+    def _result(self, held):
+        nxt, *rest = self._outputs
+        return (nxt, held[1], *rest)
+
+
+def compile_serve(step: Callable, ctx: ParallelCtx, device
+                  ) -> CompiledServeStep:
+    """The serve cell's ``step`` compiled (:class:`CompiledServeStep`) with
+    the collectives of ``ctx``'s mesh."""
+    return CompiledServeStep(step, device, mesh_groups(ctx.mesh))
 
 
 def init_state(cell: Cell, params) -> TrainState:
     """A train cell's state over this rank's params (made leaves that
-    require grad)."""
+    require grad); the step counter on their device, as the compiled
+    step reads it."""
     for p in T.leaves(params):
         p.requires_grad_(True)
     return TrainState(params=params, opt_state=cell.opt.init(params),
-                      step=torch.zeros((), dtype=torch.int32))
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=next(iter(T.leaves(
+                                           params))).device))
 
 
 # ---------------------------------------------------------------------------
@@ -391,12 +485,12 @@ def count_cell(cell: Cell) -> Dict:
     if cell.shape.kind == "train":
         state = init_state(cell, params)
         held["opt_state"] = state.opt_state
-        call = lambda: cell.step(state, batch)            # noqa: E731
+        call = lambda: cell.plain(state, batch)           # noqa: E731
     elif cell.shape.kind == "prefill":
-        call = lambda: cell.step(params, batch["tokens"])  # noqa: E731
+        call = lambda: cell.plain(params, batch["tokens"])  # noqa: E731
     else:
         cache = held["cache"] = cell.init_cache()
-        call = lambda: cell.step(params, batch["tokens"], cache)  # noqa
+        call = lambda: cell.plain(params, batch["tokens"], cache)  # noqa
     args = {k: _tree_bytes(v) for k, v in held.items()}
     flops, coll, mem = FlopCounterMode(display=False), CollectiveCounter(), \
         MetaMemory(list(_tensors(list(held.values()))))

@@ -71,17 +71,10 @@ eager = build.eager
 # a graph's tensors and their addresses, shared with the train step's graph
 tensors = build.tensors
 addresses = build.addresses
+# a step's fresh state tensors copied back into the caller's storage
+adopt = build.adopt
 # ``jax.jit`` of a pure layer call outside an executor
 CompiledFn = compile_fn = build.CompiledFn
-
-
-def adopt(old, new) -> None:
-    """Copy each leaf of ``new`` that is not its counterpart in ``old`` into
-    it, so ``old`` keeps its storage (a step that returns fresh state
-    tensors; the port's decode steps write theirs in place)."""
-    for a, b in zip(tensors(old), tensors(new)):
-        if a is not b:
-            a.copy_(b)
 
 
 class StaticInputs:

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.distributed import tensor_parallel as tpl
+from repro_torch.distributed.mesh_axes import mesh_groups
 from repro_torch.kernels import build
 from repro_torch.models.transformer import Model, ParallelCtx, _tp
 from repro_torch.training import tree as T
@@ -119,8 +120,9 @@ def make_train_step(model: Model, opt: OptimizerBundle, ctx: ParallelCtx,
     the data axes (:func:`sync_grads_`), and the norm, the clip, the int8
     scale and the optimizer's statistics reduce over the axes that cut
     each leaf (``tensor_parallel.leaf_shards``), so every shard is updated
-    as the whole leaf would be.  Such a step stays eager under
-    :func:`compile_train_step` (``train_step.on_mesh``)."""
+    as the whole leaf would be.  ``train_step.groups`` names the mesh's
+    process groups (``mesh_axes.mesh_groups``): :func:`compile_train_step`
+    captures the step with its collectives where they are all NCCL's."""
     lay = _tp(ctx)
     if ctx.mesh is not None and lay is None:
         raise ValueError("training on a mesh needs ctx.dense_phase")
@@ -155,7 +157,7 @@ def make_train_step(model: Model, opt: OptimizerBundle, ctx: ParallelCtx,
         metrics = {k: v.detach() for k, v in metrics.items()}
         return new_state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
 
-    train_step.on_mesh = ctx.mesh is not None
+    train_step.groups = mesh_groups(ctx.mesh)
     return train_step
 
 
@@ -187,16 +189,16 @@ class CompiledTrainStep(build.CompiledFn):
     rate, the bias corrections, Adafactor's decay) is computed from it in
     the graph, so nothing of the capture step is frozen into it.
 
-    The step runs eagerly over the same staging on the CPU, on ``meta``,
-    under ``step_graphs.eager()`` (``build.eager``, the reference's
-    ``jax.disable_jit()``) and on a mesh (``step_fn.on_mesh``: its
-    collectives are not captured)."""
+    On a mesh (``step_fn.groups``, the mesh's process groups) the graph
+    holds the step's collectives where every group is NCCL's, as the
+    reference's jitted cell holds them (``src/repro/launch/dryrun.py:241``,
+    the state donated as the port writes it in place); with gloo's or the
+    fake world's it runs eagerly (:attr:`decision`, ``build.decide``).
+    The step runs eagerly over the same staging on the CPU, on ``meta``
+    and under ``step_graphs.eager()`` (``build.eager``, the reference's
+    ``jax.disable_jit()``)."""
 
     PURE = False
-
-    @property
-    def enabled(self) -> bool:
-        return super().enabled and not getattr(self.fn, "on_mesh", False)
 
     def __call__(self, state: TrainState, batch: Dict):
         if self.enabled and state.step.device.type != "cuda":
@@ -221,8 +223,10 @@ class CompiledTrainStep(build.CompiledFn):
 
 def compile_train_step(step_fn: Callable, device) -> CompiledTrainStep:
     """The reference's ``jax.jit(make_train_step(...))``: ``step_fn`` as a
-    :class:`CompiledTrainStep` on ``device`` (a CUDA graph on the card)."""
-    return CompiledTrainStep(step_fn, device)
+    :class:`CompiledTrainStep` on ``device`` (a CUDA graph on the card,
+    with the collectives of ``step_fn.groups``)."""
+    return CompiledTrainStep(step_fn, device,
+                             groups=getattr(step_fn, "groups", ()))
 
 
 def train_loop(model: Model, opt: OptimizerBundle, ctx: ParallelCtx,
@@ -232,7 +236,7 @@ def train_loop(model: Model, opt: OptimizerBundle, ctx: ParallelCtx,
                checkpoint_every: int = 0, compression: bool = False):
     """The reference's small-scale driver: returns (state, history).  The
     step is compiled (:func:`compile_train_step`): a CUDA graph on the
-    card, eager on the CPU, under ``eager()`` and on a mesh."""
+    card, eager on the CPU and under ``eager()``."""
     state = init_train_state(model, opt, generator, compression)
     step_fn = compile_train_step(
         make_train_step(model, opt, ctx, compression=compression),

@@ -1790,3 +1790,141 @@ def test_tours_run_on_the_card(cuda, capsys, name):
     with step_graphs.eager():
         mod.main([])
     assert capsys.readouterr().out == graphed
+
+
+# ---- the dry-run's cells as CUDA graphs over NCCL (launch/dryrun.build_cell)
+
+def _mesh_cell(mesh, kind, S):
+    """``build_cell``'s ``kind`` cell of reduced deepseek-r1 in float32 on
+    ``mesh``, 2 rows of ``S`` tokens (slots for the serve step), and its
+    params from seed 0 (fresh tensors: a train step writes them)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config("deepseek-r1").reduced().replace(dtype="float32")
+    cell = dryrun.build_cell("deepseek-r1", InputShape(kind, S, 2, kind),
+                             mesh, cfg=cfg)
+    params = cell.shard(cell.model.init_params(
+        torch.Generator(device="cuda").manual_seed(0)))
+    return cell, cfg, params
+
+
+def _clones(tree):
+    from repro_torch.kernels import build
+    return [t.clone() for t in build.tensors(tree)]
+
+
+def _equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_mesh_train_cell_graph_equals_eager_bitwise(nccl_mesh):
+    """``build_cell``'s train step on a 1 x 1 NCCL mesh, 4 steps on 4
+    batches: one CUDA graph with its collectives, captured at the second
+    step and replayed at the third and fourth (a new batch replays),
+    bitwise 4 steps under ``eager()`` from the same seed; a state at new
+    addresses captures again."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+    from repro_torch.training.data import synthetic_lm_batches
+
+    def run(graphs):
+        with contextlib.nullcontext() if graphs else build.eager():
+            cell, cfg, params = _mesh_cell(nccl_mesh, "train", 24)
+            data = synthetic_lm_batches(cfg, 2, 24, seed=0, device="cuda")
+            state = dryrun.init_state(cell, params)
+            mets = []
+            for _ in range(4):
+                state, m = cell.step(state, next(data))
+                mets.append((m["loss"].item(), m["grad_norm"].item()))
+            return cell, mets, _clones(state)
+    cell, g_met, g_state = run(True)
+    d = cell.step.decision
+    assert d.graphed and "NCCL" in d.reason, d.reason
+    assert (cell.step.captures, cell.step.replays) == (1, 2)
+    e_cell, e_met, e_state = run(False)
+    assert e_cell.step.captures == 0
+    assert g_met == e_met and _equal(g_state, e_state)
+    _, cfg, params = _mesh_cell(nccl_mesh, "train", 24)
+    data = synthetic_lm_batches(cfg, 2, 24, seed=1, device="cuda")
+    state = dryrun.init_state(cell, params)
+    for _ in range(2):
+        state, _ = cell.step(state, next(data))
+    assert (cell.step.captures, cell.step.replays) == (2, 2)
+
+
+@pytest.mark.cuda
+def test_mesh_prefill_cell_graph_per_shape_equals_eager_bitwise(nccl_mesh):
+    """The prefill cell: one graph per prompt shape — two prompts of 24
+    tokens (a capture, then a replay: new tokens) and one of 16 (a
+    second capture) — returning logits and a fresh cache each call,
+    bitwise the same calls under ``eager()``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    V = get_config("deepseek-r1").reduced().vocab_size
+    prompts = [torch.randint(0, V, (2, n), generator=g, device="cuda")
+               for n in (24, 24, 16)]
+
+    def run(graphs):
+        with contextlib.nullcontext() if graphs else build.eager():
+            cell, _, params = _mesh_cell(nccl_mesh, "prefill", 24)
+            outs = [cell.step(params, p) for p in prompts]
+            return cell, [_clones(o) for o in outs]
+    cell, got = run(True)
+    assert cell.step.decision.graphed
+    assert (cell.step.captures, cell.step.replays) == (2, 1)
+    assert len(cell.step.per_shape) == 2
+    e_cell, want = run(False)
+    assert e_cell.step.captures == 0
+    assert all(_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_mesh_serve_cell_graph_writes_the_cache_in_place(nccl_mesh):
+    """The serve cell over a slot-sharded cache of 64 slots: 4 greedy
+    steps, each fed the token the last returned, as one CUDA graph
+    holding the step's collectives (captured at the second step, then
+    replayed), the cache written in place as the reference donates it,
+    bitwise 4 steps under ``eager()``; a cache at new addresses captures
+    again."""
+    from repro_torch.kernels import build
+    from repro_torch.training import tree as T
+
+    def cache_of(cell):
+        g = torch.Generator(device="cuda").manual_seed(8)
+        return T.map_paths(
+            lambda path, leaf: torch.full_like(leaf, 20)
+            if path[-1] == "length" else torch.randn(
+                leaf.shape, generator=g, device="cuda").to(leaf),
+            cell.init_cache())
+
+    def run(graphs):
+        with contextlib.nullcontext() if graphs else build.eager():
+            cell, cfg, params = _mesh_cell(nccl_mesh, "decode", 64)
+            cache = cache_of(cell)
+            # int32, the cell's token dtype: another dtype is another key
+            tok = torch.randint(0, cfg.vocab_size, (2, 1), device="cuda",
+                                dtype=torch.int32,
+                                generator=torch.Generator(device="cuda")
+                                .manual_seed(4))
+            toks = []
+            for _ in range(4):
+                tok, out = cell.step(params, tok, cache)
+                assert out is cache
+                toks.append(tok.clone())
+            return cell, params, toks, _clones(cache)
+    cell, params, g_toks, g_cache = run(True)
+    assert cell.step.decision.graphed
+    assert (cell.step.captures, cell.step.replays) == (1, 2)
+    assert cell.step.collectives > 0
+    e_cell, _, e_toks, e_cache = run(False)
+    assert e_cell.step.captures == 0
+    assert _equal(g_toks, e_toks) and _equal(g_cache, e_cache)
+    other = cache_of(cell)
+    tok = g_toks[0]
+    for _ in range(2):
+        tok, _ = cell.step(params, tok, other)
+    assert (cell.step.captures, cell.step.replays) == (2, 2)

@@ -345,3 +345,55 @@ def test_family_probes_equal_the_full_depth(arch, kw):
     assert set(full) == set(probed) and len(full) > 4
     for k, v in full.items():
         assert probed[k] == pytest.approx(v, rel=1e-9), k
+
+
+# ------------------------------------------- graphed or eager: the rule
+
+@pytest.mark.parametrize("device,backends,graphed,words", [
+    ("cuda", ("nccl", "nccl", "nccl"), True, ("graphed", "NCCL")),
+    ("cuda", (), True, ("graphed",)),
+    ("cuda", ("nccl", "gloo"), False, ("gloo",)),
+    ("cuda", ("fake",), False, ("fake",)),
+    ("meta", ("fake", "fake"), False, ("on meta", "fake")),
+    ("cpu", ("gloo",), False, ("on cpu", "gloo")),
+])
+def test_graph_decision_from_device_and_backends(device, backends, graphed,
+                                                 words):
+    """``build.decide``: a CUDA graph on the card when every group is
+    NCCL's; eager on the CPU, on ``meta`` and over gloo or the fake world,
+    each reason named; under ``eager()`` always eager."""
+    from repro_torch.kernels import build
+
+    d = build.decide(device, backends)
+    assert d.graphed is graphed
+    assert all(w in d.reason for w in words), d.reason
+    with build.eager():
+        d = build.decide(device, backends)
+    assert not d.graphed and "under eager()" in d.reason
+    assert not build.decide(device, backends, "its own rule").graphed
+
+
+@pytest.mark.parametrize("arch,kind", [("deepseek-r1", "train"),
+                                       ("deepseek-r1", "prefill"),
+                                       ("deepseek-r1", "decode"),
+                                       ("rwkv6-7b", "prefill")])
+def test_cells_on_meta_and_fake_stay_eager(arch, kind):
+    """On a fake world's (2, 4) mesh, ``build_cell``'s compiled
+    steps decide eager before any work: on ``meta``, and on the card too,
+    since the fake backend's collectives cannot be captured.  rwkv6's
+    prefill stays eager by the family's own rule (its scan bodies are the
+    graphs).  The accounting counts the plain step and captures nothing."""
+    from repro_torch.distributed.mesh_axes import mesh_groups
+    from repro_torch.kernels import build
+
+    mesh = _mesh((2, 4))
+    cfg = get_config(arch).reduced()
+    cell = tdr.build_cell(arch, InputShape("c", 64, 16, kind), mesh,
+                          cfg=cfg, device="meta")
+    d = cell.step.decision
+    assert not d.graphed and "on meta" in d.reason and "fake" in d.reason
+    on_card = build.decide("cuda", build.group_backends(mesh_groups(mesh)))
+    assert not on_card.graphed and "fake" in on_card.reason
+    assert (tdr.SCAN_PREFILL in d.reason) == (arch == "rwkv6-7b")
+    assert tdr.count_cell(cell)["flops"] > 0
+    assert cell.step.captures == 0

@@ -19,7 +19,10 @@ capacity drops tokens; reduced granite-3-2b (tied embeddings) in
 cache) cells of both.  After one step every updated shard, the loss,
 grad norm, aux loss and dropped count equal the reference's at 1e-5; the
 prefill's logits and cache and the serve step's logits, next token and
-cache shard likewise.  The same world checks the int8 compression of a
+cache shard likewise.  The cells' steps are compiled as the reference
+jits them (CUDA graphs over NCCL); on gloo they run eagerly, and two
+calls of each equal two calls of the plain step bitwise, the second
+train and serve calls on the state and cache the first wrote in place.  The same world checks the int8 compression of a
 sharded leaf against the whole leaf's (one scale over every shard).
 
 The reference's ``build_cell`` lowers the expert GEMMs ``xla_dense``,
@@ -63,6 +66,10 @@ CASES = {
     "gr_prefill": ("granite-3-2b", "prefill", ""),
     "gr_decode": ("granite-3-2b", "decode", ""),
 }
+# the cases whose compiled step (build_cell's, as the reference jits it) is
+# also called twice against two calls of the plain step
+TWICE = ("ds_train", "gr_train", "ds_prefill", "gr_prefill", "ds_decode",
+         "gr_decode")
 
 
 def _put(out: dict, prefix: str, tree) -> None:
@@ -116,6 +123,7 @@ def _inputs(path: Path) -> dict:
                 out[key + "/labels"] = rng.integers(
                     0, cfg.vocab_size, (B, S)).astype(np.int32)
     out["cell/cases"] = np.array(",".join(CASES))
+    out["cell/twice"] = np.array(",".join(TWICE))
     np.savez(path, **out)
     return out
 
@@ -411,3 +419,19 @@ def test_int8_scale_is_the_whole_leafs(runs):
         rows = slice(r * 2, (r + 1) * 2)
         np.testing.assert_array_equal(out["int8/deq"], deq[rows].numpy())
         np.testing.assert_array_equal(out["int8/res"], res[rows].numpy())
+
+
+@pytest.mark.parametrize("case", TWICE)
+def test_compiled_cell_equals_the_plain_step_twice(runs, case):
+    """``build_cell``'s compiled step, called twice (the second call on
+    other data, and for train and serve on the state or cache the first
+    wrote in place), equals two calls of the plain step bitwise on every
+    rank; on gloo it captures nothing and says why."""
+    _, _, ranks = runs
+    key = f"cell/{case}/compiled"
+    for r in ranks:
+        assert bool(r[key + "/equal"])
+        assert bool(r[key + "/inplace"])
+        assert int(r[key + "/captures"]) == 0
+        reason = str(r[key + "/reason"])
+        assert reason.startswith("eager: on cpu") and "gloo" in reason

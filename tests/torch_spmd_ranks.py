@@ -26,6 +26,7 @@ from repro_torch.configs import InputShape, get_config
 from repro_torch.core.moe_layer import MoERuntime
 from repro_torch.distributed.mesh_axes import axes_group
 from repro_torch.distributed.sharding_rules import shard_leaf, shard_params
+from repro_torch.kernels.build import tensors as leaves
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.dryrun import moe_runtime_for
@@ -63,7 +64,8 @@ def tree(inp, prefix):
 
 
 def np_out(t):
-    return t.detach().float().numpy()
+    """A copy (a later in-place step must not move what was saved)."""
+    return t.detach().float().numpy().copy()
 
 
 def cfg_of(inp, key):
@@ -246,8 +248,17 @@ def cell_cases(inp, out, cases):
     ``train``.  Saved: a train step's metrics and this rank's updated
     shards; a prefill's rows of the logits and its cache; a serve step's
     rows of the next token and the logits and its shard of the cache,
-    each cache leaf under ``<path>``."""
+    each cache leaf under ``<path>``.
+
+    A case listed under ``cell/twice`` also calls its compiled step
+    (``cell.step``) a second time, on other data — the train step on the
+    state the first call wrote in place, the serve step on the cache it
+    wrote and the token it returned — and the plain step (``cell.plain``)
+    twice from the same inputs; saved under ``<key>/compiled/``: whether
+    both calls were bitwise equal, whether the state or cache stayed in
+    place, the compiled step's captures and its eager reason."""
     meshes = {}
+    twice = set(str(inp.get("cell/twice", "")).split(","))
     for case in cases:
         key = f"cell/{case}"
         n_data, n_model = (int(v) for v in inp[key + "/mesh"])
@@ -275,30 +286,77 @@ def cell_cases(inp, out, cases):
                 if f"{key}/{k}" in inp}
         rows = {k: v if k == "frames" else v.long() for k, v in rows.items()}
         if kind == "train":
-            state, met = cell.step(dryrun.init_state(cell, params), rows)
+            state = dryrun.init_state(cell, params)
+            at = leaves(state)
+            state, met = cell.step(state, rows)
             for k in ("loss", "grad_norm", "ce", "aux", "dropped"):
                 if k in met:
                     out[f"{key}/{k}"] = met[k].float().numpy()
             for path, leaf in T.items(state.params):
                 out[f"{key}/p/" + "/".join(path)] = np_out(leaf)
+            if case in twice:
+                other = dict(rows, tokens=rows["labels"],
+                             labels=rows["tokens"])
+                got = [met, cell.step(state, other)]
+                inplace = all(a is b for a, b in zip(
+                    at, leaves(got[1][0])))
+                ref = dryrun.init_state(cell, params_from_numpy(
+                    cell.shard(_as_np(tree(inp, key + "/params"))), None,
+                    "cpu"))
+                ref, m0 = cell.plain(ref, rows)
+                want = [m0, cell.plain(ref, other)]
+                same = all(torch.equal(a[k], b[k]) for a, b in
+                           ((got[0], want[0]), (got[1][1], want[1][1]))
+                           for k in ("loss", "grad_norm"))
+                same &= all(torch.equal(a, b) for a, b in zip(
+                    leaves(got[1][0]), leaves(want[1][0])))
+                compiled_report(out, key, cell.step, same, inplace)
         elif kind == "prefill":
             logits, cache = cell.step(params, rows["tokens"])
             out[key + "/logits"] = np_out(logits)
             for path, leaf in T.paths(cache):
                 out[f"{key}/" + "/".join(path)] = np_out(leaf)
+            if case in twice:
+                other = rows["tokens"].flip(1)
+                got = [(logits, cache), cell.step(params, other)]
+                want = [cell.plain(params, rows["tokens"]),
+                        cell.plain(params, other)]
+                same = all(torch.equal(a, b) for g, w in zip(got, want)
+                           for a, b in zip(leaves(g), leaves(w)))
+                compiled_report(out, key, cell.step, same, True)
         else:
             whole = fill_cache(cell.model.init_cache(B, S), inp,
                                key + "/cache")
             cache = clone_cache(cell.cache_shard(whole))
+            start = clone_cache(cache)
             logits = cell.model.decode_step(params, rows["tokens"],
                                             clone_cache(cache), cell.ctx)[0]
+            at = leaves(cache)
             nxt, cache = cell.step(params, rows["tokens"], cache)
             out[key + "/logits"] = np_out(logits)
-            out[key + "/next"] = nxt.numpy()
+            out[key + "/next"] = nxt.numpy().copy()
             for path, leaf in T.paths(cache):
                 out[f"{key}/" + "/".join(path)] = (
-                    leaf.numpy() if leaf.dtype in (torch.int32, torch.int64)
+                    leaf.numpy().copy()
+                    if leaf.dtype in (torch.int32, torch.int64)
                     else np_out(leaf))
+            if case in twice:
+                got = [nxt.clone(), *cell.step(params, nxt, cache)]
+                inplace = all(a is b for a, b in zip(at, leaves(got[2])))
+                n0, ref = cell.plain(params, rows["tokens"], start)
+                n1, ref = cell.plain(params, n0, ref)
+                same = torch.equal(got[0], n0) and torch.equal(got[1], n1) \
+                    and all(torch.equal(a, b) for a, b in zip(
+                        leaves(got[2]), leaves(ref)))
+                compiled_report(out, key, cell.step, same, inplace)
+
+
+def compiled_report(out, key, step, same: bool, inplace: bool) -> None:
+    """What a case's two compiled calls showed (``cell_cases``)."""
+    out[key + "/compiled/equal"] = np.array(same)
+    out[key + "/compiled/inplace"] = np.array(inplace)
+    out[key + "/compiled/captures"] = np.array(step.captures)
+    out[key + "/compiled/reason"] = np.array(step.decision.reason)
 
 
 def int8_case(inp, out):
