@@ -104,7 +104,8 @@ Phases, each of which raises on failure (exit code != 0):
 15. disaggregated: the paper's protocol-literal tier at full deepseek-r1
    width, one MoE layer, 2 clients x 8 expert servers (32 primaries + 8
    replicas each) polling their shared-buffer slots: one dynamic batch per
-   server holds both clients' rows, the grouped GEMM launches; server 0
+   server holds both clients' rows, the grouped GEMM launches (its
+   widening route: the float32 payload against bf16 weights); server 0
    killed silently, then a straggler (slow_factor 50), then re-registered:
    retries > 0 and outputs within 1e-3 of the healthy pass; per server its
    batches, rows, tick wall and the three GEMMs' device time beside their
@@ -204,7 +205,12 @@ Phases, each of which raises on failure (exit code != 0):
    families on a 1 x 1 NCCL mesh against the one-device path, their
    steps compiled as the reference jits them (CUDA graphs), 4 gloo ranks
    on reduced cells (eager, and say why), and the per-rank accounting
-   on ``meta``;
+   on ``meta``.  The cells lower the expert GEMMs ``dense``, as the
+   reference's ``build_cell`` does (``torch.bmm`` over each expert's
+   ``ecap`` rows: the grouped GEMM kernels launch 0 times there), the
+   one-device arm with the cell's runtime, so the same lowering and cap;
+   the 4 gloo ranks against their one-process run take the kernel
+   explicitly (every row computed, no drops on either side);
 26. remat: one rwkv6-7b time-mix layer at its published widths (d_model
    4096, 64 heads of 64, bf16), forward and backward over 2 x 4096
    tokens, the wkv recurrence checkpointed a chunk of 64 tokens at a time
@@ -319,6 +325,24 @@ Phases, each of which raises on failure (exit code != 0):
    busy, idle share, host calls that enqueue work and c10d host calls,
    the graph pool and peak memory, beside the predicted graphed wall.
    The 4 gloo ranks of phases 24-25 stay eager and print why.
+33. parity: the results that were the reference's only in part.  The
+   sampler (``csrc/sample.cu``, JAX's threefry Gumbel-max) against its
+   plain version on full-width deepseek-r1 logits (129,280 columns; B = 8
+   and 64 of mixed temperatures, greedy rows included, and 8 all
+   greedy, which the engines send to ``torch.argmax`` instead): tokens
+   equal, each sampled row's top-two margin printed; the probe kernel's
+   bits and uniforms bitwise the plain ones, Gumbel noise's max |err|;
+   the operations bound from the sampler's SASS (its column loop's
+   instructions by pipe); the grouped GEMM's
+   widening route (float32 rows, bfloat16 weights) against its plain
+   version at the disaggregated server's shapes (G = 40, a batch of 28
+   rows) and quickstart's (Kimi-K2 widths, 8 experts a server); then the
+   dense serve's model and traffic at temperature 0.8 (seeds 7-14),
+   served twice on one set of weights: equal tokens, the kernel's
+   tokens equal to the plain sampler's on the same logits at every
+   step, and tokens that differ from greedy's argmax.  The sampler's
+   launches on the ``kernels`` line are this serve's first run's; the
+   widening route's, phase 15's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--only families|disaggregated|
@@ -333,7 +357,10 @@ and phase 25; ``--only remat`` phase 26 and gemma3-4b's train cell;
 ``--only examples-solo`` phase 31 with a pool of one process, started
 after serve_moe's arms, so each reduced tour's arm runs alone;
 ``--only mesh-graphs`` phase 32: phases 24-25's 1 x 1 NCCL cells, each
-graphed and under ``eager()`` (no gloo ranks, no accounting).
+graphed and under ``eager()`` (no gloo ranks, no accounting);
+``--only mesh-train`` phase 25's deepseek-r1 train cell alone, both
+lowerings against their one-device arms (no eager arm);
+``--only parity`` phase 33 on weights of its own.
 Without a CUDA device, or without the rest of the repository beside it,
 the script exits 1 and prints no result.
 """
@@ -362,7 +389,9 @@ TOL = {"grouped_gemm": {"float32": 1e-5, "bfloat16": 2e-2},
        "flash_decode_partial": {"float32": 1e-5, "bfloat16": 1e-3},
        "paged_flash_decode": {"float32": 1e-5, "bfloat16": 3e-2},
        "combine_weighted": {"float32": 1e-5, "bfloat16": 2e-2},
-       "combine_slots": {"float32": 1e-5, "bfloat16": 2e-2}}
+       "combine_slots": {"float32": 1e-5, "bfloat16": 2e-2},
+       "grouped_gemm_f32_bf16": {"float32": 1e-5},
+       "sample": {"float32": 0.0}}
 RAGGED_VJP = ("no TPU kernel: the VJP of lax.ragged_dot, the reference "
               "trainer's grouped GEMM (src/repro/kernels/ops.py:95)")
 SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
@@ -384,7 +413,18 @@ SOURCES = {"grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
            "combine_weighted": ("src/repro_torch/csrc/combine.cu",
                                 "src/repro/kernels/combine.py:23"),
            "combine_slots": ("src/repro_torch/csrc/combine.cu",
-                             "src/repro/kernels/combine.py:23")}
+                             "src/repro/kernels/combine.py:23"),
+           "grouped_gemm_f32_bf16": (
+               "src/repro_torch/csrc/grouped_gemm.cu",
+               "src/repro/kernels/ops.py:94 (xla_ragged: lax.ragged_dot of "
+               "float32 rows and bfloat16 weights, promoted to a float32 "
+               "product; no Pallas kernel)"),
+           "sample": ("src/repro_torch/csrc/sample.cu",
+                      "src/repro/serving/sampling.py:17 (sample_batch: "
+                      "jitted jnp threefry Gumbel-max; no Pallas kernel)")}
+# a warm-up request's id: sampling keys fold the id in as a uint32 (the
+# reference raises for -1); 2**32 - 1 keeps -1's residue mod 2**k
+WARM_ID = 2 ** 32 - 1
 
 
 def log(*a):
@@ -420,9 +460,11 @@ def time_ms(torch, fn, reps: int = 20, inner: int = 5, warmup: int = 3,
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float, dtype: str):
+def bound_ms(nbytes: float, ops: float, dtype: str, ops_ms=None):
+    """The larger of the bytes' and the operations' times; ``ops_ms``, where
+    given, is the operations' time (counted by pipe, not at one rate)."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3 if ops_ms is None else ops_ms
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -441,7 +483,8 @@ def check_case(torch, name, label, dtype, got, want) -> float:
 
 
 def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
-             ops, twice: bool = False, plain_reps: int = 20, check=None):
+             ops, twice: bool = False, plain_reps: int = 20, check=None,
+             ops_ms=None):
     """Check kernel vs plain on one input (and, with ``twice``, run-to-run
     bitwise); time kernel, plain (``plain_reps`` single calls when it is
     slow), library.  ``check``, for a kernel that alters its input (dw's
@@ -454,7 +497,7 @@ def run_case(torch, name, label, dtype, kernel, plain, library, nbytes,
         err = check_case(torch, name, label, dtype, got, plain())
         if twice and not torch.equal(got, kernel()):
             raise AssertionError(f"{name}[{label}]: two runs differ")
-    b_ms, b_by = bound_ms(nbytes, ops, dtype)
+    b_ms, b_by = bound_ms(nbytes, ops, dtype, ops_ms)
     plain_ms = (time_ms(torch, plain) if plain_reps == 20 else
                 time_ms(torch, plain, reps=plain_reps, inner=1, warmup=1))
     case = {"case": label, "dtype": dtype, "max_abs_err": err,
@@ -551,8 +594,10 @@ def kernels_phase(torch, cfg):
             gg_case(f"arctic-480b: {phase} {what}, G = 34, {live_} live "
                     f"rows of 640", live_, K_, N_, bf, G=34, Mr=640,
                     plain_reps=3)
-    # the disaggregated tier's server: 32 primaries + 8 replicas, one
-    # dynamic batch of both clients' rows (28 x 8 picks over 8 servers)
+    # the disaggregated tier's server shape: 32 primaries + 8 replicas,
+    # one dynamic batch of both clients' rows (28 x 8 picks over 8
+    # servers), in bf16 rows (the server takes its float32 payload: the
+    # widening route, phase 33)
     for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
         gg_case(f"disaggregated server: {what}, G = 40, a batch of 28 rows",
                 28, K_, N_, bf, G=40, Mr=28, plain_reps=3)
@@ -1198,7 +1243,7 @@ def _dense_requests(np, cfg, rng):
     requests of 64-512 prompt tokens and 32 greedy tokens."""
     from repro_torch.serving import Request, SamplingParams
 
-    warm = Request(-1, rng.integers(0, cfg.vocab_size, 64, np.int32),
+    warm = Request(WARM_ID, rng.integers(0, cfg.vocab_size, 64, np.int32),
                    SamplingParams(max_new_tokens=2))
     lengths = rng.integers(64, 513, 8)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n), np.int32),
@@ -1263,6 +1308,14 @@ def _halts(metrics):
     return n, charged
 
 
+def _serve_config(get_config):
+    """The dense serve's model: deepseek-r1 at its published widths, 1
+    dense + 2 MoE layers."""
+    base = get_config("deepseek-r1")
+    return base.replace(num_layers=3,
+                        moe=dataclasses.replace(base.moe, first_k_dense=1))
+
+
 def serve_phase(torch, get_config):
     """Dense-KV serve at full width through a server failure; returns
     (launches over the run, engine, model config, rng)."""
@@ -1270,9 +1323,7 @@ def serve_phase(torch, get_config):
 
     from repro_torch.serving import EngineConfig, ServingEngine, WallClock
 
-    base = get_config("deepseek-r1")
-    cfg = base.replace(num_layers=3,
-                       moe=dataclasses.replace(base.moe, first_k_dense=1))
+    cfg = _serve_config(get_config)
     ecfg = EngineConfig(max_batch=8, max_seq=1024, num_servers=4,
                         n_redundant=2, pool_tokens_per_client=512)
     torch.cuda.reset_peak_memory_stats()
@@ -1371,7 +1422,7 @@ def paged_serve_phase(torch, cfg, params, rng):
     # warm-up on a throwaway engine: the pool's counters are absolute, so
     # the measured engine starts fresh
     warm = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
-    warm.submit(Request(-1, rng.integers(0, cfg.vocab_size, 300, np.int32),
+    warm.submit(Request(WARM_ID, rng.integers(0, cfg.vocab_size, 300, np.int32),
                         SamplingParams(max_new_tokens=2)))
     warm.run()
     del warm
@@ -1539,6 +1590,301 @@ def decode_modes_phase(torch, cfg, params, smi) -> dict:
         raise AssertionError("modes: pipelined and serialized first-step "
                              "logits differ")
     return out
+
+
+# phase 33: the sampler's operations bound, from its SASS.  The table's
+# float32 rate (67 TFLOP/s: an FMA of 2 operations on each of 128 lanes of
+# 132 SMs) sets the clock.  Per SM and clock Hopper issues 128 thread
+# instructions (4 schedulers of a warp each), 128 float32 ones, 64
+# integer ones (add, logic, funnel shift, multiply-add, compare, select,
+# move) and 16 special-function or conversion ones (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0).
+SM_COUNT = 132
+SM_CLOCK = PEAK_OPS["float32"] / (2 * 128 * SM_COUNT)
+PIPE_RATE = {"slots": 128, "fp32": 128, "int": 64, "mufu": 16, "conv": 16}
+FP32_SASS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK"}
+CONV_SASS = {"I2F", "F2I", "F2F", "I2I", "FRND"}
+# memory, control and warp-level instructions: they take only slots
+SLOTS_ONLY = ("LD", "ST", "ATOM", "RED", "BRA", "BRX", "JMP", "EXIT", "RET",
+              "CALL", "BSSY", "BSYNC", "BAR", "WARPSYNC", "NOP", "S2R",
+              "CS2R", "S2UR", "SHFL", "YIELD", "BMOV", "MEMBAR", "DEPBAR",
+              "ERRBAR", "VOTE", "MATCH", "BPT", "KILL", "U")
+PARITY_PATH = ("sample", "grouped_gemm", "flash_decode", "combine_slots")
+
+
+def _sass_loop(obj: Path, kernel: str) -> dict:
+    """The largest loop of ``kernel`` (its mangled name holds
+    ``<len>kernel``) in the object ``obj``, from ``cuobjdump -sass``:
+    its instructions by class, and its clocks per iteration on one SM
+    (the busiest class over its rate)."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(obj)],
+                          capture_output=True, text=True, check=True).stdout
+    name = re.compile(rf"Function : \S*\d{kernel}\w*")
+    insts, labels, pending, inside = [], {}, [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = bool(name.search(line))
+            continue
+        if not inside:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            addr = int(m.group(1), 16)
+            labels.update((lab, addr) for lab in pending)
+            pending = []
+            insts.append((addr, re.sub(r"^@!?U?P\w+\s+", "",
+                                       m.group(2))))
+    loops = []
+    for addr, inst in insts:
+        m = inst.startswith("BRA") and re.search(r"(\.L_x_\d+|0x[0-9a-f]+)",
+                                                 inst)
+        if m:
+            tgt = m.group(1)
+            to = labels.get(tgt) if tgt[0] == "." else int(tgt, 16)
+            if to is not None and to <= addr:
+                loops.append([i for a, i in insts if to <= a <= addr])
+    if not loops:
+        raise AssertionError(f"sass: no loop in {kernel} of {obj}")
+    body = max(loops, key=len)
+    count = dict.fromkeys(PIPE_RATE, 0)
+    for inst in body:
+        op = inst.split()[0].split(".")[0]
+        count["slots"] += 1
+        if op in FP32_SASS:
+            count["fp32"] += 1
+        elif op == "MUFU":
+            count["mufu"] += 1
+        elif op in CONV_SASS:
+            count["conv"] += 1
+        elif not op.startswith(SLOTS_ONLY):
+            count["int"] += 1
+    clocks = max(n / PIPE_RATE[k] for k, n in count.items())
+    return {"instructions": count, "clocks": clocks,
+            "by": max(count, key=lambda k: count[k] / PIPE_RATE[k])}
+
+
+def _sample_case(torch, cases, label, B, V, temps, gen, sass):
+    """One sampler case: tokens of the kernel against the plain version on
+    the same inputs, and the probe kernel's bits, uniforms and noise;
+    timed.  ``sass``: the sampled loop's clocks per column (one column an
+    iteration) on one SM."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sampling as ksm
+
+    dev = "cuda"
+    logits = torch.randn(B, V, generator=gen, device=dev) * 4
+    temps = torch.as_tensor(temps, dtype=torch.float32, device=dev)
+    keys = torch.randint(0, 2 ** 32, (B, 2), generator=gen, device=dev)
+    steps = torch.randint(0, 4096, (B,), generator=gen, device=dev)
+    tok = ksm.sample_cuda(logits, temps, keys, steps)
+    bits, u, g = ksm.probe_cuda(keys, steps, V)
+    want_bits = ksm.random_bits(keys, steps, V)
+    want_u = ksm.uniform(want_bits)
+    want_g = ksm.gumbel(want_bits)
+    plain = ksm.sample_torch(logits, temps, keys, steps)
+    torch.cuda.synchronize()
+    if not (torch.equal(bits, want_bits) and torch.equal(u, want_u)):
+        raise AssertionError(f"sample[{label}]: bits or uniforms differ")
+    if not torch.equal(tok, plain):
+        raise AssertionError(f"sample[{label}]: tokens {tok.tolist()} vs "
+                             f"plain {plain.tolist()}")
+    hot = temps > 0
+    safe_t = torch.where(hot, temps, 1.0)
+    top = torch.topk(want_g + logits / safe_t[:, None], 2, dim=-1).values
+    margins = (top[:, 0] - top[:, 1])[hot]
+    n_hot = int(hot.sum())
+    greedy = not n_hot
+    # a greedy column: one compare on the integer pipes
+    ops_ms = (n_hot * V * sass["clocks"] + (B - n_hot) * V
+              / PIPE_RATE["int"]) / (SM_COUNT * SM_CLOCK) * 1e3
+    case = run_case(
+        torch, "sample", label, "float32",
+        lambda: ops.sample(logits, temps, keys, steps, impl="cuda"),
+        lambda: ksm.sample_torch(logits, temps, keys, steps),
+        (lambda: torch.argmax(logits, dim=-1)) if greedy else None,
+        B * V * 4 + B * (4 + 16 + 8 + 8), 0.0, twice=True, plain_reps=3,
+        ops_ms=ops_ms)
+    case.update(gumbel_max_abs_err=(g - want_g).abs().max().item(),
+                bits_equal=True, uniforms_equal=True,
+                sampled_rows=n_hot,
+                min_top_two_margin=(margins.min().item() if n_hot
+                                    else None))
+    log(f"kernels: sample[{label}] bits and uniforms bitwise, tokens "
+        f"equal; Gumbel noise max |err| {case['gumbel_max_abs_err']:.3g}; "
+        f"top-two margins of the sampled rows "
+        f"{[float(f'{m:.4g}') for m in margins.tolist()][:8]}")
+    cases["sample"].append(case)
+
+
+def parity_kernels(torch, cases) -> None:
+    """Phase 33's kernels: the sampler at deepseek-r1's vocabulary and the
+    grouped GEMM's widening route at the disaggregated server's and
+    quickstart's shapes, each against its plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_layer import default_capacity
+    from repro_torch.kernels import grouped_gemm as kgg
+    from repro_torch.kernels import ops
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(33)
+    V = get_config("deepseek-r1").padded_vocab
+    from repro_torch.kernels import build
+    build.load_library()
+    sass = _sass_loop(Path(build.build_info["path"]).with_name("sample.o"),
+                      "sample_kernel")
+    log(f"kernels: sample's column loop (SASS, one sampled column an "
+        f"iteration): {json.dumps(sass['instructions'])} instructions, "
+        f"{sass['clocks']:.4g} clocks on one SM, bound by the "
+        f"{sass['by']} rate")
+    mixed = [0.8, 0.0, 1.0, 0.5, -1.0, 0.8, 2.0, 0.1]
+    _sample_case(torch, cases, "B = 8, mixed temperatures", 8, V, mixed, gen,
+                 sass)
+    _sample_case(torch, cases, "B = 64, mixed temperatures", 64, V,
+                 mixed * 8, gen, sass)
+    _sample_case(torch, cases, "B = 8, all greedy (engines: torch.argmax)",
+                 8, V, [0.0] * 8, gen, sass)
+
+    def widening(label, M, live, G, K, N):
+        sizes = torch.bincount(torch.multinomial(
+            torch.full((G,), 1.0 / G), live, replacement=True,
+            generator=torch.Generator().manual_seed(3)), minlength=G)
+        live_g = int((sizes > 0).sum())
+        sizes = sizes.to(dev)
+        x = torch.randn(M, K, generator=gen, device=dev)
+        w = (torch.randn(G, K, N, generator=gen, device=dev)
+             / K ** 0.5).to(torch.bfloat16)
+        cases["grouped_gemm_f32_bf16"].append(run_case(
+            torch, "grouped_gemm_f32_bf16", label, "float32",
+            lambda: ops.grouped_gemm(x, w, sizes, impl="cuda"),
+            lambda: kgg.grouped_gemm_torch(x, w, sizes), None,
+            live * K * 4 + live_g * K * N * 2 + M * N * 4,
+            2.0 * live * K * N, twice=True, plain_reps=3))
+
+    ds = get_config("deepseek-r1")
+    d, f = ds.d_model, ds.moe.d_expert
+    for what, K, N in (("gate/up", d, f), ("down", f, d)):
+        widening(f"disaggregated server: {what}, G = 40, a batch of 28 "
+                 f"rows", 28, 28, 40, K, N)
+    km = get_config("kimi-k2-1t-a32b")
+    C = default_capacity(64, km.moe.top_k, 4, km.moe.capacity_factor)
+    for what, K, N in (("gate/up", km.d_model, km.moe.d_expert),
+                       ("down", km.moe.d_expert, km.d_model)):
+        widening(f"quickstart (kimi-k2 widths): {what}, G = 8, 128 live "
+                 f"rows of {C}", C, 128, 8, K, N)
+
+
+def _sampled_requests(np, cfg, rng):
+    """The dense serve's traffic (a greedy warm-up, 8 prompts of 64-512
+    tokens, 32 tokens each) at temperature 0.8, seeds 7-14."""
+    from repro_torch.serving import Request, SamplingParams
+
+    warm, lengths, reqs = _dense_requests(np, cfg, rng)
+    return warm, [Request(r.request_id, r.prompt, SamplingParams(
+        max_new_tokens=32, temperature=0.8, seed=7 + r.request_id))
+        for r in reqs]
+
+
+def parity_serve(torch, cfg, params, smi) -> dict:
+    """The dense serve's model and weights at temperature 0.8, served
+    twice (a fresh engine each time): equal tokens; at every sampling
+    call the kernel's tokens equal the plain sampler's on the same
+    logits; some tokens differ from the argmax.  Returns the first run's
+    launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, ServingEngine, WallClock
+
+    real = ops.sample
+    seen = {"calls": 0, "rows": 0, "sampled": 0, "not_argmax": 0,
+            "mismatch": 0, "margin": float("inf")}
+
+    def checked(logits, temps, keys, steps, impl="auto"):
+        got = real(logits, temps, keys, steps, impl=impl)
+        want = real(logits, temps, keys, steps, impl="torch")
+        hot = temps > 0
+        seen["calls"] += 1
+        seen["rows"] += int(temps.numel())
+        seen["sampled"] += int(hot.sum())
+        seen["mismatch"] += int((got != want).sum())
+        seen["not_argmax"] += int((got != logits.argmax(-1))[hot].sum())
+        if bool(hot.any()):
+            from repro_torch.kernels import sampling as ksm
+            noisy = (ksm.gumbel(ksm.random_bits(keys, steps,
+                                                logits.shape[1]))
+                     + logits / torch.where(hot, temps, 1.0)[:, None])
+            top = torch.topk(noisy[hot], 2, dim=-1).values
+            seen["margin"] = min(seen["margin"],
+                                 (top[:, 0] - top[:, 1]).min().item())
+        return got
+
+    runs = []
+    ops.sample = checked
+    try:
+        for _ in range(2):
+            eng = ServingEngine(cfg, EngineConfig(
+                max_batch=8, max_seq=1024, num_servers=4, n_redundant=2,
+                pool_tokens_per_client=512), params=params,
+                clock=WallClock())
+            warm, reqs = _sampled_requests(np, cfg,
+                                           np.random.default_rng(0))
+            t0 = time.perf_counter()
+            metrics, launches, steps = _serve(torch, eng, warm, reqs,
+                                              fail=False)
+            runs.append((time.perf_counter() - t0, metrics, launches,
+                         _digest(reqs), reqs))
+            _check_completed("parity", metrics, reqs, cfg)
+            del eng
+            gc.collect()
+    finally:
+        ops.sample = real
+    (wall, metrics, launches, digest, reqs), again = runs[0], runs[1]
+    zero = [k for k in PARITY_PATH if launches[k] <= 0]
+    if zero:
+        raise AssertionError(f"parity: kernels never launched: {zero}")
+    if seen["mismatch"]:
+        raise AssertionError(f"parity: the sampler's tokens differ from the "
+                             f"plain version's {seen}")
+    if digest != again[3]:
+        raise AssertionError(f"parity: the two temperature runs differ "
+                             f"({digest} vs {again[3]})")
+    if not seen["not_argmax"]:
+        raise AssertionError("parity: every sampled token was the argmax")
+    log(f"parity: deepseek-r1 (1 dense + 2 MoE, full width) serving 8 "
+        f"requests at temperature 0.8 twice: tokens sha1 {digest} both "
+        f"runs; {seen['calls']} sampling calls over {seen['rows']} rows "
+        f"({seen['sampled']} sampled, {seen['not_argmax']} of them not the "
+        f"argmax), kernel == plain sampler at every call, smallest "
+        f"top-two margin {seen['margin']:.4g}; wall {wall:.2f} s / "
+        f"{again[0]:.2f} s (the plain checks included); launches "
+        f"{json.dumps(launches)} ({smi})")
+    return launches
+
+
+def parity_phase(torch, get_config, smi, cases, serve=None) -> dict:
+    """Phase 33: the parity kernels' checks, then the temperature serve
+    on ``serve`` = (model config, params) (the dense serve's; by default
+    its own, built from the same config and seed).  Returns the serve's
+    launches."""
+    t0 = time.perf_counter()
+    parity_kernels(torch, cases)
+    if serve is None:
+        from repro_torch.serving import EngineConfig, ServingEngine
+
+        cfg = _serve_config(get_config)
+        serve = (cfg, ServingEngine(cfg, EngineConfig(
+            max_batch=8, max_seq=1024, num_servers=4, n_redundant=2,
+            pool_tokens_per_client=512), seed=0, device="cuda").params)
+    launches = parity_serve(torch, *serve, smi)
+    log(f"time: parity: {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # the cluster phases: 4 attention clients over one expert tier, on the
@@ -2586,8 +2932,9 @@ def disaggregated_phase(torch, get_config, smi) -> dict:
     finally:
         ops.grouped_gemm = real_gemm
     launches = ops.launch_counts()
-    if launches["grouped_gemm"] <= 0:
-        raise AssertionError("disaggregated: the grouped GEMM never "
+    if launches["grouped_gemm_f32_bf16"] <= 0:
+        raise AssertionError("disaggregated: the grouped GEMM's widening "
+                             "route (float32 payload, bf16 weights) never "
                              "launched")
     batches = [s.batches - b for s, (b, _) in zip(servers, before)]
     rows = [s.served_tokens - n for s, (_, n) in zip(servers, before)]
@@ -2600,8 +2947,9 @@ def disaggregated_phase(torch, get_config, smi) -> dict:
         nbytes = 0
         for _, _, _, x, w, sizes in ev:
             live_g = int((sizes > 0).sum())
-            nbytes += (x.shape[0] * w.shape[1] + live_g * w.shape[1]
-                       * w.shape[2] + x.shape[0] * w.shape[2]) * 2
+            nbytes += ((x.shape[0] * w.shape[1] + x.shape[0] * w.shape[2])
+                       * x.element_size()
+                       + live_g * w.shape[1] * w.shape[2] * w.element_size())
         wall = sum(t for t, _ in ticks.get(rank, []))
         log(f"disaggregated: server {rank}: batches {batches[rank]}, rows "
             f"{rows[rank]}, tick wall {wall:.3f} ms, 3 grouped GEMMs "
@@ -2801,7 +3149,7 @@ def gemma3_phase(torch, get_config, smi) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB; expert tier "
         f"{eng.pool}")
     rng = np.random.default_rng(1)
-    warm = Request(-1, rng.integers(0, cfg.vocab_size, 64, np.int32),
+    warm = Request(WARM_ID, rng.integers(0, cfg.vocab_size, 64, np.int32),
                    SamplingParams(max_new_tokens=2))
     lengths = rng.integers(1100, 1801, 8)
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n), np.int32),
@@ -2856,7 +3204,7 @@ def _family_serve(torch, eng, cfg, lengths, rng, shapes):
 
     from repro_torch.serving import Request, SamplingParams
 
-    warm = Request(-1, rng.integers(0, cfg.vocab_size, 16, np.int32),
+    warm = Request(WARM_ID, rng.integers(0, cfg.vocab_size, 16, np.int32),
                    SamplingParams(max_new_tokens=2))
     reqs = [Request(i, rng.integers(0, cfg.vocab_size, int(n), np.int32),
                     SamplingParams(max_new_tokens=32))
@@ -2958,7 +3306,8 @@ def rwkv6_phase(torch, get_config, smi) -> dict:
         log(f"rwkv6: prefill of {n} tokens: {ms:.1f} ms wall, "
             f"{ms / n:.3f} ms a token ({smi})")
     log(f"rwkv6: no TPU kernel on this path (the reference's time-mix and "
-        f"channel-mix are jnp, not Pallas): launches {json.dumps(launches)}")
+        f"channel-mix are jnp, not Pallas; greedy traffic samples with "
+        f"torch.argmax): launches {json.dumps(launches)}")
     if any(launches.values()) or shapes:
         raise AssertionError(f"rwkv6: a kernel launched on a path that has "
                              f"none: {launches}")
@@ -3829,10 +4178,14 @@ def spmd_full_width(torch, get_config, smi, mesh, arms) -> dict:
     full = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     params = shard_params(full, mesh)        # views: 1 x 1 copies nothing
     torch.cuda.synchronize()
+    # the serving tier's lowering: the grouped GEMM kernel (the dry-run's
+    # cells lower dense: phase 25)
     rt_pre = moe_runtime_for(cfg, mesh, InputShape("prefill", P, B,
-                                                   "prefill"), "a2a")
+                                                   "prefill"), "a2a",
+                             gemm_impl="auto")
     rt_dec = moe_runtime_for(cfg, mesh, InputShape("decode", slots, B,
-                                                   "decode"), "replicated")
+                                                   "decode"), "replicated",
+                             gemm_impl="auto")
     n_params = sum(t.numel() for t in _leaves(full))
     log(f"spmd: deepseek-r1 d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} experts={cfg.moe.num_experts} top-"
@@ -4000,9 +4353,9 @@ def spmd_reduced(torch, get_config, smi, mesh) -> None:
         torch.Generator().manual_seed(0)), "cuda")
     params = shard_params(full, mesh)
     rt_pre = moe_runtime_for(cfg, mesh, InputShape("p", 24, 2, "prefill"),
-                             "a2a")
+                             "a2a", gemm_impl="auto")
     rt_dec = moe_runtime_for(cfg, mesh, InputShape("d", 64, 2, "decode"),
-                             "replicated")
+                             "replicated", gemm_impl="auto")
     prompt = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch
                            .Generator().manual_seed(3)).cuda()
     fns = _cell_steps(model, _spmd_ctx(tr, mesh, rt_pre, "a2a"),
@@ -4095,10 +4448,11 @@ def _spmd_rank(rank: int, world: int, init: str, forced, q) -> None:
         prompt = _spmd_prompt(torch, cfg)
         d = mesh.get_coordinate()[0]
         pre = _spmd_ctx(tr, mesh, moe_runtime_for(
-            cfg, mesh, InputShape("p", 16, 2, "prefill"), "a2a"), "a2a")
+            cfg, mesh, InputShape("p", 16, 2, "prefill"), "a2a",
+            gemm_impl="auto"), "a2a")
         dec = _spmd_ctx(tr, mesh, moe_runtime_for(
-            cfg, mesh, InputShape("d", 32, 2, "decode"), "replicated"),
-            "replicated")
+            cfg, mesh, InputShape("d", 32, 2, "decode"), "replicated",
+            gemm_impl="auto"), "replicated")
         ops.reset_launches()
         fns = _cell_steps(model, pre, dec, 32)
         with torch.no_grad():
@@ -4247,6 +4601,8 @@ def spmd_alone(torch, get_config, smi) -> None:
 # ------------------------------------------------- phase 25: the mesh cells
 
 MESH_PATH = TRAIN_PATH
+# a dry-run cell's MoE kernels: its expert GEMMs are lowered dense
+CELL_PATH = ("combine_slots",)
 DIGEST_CHUNK = 1 << 26
 
 
@@ -4356,24 +4712,19 @@ def mesh_full_width(torch, get_config, smi, arms) -> dict:
     sequence-parallel residual, remat, CE chunks of 512), Adafactor lr
     1e-3 — then the one-device ``make_train_step`` on
     weights rebuilt from the same seed (two states do not fit), same
-    runtime, remat and chunks.  Loss, grad norm and the updated params'
-    digest must be equal (else within 2e-2, reported); the four training
-    kernels must launch in the cell's steps.  The cell's step is compiled
-    (one CUDA graph with its collectives, captured at the second step);
-    the same steps under ``eager()`` from the same seed are phase 32's
-    eager arm (``arms``).  Returns the graphed steps' launches."""
-    import numpy as np
-
-    from repro_torch.configs import InputShape
-    from repro_torch.kernels import ops
-    from repro_torch.launch import dryrun
-    from repro_torch.launch import mesh as meshlib
-    from repro_torch.models.transformer import ParallelCtx, build_model
+    runtime, remat and chunks.  Two lowerings of the expert GEMMs, each
+    held to its own one-device arm: the cell as built (``dense``, each
+    expert capped at ``ecap`` rows, ``torch.bmm``, as the reference's
+    cells lower them: the combine's kernel launches, no grouped GEMM
+    kernel), then the same cell on the grouped GEMM kernels (``auto``:
+    every row computed; the forward and both backward kernels launch
+    inside the captured step).  Loss, grad norm and the updated params'
+    digest must be equal (else within 2e-2, reported).  The cell's step
+    is compiled (one CUDA graph with its collectives, captured at the
+    second step); the dense cell's steps under ``eager()`` from the same
+    seed are phase 32's eager arm (``arms``).  Returns the graphed steps'
+    launches, both lowerings summed."""
     from repro_torch.training.data import synthetic_lm_batches
-    from repro_torch.training.optimizer import adafactor
-    from repro_torch.training.train_loop import (init_train_state,
-                                                 make_train_step)
-    import torch.distributed as dist
 
     _free(torch)
     base = get_config("deepseek-r1")
@@ -4381,9 +4732,33 @@ def mesh_full_width(torch, get_config, smi, arms) -> dict:
                        moe=dataclasses.replace(base.moe, first_k_dense=1))
     B, L, steps = 8, 256, 3
     batch = next(synthetic_lm_batches(cfg, B, L, seed=0, device="cuda"))
+    dense = _ds_train_cell(torch, cfg, batch, steps, smi, "dense", arms)
+    kernel = _ds_train_cell(torch, cfg, batch, steps, smi, "auto", None)
+    return {k: dense[k] + kernel[k] for k in dense}
+
+
+def _ds_train_cell(torch, cfg, batch, steps, smi, lowering, arms) -> dict:
+    """One lowering of (a)'s cell against its one-device arm; the graphed
+    steps' launches."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models.transformer import ParallelCtx, build_model
+    from repro_torch.training.optimizer import adafactor
+    from repro_torch.training.train_loop import (init_train_state,
+                                                 make_train_step)
+    import torch.distributed as dist
+
+    B, L = batch["tokens"].shape
+    keep = dryrun.moe_runtime_for
     meshlib.init_distributed(0, 1, f"tcp://127.0.0.1:{_free_port()}",
                              timeout_s=600)
     try:
+        dryrun.moe_runtime_for = (lambda *a, **k: keep(*a, **k)._replace(
+            gemm_impl=lowering))
         mesh = meshlib.make_test_mesh(1, 1)
         t0 = time.perf_counter()
 
@@ -4399,23 +4774,32 @@ def mesh_full_width(torch, get_config, smi, arms) -> dict:
             torch.Generator(device="cuda").manual_seed(0))))
         log(f"mesh: deepseek-r1 {cfg.num_params() / 1e9:.2f}B params, "
             f"phase {cell.phase} (sp_residual, remat, ce_chunk "
-            f"{ctx.ce_chunk}), capacity {ctx.moe_runtime.capacity}, built "
-            f"in {time.perf_counter() - t0:.1f}s")
+            f"{ctx.ce_chunk}), capacity {ctx.moe_runtime.capacity}, expert "
+            f"GEMMs {lowering}, built in {time.perf_counter() - t0:.1f}s")
         ops.reset_launches()
-        got = _train_run(torch, "build_cell train step (1 x 1 NCCL mesh)",
-                         cell.step, state, batch, steps, smi)
+        got = _train_run(torch, f"build_cell train step (1 x 1 NCCL mesh, "
+                         f"{lowering})", cell.step, state, batch, steps,
+                         smi)
         launches = ops.launch_counts()
         rt = ctx.moe_runtime
         del state, cell
-        arms["deepseek-r1 train cell (1 + 1 layers, 8 x 256)"] = _train_arms(
-            got, _eager_train_arm(torch, "deepseek-r1 train cell", make,
-                                  batch, steps, smi))
+        if arms is not None:
+            arms["deepseek-r1 train cell (1 + 1 layers, 8 x 256)"] = \
+                _train_arms(got, _eager_train_arm(
+                    torch, "deepseek-r1 train cell", make, batch, steps,
+                    smi))
     finally:
+        dryrun.moe_runtime_for = keep
         dist.destroy_process_group()
     _free(torch)
-    zero = [k for k in MESH_PATH if launches[k] <= 0]
-    if zero:
-        raise AssertionError(f"mesh: the cell's step never launched {zero}")
+    want = CELL_PATH if lowering == "dense" else MESH_PATH
+    zero = [k for k in want if launches[k] <= 0]
+    other = {k: launches[k] for k in MESH_PATH if k not in want
+             and launches[k]}
+    if zero or other or rt.gemm_impl != lowering:
+        raise AssertionError(f"mesh: the {lowering} cell's step launched "
+                             f"{launches} (lowering {rt.gemm_impl}; want "
+                             f"{want} and no other of {MESH_PATH})")
     model = build_model(cfg, 1, np.zeros((1, 0), np.int32), "cuda")
     opt = adafactor(lr=1e-3)
     state = init_train_state(model, opt,
@@ -4441,7 +4825,7 @@ def mesh_full_width(torch, get_config, smi, arms) -> dict:
     del state, model, step
     _free(torch)
     err = max(abs(got[k] - ref[k]) for k in ("loss", "grad_norm"))
-    log(f"mesh: cell vs one-device: loss, grad_norm and params digest "
+    log(f"mesh: {lowering} cell vs one-device: loss, grad_norm and params digest "
         f"{'bitwise equal' if same else f'differ (max |err| {err:.3e})'}; "
         f"step wall {got['wall_ms']:.1f} vs {ref['wall_ms']:.1f} ms, peak "
         f"{got['peak_gib']:.2f} vs {ref['peak_gib']:.2f} GiB; launches "
@@ -4871,8 +5255,10 @@ def _mesh_cache(torch, model, cfg, S=MESH_S):
 
 def _no_drop_runtime(dryrun, patch: bool):
     """``moe_runtime_for`` with each client's capacity holding all its
-    routed tokens (no drops: the one-process run then computes the same
-    function with one client)."""
+    routed tokens and the expert GEMMs on the kernel, which computes every
+    row (no drops, no expert capped: the one-process run then computes the
+    same function with one client, where the dense lowering's cap, sized
+    from a server's rows, would drop other rows)."""
     keep = dryrun.moe_runtime_for
 
     def every_token(cfg, mesh, shape, mode, device=None):
@@ -4884,7 +5270,8 @@ def _no_drop_runtime(dryrun, patch: bool):
                else shape.global_batch) // sizes["data"]
         if mode == "a2a":
             per //= sizes["model"]
-        return rt._replace(capacity=max(per, 1) * cfg.moe.top_k)
+        return rt._replace(capacity=max(per, 1) * cfg.moe.top_k,
+                           gemm_impl="auto")
     if patch:
         dryrun.moe_runtime_for = every_token
     return keep, every_token
@@ -5010,9 +5397,9 @@ def _mesh_one_process(torch, arch, cfg, kind, phase) -> dict:
     mode = "replicated" if kind == "decode" else "a2a"
     rt = dryrun.moe_runtime_for(cfg, _MeshShape(1, 2), shape, mode,
                                 device="cuda")
-    if rt is not None:
+    if rt is not None:                     # every row, as _no_drop_runtime
         rows = MESH_B if kind == "decode" else MESH_B * S
-        rt = rt._replace(capacity=rows * cfg.moe.top_k)
+        rt = rt._replace(capacity=rows * cfg.moe.top_k, gemm_impl="auto")
     ctx = ParallelCtx(moe_runtime=rt, remat=True, ce_chunk=512)
     inp = {k: v.cuda() for k, v in _mesh_inputs(torch, cfg, kind,
                                                  S).items()}
@@ -5461,7 +5848,7 @@ def _paged_traffic(np, cfg, rng):
     shared 256-token prefixes (the last two bare: a COW fork)."""
     from repro_torch.serving import Request, SamplingParams
 
-    warm = Request(-1, rng.integers(0, cfg.vocab_size, 300, np.int32),
+    warm = Request(WARM_ID, rng.integers(0, cfg.vocab_size, 300, np.int32),
                    SamplingParams(max_new_tokens=2))
     prefixes = [rng.integers(0, cfg.vocab_size, 256, np.int32)
                 for _ in range(2)]
@@ -5795,7 +6182,7 @@ def _chunked_traffic(np, cfg, rng):
     greedy tokens: with 256-token chunks, full chunks repeat."""
     from repro_torch.serving import Request, SamplingParams
 
-    warm = Request(-1, rng.integers(0, cfg.vocab_size, 300, np.int32),
+    warm = Request(WARM_ID, rng.integers(0, cfg.vocab_size, 300, np.int32),
                    SamplingParams(max_new_tokens=2))
     return warm, [Request(i, rng.integers(0, cfg.vocab_size,
                                           int(rng.integers(256, 769)),
@@ -6115,7 +6502,7 @@ def _family_prefill_arm(torch, cfg, params, ecfg, label, graphs, lengths,
     with _arm(graphs):
         eng = ServingEngine(cfg, ecfg, params=params, clock=WallClock())
         rng = np.random.default_rng(0)
-        warm = Request(-1, rng.integers(0, cfg.vocab_size, 16, np.int32),
+        warm = Request(WARM_ID, rng.integers(0, cfg.vocab_size, 16, np.int32),
                        SamplingParams(max_new_tokens=2))
         reqs = [Request(i, rng.integers(0, cfg.vocab_size, n, np.int32),
                         SamplingParams(max_new_tokens=32))
@@ -6630,8 +7017,13 @@ def _tour_checks(label: str, g: dict, e: dict) -> list:
         for arm in (g, e):
             if not arm["identical"]:
                 bad.append(f"{name}: the tour's token streams differ")
-    if name != "train_small" and not g["launches"].get("grouped_gemm"):
-        bad.append(f"{label}: the grouped GEMM never launched")
+    # quickstart's and the disaggregated servers' float32 rows meet bf16
+    # weights: the grouped GEMM's widening route
+    route = ("grouped_gemm_f32_bf16"
+             if name in ("quickstart", "disaggregated_serving")
+             else "grouped_gemm")
+    if name != "train_small" and not g["launches"].get(route):
+        bad.append(f"{label}: the grouped GEMM ({route}) never launched")
     if name == "train_small" and not (g["launches"].get("grouped_gemm_dx")
                                       and g["launches"].get(
                                           "grouped_gemm_dw")):
@@ -6796,7 +7188,11 @@ def main() -> int:
              "examples-solo": lambda: examples_phase(torch, get_config, smi,
                                                      workers=1),
              "mesh-graphs": lambda: mesh_graphs_alone(torch, get_config,
-                                                      smi)}
+                                                      smi),
+             "mesh-train": lambda: mesh_full_width(torch, get_config, smi,
+                                                   {}),
+             "parity": lambda: parity_phase(torch, get_config, smi,
+                                            {k: [] for k in SOURCES})}
     if len(sys.argv) == 3 and sys.argv[1] == "--only" \
             and sys.argv[2] in alone:
         alone[sys.argv[2]]()             # one model's phase, no summary
@@ -6844,6 +7240,10 @@ def main() -> int:
     mark("paged_serve_phase")
     mode_launches = decode_modes_phase(torch, serve_cfg, eng.params, smi)
     mark("decode_modes_phase")
+    # phase 33 on the dense serve's weights, while they are on the card
+    parity_launches = parity_phase(torch, get_config, smi, cases,
+                                   serve=(serve_cfg, eng.params))
+    mark("parity_phase (33)")
     # the cluster phases share the dense serve's weights (one bank on the
     # card for every client); they run before the baselines free them
     cluster_launches = cluster_phase(torch, serve_cfg, eng.params, smi)
@@ -6904,46 +7304,50 @@ def main() -> int:
         cs = cases[name]
         head = cs[0]                      # the decode shape: most launches
         src, replaces = SOURCES[name]
+        at = lambda counts: counts.get(name, 0)       # noqa: E731
         # each kernel's count from the run of the path that carries it
         main = (train_launches if name.startswith("grouped_gemm_d") else
                 spmd_launches if name == "flash_decode_partial" else
+                parity_launches if name == "sample" else
+                disagg_launches if name == "grouped_gemm_f32_bf16" else
                 paged_launches if name not in DENSE_PATH else launches)
         return {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main[name],
-            "launches_by_phase": {"serve": launches[name],
-                                  "serve-paged": paged_launches[name],
-                                  **{f"modes ({m})": n[name]
+            "replaces": replaces, "launches": at(main),
+            "launches_by_phase": {"serve": at(launches),
+                                  "serve-paged": at(paged_launches),
+                                  "parity": at(parity_launches),
+                                  **{f"modes ({m})": at(n)
                                      for m, n in mode_launches.items()},
-                                  "control-plane": control_launches[name],
-                                  "cluster": cluster_launches[name],
-                                  "cluster-async": async_launches[name],
-                                  "cluster-paged": cpaged_launches[name],
-                                  "disaggregated": disagg_launches[name],
-                                  "arctic": arctic_launches[name],
-                                  "gemma3": gemma3_launches[name],
-                                  "zamba2": zamba2_launches[name],
-                                  "rwkv6": rwkv6_launches[name],
-                                  "whisper": whisper_launches[name],
-                                  "train": train_launches[name],
+                                  "control-plane": at(control_launches),
+                                  "cluster": at(cluster_launches),
+                                  "cluster-async": at(async_launches),
+                                  "cluster-paged": at(cpaged_launches),
+                                  "disaggregated": at(disagg_launches),
+                                  "arctic": at(arctic_launches),
+                                  "gemma3": at(gemma3_launches),
+                                  "zamba2": at(zamba2_launches),
+                                  "rwkv6": at(rwkv6_launches),
+                                  "whisper": at(whisper_launches),
+                                  "train": at(train_launches),
                                   "train-launcher":
-                                      launcher_launches[name],
-                                  "spmd": spmd_launches[name],
-                                  "mesh": mesh_launches[name],
-                                  **{f"mesh ({a})": n[name]
+                                      at(launcher_launches),
+                                  "spmd": at(spmd_launches),
+                                  "mesh": at(mesh_launches),
+                                  **{f"mesh ({a})": at(n)
                                      for a, n in family_launches.items()
                                      if name in n},
-                                  **{f"graphs ({a})": n[name]
+                                  **{f"graphs ({a})": at(n)
                                      for a, n in graph_launches.items()},
-                                  **{f"prefill ({a})": n[name]
+                                  **{f"prefill ({a})": at(n)
                                      for a, n in prefill_launches.items()},
-                                  **{f"family-prefill ({a})": n[name]
+                                  **{f"family-prefill ({a})": at(n)
                                      for a, n in fprefill_launches.items()},
-                                  **{f"train-graphs ({a}, eager)": n[name]
+                                  **{f"train-graphs ({a}, eager)": at(n)
                                      for a, n in tgraph_launches.items()},
-                                  **{f"examples ({a})": n.get(name, 0)
+                                  **{f"examples ({a})": at(n)
                                      for a, n in example_launches.items()},
-                                  **{f"mesh-graphs ({a})": n.get(name, 0)
+                                  **{f"mesh-graphs ({a})": at(n)
                                      for a, n in mgraph_launches.items()}},
             "max_abs_err": max(c["max_abs_err"] for c in cs),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -6957,9 +7361,10 @@ def main() -> int:
     summary = [entry(n) for n in ("grouped_gemm", "grouped_gemm_dx",
                                   "grouped_gemm_dw", "flash_decode",
                                   "flash_decode_partial",
-                                  "paged_flash_decode", "combine_slots")]
-    summary[-1].update(launch_floor=floor,
-                       entries=[entry("combine_weighted")])
+                                  "paged_flash_decode", "combine_slots",
+                                  "grouped_gemm_f32_bf16", "sample")]
+    summary[6].update(launch_floor=floor,
+                      entries=[entry("combine_weighted")])
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -206,12 +206,15 @@ class ServeStats(NamedTuple):
 
 def serve(tokens: torch.Tensor, expert_ids: torch.Tensor,
           scores: torch.Tensor, counts: torch.Tensor,
-          weights: ServerWeights) -> Tuple[torch.Tensor, ServeStats]:
+          weights: ServerWeights, impl: str = "auto"
+          ) -> Tuple[torch.Tensor, ServeStats]:
     """Process one aggregated dynamic batch on one server.
 
     tokens (Clients, C, d); expert_ids / scores (Clients, C); counts
     (Clients,).  Returns (Clients, C, d) score-weighted outputs (zeros on
-    invalid slots) and ServeStats.
+    invalid slots) and ServeStats.  ``impl``: the grouped GEMMs' lowering
+    (``ops.grouped_gemm``); the dense one caps each local expert at the
+    reference's ``ecap`` rows.
     """
     Sc, C, d = tokens.shape
     M = Sc * C
@@ -234,10 +237,17 @@ def serve(tokens: torch.Tensor, expert_ids: torch.Tensor,
     group_sizes = count_ids(slot, L)            # the padding group: none
 
     # ---- grouped GEMM over active groups only (group-shrink) -----------
-    h_gate = ops.grouped_gemm(xs, weights.w_gate, group_sizes)
-    h_up = ops.grouped_gemm(xs, weights.w_up, group_sizes)
+    # per-expert capacity for the dense lowering: ideal share × the buffer
+    # capacity factor (under-provisioned experts drop, exactly like slots)
+    ecap = max(8, ((-(-(M * 5) // (4 * L))) + 7) // 8 * 8)
+
+    def gg(a, w):
+        return ops.grouped_gemm(a, w, group_sizes, impl=impl,
+                                expert_capacity=ecap)
+    h_gate = gg(xs, weights.w_gate)
+    h_up = gg(xs, weights.w_up)
     h = F.silu(h_gate.float()).to(h_up.dtype) * h_up
-    y = ops.grouped_gemm(h, weights.w_down, group_sizes)
+    y = gg(h, weights.w_down)
 
     # ---- score weighting + masking, back to slot order ------------------
     y = y.float() * sc[order][:, None]

@@ -54,6 +54,10 @@ class MoERuntime(NamedTuple):
     num_servers: int
     capacity: int              # tokens per (client, server) slot
     dispatch_method: str = "onehot"   # "onehot" | "sort"
+    # the grouped GEMMs' lowering (``ops.grouped_gemm``'s impl): "auto" the
+    # kernel (the reference's xla_ragged / pallas), "dense" the capacity
+    # lowering its dry-run runs (xla_dense)
+    gemm_impl: str = "auto"
     # (E,) fp32 router-logit offset (scenario traffic shaping); None =
     # unbiased
     route_bias: Optional[torch.Tensor] = None
@@ -177,7 +181,8 @@ def eaas_moe_apply(params: Dict, x: torch.Tensor, cfg_moe: MoEConfig,
                             for n in ("w_gate", "w_up", "w_down")),
                           runtime.local_table[s])
         out, st = expert_server.serve(hid[s][None], eid[s][None],
-                                      sc[s][None], cnt[s][None], w)
+                                      sc[s][None], cnt[s][None], w,
+                                      impl=runtime.gemm_impl)
         outs.append(out[0])
         miss = miss + st.miss
     result = comm.return_to_clients(outs, mode)
@@ -209,7 +214,8 @@ def _apply_on_mesh(params: Dict, x: torch.Tensor, r, buffers, cfg_moe,
                         for n in ("w_gate", "w_up", "w_down")),
                       runtime.local_table[0])
     hid, eid, sc, cnt = comm.send_to_servers(buffers, mode, group)
-    out, st = expert_server.serve(hid, eid, sc, cnt, w)
+    out, st = expert_server.serve(hid, eid, sc, cnt, w,
+                                  impl=runtime.gemm_impl)
     result = comm.return_to_clients(out, mode, group)
     slots = buffers.combine_slot
     if mode == "replicated":             # result: this server's (1, C, d)

@@ -31,7 +31,9 @@
 //     masked here).
 // float32 (the exact path of the tests): 32x32x32 tiles of scalar FMAs,
 // one block per (row tile, column tile) of the static bound M/32 + G, with
-// the same in-kernel scan.
+// the same in-kernel scan.  float32 rows against bfloat16 weights (the
+// reference's ragged_dot promotes the pair to a float32 product) run the
+// same kernel, each weight widened as it is loaded into the tile.
 #include "group_shrink.cuh"
 #include "hopper.cuh"
 
@@ -212,13 +214,15 @@ grouped_gemm_bf16_kernel(__grid_constant__ const CUtensorMap w_map,
   }
 }
 
-// ---- float32: scalar FMAs, the same scan --------------------------------
+// ---- float32 rows: scalar FMAs, the same scan ---------------------------
+// TW: the weights' type (float, or bf16 widened into the tile)
 
 constexpr int kFM = 32, kFN = 32, kFK = 32, kFThreads = 256;
 
+template <typename TW>
 __global__ void __launch_bounds__(kFThreads)
 grouped_gemm_f32_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w, float* __restrict__ out,
+                        const TW* __restrict__ w, float* __restrict__ out,
                         const long long* __restrict__ sizes, int M, int K,
                         int N, int G) {
   __shared__ int row_end[repro::kMaxGroups], tile_end[repro::kMaxGroups];
@@ -244,8 +248,11 @@ grouped_gemm_f32_kernel(const float* __restrict__ x,
   const int r0 = tl.r0, r1 = tl.r1;
   const int n0 = blockIdx.y * kFN;
 
-  const float* wg = w + static_cast<long long>(tl.g) * K * N;
+  const TW* wg = w + static_cast<long long>(tl.g) * K * N;
   const int tx = tid & 15, ty = tid >> 4;
+  // this thread's two rows: a decode batch's tile holds a row or two of
+  // 32, and only threads with a live row run the FMAs
+  const bool live0 = r0 + ty < r1, live1 = r0 + ty + 16 < r1;
   float c[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 
   for (int k0 = 0; k0 < K; k0 += kFK) {
@@ -259,17 +266,28 @@ grouped_gemm_f32_kernel(const float* __restrict__ x,
       const int row = i / kFN, col = i % kFN;
       const int kr = k0 + row, nn = n0 + col;
       Bs[row][col] =
-          (kr < K && nn < N) ? wg[static_cast<long long>(kr) * N + nn] : 0.f;
+          (kr < K && nn < N)
+              ? repro::to_float(wg[static_cast<long long>(kr) * N + nn])
+              : 0.f;
     }
     __syncthreads();
+    if (live1) {
 #pragma unroll 8
-    for (int kk = 0; kk < kFK; ++kk) {
-      const float a0 = As[ty][kk], a1 = As[ty + 16][kk];
-      const float b0 = Bs[kk][tx], b1 = Bs[kk][tx + 16];
-      c[0][0] += a0 * b0;
-      c[0][1] += a0 * b1;
-      c[1][0] += a1 * b0;
-      c[1][1] += a1 * b1;
+      for (int kk = 0; kk < kFK; ++kk) {
+        const float a0 = As[ty][kk], a1 = As[ty + 16][kk];
+        const float b0 = Bs[kk][tx], b1 = Bs[kk][tx + 16];
+        c[0][0] += a0 * b0;
+        c[0][1] += a0 * b1;
+        c[1][0] += a1 * b0;
+        c[1][1] += a1 * b1;
+      }
+    } else if (live0) {
+#pragma unroll 8
+      for (int kk = 0; kk < kFK; ++kk) {
+        const float a0 = As[ty][kk];
+        c[0][0] += a0 * Bs[kk][tx];
+        c[0][1] += a0 * Bs[kk][tx + 16];
+      }
     }
     __syncthreads();
   }
@@ -311,20 +329,29 @@ int launch_bf16(const void* x, const void* w, void* out,
 
 }  // namespace
 
+// dtype: x's and out's; w_dtype: w's (bfloat16 rows take bfloat16
+// weights; float32 rows either)
 extern "C" int grouped_gemm_launch(const void* x, const void* w, void* out,
                                    const void* group_sizes, int M, int K,
-                                   int N, int G, int dtype, void* stream) {
+                                   int N, int G, int dtype, int w_dtype,
+                                   void* stream) {
   if (M < 1 || K < 1 || N < 1 || G < 1 || G > repro::kMaxGroups)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long* sizes = static_cast<const long long*>(group_sizes);
   if (dtype == repro::kBFloat16) {
-    if (K % 8 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (w_dtype != repro::kBFloat16 || K % 8 != 0 || N % 8 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
     return launch_bf16(x, w, out, sizes, M, K, N, G, s);
   }
   dim3 grid(M / kFM + G, (N + kFN - 1) / kFN);
-  grouped_gemm_f32_kernel<<<grid, kFThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), sizes, M, K, N, G);
+  const float* xf = static_cast<const float*>(x);
+  float* of = static_cast<float*>(out);
+  if (w_dtype == repro::kBFloat16)
+    grouped_gemm_f32_kernel<bf16><<<grid, kFThreads, 0, s>>>(
+        xf, static_cast<const bf16*>(w), of, sizes, M, K, N, G);
+  else
+    grouped_gemm_f32_kernel<float><<<grid, kFThreads, 0, s>>>(
+        xf, static_cast<const float*>(w), of, sizes, M, K, N, G);
   return static_cast<int>(cudaGetLastError());
 }

@@ -70,16 +70,15 @@ def tour(cfg: ModelConfig, device, params: Optional[Dict] = None,
     :func:`init_inputs`'s (the parity tests pass the reference's).  What
     it computes goes into ``out`` (a new dict by default) before the
     tour's assert, so a caller holds it even where the assert fails; the
-    dict is returned.  The batch is taken in the weights' dtype (the
-    grouped GEMM takes rows in the weights' dtype), where the reference
-    promotes its float32 batch against bfloat16 weights."""
+    dict is returned.  The float32 batch meets bfloat16 weights as in the
+    reference, promoted: float32 products and a float32 output."""
     res = {} if out is None else out
     m = cfg.moe
     print(f"arch={cfg.arch_id}  experts={m.num_experts} top-{m.top_k}")
     if params is None:
         params, x0 = init_inputs(cfg, device)
         x = x0 if x is None else x
-    x = x.to(device, params["servers"]["w_up"].dtype)
+    x = x.to(device)
     rt = default_runtime(cfg, S, T, device)
 
     # --- 1. the layer is a drop-in FFN --------------------------------

@@ -47,20 +47,20 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "grouped_gemm_dx": 0,
-                            "grouped_gemm_dw": 0, "flash_decode": 0,
-                            "flash_decode_partial": 0,
+LAUNCHES: Dict[str, int] = {"grouped_gemm": 0, "grouped_gemm_f32_bf16": 0,
+                            "grouped_gemm_dx": 0, "grouped_gemm_dw": 0,
+                            "flash_decode": 0, "flash_decode_partial": 0,
                             "paged_flash_decode": 0, "combine_weighted": 0,
-                            "combine_slots": 0}
+                            "combine_slots": 0, "sample": 0}
 
 _vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _float = ctypes.c_float
 # C entry points: pointers and the stream as void*, sizes as int; each
 # returns cudaGetLastError() right after its launch
 _SIGNATURES = {
-    # x, w, out, group_sizes (int64), M, K, N, G, dtype, stream
+    # x, w, out, group_sizes (int64), M, K, N, G, dtype, w dtype, stream
     "grouped_gemm_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
-                            _vp],
+                            _int, _vp],
     # dy, w, dx, group_sizes (int64), M, K, N, G, dtype, stream
     "grouped_gemm_dx_launch": [_vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                _int, _vp],
@@ -87,6 +87,11 @@ _SIGNATURES = {
     # addend (or null), out, T, k, d, dtype, stream
     "combine_slots_launch": [ctypes.POINTER(_vp), _int, _i64, _vp, _vp, _vp,
                              _int, _int, _int, _int, _vp],
+    # logits, row stride, temperatures, keys (int64), steps (int64), out,
+    # B, V, stream
+    "sample_launch": [_vp, _i64, _vp, _vp, _vp, _vp, _int, _int, _vp],
+    # keys (int64), steps (int64), bits, uniforms, noise, B, V, stream
+    "sample_probe_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     # stream
     "empty_launch": [_vp],
 }

@@ -16,7 +16,12 @@ bfloat16: a persistent kernel — one CTA per SM walks the live work items
 ring of weight and token tiles under mbarriers; one warpgroup runs
 ``wgmma`` with the weight tile as the M side and the item's tokens (8-64)
 as the N side (swap-AB).  float32: scalar FMAs over 32x32 tiles with the
-same scan (the exact path of the tests).
+same scan (the exact path of the tests).  float32 rows against bfloat16
+weights (``x f32, w bf16 -> f32``: the pair ``lax.ragged_dot`` promotes to a
+float32 product, where the reference's disaggregated servers and its
+quickstart meet it) run the float32 kernel, each weight widened as it is
+loaded; the plain version computes ``x @ w[g].float()`` in fp32 as for
+any pair.
 
 Its gradient (``csrc/grouped_gemm_bwd.cu``; the autograd Function is
 :class:`repro_torch.kernels.autograd.GroupedGemm`): :func:`grouped_gemm_dx_cuda`
@@ -44,6 +49,10 @@ import torch
 from repro_torch.kernels import build
 
 MAX_GROUPS = 1024        # the kernel's shared-memory scan (csrc kMaxGroups)
+# (rows, weights) dtype pairs of the forward kernel; the output takes the
+# rows' dtype
+PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+         (torch.float32, torch.bfloat16))
 
 
 def grouped_gemm_torch(x_sorted: torch.Tensor, w: torch.Tensor,
@@ -202,9 +211,9 @@ def grouped_gemm_cuda(x_sorted: torch.Tensor, w: torch.Tensor,
         and group_sizes.shape[0] == w.shape[0],
         f"grouped_gemm: shapes x{tuple(x_sorted.shape)} "
         f"w{tuple(w.shape)} sizes{tuple(group_sizes.shape)}")
-    req(x_sorted.dtype == w.dtype
-        and x_sorted.dtype in (torch.bfloat16, torch.float32),
-        f"grouped_gemm: dtype {x_sorted.dtype}/{w.dtype}")
+    req((x_sorted.dtype, w.dtype) in PAIRS,
+        f"grouped_gemm: dtype {x_sorted.dtype}/{w.dtype}; the kernel takes "
+        f"{PAIRS}")
     req(not group_sizes.is_floating_point(),
         f"grouped_gemm: group_sizes must be integers, got "
         f"{group_sizes.dtype}")
@@ -225,7 +234,9 @@ def grouped_gemm_cuda(x_sorted: torch.Tensor, w: torch.Tensor,
     err = lib.grouped_gemm_launch(
         x_sorted.data_ptr(), w.data_ptr(), out.data_ptr(), sizes.data_ptr(),
         M, K, N, G, build.dtype_code(x_sorted.dtype),
-        build.stream_of(x_sorted))
+        build.dtype_code(w.dtype), build.stream_of(x_sorted))
     build.check(err, "grouped_gemm")
-    build.count("grouped_gemm")
+    # the widening route (float32 rows, bf16 weights) counts on its own
+    build.count("grouped_gemm_f32_bf16" if x_sorted.dtype != w.dtype
+                else "grouped_gemm")
     return out

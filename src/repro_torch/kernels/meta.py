@@ -9,7 +9,11 @@ empty output of the kernel's shape and dtype, and a formula registered with
 
 * ``grouped_gemm`` / ``grouped_gemm_dx`` / ``grouped_gemm_dw``: ``2·M·K·N``
   over the M capacity rows the kernel is handed (a ``meta`` tensor holds no
-  group sizes, so every row counts as live: the most this call can do);
+  group sizes, so every row counts as live: the most this call can do).
+  The dry-run's cells lower the expert GEMMs ``dense``, as the reference's
+  do (``ops.grouped_gemm_dense``: no kernel, a ``torch.bmm`` that torch's
+  own formula counts as ``2·G·cap·K·N``, the reference's "flop-honest"
+  count); this route counts a call of the kernel's lowering;
 * ``combine_slots``: ``T·k·d`` additions (the responses are already
   weighted by their scores), plus ``T·d`` for an addend;
 * ``flash_decode`` / ``flash_decode_partial``: ``4·B·H·S·hd`` (q·k and p·v

@@ -17,6 +17,17 @@ Under grad mode with an input that requires grad, ``grouped_gemm`` and
 (:mod:`repro_torch.kernels.autograd`: the backward kernels on the card,
 their plain versions on the CPU); the decode kernels have no backward and
 their CUDA wrappers raise there.
+
+``grouped_gemm`` has a second lowering, the reference's ``xla_dense``
+(``impl="dense"``, :func:`grouped_gemm_dense`): GShard-style per-expert
+capacity, rows past it dropped, one batched product.  The reference
+computes it as a jnp einsum, outside any Pallas kernel, so here it is
+``torch.bmm`` on every device (its own FLOP formula on ``meta``: ``2·G·cap·
+K·N``) and autograd's own gradient.  The dry-run's cells run it, as the
+reference's do; serving keeps the kernel.
+
+``sample`` draws the reference's temperature sampling exactly
+(:mod:`repro_torch.kernels.sampling`).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from repro_torch.kernels.decode_attention import (
     flash_decode_torch, paged_flash_decode_cuda, paged_flash_decode_torch)
 from repro_torch.kernels.grouped_gemm import (grouped_gemm_cuda,
                                               grouped_gemm_torch)
+from repro_torch.kernels.sampling import sample_cuda, sample_torch
 
 IMPLS = ("auto", "cuda", "torch", "meta")
 
@@ -59,13 +71,55 @@ def _no_meta(impl: str, name: str) -> str:
     return impl
 
 
+def grouped_gemm_dense(x_sorted: torch.Tensor, w: torch.Tensor,
+                       group_sizes: torch.Tensor,
+                       capacity: int) -> torch.Tensor:
+    """The reference's ``grouped_gemm_dense``: the group-sorted rows
+    scattered into (G, capacity, K), one batched product with fp32
+    accumulation, gathered back; a group's rows past ``capacity`` (and the
+    rows past ``sum(group_sizes)``) come out 0.  Output in x's dtype."""
+    M, K = x_sorted.shape
+    G, _, N = w.shape
+    dev = x_sorted.device
+    ends = torch.cumsum(group_sizes.to(torch.int64), 0)
+    rows = torch.arange(M, device=dev)
+    gid = torch.searchsorted(ends, rows, right=True).clamp(max=G - 1)
+    pos = rows - (ends[gid] - group_sizes.to(torch.int64)[gid])
+    ok = (rows < ends[-1]) & (pos < capacity)
+    idx = torch.where(ok, gid * capacity + pos, G * capacity)
+    # row G * capacity takes every dropped row and is cut off
+    xg = x_sorted.new_zeros((G * capacity + 1, K)).index_put(
+        (idx,), x_sorted)[:-1].reshape(G, capacity, K)
+    if w.dtype != x_sorted.dtype:          # jnp promotes the pair
+        w = w.to(torch.promote_types(x_sorted.dtype, w.dtype))
+        xg = xg.to(w.dtype)
+    y = torch.bmm(xg, w).reshape(G * capacity, N)
+    out = torch.where(ok[:, None], y[idx.clamp(max=G * capacity - 1)], 0)
+    return out.to(x_sorted.dtype)
+
+
 def grouped_gemm(x_sorted: torch.Tensor, w: torch.Tensor,
-                 group_sizes: torch.Tensor, *,
-                 impl: str = "auto") -> torch.Tensor:
-    """out[i] = x_sorted[i] @ w[g(i)]; rows past sum(group_sizes) are 0."""
+                 group_sizes: torch.Tensor, *, impl: str = "auto",
+                 expert_capacity: Optional[int] = None) -> torch.Tensor:
+    """out[i] = x_sorted[i] @ w[g(i)]; rows past sum(group_sizes) are 0.
+    ``impl="dense"``: the capacity lowering (:func:`grouped_gemm_dense`,
+    ``expert_capacity`` rows a group, the reference's default if None).
+    float32 rows against bfloat16 weights give float32, as
+    ``lax.ragged_dot`` promotes them (no gradient: no path of the
+    reference trains on such a pair)."""
+    if impl == "dense":
+        # the reference's default: twice the even share, rounded up to 8
+        M, G = x_sorted.shape[0], w.shape[0]
+        cap = expert_capacity or max(-(-(2 * M // G + 1) // 8) * 8, 8)
+        return grouped_gemm_dense(x_sorted, w, group_sizes, cap)
     impl = _resolve(impl, x_sorted)
     if torch.is_grad_enabled() and (x_sorted.requires_grad
                                     or w.requires_grad):
+        if x_sorted.dtype != w.dtype:
+            raise TypeError(
+                f"grouped_gemm: no gradient for {x_sorted.dtype} rows "
+                f"against {w.dtype} weights; the backward kernels take one "
+                "dtype")
         return autograd.GroupedGemm.apply(x_sorted, w, group_sizes, impl,
                                           autograd.grad_target(w))
     if impl == "cuda":
@@ -143,6 +197,19 @@ def combine_slots(responses, combine_slot: torch.Tensor, *,
     if impl == "meta":
         return meta.combine_slots(bufs, combine_slot, addend)
     return combine_slots_torch(responses, combine_slot, addend)
+
+
+def sample(logits: torch.Tensor, temperatures: torch.Tensor,
+           keys: torch.Tensor, steps: torch.Tensor, *,
+           impl: str = "auto") -> torch.Tensor:
+    """The reference's ``sample_batch``: row b is greedy where
+    ``temperatures[b] <= 0``, else the Gumbel-max draw of
+    ``fold_in(keys[b], steps[b])`` over ``logits[b] / temperatures[b]``.
+    logits (B, V) fp32, temperatures (B,) fp32, keys (B, 2) and steps (B,)
+    int64 on the logits' device -> (B,) int64."""
+    if _no_meta(_resolve(impl, logits), "sample") == "cuda":
+        return sample_cuda(logits, temperatures, keys, steps)
+    return sample_torch(logits, temperatures, keys, steps)
 
 
 def launch_counts() -> dict:

@@ -113,12 +113,15 @@ def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Spec]:
 
 
 def moe_runtime_for(cfg: ModelConfig, mesh, shape: InputShape,
-                    mode: str, device=None) -> Optional[MoERuntime]:
+                    mode: str, device=None, gemm_impl: str = "dense"
+                    ) -> Optional[MoERuntime]:
     """One logical server per rank of the ``model`` axis, two replicas a
     expert in the mapping, no redundant slots; the capacity sized for a
     client's tokens: a2a splits the batch over every rank, replicated over
-    the data axes only.  The tables live on ``device`` (the mesh's device
-    type by default)."""
+    the data axes only; the expert GEMMs lowered ``dense`` (each local
+    expert capped at ``ecap`` rows, as the reference's cells lower them),
+    or ``gemm_impl="auto"`` for the grouped GEMM kernel.  The tables live
+    on ``device`` (the mesh's device type by default)."""
     if cfg.moe is None:
         return None
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -139,7 +142,8 @@ def moe_runtime_for(cfg: ModelConfig, mesh, shape: InputShape,
         local_table=torch.as_tensor(local, dtype=torch.int64, device=device),
         num_servers=S,
         capacity=default_capacity(tokens_per_client, cfg.moe.top_k, S,
-                                  cfg.moe.capacity_factor))
+                                  cfg.moe.capacity_factor),
+        gemm_impl=gemm_impl)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,13 @@ def embed_init(vocab: int, dim: int, dtype, device, generator) -> torch.Tensor:
     return w.mul_(0.02).to(dtype)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with jnp's promotion of a mixed pair (float32 rows
+    against bfloat16 weights: a float32 product), where torch raises."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """Computed in fp32, cast back to x's dtype."""

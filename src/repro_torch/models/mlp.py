@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import tensor_parallel as tpl
-from repro_torch.models.common import activation_fn, dense_init
+from repro_torch.models.common import activation_fn, dense_init, matmul
 
 
 def init_mlp(d_model: int, d_ff: int, activation: str, dtype, device,
@@ -31,14 +31,15 @@ def mlp(params: Dict, x: torch.Tensor, activation: str,
         group=None) -> torch.Tensor:
     """The FFN; with ``group`` (the ``model`` axis's) tensor-parallel: this
     rank's columns of w_gate / w_up (``col``) and rows of w_down
-    (``row``), the outputs summed over the group."""
+    (``row``), the outputs summed over the group.  One device: float32
+    rows against bfloat16 weights promote as in jnp (``matmul``)."""
     if group is not None:
         x = tpl.copy_to(x, group)
     if activation == "swiglu":
-        g = F.silu(x @ params["w_gate"])
-        h = g * (x @ params["w_up"])
+        g = F.silu(matmul(x, params["w_gate"]))
+        h = g * matmul(x, params["w_up"])
     else:
-        h = activation_fn(activation)(x @ params["w_up"])
+        h = activation_fn(activation)(matmul(x, params["w_up"]))
     if group is not None:
         return tpl.row_linear(h, params["w_down"], group)
-    return h @ params["w_down"]
+    return matmul(h, params["w_down"])

@@ -20,12 +20,10 @@ The protocol — routing, replica choice, slots, timeouts, retries — is the
 reference's host logic, so retries, batches and served tokens are its
 exactly; the payloads and the expert compute live on the device.
 
-One deliberate difference: the reference feeds its float32 payload and the
-weights to ``lax.ragged_dot``, which promotes bf16 weights to a float32
-product.  The grouped GEMM takes one dtype, so the server casts its batch
-to the weights' dtype before each GEMM (fp32 accumulation) on every device;
-float32 configs are unchanged, bf16 ones round the activations to bf16
-(ROADMAP Queue 3).
+The server feeds its float32 payload to the grouped GEMM against the
+weights as they are, as the reference feeds ``lax.ragged_dot``: bf16
+weights meet float32 rows in a float32 product (on the card the kernel's
+widening route).
 
 A repair: a row of an expert the server does not host (a failed
 server's expert with no live replica falls back to server 0) is sorted
@@ -134,12 +132,11 @@ class ExpertServerProc:
         slot = torch.where(slot >= 0, slot, L)
         order = torch.argsort(slot, stable=True)
         sizes = torch.bincount(slot, minlength=L + 1)[:L]
-        wdt = self.w_gate.dtype
-        xs = x[order].to(wdt)
+        xs = x[order]
         h1 = ops.grouped_gemm(xs, self.w_gate, sizes)
         h2 = ops.grouped_gemm(xs, self.w_up, sizes)
         h = F.silu(h1.float()).to(h2.dtype) * h2
-        y = ops.grouped_gemm(h.to(wdt), self.w_down, sizes)
+        y = ops.grouped_gemm(h, self.w_down, sizes)
         out = torch.empty((x.shape[0], self.d_model), dtype=torch.float32,
                           device=x.device)
         out[order] = y.float()

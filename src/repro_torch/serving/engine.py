@@ -97,7 +97,7 @@ from repro_torch.serving.rebalance import (RebalanceConfig,
                                            RebalanceController,
                                            oneshot_rebalance)
 from repro_torch.serving.request import Request
-from repro_torch.serving.sampling import sample_batch
+from repro_torch.serving.sampling import SlotSampler
 from repro_torch.serving.scheduler import (DecodeBatch, PrefillChunk,
                                            Scheduler, SchedulerConfig)
 
@@ -313,6 +313,7 @@ class ServingEngine:
             batch_cap=(engine_cfg.tp_batch_cap
                        if engine_cfg.mode == "tp" else None),
             max_seq=engine_cfg.max_seq), kv_pool=self.kv_pool)
+        self._sampler = SlotSampler(engine_cfg.max_batch)
         self.metrics = ServingMetrics()
         self.step_idx = 0
         self.clock = 0.0
@@ -644,14 +645,15 @@ class ServingEngine:
         if self.kv_pool is not None:
             self.metrics.observe_kv(self.kv_pool, self.scheduler.preemptions)
 
-    @staticmethod
-    def _sample_on_device(logits: torch.Tensor, reqs, steps) -> torch.Tensor:
-        return sample_batch(logits, [r.sampling.temperature for r in reqs],
-                            [r.sampling.seed for r in reqs],
-                            [r.request_id for r in reqs], steps)
+    def _sample_on_device(self, logits: torch.Tensor, slots,
+                          steps) -> torch.Tensor:
+        """Row i of ``logits`` drawn for slot ``slots[i]`` at token index
+        ``steps[i]`` with the slot's admission key (the reference's
+        ``sample`` / ``sample_batch``: its streams exactly)."""
+        return self._sampler(self.scheduler, logits, slots, steps)
 
-    def _sample(self, logits: torch.Tensor, reqs, steps) -> np.ndarray:
-        return self._sample_on_device(logits, reqs, steps).cpu().numpy()
+    def _sample(self, logits: torch.Tensor, slots, steps) -> np.ndarray:
+        return self._sample_on_device(logits, slots, steps).cpu().numpy()
 
     def _step_prefill(self, plan: PrefillChunk) -> None:
         req, b = plan.request, plan.slot
@@ -686,7 +688,7 @@ class ServingEngine:
         if plan.is_last and not req.output_tokens:
             # a resumed (preempted) request already holds its next input
             # token: its recompute prefill samples nothing, charges no TTFT
-            req.output_tokens.append(int(self._sample(logits, [req],
+            req.output_tokens.append(int(self._sample(logits, [b],
                                                       [0])[0]))
             req.prefill_time = self.clock
             self.metrics.ttfts.append(self.clock - req.arrival_time)
@@ -731,7 +733,7 @@ class ServingEngine:
         if self.pool is not None:
             self.clock += self._charge_cold_starts(load)
         reqs = [sch.slots[b] for b in active]
-        next_tokens = self._sample(logits[active], reqs,
+        next_tokens = self._sample(logits[active], active,
                                    [len(r.output_tokens) for r in reqs])
         for b, r, tok in zip(active, reqs, next_tokens):
             tok = int(tok)
@@ -809,7 +811,7 @@ class ServingEngine:
             dt += self._charge_cold_starts(load)
         first = None
         if plan.is_last and not req.output_tokens:
-            first = int(self._sample(logits, [req], [0])[0])
+            first = int(self._sample(logits, [b], [0])[0])
         t_done = self.clock + dt
         self._client_free_at = t_done
         self._prefill_inflight.add(b)
@@ -858,18 +860,17 @@ class ServingEngine:
             return False
         tokens = np.zeros((B, 1), np.int64)
         mask = np.zeros(B, bool)
-        reqs, steps = [], []
+        steps = []
         for b in active:
             r = sch.slots[b]
             pend = self._slot_pending(b)
             tokens[b, 0] = pend[-1] if pend else r.output_tokens[-1]
             mask[b] = True
-            reqs.append(r)
             steps.append(len(r.output_tokens) + len(pend))
         self.clk.start()
         # a graph's static outputs (module docstring): read within the wave
         logits, expert_load = self.executor.decode_masked(tokens, mask)
-        sampled = self._sample_on_device(logits[active], reqs, steps)
+        sampled = self._sample_on_device(logits[active], active, steps)
         host = torch.cat([sampled, expert_load.to(sampled.dtype)]
                          ).cpu().numpy()
         next_tokens = np.zeros(B, np.int64)

@@ -178,7 +178,7 @@ class Executor:
         static inputs, the weights, the caches)."""
         rt = ctx.moe_runtime
         structure = None if rt is None else (
-            rt.num_servers, rt.capacity, rt.dispatch_method,
+            rt.num_servers, rt.capacity, rt.dispatch_method, rt.gemm_impl,
             rt.route_bias is not None, rt.replica_weights is not None)
         return (name, self.decode_mode, structure,
                 step_graphs.addresses(static, rt, self.params, self.cache))

@@ -36,8 +36,9 @@ Async exec mode (``hold``): a slot whose final token is already in flight
 on the expert tier leaves decode planning until its completion releases
 it.
 
-Not ported from the reference: ``slot_keys`` (the port samples from
-(seed, request id, token index)).
+Sampling keys (``slot_keys``): each slot's ``fold_in(PRNGKey(seed),
+request_id)``, stored at admission as the reference stores it
+(:func:`repro_torch.serving.sampling.slot_key`).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import numpy as np
 
 from repro_torch.serving.kv_pool import SCRATCH_BLOCK, BlockPool, block_hashes
 from repro_torch.serving.request import Request
+from repro_torch.serving.sampling import slot_key
 
 POLICIES = ("prefill-priority", "fair", "fcfs")
 
@@ -126,6 +128,8 @@ class Scheduler:
         self.kv = kv_pool
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * cfg.max_batch
+        # per-slot sampling keys: fold_in(PRNGKey(sampling.seed), request_id)
+        self.slot_keys = np.zeros((cfg.max_batch, 2), np.uint32)
         # slot -> sequence tokens already prefilled (present = mid-prefill,
         # i.e. NOT decode-ready); insertion order = admission order
         self._progress: Dict[int, int] = {}
@@ -231,6 +235,8 @@ class Scheduler:
                 # has logits to produce)
                 self._progress[b] = (self._kvmeta[b].cached_len
                                      if self.kv is not None else 0)
+                self.slot_keys[b] = slot_key(req.sampling.seed,
+                                             req.request_id)
 
     def _chunk_plan(self) -> Optional[PrefillChunk]:
         b, done = next(iter(self._progress.items()))

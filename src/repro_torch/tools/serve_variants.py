@@ -44,7 +44,7 @@ from repro_torch.serving.metrics import ServingMetrics
 PLAIN = {
     "flash_decode": lambda q, k, v, lengths, impl="auto":
         decode_attention.flash_decode_torch(q, k, v, lengths),
-    "grouped_gemm": lambda x, w, sizes, impl="auto":
+    "grouped_gemm": lambda x, w, sizes, impl="auto", **kw:
         grouped_gemm.grouped_gemm_torch(x, w, sizes),
 }
 VARIANTS = {"kernels": (), "plain decode attention": ("flash_decode",),
@@ -56,7 +56,9 @@ def serve(cfg, ecfg) -> dict:
     """chip_smoke.py's dense serve on a fresh engine; its result."""
     eng = ServingEngine(cfg, ecfg, seed=0, clock=WallClock())
     rng = np.random.default_rng(0)
-    eng.submit(Request(-1, rng.integers(0, cfg.vocab_size, 64, np.int32),
+    # the warm-up's id: sampling keys take ids as uint32s
+    eng.submit(Request(2 ** 32 - 1, rng.integers(0, cfg.vocab_size, 64,
+                                                 np.int32),
                        SamplingParams(max_new_tokens=2)))
     eng.run()
     eng.metrics, eng.clock, eng.step_idx = ServingMetrics(), 0.0, 0

@@ -48,6 +48,96 @@ def test_grouped_gemm_cuda_vs_plain(cuda, m, k, n, g, dtype, tol, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,g", [(28, 7168, 2048, 40), (64, 32, 32, 4),
+                                     (300, 256, 72, 66)])
+def test_grouped_gemm_f32_rows_bf16_weights_vs_plain(cuda, m, k, n, g, rng):
+    """The widening route (float32 rows, bfloat16 weights -> float32):
+    the kernel against ``x @ w[g].float()`` at rtol = atol = 1e-5, the
+    weights scaled by 1/sqrt(k) so that outputs are O(1) whatever k (the
+    two sum k products in other orders); one launch counted under its
+    own name."""
+    from repro_torch.kernels import build
+
+    sizes = torch.as_tensor(rng.multinomial(m - 3, np.ones(g) / g),
+                            device=cuda)
+    x = torch.as_tensor(rng.normal(size=(m, k)), device=cuda).float()
+    w = torch.as_tensor(rng.normal(size=(g, k, n)) / k ** 0.5,
+                        device=cuda).to(torch.bfloat16)
+    build.reset_launches()
+    out = ops.grouped_gemm(x, w, sizes, impl="cuda")
+    assert build.LAUNCHES["grouped_gemm_f32_bf16"] == 1
+    assert build.LAUNCHES["grouped_gemm"] == 0
+    exp = ops.grouped_gemm(x, w, sizes, impl="torch")
+    assert out.dtype == torch.float32 and out[m - 3:].eq(0).all()
+    torch.testing.assert_close(out, exp, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="dtype"):
+        ops.grouped_gemm(x.to(torch.bfloat16), w.float(), sizes, impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", [(8, 129280), (64, 1000), (3, 1)])
+def test_sample_cuda_vs_plain(cuda, B, V, rng):
+    """The sampler against its plain version on the same device: tokens
+    equal (rows at t <= 0 greedy), a row read through a strided view;
+    the probe kernel's bits and uniforms bitwise the plain ones on every
+    row, the greedy rows' included."""
+    from repro_torch.kernels import sampling
+
+    logits = torch.as_tensor(rng.normal(size=(B, V + 5)) * 3,
+                             device=cuda).float()[:, 2:V + 2]
+    temps = torch.as_tensor(rng.choice([0.0, 0.8, 1.0, -1.0, 0.3], B),
+                            device=cuda).float()
+    keys = torch.as_tensor(rng.integers(0, 2 ** 32, (B, 2)), device=cuda)
+    steps = torch.as_tensor(rng.integers(0, 4096, B), device=cuda)
+    bits, u, g = sampling.probe_cuda(keys, steps, V)
+    want_bits = sampling.random_bits(keys, steps, V)
+    assert torch.equal(bits, want_bits)
+    assert torch.equal(u, sampling.uniform(want_bits))
+    torch.testing.assert_close(g, sampling.gumbel(want_bits), rtol=0,
+                               atol=4e-7 * max(1.0, float(g.abs().max())))
+    plain = ops.sample(logits, temps, keys, steps, impl="torch")
+    assert torch.equal(sampling.sample_cuda(logits, temps, keys, steps),
+                       plain)
+    assert torch.equal(ops.sample(logits, temps, keys, steps, impl="cuda"),
+                       plain)
+
+
+@pytest.mark.cuda
+def test_slot_sampler_on_the_card(cuda, rng):
+    """The engine's sampler on the card (keys and temperatures kept on the
+    device, the (slot, step) pairs copied from pinned memory) equals the
+    plain sampler on the same rows, through a slot re-admitted with a new
+    key and temperature; an all-greedy batch launches no sampler
+    kernel."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.serving.sampling import SlotSampler, slot_key
+
+    logits = torch.as_tensor(rng.normal(size=(4, 5000)) * 2).float()
+    sch = NS(slots=[NS(sampling=NS(temperature=t))
+                    for t in (0.8, 0.0, 1.5, 0.6)],
+             slot_keys=np.stack([slot_key(7, i) for i in range(4)]))
+    sampler = SlotSampler(4)
+    for slots, steps in (([0, 1, 2, 3], [0, 3, 1, 7]), ([2, 0], [2, 1]),
+                         ([3, 1, 0], [9, 4, 2])):
+        rows = logits[:len(slots)].to(cuda)
+        want = ops.sample(rows, torch.tensor(
+            [sch.slots[b].sampling.temperature for b in slots],
+            device=cuda), torch.as_tensor(sch.slot_keys[slots].astype(
+                np.int64), device=cuda), torch.tensor(steps, device=cuda),
+            impl="torch")
+        assert torch.equal(sampler(sch, rows, slots, steps), want)
+        sch.slots[slots[0]].sampling.temperature += 0.25
+        sch.slot_keys[slots[-1]] = slot_key(99, 5 + len(slots))
+    ops.reset_launches()
+    greedy = NS(slots=[NS(sampling=NS(temperature=0.0))] * 4,
+                slot_keys=sch.slot_keys)
+    assert torch.equal(sampler(greedy, logits.to(cuda), [0, 1, 2, 3],
+                               [0] * 4).cpu(), logits.argmax(-1))
+    assert ops.launch_counts()["sample"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("b,h,kv,hd,s", [(2, 8, 2, 32, 64),
@@ -1249,7 +1339,8 @@ def test_spmd_decoder_on_a_one_rank_nccl_mesh(nccl_mesh):
     model = tr.build_model(cfg, 1, np.zeros((1, 0), np.int32), "cuda")
     full = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     params = shard_params(full, nccl_mesh)
-    rts = [moe_runtime_for(cfg, nccl_mesh, InputShape(n, s, 2, n), mode)
+    rts = [moe_runtime_for(cfg, nccl_mesh, InputShape(n, s, 2, n), mode,
+                           gemm_impl="auto")       # the kernel, not dense
            for n, s, mode in (("prefill", 24, "a2a"),
                               ("decode", 64, "replicated"))]
     prompt = torch.randint(0, cfg.vocab_size, (2, 24), device="cuda",
@@ -1766,7 +1857,8 @@ def test_quickstart_programs_graph_equals_eager_bitwise(cuda, capsys):
     assert (g["fn"].captures, g["fn"].replays) == (1, 0)
     assert (g["fn2"].captures, g["fn2"].replays) == (1, 1)
     assert g["failover_captures"] == 0
-    assert g["fn2"].counts.get("grouped_gemm") and \
+    # the float32 batch against bf16 weights: the widening route
+    assert g["fn2"].counts.get("grouped_gemm_f32_bf16") and \
         g["fn2"].counts.get("combine_slots")
     assert e["fn"].captures == e["fn2"].captures == 0
 
@@ -1776,7 +1868,9 @@ def test_quickstart_programs_graph_equals_eager_bitwise(cuda, capsys):
                                   "scenario_expert_balance"])
 def test_tours_run_on_the_card(cuda, capsys, name):
     """A tour's ``main`` with no flags runs on the card and launches the
-    grouped GEMM; under ``eager()`` it prints the same lines."""
+    grouped GEMM (the disaggregated servers its widening route: float32
+    payloads, bfloat16 weights); under ``eager()`` it prints the same
+    lines."""
     import importlib
 
     from repro_torch.kernels import build
@@ -1786,7 +1880,9 @@ def test_tours_run_on_the_card(cuda, capsys, name):
     build.reset_launches()
     mod.main([])
     graphed = capsys.readouterr().out
-    assert build.LAUNCHES["grouped_gemm"] > 0
+    assert build.LAUNCHES["grouped_gemm_f32_bf16"
+                          if name == "disaggregated_serving"
+                          else "grouped_gemm"] > 0
     with step_graphs.eager():
         mod.main([])
     assert capsys.readouterr().out == graphed

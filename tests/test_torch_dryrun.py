@@ -118,7 +118,9 @@ def test_argument_bytes_are_the_shards():
 def _prefill_flops(cfg, b, S, n, V):
     """Hand count of one rank's prefill on a (2, n) mesh, phase serve:
     every matmul 2·M·K·N; attention 4·b·H·S²·hd over whole heads (a head
-    cut gathers them); the MoE tier by its kernels' work."""
+    cut gathers them); the MoE tier by its kernels' work, the expert GEMMs
+    by the cells' dense lowering (one batched product over L local
+    experts x ``ecap`` rows each, as the reference counts its dry-run)."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
     T_ = b * S
@@ -138,8 +140,10 @@ def _prefill_flops(cfg, b, S, n, V):
         t_loc = T_ // n
         C = default_capacity(t_loc, m.top_k, n, m.capacity_factor)
         M = n * C                       # the server's rows: n clients
+        L = m.num_experts // n          # its local experts
+        ecap = max(8, (-(-(M * 5) // (4 * L)) + 7) // 8 * 8)
         moe = (2 * t_loc * d * m.num_experts          # the router
-               + 3 * 2 * M * d * m.d_expert           # the grouped GEMMs
+               + 3 * 2 * L * ecap * d * m.d_expert    # the grouped GEMMs
                + t_loc * m.top_k * d                  # the combine
                + (mlp(m.d_expert * m.num_shared_experts)
                   if m.num_shared_experts else 0))

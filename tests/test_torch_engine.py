@@ -103,7 +103,8 @@ def test_placement_and_failover_identical(runs):
 
 def test_temperature_streams_replay(runs):
     """Sampled streams are a function of (seed, request id, token index):
-    two runs agree (they are not comparable with the reference's)."""
+    two runs agree (and equal the reference's: tests/test_torch_sampling.py
+    holds them to the JAX engine's)."""
     streams = []
     for _ in range(2):
         eng = ServingEngine(runs["tcfg"], EngineConfig(**ENGINE),

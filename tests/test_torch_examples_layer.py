@@ -6,16 +6,15 @@
   ``jax`` whose ``jit`` wraps ``jax.jit``.  The port's tour runs on the
   same params and batch.  Float32: every printed line equal, the three
   layer outputs within 1e-5.  Bfloat16 (the config as shipped): both
-  tours take the JAX script's own float32 batch, unrounded.  The
-  reference promotes it against the bfloat16 weights; the port's tour
-  casts it to the weights' dtype (its grouped GEMM takes rows in the
-  weights' dtype), a divergence this case measures: outputs within 2e-2,
-  the lines equal but the failover delta's (excepted: each package
-  prints its own rounding delta; both stay under the tour's 1e-3).
+  tours take the JAX script's own float32 batch, unrounded, and promote
+  it against the bfloat16 weights (float32 products, the grouped GEMM's
+  widening route): every line equal, the outputs within 1e-5.
 * ``disaggregated_serving``: the port's tour on the JAX cluster's bank and
-  router; the outputs of all four layer calls within 1e-5 (float32) /
-  2e-2 (bfloat16); every line equal but the failover delta's (excepted as
-  above).
+  router; the outputs of all four layer calls within 1e-5 in both dtypes
+  (bfloat16: the float32 payload promoted against the weights, as in
+  quickstart); every line equal but the failover delta's (excepted: the
+  reference prints ~2e-8 there, the port 0; both far under the tour's
+  bound).
 * The port parses ``serve_moe``'s and ``train_small``'s flags as the JAX
   scripts do (every option's default, type, choices and help, and the
   namespaces of sample command lines), plus only ``--device``; the other
@@ -63,7 +62,7 @@ def _recording_jax(calls):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 2e-2)])
+                                       ("bfloat16", 1e-5)])
 def test_quickstart_matches_the_jax_tour(monkeypatch, capsys, dtype, tol):
     jmod, tmod = load_example("quickstart"), port_example("quickstart")
     if dtype == "float32":
@@ -81,14 +80,10 @@ def test_quickstart_matches_the_jax_tour(monkeypatch, capsys, dtype, tol):
                     x=torch.from_numpy(np.array(x)))
     tout = lines(capsys.readouterr().out)
 
-    delta = [i for i, ln in enumerate(jout) if ln.startswith("server 2 killed")]
-    excepted = set(delta) if dtype == "bfloat16" else set()
     assert len(tout) == len(jout)
     for i, (a, b) in enumerate(zip(tout, jout)):
-        if i not in excepted:
-            assert a == b, (i, a, b)
-    # the healthy pass's stats line and load are exact in both dtypes
-    assert tout[1] == jout[1] and tout[2] == jout[2]
+        assert a == b, (i, a, b)
+    assert any(ln.startswith("server 2 killed") for ln in tout)
     for got, (_, _, (want, stats)) in zip(
             (res["y"], res["y_healthy"], res["y_failover"]), calls):
         got = got.float().numpy()
@@ -179,7 +174,7 @@ def _numpy_bank(bank):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
-                                       ("bfloat16", 2e-2)])
+                                       ("bfloat16", 1e-5)])
 def test_disaggregated_matches_the_jax_tour(monkeypatch, capsys, dtype,
                                             tol):
     jmod = load_example("disaggregated_serving")

@@ -94,8 +94,11 @@ def test_engine_without_device_needs_cuda():
                                      torch.zeros(1, 4, 1, 8),
                                      torch.zeros(1, 4, 1, 8),
                                      torch.tensor([2]), impl="cuda"),
+    lambda: ops.sample(torch.zeros(2, 8), torch.ones(2),
+                       torch.zeros(2, 2, dtype=torch.int64),
+                       torch.zeros(2, dtype=torch.int64), impl="cuda"),
 ], ids=["grouped_gemm", "flash_decode", "paged_flash_decode",
-        "combine_weighted", "flash_decode_partial"])
+        "combine_weighted", "flash_decode_partial", "sample"])
 def test_cuda_impl_on_cpu_tensors_raises(call):
     with pytest.raises(ValueError, match="impl='cuda' needs CUDA"):
         call()

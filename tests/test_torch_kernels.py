@@ -47,6 +47,81 @@ def test_grouped_gemm_plain_vs_pallas(m, k, n, g, tm, dtype, rng):
     _close(out, exp, 1e-5 if dtype == "float32" else 2e-2)
 
 
+@pytest.mark.parametrize("m,k,n,g", [(28, 64, 32, 40), (64, 48, 40, 4),
+                                     (96, 128, 128, 3)])
+def test_grouped_gemm_f32_rows_bf16_weights_vs_ragged_dot(m, k, n, g, rng):
+    """float32 rows against bfloat16 weights: the plain version equals
+    ``lax.ragged_dot(f32, bf16)`` (the reference's promoted float32
+    product, rows past the sum zeroed) at 1e-5, in float32."""
+    sizes = rng.multinomial(m - 4, np.ones(g) / g).astype(np.int32)
+    jx, tx = _both(rng.normal(size=(m, k)), "float32")
+    jw, tw = _both(rng.normal(size=(g, k, n)) * 0.1, "bfloat16")
+    exp = jops.grouped_gemm(jx, jw, jnp.asarray(sizes), impl="xla_ragged")
+    assert exp.dtype == jnp.float32
+    out = ops.grouped_gemm(tx, tw, torch.as_tensor(sizes))
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    _close(out, exp, 1e-5)
+    assert out[m - 4:].eq(0).all()
+
+
+def test_grouped_gemm_mixed_pair_has_no_gradient(rng):
+    x = torch.as_tensor(rng.normal(size=(8, 16)), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(2, 16, 8)), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="no gradient"):
+        ops.grouped_gemm(x.requires_grad_(), w, torch.tensor([4, 4]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap", [None, 8, 24])
+def test_grouped_gemm_dense_vs_reference(dtype, cap, rng):
+    """The ``xla_dense`` lowering (GShard capacity: a group's rows past
+    ``cap`` and the rows past the sum give 0) against the reference's,
+    its default capacity included; float32 rows against bfloat16
+    weights promote as in jnp."""
+    m, k, n, g = 80, 32, 24, 5
+    sizes = np.array([3, 30, 0, 12, 27], np.int32)       # 72 live rows
+    jx, tx = _both(rng.normal(size=(m, k)), dtype)
+    jw, tw = _both(rng.normal(size=(g, k, n)) * 0.1, dtype)
+    for x_pair, w_pair in (((jx, tx), (jw, tw)),
+                           (_both(rng.normal(size=(m, k)), "float32"),
+                            _both(rng.normal(size=(g, k, n)) * 0.1,
+                                  "bfloat16"))):
+        exp = jops.grouped_gemm(x_pair[0], w_pair[0], jnp.asarray(sizes),
+                                impl="xla_dense", expert_capacity=cap)
+        out = ops.grouped_gemm(x_pair[1], w_pair[1], torch.as_tensor(sizes),
+                               impl="dense", expert_capacity=cap)
+        assert out.dtype == x_pair[1].dtype
+        _close(out, exp, 1e-5 if out.dtype == torch.float32 else 2e-2)
+    if cap == 8:                                        # rows dropped
+        assert out[3 + 8:3 + 30].eq(0).all()
+
+
+def test_grouped_gemm_dense_gradient_is_autograds(rng):
+    """The dense lowering trains through autograd (plain ops): its
+    gradients equal ``jax.grad`` of the reference's ``xla_dense``."""
+    import jax
+
+    m, k, n, g, cap = 40, 16, 12, 4, 8
+    sizes = np.array([5, 12, 0, 20], np.int32)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(g, k, n)) * 0.1).astype(np.float32)
+    dy = rng.normal(size=(m, n)).astype(np.float32)
+
+    def jloss(x, w):
+        y = jops.grouped_gemm(x, w, jnp.asarray(sizes), impl="xla_dense",
+                              expert_capacity=cap)
+        return jnp.sum(y * dy)
+    jdx, jdw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x),
+                                               jnp.asarray(w))
+    tx = torch.from_numpy(x).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    y = ops.grouped_gemm(tx, tw, torch.as_tensor(sizes), impl="dense",
+                         expert_capacity=cap)
+    (y * torch.from_numpy(dy)).sum().backward()
+    _close(tx.grad, jdx, 1e-5)
+    _close(tw.grad, jdw, 1e-5)
+
+
 def test_grouped_gemm_empty_groups(rng):
     x = torch.as_tensor(rng.normal(size=(32, 16)), dtype=torch.float32)
     w = torch.as_tensor(rng.normal(size=(4, 16, 16)), dtype=torch.float32)

@@ -25,15 +25,19 @@ calls of each equal two calls of the plain step bitwise, the second
 train and serve calls on the state and cache the first wrote in place.  The same world checks the int8 compression of a
 sharded leaf against the whole leaf's (one scale over every shard).
 
-The reference's ``build_cell`` lowers the expert GEMMs ``xla_dense``,
-which caps each local expert at ``ecap`` rows and drops the rest
-(``src/repro/core/expert_server.py:241-245``); the port computes every
-row, as the reference's ``xla_ragged`` lowering does (ROADMAP, known
-differences: "No xla_dense lowering").  So the JAX side runs its cells
-with the runtime's ``gemm_impl`` set to ``xla_ragged``; ds_train_tp's
-data routes more than ``ecap`` rows to one expert, and its
-``xla_dense`` step is run too, to show the difference:
-``test_dense_lowering_caps_expert_rows``.
+The reference's cells run as shipped: ``build_cell`` lowers the expert
+GEMMs ``xla_dense``, which caps each local expert at ``ecap`` rows and
+drops the rest (``src/repro/core/expert_server.py:238-242``), and so do
+the port's (``gemm_impl="dense"`` on the cell's MoE runtime).
+ds_train_tp's data routes more than ``ecap`` rows to one expert; its
+step is also run with the runtime's ``gemm_impl`` set to ``xla_ragged``,
+whose loss the dense one must move off:
+``test_dense_lowering_caps_expert_rows``.  The reference's
+``build_cell`` also sets the lowering process-wide
+(``kops.set_default_impl``): it leaks into every later reference call of
+the JAX subprocess whose impl is ``auto``.  The decode logits' context
+below names ``xla_dense`` as ``build_cell``'s does; the port carries the
+lowering on the step's runtime instead.
 """
 
 import os
@@ -185,11 +189,11 @@ JAX_SIDE = textwrap.dedent("""
         kind, force = str(inp[key + "/kind"]), str(inp[key + "/force"])
         Bg, Sg = (int(v) for v in inp[key + "/shape"])
         shape = InputShape(case, Sg, Bg, kind)
-        if case == "ds_train_tp":                # the lowering it ships
-            rd.moe_runtime_for = dense_runtime
+        if case == "ds_train_tp":        # every row computed, none capped
+            rd.moe_runtime_for = ragged_runtime
             _, met = train(cfg, shape, key, force)
-            put(key + "/dense_loss", met["loss"])
-        rd.moe_runtime_for = ragged_runtime
+            put(key + "/ragged_loss", met["loss"])
+            rd.moe_runtime_for = dense_runtime
         params = tree(key + "/params")
         tokens = jnp.asarray(inp[key + "/tokens"])
         if kind == "train":
@@ -217,7 +221,7 @@ JAX_SIDE = textwrap.dedent("""
                 mesh=mesh, axis_data=("data",),
                 moe_runtime=rd.moe_runtime_for(cfg, mesh, shape,
                                                "replicated"),
-                moe_mode="replicated", gemm_impl="xla_ragged",
+                moe_mode="replicated", gemm_impl="xla_dense",
                 seq_shard_cache=True, seq_shard_axes=("model",))
             logits = jax.jit(lambda p, t, c: model.decode_step(
                 p, t, c, ctx)[0])(params, tokens, cache)
@@ -393,14 +397,16 @@ def test_decode_cell_matches_reference(runs, case):
 
 
 def test_dense_lowering_caps_expert_rows(runs):
-    """The reference's xla_dense cell (its dry-run's lowering) drops an
-    expert's rows past ``ecap``: on ds_train_tp's data its loss moves off
-    the port's, which equals the ragged lowering's (a known difference)."""
+    """The dry-run's xla_dense lowering drops an expert's rows past
+    ``ecap``: on ds_train_tp's data the port's cell equals the shipped
+    (dense) loss on every rank, and both move off the loss of the ragged
+    lowering, which computes every row."""
     _, ref, ranks = runs
     key = "cell/ds_train_tp"
-    np.testing.assert_allclose(ranks[0][key + "/loss"], ref[key + "/loss"],
-                               **F32)
-    assert abs(float(ref[key + "/dense_loss"])
+    for r in ranks:
+        np.testing.assert_allclose(r[key + "/loss"], ref[key + "/loss"],
+                                   **F32)
+    assert abs(float(ref[key + "/ragged_loss"])
                - float(ranks[0][key + "/loss"])) > 1e-4
 
 

@@ -254,3 +254,43 @@ def test_eaas_moe_apply_with_drops_matches_jax(arch):
     assert int(tst.dropped) == int(st.dropped) > 0
     _close(ty, y)
     _eq(tst.expert_load, st.expert_load)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-r1", "kimi-k2-1t-a32b"])
+def test_dense_lowering_through_the_context_matches_jax(arch):
+    """The dry-run's lowering: the reference's layer with its runtime's
+    ``gemm_impl="xla_dense"`` against the port's through a context whose
+    runtime says ``gemm_impl="dense"``, and the reference's
+    ``xla_ragged`` against the port's ``torch`` (the kernel's plain
+    route).  The runtime alone carries the lowering; the default
+    ``auto`` is the kernel."""
+    from repro_torch.models.transformer import ParallelCtx, _moe_apply
+
+    cfg = jget_config(arch).reduced().replace(dtype="float32")
+    tcfg = get_config(arch).reduced().replace(dtype="float32")
+    S, T = 4, 24
+    _, red = jlb.eplb_plan(np.ones(cfg.moe.num_experts), S, n_redundant=2)
+    jp = jmoe.init_eaas_moe(jax.random.PRNGKey(0), cfg, S,
+                            redundant_table=red)
+    x = np.asarray(jax.random.normal(jax.random.PRNGKey(3),
+                                     (T, cfg.d_model))) * 0.3
+    jrt = jmoe.default_runtime(cfg, S, T, redundant_table=red)
+    tp = params_from_numpy(jax.tree.map(np.asarray, {"embed": np.zeros(
+        (tcfg.padded_vocab, tcfg.d_model), np.float32), **jp}), tcfg, "cpu")
+    trt = moe_layer.default_runtime(tcfg, S, T, "cpu", redundant_table=red)
+    assert trt.gemm_impl == "auto"
+    outs = []
+    for jimpl, ctx in (("xla_dense", ParallelCtx(
+                           moe_runtime=trt._replace(gemm_impl="dense"))),
+                       ("xla_ragged", ParallelCtx(
+                           moe_runtime=trt._replace(gemm_impl="torch")))):
+        y, st = jmoe.eaas_moe_apply(jp, jnp.asarray(x), cfg.moe,
+                                    jrt._replace(gemm_impl=jimpl),
+                                    activation=cfg.activation)
+        ty, tst = _moe_apply(tp, _t(x), tcfg, ctx)
+        _close(ty, y)
+        _eq(tst.expert_load, st.expert_load)
+        assert int(tst.dropped) == int(st.dropped)
+        outs.append(np.asarray(y))
+    # the capacity of 16 slots caps some expert's rows: the lowerings differ
+    assert np.abs(outs[0] - outs[1]).max() > 1e-3
