@@ -531,8 +531,7 @@ def kernels_phase(torch, cfg):
     d, f = cfg.d_model, m.d_expert
     L, M = m.num_experts // 4 + 2, 1280
 
-    def gg_case(label, live_rows, K, N, dtype, G=None, Mr=None,
-                plain_reps=20):
+    def gg_case(label, live_rows, K, N, dtype, G=None, Mr=None):
         big = K * N > 1 << 20
         G = G or (L if big else 6)
         probs = torch.full((G,), 1.0 / G)
@@ -560,7 +559,7 @@ def kernels_phase(torch, cfg):
             lambda: ops.grouped_gemm(x, w, sizes_d, impl="cuda"),
             lambda: kgg.grouped_gemm_torch(x, w, sizes_d), library,
             nbytes, 2.0 * live_rows * K * N, twice=live_rows == 16,
-            plain_reps=plain_reps))
+            plain_reps=3))
 
     gg_case("decode gate/up, 16 live rows", 16, d, f, bf)
     gg_case("decode down, 16 live rows", 16, f, d, bf)
@@ -574,7 +573,7 @@ def kernels_phase(torch, cfg):
         for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
             gg_case(f"control plane, S = {S_}: decode {what}, G = {G_}, "
                     f"{live_} live rows of {C_}", live_, K_, N_, bf, G=G_,
-                    Mr=C_, plain_reps=3)
+                    Mr=C_)
     # the baselines at the dense serve's pool_tokens_per_client 512:
     # monolithic EP, 4 servers of 64 slots (no replicas) over C = 1280 rows;
     # TP, one server of all 256 experts over C = 5120 rows (decode: 64
@@ -585,22 +584,21 @@ def kernels_phase(torch, cfg):
     for phase, live_ in (("decode", 64), ("prefill", 4096)):
         for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
             gg_case(f"tp: {phase} {what}, G = 256, {live_} live rows of "
-                    f"5120", live_, K_, N_, bf, G=256, Mr=5120, plain_reps=3)
+                    f"5120", live_, K_, N_, bf, G=256, Mr=5120)
     # arctic-480b's expert servers (4 x 32 primaries + 2 replicas, d_expert
     # 4864): a decode's 16 picks over C = 640 rows, a 512-token prefill's
     # 1024 picks spread over 4 servers
     for phase, live_ in (("decode", 4), ("prefill", 256)):
         for what, K_, N_ in (("gate/up", d, 4864), ("down", 4864, d)):
             gg_case(f"arctic-480b: {phase} {what}, G = 34, {live_} live "
-                    f"rows of 640", live_, K_, N_, bf, G=34, Mr=640,
-                    plain_reps=3)
+                    f"rows of 640", live_, K_, N_, bf, G=34, Mr=640)
     # the disaggregated tier's server shape: 32 primaries + 8 replicas,
     # one dynamic batch of both clients' rows (28 x 8 picks over 8
     # servers), in bf16 rows (the server takes its float32 payload: the
     # widening route, phase 33)
     for what, K_, N_ in (("gate/up", d, f), ("down", f, d)):
         gg_case(f"disaggregated server: {what}, G = 40, a batch of 28 rows",
-                28, K_, N_, bf, G=40, Mr=28, plain_reps=3)
+                28, K_, N_, bf, G=40, Mr=28)
 
     # edges of the in-kernel scan: (M, K, N, sizes); rows past the live
     # ones must come back zero from an uninitialised output
@@ -1035,7 +1033,7 @@ def backward_kernels_phase(torch, cfg, cases) -> None:
     d, f = cfg.d_model, m.d_expert
     for label, K, N in (("gate/up", d, f), ("down", f, d)):
         bwd_case(torch, cases, gen, f"training {label}, G = {G}, 8192 live "
-                 f"rows of {C}", C, K, N, sizes, bf, plain_reps=3,
+                 f"rows of {C}", C, K, N, sizes, bf, plain_reps=1,
                  accumulate=True)
         torch.cuda.empty_cache()
     bwd_case(torch, cases, gen, "float32 small, 200 live rows of 256", 256,
@@ -1616,7 +1614,9 @@ def _sass_loop(obj: Path, kernel: str) -> dict:
     """The largest loop of ``kernel`` (its mangled name holds
     ``<len>kernel``) in the object ``obj``, from ``cuobjdump -sass``:
     its instructions by class, and its clocks per iteration on one SM
-    (the busiest class over its rate)."""
+    (the busiest class over its rate).  A loop closes with a predicated
+    branch back; an unpredicated one back is the exit of a divergent
+    shuffle's slow path, not a loop."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -1639,17 +1639,18 @@ def _sass_loop(obj: Path, kernel: str) -> dict:
             addr = int(m.group(1), 16)
             labels.update((lab, addr) for lab in pending)
             pending = []
-            insts.append((addr, re.sub(r"^@!?U?P\w+\s+", "",
-                                       m.group(2))))
+            guarded = re.match(r"@!?U?P\w+\s+", m.group(2))
+            insts.append((addr, m.group(2)[guarded.end():] if guarded
+                          else m.group(2), bool(guarded)))
     loops = []
-    for addr, inst in insts:
-        m = inst.startswith("BRA") and re.search(r"(\.L_x_\d+|0x[0-9a-f]+)",
-                                                 inst)
+    for addr, inst, guarded in insts:
+        m = guarded and inst.startswith("BRA") and re.search(
+            r"(\.L_x_\d+|0x[0-9a-f]+)", inst)
         if m:
             tgt = m.group(1)
             to = labels.get(tgt) if tgt[0] == "." else int(tgt, 16)
             if to is not None and to <= addr:
-                loops.append([i for a, i in insts if to <= a <= addr])
+                loops.append([i for a, i, _ in insts if to <= a <= addr])
     if not loops:
         raise AssertionError(f"sass: no loop in {kernel} of {obj}")
     body = max(loops, key=len)
@@ -1724,9 +1725,13 @@ def _sample_case(torch, cases, label, B, V, temps, gen, sass):
 
 
 def parity_kernels(torch, cases) -> None:
-    """Phase 33's kernels: the sampler at deepseek-r1's vocabulary and the
-    grouped GEMM's widening route at the disaggregated server's and
-    quickstart's shapes, each against its plain version."""
+    """Phase 33's kernels: the sampler at deepseek-r1's vocabulary (B = 8,
+    64, 8 greedy, 1 and 256 rows) and the grouped GEMM's widening route at
+    the disaggregated server's decode and prefill shapes and quickstart's,
+    each against its plain version; the widening route also beside the
+    per-group matmuls a user would write, and the prefill payload also
+    with 64 rows in every group (one row tile a group: its weights loaded
+    once a column tile)."""
     from repro_torch.configs import get_config
     from repro_torch.core.moe_layer import default_capacity
     from repro_torch.kernels import grouped_gemm as kgg
@@ -1750,22 +1755,52 @@ def parity_kernels(torch, cases) -> None:
                  mixed * 8, gen, sass)
     _sample_case(torch, cases, "B = 8, all greedy (engines: torch.argmax)",
                  8, V, [0.0] * 8, gen, sass)
+    _sample_case(torch, cases, "B = 1, sampled", 1, V, mixed[:1], gen, sass)
+    _sample_case(torch, cases, "B = 256, mixed temperatures", 256, V,
+                 mixed * 32, gen, sass)
 
-    def widening(label, M, live, G, K, N):
-        sizes = torch.bincount(torch.multinomial(
-            torch.full((G,), 1.0 / G), live, replacement=True,
-            generator=torch.Generator().manual_seed(3)), minlength=G)
+    def widening(label, M, live, G, K, N, even=False):
+        sizes = (torch.full((G,), live // G) if even else torch.bincount(
+            torch.multinomial(torch.full((G,), 1.0 / G), live,
+                              replacement=True,
+                              generator=torch.Generator().manual_seed(3)),
+            minlength=G))
         live_g = int((sizes > 0).sum())
+        ends = torch.cumsum(sizes, 0).tolist()
+        spans = [(g, e - n, e) for g, (n, e) in
+                 enumerate(zip(sizes.tolist(), ends)) if n]
         sizes = sizes.to(dev)
         x = torch.randn(M, K, generator=gen, device=dev)
         w = (torch.randn(G, K, N, generator=gen, device=dev)
              / K ** 0.5).to(torch.bfloat16)
-        cases["grouped_gemm_f32_bf16"].append(run_case(
+        case = run_case(
             torch, "grouped_gemm_f32_bf16", label, "float32",
             lambda: ops.grouped_gemm(x, w, sizes, impl="cuda"),
             lambda: kgg.grouped_gemm_torch(x, w, sizes), None,
             live * K * 4 + live_g * K * N * 2 + M * N * 4,
-            2.0 * live * K * N, twice=True, plain_reps=3))
+            2.0 * live * K * N, twice=True, plain_reps=3,
+            # the products run as three exact bf16 planes on the tensor
+            # cores: three bf16 products at the bf16 rate
+            ops_ms=3 * 2.0 * live * K * N / PEAK_OPS["bfloat16"] * 1e3)
+        # no one PyTorch call computes it: what a user would write instead,
+        # the weights widened once (not timed), one matmul a live group
+        wf = w.float()
+        y = torch.zeros(M, N, device=dev)
+
+        def per_group():
+            for g, r0, r1 in spans:
+                torch.matmul(x[r0:r1], wf[g], out=y[r0:r1])
+        case.update(several_calls_ms=time_ms(torch, per_group),
+                    several_calls_device_ms=time_ms(torch, per_group,
+                                                    graph=True),
+                    several_calls=f"{len(spans)} calls: w.float() once, "
+                    "then torch.matmul a live group")
+        log(f"kernels: grouped_gemm_f32_bf16[{label}] per-group "
+            f"torch.matmul on w.float(): {case['several_calls_ms']:.4f} ms "
+            f"({case['several_calls_device_ms']:.4f} device) over "
+            f"{len(spans)} calls")
+        del wf, y
+        cases["grouped_gemm_f32_bf16"].append(case)
 
     ds = get_config("deepseek-r1")
     d, f = ds.d_model, ds.moe.d_expert
@@ -1778,6 +1813,10 @@ def parity_kernels(torch, cases) -> None:
                        ("down", km.moe.d_expert, km.d_model)):
         widening(f"quickstart (kimi-k2 widths): {what}, G = 8, 128 live "
                  f"rows of {C}", C, 128, 8, K, N)
+    widening(f"disaggregated prefill payload: gate/up, G = 40, 2560 rows "
+             f"(64 a group)", 2560, 2560, 40, d, f)
+    widening(f"disaggregated prefill payload: gate/up, G = 40, 2560 rows "
+             f"(64 in every group)", 2560, 2560, 40, d, f, even=True)
 
 
 def _sampled_requests(np, cfg, rng):

@@ -251,25 +251,35 @@ inline EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 128-byte-swizzled bf16 tensor map of a row-major tensor of dims
-// (d0 innermost, d1, d2) — rank 2 when d2 == 0 — with a box of b0 x b1
-// (x 1).  b0 * 2 must be at most 128 bytes; zeros fill what lies outside.
+// How a tensor map lays its box out in shared memory: bf16 in 128-byte
+// swizzle atoms (the wgmma operands), or fp32 rows as they lie in memory
+// (the inner box then up to 256 elements).
+enum MapLayout { kBf16Swizzled = 0, kF32Plain = 1 };
+
+// A tensor map of a row-major tensor of dims (d0 innermost, d1, d2) —
+// rank 2 when d2 == 0 — with a box of b0 x b1 (x 1); swizzled, b0 * 2
+// must be at most 128 bytes.  Zeros fill what lies outside.
 inline bool encode_map(const void* ptr, long long d0, long long d1,
-                       long long d2, int b0, int b1, CUtensorMap* out) {
+                       long long d2, int b0, int b1, CUtensorMap* out,
+                       MapLayout layout = kBf16Swizzled) {
   EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
+  const long long elem = layout == kF32Plain ? 4 : 2;
   const cuuint32_t ones[3] = {1, 1, 1};
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
                               static_cast<cuuint64_t>(d1),
                               static_cast<cuuint64_t>(d2)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0) * 2,
-                                 static_cast<cuuint64_t>(d0 * d1) * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d0 * elem),
+                                 static_cast<cuuint64_t>(d0 * d1 * elem)};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
                              static_cast<cuuint32_t>(b1), 1};
   const CUresult r = encode(
-      out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, d2 > 0 ? 3 : 2,
-      const_cast<void*>(ptr), dims, strides, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      out, layout == kF32Plain ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      d2 > 0 ? 3 : 2, const_cast<void*>(ptr), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      layout == kBf16Swizzled ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;
 }

@@ -88,8 +88,11 @@ _SIGNATURES = {
     "combine_slots_launch": [ctypes.POINTER(_vp), _int, _i64, _vp, _vp, _vp,
                              _int, _int, _int, _int, _vp],
     # logits, row stride, temperatures, keys (int64), steps (int64), out,
-    # B, V, stream
-    "sample_launch": [_vp, _i64, _vp, _vp, _vp, _vp, _int, _int, _vp],
+    # partial values, partial indices, counters, B, V, splits, stream
+    "sample_launch": [_vp, _i64, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
+                      _int, _int, _vp],
+    # out: the blocks of the sampler the current device holds at once
+    "sample_slots": [ctypes.POINTER(_int)],
     # keys (int64), steps (int64), bits, uniforms, noise, B, V, stream
     "sample_probe_launch": [_vp, _vp, _vp, _vp, _vp, _int, _int, _vp],
     # stream

@@ -21,7 +21,9 @@ Everything stays on the device: no ``.item()``, no host sync.
 kernels' walks over the same scan (``csrc/grouped_gemm_bwd.cu``): which
 (group, row range, output tile) each work item covers, in the order the
 persistent CTAs stride over them (``tests/test_torch_bwd_tiles.py``
-checks their coverage and a tiled emulation that follows them).
+checks their coverage and a tiled emulation that follows them);
+:func:`widen_items` states the widening route's walk (float32 rows against
+bf16 weights, ``csrc/grouped_gemm.cu``; ``tests/test_torch_widen_tiles.py``).
 """
 
 from __future__ import annotations
@@ -116,3 +118,27 @@ def dw_items(group_sizes: torch.Tensor, m: int, k: int, n: int,
     rem = torch.arange(per, dtype=torch.int64).repeat(g.shape[0])
     return torch.stack([gi, start[gi], end[gi], (rem // nnt) * DW_ROWS,
                         (rem % nnt) * DW_COLS], 1)
+
+
+# ---- the widening route's walk (csrc/grouped_gemm.cu, fp32 x bf16) ---------
+
+WIDEN_ROWS, WIDEN_COLS, WIDEN_K = 64, 64, 64   # item rows, columns; K a stage
+
+
+def widen_items(group_sizes: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The widening kernel's walk: one row per item, in the order a CTA
+    strides over them, of (group, r0, r1, n0).  Items are the live 64-row
+    tiles of :func:`build_tile_table` times the ``ceil(n / 64)`` column
+    tiles, the column tile fastest, so that the CTAs of a wave share a few
+    row tiles' rows and a group's row tiles read its weights side by side.
+    The kernel loads 8, 16, 32 or 64 rows from
+    ``r0``, as many as ``r1 - r0`` needs, and stores only ``[r0, r1)``;
+    rows past the sum lie in no item and are zeroed apart."""
+    tt = build_tile_table(group_sizes, m, WIDEN_ROWS)
+    live = tt.tile_valid.bool()
+    tiles = torch.stack([tt.tile_gid, tt.row_start, tt.row_end],
+                        1)[live].to(torch.int64)
+    nct = -(-n // WIDEN_COLS)
+    n0 = torch.arange(nct, dtype=torch.int64).repeat(
+        tiles.shape[0]) * WIDEN_COLS
+    return torch.cat([tiles.repeat_interleave(nct, 0), n0[:, None]], 1)

@@ -19,9 +19,15 @@ as the N side (swap-AB).  float32: scalar FMAs over 32x32 tiles with the
 same scan (the exact path of the tests).  float32 rows against bfloat16
 weights (``x f32, w bf16 -> f32``: the pair ``lax.ragged_dot`` promotes to a
 float32 product, where the reference's disaggregated servers and its
-quickstart meet it) run the float32 kernel, each weight widened as it is
-loaded; the plain version computes ``x @ w[g].float()`` in fp32 as for
-any pair.
+quickstart meet it) run the widening kernel: the bf16 kernel's walk over
+(group, <= 64-row tile, 64-column tile) items, TMA filling a ring of bf16
+weight tiles and the item's fp32 rows (8 rows for a decode item); each
+stage's rows are split into three bf16 planes whose sum is exactly the
+float (:func:`widen_planes`), so every product on ``wgmma`` is exact in
+fp32, and each stage's fp32 sum is added to a running fp32 sum in a
+fixed order (strides TMA cannot take load the same ring through
+predicated copies); the plain version computes ``x @ w[g].float()`` in
+fp32 as for any pair.
 
 Its gradient (``csrc/grouped_gemm_bwd.cu``; the autograd Function is
 :class:`repro_torch.kernels.autograd.GroupedGemm`): :func:`grouped_gemm_dx_cuda`
@@ -69,6 +75,24 @@ def grouped_gemm_torch(x_sorted: torch.Tensor, w: torch.Tensor,
         mask = ((rows >= starts[g]) & (rows < ends[g]))[:, None]
         out += torch.where(mask, xf, 0.0) @ w[g].float()
     return out.to(x_sorted.dtype)
+
+
+def widen_planes(x: torch.Tensor) -> tuple:
+    """The widening kernel's split of float32 rows
+    (``csrc/grouped_gemm.cu::split3``), in plain PyTorch: three float32
+    tensors of bf16 values, the float's top 8 significant bits, the next 8
+    and the last 8, each cut by truncation, so that ``x1 + x2 + x3 == x``
+    exactly and a plane times a bf16 weight is exact in float32 (for a
+    normal float; of a subnormal one the kernel's third plane drops what
+    lies below bf16's reach, < 1e-40); a non-finite value lies whole in
+    ``x1``."""
+    high = torch.tensor(-65536, dtype=torch.int32)          # 0xffff0000
+    finite = torch.isfinite(x)
+    x1 = torch.where(finite, (x.view(torch.int32) & high).view(torch.float32),
+                     x)
+    rest = torch.where(finite, x - x1, 0.0)
+    x2 = (rest.view(torch.int32) & high).view(torch.float32)
+    return x1, x2, rest - x2
 
 
 def _group_masks(group_sizes: torch.Tensor, M: int, device):

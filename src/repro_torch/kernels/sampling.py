@@ -19,25 +19,31 @@ partitionable threefry mode that is the installed JAX's default):
 
 The plain version computes all of it on int64 tensors holding 32-bit
 words, every row at once.  The CUDA kernel (``csrc/sample.cu``), one launch
-a batch: one block a row, each thread hashing its columns, forming
-``logits / t + gumbel`` in fp32 with ``logf`` and keeping a running
-(value, index) maximum, then a block reduction that keeps the smallest
-index on ties; a row with ``t <= 0`` skips the hash and takes the plain
-argmax (its loads unrolled).  Temperatures, keys and steps are device
-tensors (the launch can be captured).  Both versions take NaN as the
-largest value, the first NaN winning, as ``argmax`` does.  A second,
-small kernel (:func:`probe_cuda`) writes every element's bits, uniform
-and noise through the same device helpers, for the tests.
+a batch, splits each row into :func:`split_count` contiguous column ranges
+(:func:`split_ranges`), one block each, so that a decode batch of a few
+rows still reaches every SM: a block hashes its columns, forms
+``logits / t + gumbel`` in fp32 with ``logf`` and keeps a running (value,
+index) maximum; a row with ``t <= 0`` skips the hash and takes the plain
+argmax over 16-byte loads.  Each block leaves its winner in a workspace
+(:func:`reserve`, one a device, never allocated while a stream captures);
+the row's last block to finish, found through a per-row counter, reduces
+the row's partials, writes the token and sets the counter back to 0.  The
+order (larger value, NaN largest, smaller index on ties) is total, so the
+token is ``argmax``'s whichever block finishes last.  Temperatures, keys
+and steps are device tensors (the launch can be captured).  A second,
+small kernel (:func:`probe_cuda`) writes every element's bits, uniform and
+noise through the same device helpers, for the tests.
 
 What bounds it on an H100: operations.  Each element of a sampled row
 reads 4 bytes of logits but issues the hash's integer instructions (a
-rotate is one funnel shift), the uniform's few and two ``logf``, most
-of them on the integer pipes, which issue half as many a clock as the
-float32 ones; one block a row leaves most SMs idle at a decode batch (8
-rows: 8 of 132), the simple design's cost.
+rotate is one funnel shift), the uniform's few and two ``logf``, most of
+them on the integer pipes, which issue half as many a clock as the
+float32 ones.  The splits put all 132 SMs on that work at any batch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -48,6 +54,7 @@ MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 TINY = float(np.finfo(np.float32).tiny)
+SPLIT_COLUMNS = 4096     # a range's columns the split aims at, past a wave
 
 
 def _rotl(x, r: int):
@@ -151,19 +158,91 @@ def _check(logits, temperatures, keys, steps) -> int:
     return B
 
 
+# the blocks of the kernel each device holds at once (sample_slots), and
+# each device's workspace: (rows, partials, counters, values, indices)
+_SLOTS: dict = {}
+_WORKSPACE: dict = {}
+# workspaces a larger batch replaced: kept, since a captured graph may
+# still hold their addresses
+_RETIRED: list = []
+
+
+def split_count(B: int, V: int, slots: int) -> int:
+    """The column ranges the kernel splits each of ``B`` rows of ``V``
+    columns into, ``slots`` being the blocks the card holds at once: at a
+    decode batch half a wave of blocks (a few rows still reach every SM),
+    at larger batches ranges of about 4,096 columns, so that blocks that
+    finish early (greedy rows) leave room for the rest; within four waves
+    (the workspace's bound), one range a row once the rows alone fill
+    them."""
+    return max(1, min(max(slots // (2 * B), -(-V // SPLIT_COLUMNS)),
+                      4 * slots // B))
+
+
+def split_ranges(V: int, S: int) -> list:
+    """The kernel's column ranges ``[j0, j1)`` of a row of ``V`` columns
+    in ``S`` splits (``csrc/sample.cu::split_range``): ``ceil(V / S)``
+    rounded up to a multiple of 4, the last cut at ``V``, any after it
+    empty."""
+    w = (-(-V // S) + 3) // 4 * 4
+    return [(min(V, s * w), min(V, s * w + w)) for s in range(S)]
+
+
+def _slots(device: torch.device) -> int:
+    if device.index not in _SLOTS:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            build.check(build.load_library().sample_slots(ctypes.byref(n)),
+                        "sample_slots")
+        _SLOTS[device.index] = n.value
+    return _SLOTS[device.index]
+
+
+def reserve(device, max_batch: int) -> tuple:
+    """The device's workspace, grown (never while a stream captures) to
+    hold batches of up to ``max_batch`` rows: the per-row counters (zero
+    between calls) and every (row, split) partial, ``max(4 * slots, B)``
+    entries, which bounds ``B * split_count(B, V)``.  An engine reserves
+    its batch at construction (:class:`~repro_torch.serving.sampling.
+    SlotSampler`)."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    need = max(4 * _slots(device), max_batch)
+    ws = _WORKSPACE.get(device.index)
+    if ws is not None and ws[0] >= max_batch and ws[1] >= need:
+        return ws
+    build.require(not torch.cuda.is_current_stream_capturing(),
+                  f"sample: the workspace for {max_batch} rows must be "
+                  "reserved before a capture (sampling.reserve)")
+    if ws is not None:
+        _RETIRED.append(ws)
+        max_batch, need = max(max_batch, ws[0]), max(need, ws[1])
+    counters = torch.zeros(max_batch, dtype=torch.int32, device=device)
+    values = torch.empty(need, dtype=torch.float32, device=device)
+    indices = torch.empty(need, dtype=torch.int32, device=device)
+    _WORKSPACE[device.index] = ws = (max_batch, need, counters, values,
+                                     indices)
+    return ws
+
+
 def sample_cuda(logits: torch.Tensor, temperatures: torch.Tensor,
                 keys: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no sync) -> (B,)
-    int64 tokens."""
+    int64 tokens.  One workspace a device: calls on two streams of one
+    device must not overlap (the port samples on one)."""
     B = _check(logits, temperatures, keys, steps)
     out = torch.empty(B, dtype=torch.int64, device=logits.device)
     if B:
+        _, _, counters, values, indices = reserve(logits.device, B)
+        S = split_count(B, logits.shape[1], _slots(logits.device))
         temperatures = temperatures.contiguous()
         steps = steps.contiguous()
         err = build.load_library().sample_launch(
             logits.data_ptr(), logits.stride(0), temperatures.data_ptr(),
-            keys.data_ptr(), steps.data_ptr(), out.data_ptr(), B,
-            logits.shape[1], build.stream_of(logits))
+            keys.data_ptr(), steps.data_ptr(), out.data_ptr(),
+            values.data_ptr(), indices.data_ptr(), counters.data_ptr(), B,
+            logits.shape[1], S, build.stream_of(logits))
         build.check(err, "sample")
         build.count("sample")
     return out

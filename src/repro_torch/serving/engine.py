@@ -313,7 +313,7 @@ class ServingEngine:
             batch_cap=(engine_cfg.tp_batch_cap
                        if engine_cfg.mode == "tp" else None),
             max_seq=engine_cfg.max_seq), kv_pool=self.kv_pool)
-        self._sampler = SlotSampler(engine_cfg.max_batch)
+        self._sampler = SlotSampler(engine_cfg.max_batch, self.device)
         self.metrics = ServingMetrics()
         self.step_idx = 0
         self.clock = 0.0

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.sampling import fold_in, prng_key
+from repro_torch.kernels.sampling import fold_in, prng_key, reserve
 
 
 def slot_key(seed: int, request_id: int) -> np.ndarray:
@@ -59,9 +59,13 @@ class SlotSampler:
     and temperatures live on the logits' device, copied there again only
     when an admission has changed a sampled slot's; a step copies its
     (slot, step) pairs in one non-blocking copy from pinned memory and
-    gathers each row's key and temperature on the device."""
+    gathers each row's key and temperature on the device.  On a CUDA
+    ``device`` the kernel's workspace is reserved for ``max_batch`` rows
+    at construction, so that no sampling call allocates it."""
 
-    def __init__(self, max_batch: int):
+    def __init__(self, max_batch: int, device=None):
+        if device is not None and torch.device(device).type == "cuda":
+            reserve(device, max_batch)
         # what the device tables hold (NaN: nothing yet)
         self._temps = np.full(max_batch, np.nan, np.float32)
         self._keys = np.zeros((max_batch, 2), np.uint32)

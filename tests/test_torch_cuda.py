@@ -102,6 +102,120 @@ def test_sample_cuda_vs_plain(cuda, B, V, rng):
                        plain)
 
 
+# the widening route's edges: (sizes, rows past the sum, K, N, row offset);
+# K % 4 or N % 8 (or a base off 16 bytes) load through predicated copies
+WIDEN_EDGES = {
+    "1 live row": ([1], 3, 7168, 2048, 0),
+    "16 live rows": ([16], 0, 7168, 2048, 0),
+    "64 live rows": ([64], 2, 2048, 7168, 0),
+    "65 live rows": ([65], 0, 2048, 7168, 0),
+    "8 and 9 live rows (the token widths change)":
+        ([8, 0, 9], 3, 512, 256, 0),
+    "32 and 33 live rows": ([32, 33, 0], 1, 512, 256, 0),
+    "empty groups": ([0, 9, 0, 0, 40, 2, 0], 5, 256, 136, 0),
+    "no live row": ([0, 0, 0, 0], 12, 256, 72, 0),
+    "a group of 130 rows": ([3, 130, 0, 1], 2, 320, 200, 0),
+    "K, N off the 64-grid": ([5, 11, 0, 20], 1, 100, 72, 0),
+    "K, N off the 8-grid": ([5, 11, 0, 20], 1, 37, 70, 0),
+    "N < 8": ([7, 0, 3], 0, 64, 5, 0),
+    "unaligned rows (base 4 bytes off)": ([6, 0, 9], 2, 133, 64, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDEN_EDGES))
+def test_grouped_gemm_widening_edges(cuda, case, rng):
+    """The widening route at its row tile's edges (1, 16, 64, 65 rows in a
+    group) and where the token width changes (8 / 9, 32 / 33),
+    empty groups, no live row, K and N off the 8- and 64-grids and rows
+    whose base TMA cannot take: against the plain version at rtol = atol =
+    1e-5, rows past the sum 0, one launch, bitwise run to run."""
+    from repro_torch.kernels import build
+
+    sizes, extra, k, n, off = WIDEN_EDGES[case]
+    m = sum(sizes) + extra
+    sizes = torch.as_tensor(sizes, device=cuda)
+    x = torch.as_tensor(rng.normal(size=(m * k + off,)),
+                        device=cuda).float()[off:].view(m, k)
+    w = torch.as_tensor(rng.normal(size=(len(sizes), k, n)) / k ** 0.5,
+                        device=cuda).to(torch.bfloat16)
+    build.reset_launches()
+    out = ops.grouped_gemm(x, w, sizes, impl="cuda")
+    assert build.LAUNCHES["grouped_gemm_f32_bf16"] == 1
+    exp = ops.grouped_gemm(x, w, sizes, impl="torch")
+    assert out.dtype == torch.float32
+    assert out[int(sizes.sum()):].eq(0).all()
+    torch.testing.assert_close(out, exp, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ops.grouped_gemm(x, w, sizes, impl="cuda"))
+
+
+@pytest.mark.cuda
+def test_sample_split_boundaries(cuda):
+    """Rows whose winner lies on the kernel's column splits (equal maxima
+    either side of a boundary, greedy, infinite and sampled; NaNs in a
+    later split): the kernel's tokens are the order's, and the plain
+    version's."""
+    from repro_torch.kernels import sampling
+    from torch_sample_cases import boundary_rows
+
+    V = 129280
+    S = sampling.split_count(7, V, sampling._slots(cuda))
+    assert S > 1
+    logits, temps, keys, steps, want = boundary_rows(
+        V, sampling.split_ranges(V, S), device=cuda)
+    assert torch.equal(ops.sample(logits, temps, keys, steps, impl="torch"),
+                       want)
+    assert torch.equal(sampling.sample_cuda(logits, temps, keys, steps), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V", [(1, 129280), (8, 129280), (64, 129280),
+                                 (512, 129280), (1, 5), (1, 1), (8, 1),
+                                 (3, 700)])
+def test_sample_batches_and_narrow_rows(cuda, B, V, rng):
+    """B = 1 to 512 rows of the deepseek-r1 vocabulary, and rows with fewer
+    columns than splits (V = 5, V = 1): tokens equal the plain version's,
+    the row split over blocks while the rows leave SMs idle."""
+    from repro_torch.kernels import build, sampling
+
+    assert sampling.split_count(B, V, sampling._slots(cuda)) > 1
+    logits = torch.as_tensor(rng.normal(size=(B, V)) * 3, device=cuda).float()
+    temps = torch.as_tensor(rng.choice([0.0, 0.8, 1.0, -1.0, 0.3], B),
+                            device=cuda).float()
+    keys = torch.as_tensor(rng.integers(0, 2 ** 32, (B, 2)), device=cuda)
+    steps = torch.as_tensor(rng.integers(0, 4096, B), device=cuda)
+    build.reset_launches()
+    got = sampling.sample_cuda(logits, temps, keys, steps)
+    assert build.LAUNCHES["sample"] == 1
+    assert torch.equal(got, sampling.sample_torch(logits, temps, keys, steps))
+
+
+@pytest.mark.cuda
+def test_sample_graph_replays_reset_the_counters(cuda, rng):
+    """One captured launch replayed twice, its output cleared in between:
+    both replays write the plain version's tokens, so the row counters
+    were back at 0 after each run."""
+    from repro_torch.kernels import sampling
+
+    B, V = 8, 129280
+    logits = torch.as_tensor(rng.normal(size=(B, V)) * 3, device=cuda).float()
+    temps = torch.as_tensor([0.8, 0.0, 1.0, 0.5, -1.0, 0.8, 2.0, 0.1],
+                            device=cuda).float()
+    keys = torch.as_tensor(rng.integers(0, 2 ** 32, (B, 2)), device=cuda)
+    steps = torch.as_tensor(rng.integers(0, 4096, B), device=cuda)
+    want = sampling.sample_torch(logits, temps, keys, steps)
+    assert torch.equal(sampling.sample_cuda(logits, temps, keys, steps),
+                       want)                      # reserves the workspace
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sampling.sample_cuda(logits, temps, keys, steps)
+    for _ in range(2):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 @pytest.mark.cuda
 def test_slot_sampler_on_the_card(cuda, rng):
     """The engine's sampler on the card (keys and temperatures kept on the
